@@ -1,0 +1,132 @@
+"""The port's CUDA kernels against their plain torch versions, on the card.
+
+Every test here needs a CUDA device and skips without one. The file
+imports no jax, so it also runs on a machine without JAX; there, skip the
+JAX-importing ``tests/conftest.py``:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Both kernels are built with ``-fmad=false`` and transcribe their plain
+versions op for op, so the exact paths are held to bitwise equality; the
+cloth kernel's fast_math path (rsqrt) to 1e-5 after 25 substeps.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from wgpu_physics_engine_torch.core import config as cfg
+from wgpu_physics_engine_torch.core import state as st
+from wgpu_physics_engine_torch.models import scenes
+from wgpu_physics_engine_torch.ops import cloth_kernel, raster_kernel
+from wgpu_physics_engine_torch.render import camera
+
+DT = 1.0 / 480.0
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,pins,fast", [((64, 64), False, False),
+                                          ((33, 70), True, False),
+                                          ((64, 64), True, True)])
+def test_cloth_kernel_matches_plain(dev, hw, pins, fast):
+    h, w = hw
+    c = cfg.ClothConfig(height=h, width=w)
+    s = st.init_cloth_state(c, device=dev)
+    rng = np.random.default_rng(7)
+    s = s._replace(vel=torch.tensor(
+        (0.5 * rng.standard_normal((3, h, w))).astype(np.float32), device=dev))
+    if pins:
+        mask = torch.zeros((h, w), dtype=torch.bool, device=dev)
+        mask[0] = True
+        s = s._replace(pin_mask=mask, pin_pos=s.pos)
+    p = st.ClothParams.from_config(c, device=dev)
+    before = cloth_kernel.LAUNCHES
+    got = cloth_kernel.multi_step(s, p, DT, 25, fast_math=fast)
+    torch.cuda.synchronize()
+    assert cloth_kernel.LAUNCHES == before + 25
+    ref = cloth_kernel.multi_step_plain(s, p, DT, 25, fast_math=fast)
+    tol = 1e-5 if fast else 0.0
+    torch.testing.assert_close(got.pos, ref.pos, atol=tol, rtol=0)
+    torch.testing.assert_close(got.vel, ref.vel, atol=10 * tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cloth_kernel_leaves_input_and_counts_zero_steps(dev):
+    c = cfg.ClothConfig(height=16, width=16)
+    s = st.init_cloth_state(c, device=dev)
+    p = st.ClothParams.from_config(c, device=dev)
+    pos0 = s.pos.clone()
+    before = cloth_kernel.LAUNCHES
+    assert cloth_kernel.multi_step(s, p, DT, 0) is s
+    out = cloth_kernel.multi_step(s, p, DT, 3)
+    torch.cuda.synchronize()
+    assert cloth_kernel.LAUNCHES == before + 3
+    assert torch.equal(s.pos, pos0) and not torch.equal(out.pos, pos0)
+
+
+def _centers(dev, seed):
+    rng = np.random.default_rng(seed)
+    g = np.linspace(-4.0, 4.0, 24, dtype=np.float32)
+    sheet = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    sheet = np.concatenate([sheet, np.zeros((len(sheet), 1), np.float32)], 1)
+    pts = np.concatenate([sheet, rng.uniform(-8, 8, (300, 3)),
+                          [[0, 0, 39.8], [0, 0, 45.0], [0, 0, 38.5]]])
+    return torch.tensor(pts.astype(np.float32), device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(64, 256), (24, 40), (200, 300)])
+def test_raster_kernel_matches_plain(dev, hw):
+    h, w = hw
+    tc = camera.make_camera(cfg.CameraConfig(), aspect=w / h, device=dev)
+    _, dirs = camera.pixel_rays(tc, h, w)
+    wins, ocb, _ = raster_kernel.tiled_prologue(
+        tc.view[:3, :3], tc.eye, _centers(dev, 4), 0.3, tc.znear,
+        torch.tan(tc.fovy_rad / 2.0), tc.aspect, h, w)
+    before = raster_kernel.LAUNCHES
+    kt, ki, ko = raster_kernel.sphere_raster_binned(wins, ocb, dirs, tc.znear)
+    torch.cuda.synchronize()
+    assert raster_kernel.LAUNCHES == before + 1
+    pt, pi, po = raster_kernel.sphere_raster_plain(ocb, dirs, tc.znear)
+    assert int((ki >= 0).sum()) > 20
+    assert torch.equal(ki, pi)
+    assert torch.equal(kt, pt)
+    assert torch.equal(ko, po)
+
+
+@pytest.mark.cuda
+def test_scene_on_cuda_runs_both_kernels(dev):
+    c = cfg.ClothConfig(height=32, width=32)
+    scene = scenes.ClothScene(c, device=dev)
+    scene.resize(160, 64)
+    k0, r0 = cloth_kernel.LAUNCHES, raster_kernel.LAUNCHES
+    scene.simulate(0.5)
+    scene.update(1 / 60)
+    img = scene.render(64, 160)
+    assert cloth_kernel.LAUNCHES - k0 == 240 + 8
+    assert raster_kernel.LAUNCHES - r0 == 1
+    assert img.shape == (64, 160, 3) and np.isfinite(img).all()
+    ref = cloth_kernel.multi_step_plain(st.init_cloth_state(c, device=dev),
+                                        scene.params, DT, 240)
+    ref = cloth_kernel.multi_step_plain(ref, scene.params, 1 / 60 / 8, 8)
+    assert torch.equal(scene.state.pos, ref.pos)
+
+
+@pytest.mark.cuda
+def test_cli_gif_on_cuda(dev, tmp_path):
+    from wgpu_physics_engine_torch.__main__ import main
+
+    k0, r0 = cloth_kernel.LAUNCHES, raster_kernel.LAUNCHES
+    out = tmp_path / "cloth.gif"
+    rc = main(["cloth", "--grid", "16", "--size", "32", "64", "--seconds",
+               "0.2", "--fps", "10", "--gif", str(out)])
+    assert rc == 0 and out.exists()
+    assert cloth_kernel.LAUNCHES - k0 == 2 * 8      # 2 frames of 8 substeps
+    assert raster_kernel.LAUNCHES - r0 == 2

@@ -1,0 +1,187 @@
+"""Application layer: the flagship cloth scene as a scene object (the
+counterpart of ``ClothScene`` in ``wgpu_physics_engine_tpu/models/scenes.py``).
+
+A host-side stateful wrapper around the functional core with the
+``update(delta_time)`` / ``render(h, w)`` frame contract of wgpu-bootstrap's
+``trait App``, and runtime parameters that live in device tensors, so a
+slider rewrites a tensor and rebuilds no kernel. Scenes take an explicit
+``device``; nothing falls back to another device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core import config as cfg
+from ..core.state import ClothParams, init_cloth_state
+from ..ops import cloth_kernel
+from .. import render as R
+from ..render import texture as T
+from . import cloth
+
+
+class _FrameClock:
+    """FPS bookkeeping (the egui FPS label, cloth.rs:1446,1459)."""
+
+    def __init__(self):
+        self._last = None
+        self.fps = 0.0
+
+    def tick(self) -> float:
+        now = time.time()
+        dt = 1.0 / 60.0 if self._last is None else max(now - self._last, 1e-6)
+        self._last = now
+        self.fps = 1.0 / dt
+        return dt
+
+
+class _SceneBase:
+    """Common camera/light handling and orbit controls."""
+
+    def __init__(self, camera_cfg: cfg.CameraConfig, light: cfg.LightConfig,
+                 aspect: float, device):
+        self.device = torch.device(device)
+        self.camera_cfg = camera_cfg
+        self.light = light
+        self._aspect = aspect
+        self._orbit = dict(radius=camera_cfg.radius, theta=camera_cfg.theta,
+                           phi=camera_cfg.phi)
+        self.clock = _FrameClock()
+
+    # --- input / resize (App::input, App::resize equivalents) ---
+    def orbit(self, d_theta: float = 0.0, d_phi: float = 0.0,
+              d_radius: float = 0.0) -> None:
+        self._orbit["theta"] += d_theta
+        self._orbit["phi"] = float(np.clip(self._orbit["phi"] + d_phi,
+                                           -1.55, 1.55))
+        self._orbit["radius"] = max(self._orbit["radius"] + d_radius, 0.1)
+
+    def set_zoom(self, radius: float) -> None:  # camera zoom slider
+        self._orbit["radius"] = radius
+
+    def resize(self, width: int, height: int) -> None:
+        self._aspect = width / height
+
+    def camera(self) -> R.Camera:
+        return R.make_camera(self.camera_cfg, self._aspect, **self._orbit,
+                             device=self.device)
+
+    # --- light panel (globe.rs:491-545) ---
+    def set_light(self, position=None, ks=None, shininess=None,
+                  compute_specular=None) -> None:
+        upd = {}
+        if position is not None:
+            upd["position"] = tuple(position)
+        if ks is not None:
+            upd["ks"] = ks
+        if shininess is not None:
+            upd["shininess"] = shininess
+        if compute_specular is not None:
+            upd["compute_specular"] = compute_specular
+        self.light = dataclasses.replace(self.light, **upd)
+
+    @staticmethod
+    def _to_image(fb: R.Framebuffer) -> np.ndarray:
+        return torch.clamp(fb.color, 0.0, 1.0).cpu().numpy()
+
+
+class ClothScene(_SceneBase):
+    """Sim 5 flagship: mass-spring cloth over the lit, textured globe
+    (ClothSimApp, cloth.rs:229-1502) with the egui panel's runtime
+    parameters and the substep schedule of App::update (cloth.rs:1458-1493).
+
+    ``use_kernel=True`` steps with ``ops.cloth_kernel.multi_step`` (the
+    CUDA kernel on a CUDA device, its plain version on the CPU);
+    ``use_kernel=False`` with the stencil path ``models.cloth.multi_step``.
+    """
+
+    def __init__(self, config=cfg.ClothConfig(), globe_texture=None,
+                 particle_color=(1.0, 0.0, 0.0),
+                 camera_cfg=cfg.CameraConfig(), light=cfg.LightConfig(),
+                 aspect=1200 / 800, use_kernel: bool = True,
+                 self_collide: bool = False, device="cuda"):
+        if self_collide:
+            raise NotImplementedError(
+                "cloth self-collision is not ported to torch yet")
+        super().__init__(camera_cfg, light, aspect, device)
+        self.config = config
+        self.params = ClothParams.from_config(config, device=self.device)
+        self.state = init_cloth_state(config, device=self.device)
+        self.globe_texture = (T.get("mesh", device=self.device)
+                              if globe_texture is None
+                              else globe_texture.to(self.device))
+        self.particle_color = particle_color
+        self.time_scale = config.time_scale
+        self.use_kernel = use_kernel
+
+    def _f32(self, v: float) -> torch.Tensor:
+        return torch.tensor(v, dtype=torch.float32, device=self.device)
+
+    # --- egui sliders (cloth.rs:1409-1435) ---
+    def set_gravity(self, g: float) -> None:
+        self.params = self.params._replace(gravity=self._f32(g))
+
+    def set_time_scale(self, s: float) -> None:
+        self.time_scale = s
+
+    def set_speed_damp(self, d: float) -> None:
+        self.params = self.params._replace(speed_damp=self._f32(d))
+
+    def set_particle_radius(self, r: float) -> None:
+        """The radius slider RESETS the cloth in the reference (it rewrites
+        the whole instance buffer — cloth.rs:1427-1435); reproduced here."""
+        self.params = self.params._replace(particle_radius=self._f32(r))
+        self.state = init_cloth_state(self.config, device=self.device)
+
+    def pin(self, mask) -> None:
+        """Fixed-pin extension: pin particles where ``mask`` is True at
+        their current positions."""
+        self.state = self.state._replace(
+            pin_mask=torch.as_tensor(mask, dtype=torch.bool,
+                                     device=self.device),
+            pin_pos=self.state.pos)
+
+    def _stepper(self):
+        return cloth_kernel.multi_step if self.use_kernel else cloth.multi_step
+
+    def update(self, delta_time: Optional[float] = None) -> None:
+        dt = self.clock.tick()
+        if delta_time is not None:
+            dt = delta_time
+        n, sub_dt = cloth.frame_substeps(dt, self.time_scale, self.config.hz,
+                                         self.config.max_substeps)
+        self.state = self._stepper()(self.state, self.params, sub_dt, n)
+
+    def simulate(self, seconds: float, hz: Optional[float] = None) -> None:
+        """Run physics headless (no frame pacing) in one call."""
+        hz = self.config.hz if hz is None else hz
+        n = int(round(seconds * hz))
+        self.state = self._stepper()(self.state, self.params, 1.0 / hz, n)
+
+    def render(self, height: int = 800, width: int = 1200) -> np.ndarray:
+        fb = R.clear(height, width, device=self.device)
+        cam = self.camera()
+        fb = R.draw_globe(fb, cam, float(self.params.globe_radius),
+                          self.globe_texture, self.light)
+        centers = self.state.pos.reshape(3, -1).T
+        fb = R.draw_instanced_spheres(
+            fb, cam, centers, float(self.params.particle_radius),
+            flat_color=self.particle_color)
+        return self._to_image(fb)
+
+    @property
+    def instance_count(self) -> int:  # egui label (cloth.rs:1448)
+        return self.config.num_particles
+
+    @property
+    def spring_count(self) -> int:
+        """egui "springs" info label (cloth.rs:1438-1448)."""
+        from ..core import topology
+
+        return sum(topology.spring_counts(self.config.height,
+                                          self.config.width))

@@ -1,0 +1,221 @@
+"""Tile-binned instanced-sphere raster: the binning prologue, the CUDA
+kernel, its plain torch version, and the dispatch between them.
+
+The counterpart of ``wgpu_physics_engine_tpu/ops/raster_pallas.py``
+(``sphere_raster_tiled`` → ``tiled_prologue`` + ``_tiled_kernel`` (K2) or
+``_tiled_kernel_chunked`` (K3)), in its ``return_oc=True`` form:
+
+* :func:`tiled_prologue` projects the centres, bins them by (8, 128)
+  screen tile, sorts them stably by tile and builds each tile's four
+  candidate ranges — the same (8, 128) bins, sorted order and candidate
+  sets as the JAX prologue, so the winners agree bit for bit;
+* :func:`sphere_raster_kernel` launches ``csrc/sphere_raster.cu`` (one CTA
+  per tile; one kernel for any instance count, where the TPU needed K3's
+  chunked SMEM table beyond 16,384 instances);
+* :func:`sphere_raster_plain` sweeps ALL instances in the sorted order, in
+  chunks, with the same hit expression and the same first-strict-minimum
+  tie rule. The binning is conservative (an instance outside a tile's
+  ranges hits no pixel of it), so the sweep equals the kernel's output;
+* :func:`sphere_raster_binned` takes the plain version for a CPU tensor
+  and the kernel for a CUDA tensor, and raises for anything else.
+
+Tiles are ceil-divided, so any framebuffer size runs the kernel: the
+ragged edge pixels are masked in the kernel. (The JAX prologue asserts
+``h % 8 == 0 and w % 128 == 0`` and sends other sizes to its untiled
+kernel K4, which the port does not need on this path.)
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+TILE_H, TILE_W = 8, 128
+
+# Kernel launches by :func:`sphere_raster_kernel`; a run reads it to show
+# that its path went through the kernel.
+LAUNCHES = 0
+
+_SIGNATURES = {
+    "wpe_sphere_raster": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p],
+}
+
+# pixels × instances per chunk of the plain sweep (bounds its temporaries)
+_PLAIN_CHUNK_ELEMS = 1 << 22
+
+
+def tile_grid(h: int, w: int) -> Tuple[int, int]:
+    """(tile rows, tile columns) covering an h × w framebuffer."""
+    return -(-h // TILE_H), -(-w // TILE_W)
+
+
+def tiled_prologue(camera_rot: torch.Tensor, eye: torch.Tensor,
+                   centers: torch.Tensor, radius, znear: torch.Tensor,
+                   tan_half: torch.Tensor, aspect: torch.Tensor, h: int,
+                   w: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Project centres, bin by screen tile, sort, and build each tile's
+    candidate ranges. Returns ``(wins [T, 8] int32, ocb [4, N] f32,
+    order [N] int32)``: per tile the [start, end) ranges of the three
+    row-ring tiles and of the global range, the sorted eye-relative
+    centres with ``|oc|² - r²``, and the sort permutation."""
+    dev = centers.device
+    th, tw = TILE_H, TILE_W
+    ty_t, tx_t = tile_grid(h, w)
+    n_tiles = ty_t * tx_t
+    n = centers.shape[0]
+    f32 = torch.float32
+    r = torch.tensor(radius, dtype=f32, device=dev)
+
+    oc = (centers - eye[None, :]).to(f32)                      # [N, 3] world
+    cc = torch.sum(oc * oc, dim=1) - r * r
+    # oc @ camera_rotᵀ, written out
+    cv = (oc[:, 0:1] * camera_rot[:, 0] + oc[:, 1:2] * camera_rot[:, 1]
+          + oc[:, 2:3] * camera_rot[:, 2])                     # [N, 3] view
+    depth = -cv[:, 2]
+    safe = depth > (znear + r)
+    d = torch.where(safe, depth, 1.0)
+    col = ((cv[:, 0] / d) / (tan_half * aspect) + 1.0) * 0.5 * w - 0.5
+    row = (1.0 - (cv[:, 1] / d) / tan_half) * 0.5 * h - 0.5
+    # conservative pixel radius: near depth (d - r), scaled by the
+    # worst-case off-axis silhouette elongation 1/cos²θ_corner
+    elong = 1.0 + tan_half * tan_half * (1.0 + aspect * aspect)
+    hf = torch.tensor(float(h), dtype=f32, device=dev)
+    wf = torch.tensor(float(w), dtype=f32, device=dev)
+    r_px = elong * r / (d - r) * torch.maximum(hf / (2.0 * tan_half),
+                                               wf / (2.0 * tan_half * aspect))
+    fits = safe & (1.5 * r_px + 2.0 < th)
+    tx = torch.clamp(torch.div(col, tw, rounding_mode="floor").to(torch.int32),
+                     0, tx_t - 1)
+    ty = torch.clamp(torch.div(row, th, rounding_mode="floor").to(torch.int32),
+                     0, ty_t - 1)
+    tid = torch.where(fits, ty * tx_t + tx, n_tiles).to(torch.int64)
+
+    order = torch.argsort(tid, stable=True)
+    counts = torch.bincount(tid, minlength=n_tiles + 1)
+    tile_start = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                            torch.cumsum(counts, 0)])
+
+    # per-tile windows: 3 row-ring ranges (the x-ring is contiguous in the
+    # x-minor tile order) + the global range
+    tys = torch.arange(ty_t, device=dev)[:, None]
+    txs = torch.arange(tx_t, device=dev)[None, :]
+    wins = []
+    for dy in (-1, 0, 1):
+        oky = (tys + dy >= 0) & (tys + dy < ty_t)
+        nty = torch.clamp(tys + dy, 0, ty_t - 1)
+        x0 = torch.clamp_min(txs - 1, 0)
+        x1 = torch.clamp_max(txs + 1, tx_t - 1)
+        s = tile_start[nty * tx_t + x0]
+        e = tile_start[nty * tx_t + x1 + 1]
+        wins.append(torch.where(oky, s, 0).reshape(-1))
+        wins.append(torch.where(oky, e, 0).reshape(-1))
+    wins.append(tile_start[n_tiles].expand(n_tiles))
+    wins.append(torch.full((n_tiles,), n, dtype=torch.int64, device=dev))
+    wins = torch.stack(wins, dim=-1).to(torch.int32)            # [T, 8]
+
+    ocb = torch.cat([oc[order].T, cc[order][None]], dim=0).contiguous()
+    return wins, ocb, order.to(torch.int32)
+
+
+def sphere_raster_plain(ocb: torch.Tensor, dirs: torch.Tensor,
+                        znear: torch.Tensor):
+    """Brute-force nearest hit over every instance of the sorted table
+    ``ocb`` [4, N] for rays ``dirs`` [3, H, W]. Returns ``(tmin [H, W]
+    (+inf on a miss), inst [H, W] int32 (sorted index, -1 on a miss),
+    oc [3, H, W] (the winner's eye-relative centre, 0 on a miss))``."""
+    h, w = dirs.shape[-2:]
+    p = h * w
+    n = ocb.shape[1]
+    d = dirs.reshape(3, p)
+    if n == 0:
+        return (torch.full((h, w), float("inf"), device=d.device),
+                torch.full((h, w), -1, dtype=torch.int32, device=d.device),
+                torch.zeros((3, h, w), device=d.device))
+    dx, dy, dz = d[0][:, None], d[1][:, None], d[2][:, None]
+    tmin = torch.full((p,), float("inf"), dtype=torch.float32, device=d.device)
+    inst = torch.full((p,), -1, dtype=torch.int64, device=d.device)
+    chunk = max(1, min(n, _PLAIN_CHUNK_ELEMS // max(p, 1)))
+    for k0 in range(0, n, chunk):
+        o = ocb[:, k0:k0 + chunk]
+        b = dx * o[0] + dy * o[1] + dz * o[2]                  # [P, K]
+        disc = b * b - o[3]
+        t = b - torch.sqrt(torch.clamp_min(disc, 0.0))
+        ok = (disc > 0.0) & (t > znear)
+        t = torch.where(ok, t, float("inf"))
+        tc, kc = torch.min(t, dim=1)                           # first minimum
+        better = tc < tmin                                     # strict
+        tmin = torch.where(better, tc, tmin)
+        inst = torch.where(better, kc + k0, inst)
+    hit = inst >= 0
+    oc = torch.where(hit[None], ocb[:3, inst.clamp_min(0)], 0.0)
+    return (tmin.reshape(h, w), inst.to(torch.int32).reshape(h, w),
+            oc.reshape(3, h, w))
+
+
+def sphere_raster_kernel(wins: torch.Tensor, ocb: torch.Tensor,
+                         dirs: torch.Tensor, znear: torch.Tensor):
+    """``csrc/sphere_raster.cu`` on CUDA tensors; same outputs as
+    :func:`sphere_raster_plain`."""
+    global LAUNCHES
+    dev = dirs.device
+    if dev.type != "cuda":
+        raise ValueError(f"raster kernel needs CUDA tensors, got {dev}")
+    h, w = dirs.shape[-2:]
+    ty_t, tx_t = tile_grid(h, w)
+    n = ocb.shape[1]
+    if (dirs.dtype != torch.float32 or tuple(dirs.shape) != (3, h, w)
+            or ocb.dtype != torch.float32 or ocb.shape[0] != 4
+            or wins.dtype != torch.int32
+            or tuple(wins.shape) != (ty_t * tx_t, 8)
+            or ocb.device != dev or wins.device != dev):
+        raise ValueError("sphere_raster_kernel: expected dirs f32 [3, H, W], "
+                         "ocb f32 [4, N], wins i32 [tiles, 8] on one device; "
+                         f"got {tuple(dirs.shape)} {tuple(ocb.shape)} "
+                         f"{tuple(wins.shape)} {wins.dtype} on {dirs.device} "
+                         f"{ocb.device} {wins.device}")
+    dirs, ocb, wins = dirs.contiguous(), ocb.contiguous(), wins.contiguous()
+    zn = torch.as_tensor(znear, dtype=torch.float32, device=dev).reshape(1)
+    tmin = torch.empty((h, w), dtype=torch.float32, device=dev)
+    inst = torch.empty((h, w), dtype=torch.int32, device=dev)
+    oc = torch.empty((3, h, w), dtype=torch.float32, device=dev)
+    lib = _build.load("sphere_raster", _SIGNATURES)
+    with torch.cuda.device(dev):
+        err = lib.wpe_sphere_raster(
+            zn.data_ptr(), wins.data_ptr(), ocb.data_ptr(), dirs.data_ptr(),
+            tmin.data_ptr(), inst.data_ptr(), oc.data_ptr(),
+            n, h, w, ty_t, tx_t, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "sphere_raster launch")
+    LAUNCHES += 1
+    return tmin, inst, oc
+
+
+def sphere_raster_binned(wins: torch.Tensor, ocb: torch.Tensor,
+                         dirs: torch.Tensor, znear: torch.Tensor):
+    """``(tmin, inst, oc)`` from prebuilt bins: the plain version for a
+    CPU tensor, the kernel for a CUDA tensor; any other device raises."""
+    dev = dirs.device.type
+    if dev == "cpu":
+        return sphere_raster_plain(ocb, dirs, znear)
+    if dev == "cuda":
+        return sphere_raster_kernel(wins, ocb, dirs, znear)
+    raise ValueError(f"no sphere raster for device {dirs.device}")
+
+
+def sphere_raster_tiled(camera_rot: torch.Tensor, eye: torch.Tensor,
+                        dirs: torch.Tensor, centers: torch.Tensor, radius,
+                        znear: torch.Tensor, tan_half: torch.Tensor,
+                        aspect: torch.Tensor):
+    """Tile-binned nearest ray-sphere hit: ``(tmin [H, W], hit [H, W]
+    bool, oc [3, H, W])`` — the JAX ``sphere_raster_tiled(...,
+    return_oc=True)`` contract. ``camera_rot`` [3, 3] world→view,
+    ``dirs`` [3, H, W] normalized world rays, ``centers`` [N, 3]."""
+    h, w = dirs.shape[-2:]
+    wins, ocb, _ = tiled_prologue(camera_rot, eye, centers, radius, znear,
+                                  tan_half, aspect, h, w)
+    tmin, inst, oc = sphere_raster_binned(wins, ocb, dirs, znear)
+    return tmin, inst >= 0, oc

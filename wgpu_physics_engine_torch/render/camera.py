@@ -1,0 +1,125 @@
+"""Orbit camera as plain functions on torch tensors (the counterpart of
+``wgpu_physics_engine_tpu/render/camera.py``; wgpu-bootstrap's OrbitCamera,
+usage at cloth.rs:568-581).
+
+Conventions: right-handed world, +y up; polar ``(radius, theta, phi)`` with
+theta the azimuth around +y (0 → eye on +z) and phi the elevation; ``view``
+is a right-handed look-at, ``proj`` a perspective with wgpu's depth range
+z ∈ [0, 1].
+
+The matrices are built in fp32 on the CPU and then moved to the caller's
+device, so a camera is the same on every device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ..core import config as cfg
+
+_F32 = torch.float32
+
+
+class Camera(NamedTuple):
+    """Resolved camera: view/proj matrices and eye position (fp32)."""
+
+    view: torch.Tensor   # [4, 4]
+    proj: torch.Tensor   # [4, 4]
+    eye: torch.Tensor    # [3]
+    fovy_rad: torch.Tensor
+    aspect: torch.Tensor
+    znear: torch.Tensor
+    zfar: torch.Tensor
+
+
+def _t(v) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=_F32)
+
+
+def orbit_eye(target, radius, theta, phi) -> torch.Tensor:
+    """Eye position on the orbit sphere."""
+    target, radius, theta, phi = _t(target), _t(radius), _t(theta), _t(phi)
+    offset = torch.stack([
+        radius * torch.cos(phi) * torch.sin(theta),
+        radius * torch.sin(phi),
+        radius * torch.cos(phi) * torch.cos(theta),
+    ])
+    return target + offset
+
+
+def look_at(eye, target, up=(0.0, 1.0, 0.0)) -> torch.Tensor:
+    """Right-handed view matrix (the camera looks down −z in view space)."""
+    eye, target, up = _t(eye), _t(target), _t(up)
+    f = target - eye
+    f = f / torch.linalg.norm(f)
+    s = torch.linalg.cross(f, up)
+    s = s / torch.linalg.norm(s)
+    u = torch.linalg.cross(s, f)
+    rot = torch.stack([s, u, -f])          # rows: right, up, -forward
+    view = torch.zeros((4, 4), dtype=_F32)
+    view[:3, :3] = rot
+    view[:3, 3] = -rot @ eye
+    view[3, 3] = 1.0
+    return view
+
+
+def perspective(fovy_rad, aspect, znear, zfar) -> torch.Tensor:
+    """Perspective projection, depth mapped to [0, 1] (wgpu convention)."""
+    fovy_rad, aspect, znear, zfar = (_t(fovy_rad), _t(aspect), _t(znear),
+                                     _t(zfar))
+    f = 1.0 / torch.tan(fovy_rad / 2.0)
+    m = torch.zeros((4, 4), dtype=_F32)
+    m[0, 0] = f / aspect
+    m[1, 1] = f
+    m[2, 2] = zfar / (znear - zfar)
+    m[2, 3] = zfar * znear / (znear - zfar)
+    m[3, 2] = -1.0
+    return m
+
+
+def make_camera(config: cfg.CameraConfig = cfg.CameraConfig(),
+                aspect: float = 1.0, radius=None, theta=None, phi=None,
+                target=None, device=None) -> Camera:
+    """Build a camera from config with optional per-call overrides (the
+    egui zoom slider equivalent — cloth.rs:1389-1391), on ``device``."""
+    radius = config.radius if radius is None else radius
+    theta = config.theta if theta is None else theta
+    phi = config.phi if phi is None else phi
+    target = config.target if target is None else target
+    eye = orbit_eye(target, radius, theta, phi)
+    fovy = _t(config.fovy_deg * math.pi / 180.0)
+    cam = Camera(
+        view=look_at(eye, target),
+        proj=perspective(fovy, aspect, config.znear, config.zfar),
+        eye=eye,
+        fovy_rad=fovy,
+        aspect=_t(aspect),
+        znear=_t(config.znear),
+        zfar=_t(config.zfar),
+    )
+    return Camera(*(a.to(device) for a in cam))
+
+
+def pixel_rays(camera: Camera, height: int,
+               width: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-pixel primary rays in WORLD space: (origin [3], dirs [3, H, W]).
+
+    Pixel centres; row 0 is the top of the image (NDC y = +1 edge).
+    Directions are normalized.
+    """
+    dev = camera.eye.device
+    j = (torch.arange(width, dtype=_F32, device=dev) + 0.5) / width * 2.0 - 1.0
+    i = 1.0 - (torch.arange(height, dtype=_F32, device=dev) + 0.5) / height * 2.0
+    tan_half = torch.tan(camera.fovy_rad / 2.0)
+    vx = (j[None, :] * tan_half * camera.aspect).expand(height, width)
+    vy = (i[:, None] * tan_half).expand(height, width)
+    vz = torch.full((height, width), -1.0, dtype=_F32, device=dev)
+    rot = camera.view[:3, :3]                          # world→view
+    # rotᵀ @ d, written out (no matmul, so no TF32 question on the card)
+    d_world = torch.stack([rot[0, k] * vx + rot[1, k] * vy + rot[2, k] * vz
+                           for k in range(3)])
+    norm = torch.sqrt(torch.sum(d_world * d_world, dim=0, keepdim=True))
+    return camera.eye, d_world / norm

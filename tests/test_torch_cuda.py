@@ -119,6 +119,117 @@ def test_scene_on_cuda_runs_both_kernels(dev):
     assert torch.equal(scene.state.pos, ref.pos)
 
 
+# a small cloth of large particles spawned close above the globe, so that
+# the randomized datagen cameras (aimed at the origin) see it
+VISIBLE = dict(particle_radius=0.8, cloth_size=16.0, center=(0.0, 14.0, 0.0))
+
+
+def _worlds(dev, n, h, w, seed, contact=False):
+    """Randomized worlds of the VISIBLE cloth; with ``contact`` spawned at
+    y = 10.5 with no height jitter, so that the middle of every cloth
+    starts inside the globe's contact distance (10 + 0.8) and the
+    penalty, friction and projection branches run from the first
+    substep."""
+    from wgpu_physics_engine_torch.parallel import datagen
+
+    over = dict(center=(0.0, 10.5, 0.0)) if contact else {}
+    c = cfg.ClothConfig(height=h, width=w, **{**VISIBLE, **over})
+    return datagen.randomized_worlds(
+        c, n, torch.Generator().manual_seed(seed),
+        height_jitter=0.0 if contact else 5.0, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pins,fast,contact", [
+    (False, False, False), (True, False, False), (False, True, False),
+    (False, False, True), (True, False, True)])
+def test_batched_cloth_kernel_matches_plain_and_k1(dev, pins, fast, contact):
+    b = _worlds(dev, 5, 12, 20, seed=3, contact=contact)
+    s = b.state
+    if contact:
+        dist = torch.linalg.vector_norm(s.pos, dim=1)
+        assert bool((dist < b.params.globe_radius[:, None, None]
+                     + b.params.particle_radius[:, None, None]).all(0).any())
+    if pins:
+        mask = torch.zeros((5, 12, 20), dtype=torch.bool, device=dev)
+        mask[:, 0] = True
+        s = s._replace(pin_mask=mask, pin_pos=s.pos)
+    k1_0, k5_0 = cloth_kernel.LAUNCHES, cloth_kernel.LAUNCHES_BATCHED
+    got = cloth_kernel.multi_step(s, b.params, DT, 25, fast_math=fast)
+    torch.cuda.synchronize()
+    assert cloth_kernel.LAUNCHES_BATCHED == k5_0 + 25
+    assert cloth_kernel.LAUNCHES == k1_0
+    ref = cloth_kernel.multi_step_plain(s, b.params, DT, 25, fast_math=fast)
+    tol = 1e-5 if fast else 0.0
+    torch.testing.assert_close(got.pos, ref.pos, atol=tol, rtol=0)
+    torch.testing.assert_close(got.vel, ref.vel, atol=10 * tol, rtol=0)
+    for i in (0, 2, 4):              # world i is K1 on world i, bit for bit
+        one = st.ClothState(
+            pos=s.pos[i], vel=s.vel[i],
+            pin_mask=None if s.pin_mask is None else s.pin_mask[i],
+            pin_pos=None if s.pin_pos is None else s.pin_pos[i])
+        k1 = cloth_kernel.multi_step_kernel(
+            one, st.ClothParams(*(leaf[i] for leaf in b.params)), DT, 25,
+            fast_math=fast)
+        assert torch.equal(got.pos[i], k1.pos)
+        assert torch.equal(got.vel[i], k1.vel)
+    if contact:          # projected onto the globe in the last substep
+        assert int((got.vel == 0).all(1)[:, 1:].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_batched_raster_kernel_matches_plain(dev):
+    from wgpu_physics_engine_torch.parallel import datagen
+
+    b = _worlds(dev, 4, 16, 16, seed=4)
+    cams = datagen.randomized_cameras(4, torch.Generator().manual_seed(5),
+                                      device=dev)
+    h, w = 48, 200
+    eye, dirs = camera.pixel_rays(cams, h, w)
+    centers = b.state.pos.reshape(4, 3, -1).transpose(1, 2)
+    wins, ocb, _ = raster_kernel.tiled_prologue_batched(
+        cams.view[:, :3, :3], eye, centers, b.params.particle_radius,
+        cams.znear, torch.tan(cams.fovy_rad / 2.0), cams.aspect, h, w)
+    before = raster_kernel.LAUNCHES
+    kt, ki, ko = raster_kernel.sphere_raster_binned(wins, ocb, dirs,
+                                                    cams.znear)
+    torch.cuda.synchronize()
+    assert raster_kernel.LAUNCHES == before + 1
+    pt, pi, po = raster_kernel.sphere_raster_plain(ocb, dirs, cams.znear)
+    assert int((ki >= 0).sum()) > 20
+    assert torch.equal(ki, pi) and torch.equal(kt, pt) and torch.equal(ko, po)
+    for i in range(4):               # the batch equals four one-world launches
+        t1, i1, _ = raster_kernel.sphere_raster_kernel(wins[i], ocb[i],
+                                                       dirs[i], cams.znear[i])
+        assert torch.equal(ki[i], i1) and torch.equal(kt[i], t1)
+
+
+@pytest.mark.cuda
+def test_datagen_on_cuda_matches_plain_path(dev):
+    from wgpu_physics_engine_torch.parallel import datagen
+
+    c = cfg.ClothConfig(height=12, width=12, **VISIBLE)
+    kw = dict(n_worlds=5, n_frames=3, steps_per_frame=8, fb_size=(32, 128),
+              randomize_cameras=True, world_chunk=3, device=dev)
+    k5_0, r0 = cloth_kernel.LAUNCHES_BATCHED, raster_kernel.LAUNCHES
+    got = [(f, im) for f, im, _ in datagen.generate_trajectory_dataset(
+        c, generator=torch.Generator().manual_seed(2), **kw)]
+    assert cloth_kernel.LAUNCHES_BATCHED - k5_0 == 3 * 2 * 8   # frames × chunks
+    assert raster_kernel.LAUNCHES - r0 == 3 * 2
+    # the CPU run of the same draws (a CPU generator either way) takes the
+    # plain versions; CPU and CUDA libm round pow/atan2/asin apart by ulps,
+    # so a frame agrees within 1 except where a silhouette crosses a pixel
+    ref = [(f, im) for f, im, _ in datagen.generate_trajectory_dataset(
+        c, generator=torch.Generator().manual_seed(2),
+        **{**kw, "device": "cpu"})]
+    assert [f for f, _ in got] == [f for f, _ in ref] == [0, 1, 2]
+    for (_, a), (_, r) in zip(got, ref):
+        assert a.shape == (5, 32, 128, 3) and a.dtype == np.uint8
+        d = np.abs(a.astype(np.int16) - r.astype(np.int16)).max(-1)
+        assert (d <= 1).mean() >= 0.999, (d <= 1).mean()
+        assert (a == [255, 0, 0]).all(-1).sum() > 50
+
+
 @pytest.mark.cuda
 def test_cli_gif_on_cuda(dev, tmp_path):
     from wgpu_physics_engine_torch.__main__ import main

@@ -1,12 +1,18 @@
 """CLI entry point: run the flagship cloth scene headless and write a PNG
-or an animated GIF.
+or an animated GIF, generate a batched cloth dataset, or decode one.
 
     python -m wgpu_physics_engine_torch cloth --grid 256 --size 256 256 \\
         --seconds 5 --out cloth.png
     python -m wgpu_physics_engine_torch cloth --seconds 3 --gif cloth.gif
+    python -m wgpu_physics_engine_torch datagen --worlds 64 --frames 8 \\
+        --codec-k 16 --outdir datagen_out
+    python -m wgpu_physics_engine_torch decode --indir datagen_out
 
 ``--device`` defaults to ``cuda``; on a host without CUDA the command
 fails (``--device cpu`` runs the plain torch versions of the kernels).
+``datagen`` writes one ``frame_NNNNN.npy`` shard per frame (``np.save``)
+and, with ``--codec-k``, the codec's ``codec_meta.json`` sidecar, which
+``decode`` reads.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import time
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="wgpu_physics_engine_torch")
-    p.add_argument("scene", choices=["cloth"])
+    p.add_argument("scene", choices=["cloth", "datagen", "decode"])
     p.add_argument("--out", default=None, help="PNG path for a single frame")
     p.add_argument("--gif", default=None, help="animated GIF path")
     p.add_argument("--seconds", type=float, default=3.0,
@@ -30,7 +36,34 @@ def main(argv=None) -> int:
                    help="cloth particles per side (default 60)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda)")
+    p.add_argument("--worlds", type=int, default=64,
+                   help="datagen: number of worlds")
+    p.add_argument("--frames", type=int, default=8,
+                   help="datagen: frames per world")
+    p.add_argument("--outdir", default="datagen_out")
+    p.add_argument("--random-cameras", action="store_true",
+                   help="datagen: randomize the viewpoint per world")
+    p.add_argument("--codec-k", type=int, default=None, metavar="K",
+                   help="datagen: compress frames on the device with the "
+                        "fixed-rate DCT codec, keeping K of 64 coefficients "
+                        "(64/K x fewer bytes; decode with the decode command)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="datagen: seed of the worlds' and cameras' draws")
+    p.add_argument("--indir", default="datagen_out",
+                   help="decode: directory of encoded frame_*.npy shards")
+    p.add_argument("--png", action="store_true",
+                   help="decode: also write per-world PNGs (else .npy only)")
+    p.add_argument("--quality", type=float, default=None,
+                   help="codec quality (encode: quantization scale, default "
+                        "1.0; decode: normally read from the run's "
+                        "codec_meta.json sidecar)")
+    p.add_argument("--force-quality", action="store_true",
+                   help="decode: trust --quality even when the sidecar is "
+                        "missing or disagrees")
     args = p.parse_args(argv)
+
+    if args.scene == "decode":
+        return _decode(args)
 
     import torch
 
@@ -48,6 +81,8 @@ def main(argv=None) -> int:
     t0 = time.time()
     c = cfg.ClothConfig() if args.grid is None else cfg.ClothConfig(
         height=args.grid, width=args.grid)
+    if args.scene == "datagen":
+        return _datagen(args, c, t0)
     s = scenes.ClothScene(config=c, device=args.device)
     h, w = args.size
     # App::resize before the first frame: sync the camera aspect to the
@@ -66,6 +101,106 @@ def main(argv=None) -> int:
         out = args.out or f"{args.scene}.png"
         viewer.save_png(s.render(h, w), out)
         print(f"wrote {out} in {time.time()-t0:.1f}s")
+    return 0
+
+
+def _datagen(args, c, t0) -> int:
+    """Batched cloth datagen: one ``frame_NNNNN.npy`` shard per frame."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from .parallel import codec, datagen
+
+    quality = args.quality if args.quality is not None else 1.0
+    gen = datagen.generate_trajectory_dataset(
+        c, n_worlds=args.worlds, n_frames=args.frames, steps_per_frame=24,
+        generator=torch.Generator().manual_seed(args.seed),
+        fb_size=tuple(args.size), randomize_cameras=args.random_cameras,
+        codec_k=args.codec_k, codec_quality=quality, device=args.device)
+    os.makedirs(args.outdir, exist_ok=True)
+    if args.codec_k is not None:
+        codec.write_meta(args.outdir, args.codec_k, quality, args.size)
+    n = 0
+    for f, imgs, _ in gen:
+        path = os.path.join(args.outdir, f"frame_{f:05d}.npy")
+        np.save(path, imgs)
+        n += imgs.shape[0]
+        print(f"frame {f}: {imgs.shape} -> {path}")
+    print(f"datagen: {n} world-frames in {time.time()-t0:.1f}s")
+    return 0
+
+
+def _decode(args) -> int:
+    """Decode a datagen run's codec shards to uint8 frames (NumPy only)."""
+    import glob
+    import os
+
+    import numpy as np
+
+    from .parallel import codec
+
+    t0 = time.time()
+    os.makedirs(args.outdir, exist_ok=True)
+    paths = sorted(glob.glob(os.path.join(args.indir, "frame_*.npy")))
+    if not paths:
+        print(f"no frame_*.npy shards in {args.indir}")
+        return 1
+
+    # header-only peek (mmap loads no data): raw-uint8 runs (datagen
+    # without --codec-k) have nothing to decode and need no sidecar
+    def is_codec(path):
+        a = np.load(path, mmap_mode="r")
+        return a.dtype == np.int8 and a.ndim == 5
+
+    if not any(is_codec(path) for path in paths):
+        for path in paths:
+            print(f"skip {path}: not a codec shard")
+        print("decode: 0 world-frames (no codec shards)")
+        return 0
+    # quality comes from the run's sidecar — a wrong value silently
+    # rescales every decoded pixel, so refuse to guess
+    try:
+        meta = codec.read_meta(args.indir)
+    except FileNotFoundError:
+        meta = None
+    except ValueError as e:
+        print(f"{args.indir}: {e}")
+        return 1
+    if meta is None:
+        if not args.force_quality:
+            print(f"{args.indir}: no codec_meta.json sidecar; pass "
+                  "--quality Q --force-quality to decode anyway")
+            return 1
+        quality = args.quality if args.quality is not None else 1.0
+    else:
+        quality = meta["quality"]
+        if (args.quality is not None and args.quality != quality
+                and not args.force_quality):
+            print(f"--quality {args.quality} disagrees with the sidecar "
+                  f"({quality}); drop the flag or pass --force-quality")
+            return 1
+        if args.force_quality and args.quality is not None:
+            quality = args.quality
+    n = 0
+    for path in paths:
+        enc = np.load(path)
+        if enc.dtype != np.int8 or enc.ndim != 5:
+            print(f"skip {path}: not a codec shard ({enc.dtype}, {enc.shape})")
+            continue
+        imgs = codec.decode(enc, quality=quality)
+        stem = os.path.splitext(os.path.basename(path))[0]
+        np.save(os.path.join(args.outdir, f"{stem}_rgb.npy"), imgs)
+        if args.png:
+            from PIL import Image
+
+            for w in range(imgs.shape[0]):
+                Image.fromarray(imgs[w]).save(os.path.join(
+                    args.outdir, f"{stem}_w{w:04d}.png"))
+        n += imgs.shape[0]
+        print(f"{path} -> {stem}_rgb.npy {imgs.shape}")
+    print(f"decode: {n} world-frames in {time.time()-t0:.1f}s")
     return 0
 
 

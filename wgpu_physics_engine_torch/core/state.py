@@ -8,7 +8,10 @@ bit for bit. Every tensor lives on the device the caller names; params are
 
 ``params_from_numpy`` / ``state_from_numpy`` carry the JAX package's
 NamedTuples across (after ``np.asarray`` on each leaf), so a state stepped
-by one package can be stepped on by the other.
+by one package can be stepped on by the other. They take one world (0-d
+params, ``[3, H, W]`` state) or a batch of worlds (``[B]`` params, ``[B, 3,
+H, W]`` / ``[B, H, W]`` state leaves) alike
+(``parallel.datagen.world_batch_from_numpy`` carries a whole batch).
 """
 
 from __future__ import annotations
@@ -112,3 +115,4 @@ def state_from_numpy(s, device=None) -> ClothState:
     return ClothState(pos=conv(s.pos, np.float32), vel=conv(s.vel, np.float32),
                       pin_mask=conv(s.pin_mask, np.bool_),
                       pin_pos=conv(s.pin_pos, np.float32))
+

@@ -1,107 +1,54 @@
-// Fused cloth substep for Hopper (sm_90a).
+// Fused cloth substeps for Hopper (sm_90a): one world (K1) and a batch of
+// independent worlds (K5). Both run the per-particle body of
+// cloth_substep.cuh, one thread per particle, one launch per substep.
 //
-// Replaces: wgpu_physics_engine_tpu/ops/cloth_pallas.py, `_kernel` (K1),
-// whose loop body is `_substep_planes` with `_exact_dist_inv` /
-// `_fast_dist_inv`. It computes the same thing: the six spring families as
-// stencils with their reaction back-shift, gravity, penalty globe contact,
-// Coulomb friction on the post-contact resultant, semi-implicit Euler,
-// damping, hard projection and pins, in the same fp32 op order.
+// Replaces: wgpu_physics_engine_tpu/ops/cloth_pallas.py
+//   * `_kernel` (K1), the single-world fused substeps, with
+//     `wpe_cloth_multi_step`;
+//   * `_lanes_kernel` (K5) and `_batched_kernel` (K5b), the same physics for
+//     B worlds with a per-world parameter row, with
+//     `wpe_cloth_multi_step_batched`. K5 folds several padded worlds into
+//     the 128-wide lane axis and K5b runs one program per world; both are
+//     Mosaic layouts of one function, which here is one thread per
+//     (world, particle) with the world index taken from the grid.
 //
-// What bounds it on the H100: one substep reads each particle's 6 floats
-// plus those of its 12 stencil neighbours and writes 6 floats; at 256x256
-// the whole state (1.5 MB in, 1.5 MB out) stays in the 50 MB L2, and the
-// ~500 flops a particle would take about 1 us at full issue rate. Measured
-// at 256x256 (H100 SXM, 700 W), a launch takes 5.7 us of device time with
-// ~1 us between launches: each thread waits on 13 dependent neighbour
-// gathers while only 256 CTAs of 256 threads (~2 per SM) are resident to
-// hide that latency. The TPU kernel keeps the planes in VMEM across all
-// substeps of a launch; here one launch is one substep, and fusing
-// substeps (clusters with DSMEM, a persistent grid, or temporal blocking)
-// is the next step.
+// What bounds them on the H100. Per particle and call the function reads
+// 6 floats and writes 6 (48 B); per particle and substep it does ~280 fp32
+// operations (34 for each of the ~5.8 edges a particle anchors, counted
+// once, and 82 for contact, friction and integration; chip_smoke.py counts
+// them from the shapes). K1 at 256x256: 3.1 MB, 0.94 us at 3.35 TB/s, and
+// the state stays in the 50 MB L2. Measured (H100 SXM, 700 W) a launch
+// takes 5.7 us of device time with ~1 us between launches: each thread
+// waits on 13 dependent neighbour gathers while only ~2 CTAs per SM are
+// resident. K5 at the datagen scale, 4096 worlds of 60x60 and 24 substeps
+// a frame: 14.7M particles, so the state (708 MB) no longer fits in L2.
+// Moved once per call the bytes would take 0.21 ms; the operations, 99
+// GFLOP at 67 TFLOP/s, 1.48 ms, which is the bound. This design moves the
+// bytes 24 times (once a substep, 5.07 ms at the memory rate), so it is
+// bound by device memory.
+// The faster design keeps each 60x60 world's six planes (86 KB) in shared
+// memory across all substeps of a call, one CTA per world; it is a later
+// step, as is fusing substeps for K1.
 //
-// Design: one thread per particle, gather form. Thread p adds, family by
-// family in `_FAMILIES` order, +e(p as p0) and then -e(p as p1), where the
-// reaction edge force is recomputed from the anchor (r-dr, c-dc) instead
-// of scattered with atomics: every edge force is computed twice, by the
-// same expression on the same inputs, so the result is deterministic and
-// equal to the back-shift order of the TPU kernel. State ping-pongs
-// between two buffers (never in place: neighbours must read the old
-// state); the host loop launches n_steps substeps on one stream.
-// Built with -fmad=false so no a*b+c is contracted to an FMA and the
-// exact path rounds where the plain torch version does.
+// Neighbours must read the old state, so every substep writes the other
+// of two buffers (never in place); the host loop launches n_steps substeps
+// on one stream. Built with -fmad=false so no a*b+c is contracted to an
+// FMA and the exact path rounds where the plain torch version does.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "cloth_substep.cuh"
 #include "common.cuh"
 
 namespace {
 
-constexpr float kEps = 1e-6f;
-constexpr float kEps2 = 1e-12f;  // _EPS * _EPS, the fast-math guard
-
-// Parameter vector layout (ops/cloth_kernel.py _pack_params):
-// 0:k_struct 1:k_shear 2:k_bend 3:c_struct 4:c_shear 5:c_bend
-// 6:rest_struct 7:rest_shear 8:rest_bend 9:k_contact 10:mu 11:mass
-// 12:gravity 13:damp_factor 14:min_dist 15:dt
-
-// Spring family f = (dr, dc, type), in the order of `_FAMILIES`:
-// structural right, down; shear down-right, down-left; bend 2-right, 2-down.
-__device__ __forceinline__ void family(int f, int& dr, int& dc, int& t) {
-  switch (f) {
-    case 0: dr = 0; dc = 1; t = 0; break;
-    case 1: dr = 1; dc = 0; t = 0; break;
-    case 2: dr = 1; dc = 1; t = 1; break;
-    case 3: dr = 1; dc = -1; t = 1; break;
-    case 4: dr = 0; dc = 2; t = 2; break;
-    default: dr = 2; dc = 0; t = 2; break;
-  }
-}
-
-template <bool FAST>
-__device__ __forceinline__ void dist_inv(float d2, float& dist, float& inv) {
-  if (FAST) {
-    const bool pos = d2 > kEps2;
-    const float r = rsqrtf(pos ? d2 : 1.0f);
-    dist = pos ? d2 * r : 0.0f;
-    inv = pos ? r : 0.0f;
-  } else {
-    dist = sqrtf(d2);
-    inv = dist >= kEps ? 1.0f / dist : 0.0f;
-  }
-}
-
-struct P6 {
-  float x, y, z, vx, vy, vz;
-};
-
-__device__ __forceinline__ P6 load(const float* __restrict__ pos,
-                                   const float* __restrict__ vel, int i,
-                                   int hw) {
-  return P6{pos[i], pos[hw + i], pos[2 * hw + i],
-            vel[i], vel[hw + i], vel[2 * hw + i]};
-}
-
-// Force on anchor a from the spring a -> b (forces.wgsl:158-186).
-template <bool FAST>
-__device__ __forceinline__ void edge(const P6& a, const P6& b, float k,
-                                     float c, float rest, float& ex,
-                                     float& ey, float& ez) {
-  const float dx = b.x - a.x, dy = b.y - a.y, dz = b.z - a.z;
-  float dist, inv;
-  dist_inv<FAST>(dx * dx + dy * dy + dz * dz, dist, inv);
-  const float ux = dx * inv, uy = dy * inv, uz = dz * inv;
-  const float stretch = dist - rest;
-  const float v_along =
-      (b.vx - a.vx) * ux + (b.vy - a.vy) * uy + (b.vz - a.vz) * uz;
-  const float s = k * stretch + c * v_along;
-  const bool keep = dist >= kEps;
-  ex = keep ? s * ux : 0.0f;
-  ey = keep ? s * uy : 0.0f;
-  ez = keep ? s * uz : 0.0f;
-}
+constexpr int kBlockW = 32;
+constexpr int kBlockH = 8;
 
 template <bool FAST, bool PINS>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kBlockW * kBlockH)
     substep_kernel(const float* __restrict__ prm,
                    const float* __restrict__ pos,
                    const float* __restrict__ vel,
@@ -112,120 +59,50 @@ __global__ void __launch_bounds__(256)
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
   if (r >= h || c >= w) return;
-  const int hw = h * w;
-  const int i = r * w + c;
-  const P6 p = load(pos, vel, i, hw);
-
-  // ---- spring stencil (forces.wgsl:143-313) ----
-  float fx = 0.0f, fy = 0.0f, fz = 0.0f;
-#pragma unroll
-  for (int f = 0; f < 6; ++f) {
-    int dr, dc, t;
-    family(f, dr, dc, t);
-    const float k = prm[t], cd = prm[3 + t], rest = prm[6 + t];
-    // p as p0 of the edge p -> (r+dr, c+dc); no wraparound
-    float ex = 0.0f, ey = 0.0f, ez = 0.0f;
-    if (r < h - dr && (dc >= 0 ? c < w - dc : c >= -dc)) {
-      const P6 q = load(pos, vel, i + dr * w + dc, hw);
-      edge<FAST>(p, q, k, cd, rest, ex, ey, ez);
-    }
-    fx = fx + ex;
-    fy = fy + ey;
-    fz = fz + ez;
-    // p as p1 of the edge anchored at (r-dr, c-dc): the reaction
-    const int ar = r - dr, ac = c - dc;
-    float rx = 0.0f, ry = 0.0f, rz = 0.0f;
-    if (ar >= 0 && (dc >= 0 ? ac >= 0 : ac < w)) {
-      const P6 a = load(pos, vel, ar * w + ac, hw);
-      edge<FAST>(a, p, k, cd, rest, rx, ry, rz);
-    }
-    fx = fx - rx;
-    fy = fy - ry;
-    fz = fz - rz;
-  }
-
-  // ---- integrate (compute_movement.wgsl:70-174) ----
-  const float k_contact = prm[9], mu = prm[10], mass = prm[11];
-  const float gravity = prm[12], damp = prm[13], min_dist = prm[14];
-  const float dt = prm[15];
-  fy = fy + mass * gravity;
-
-  float x = p.x, y = p.y, z = p.z;
-  float dist, inv_d;
-  dist_inv<FAST>(x * x + y * y + z * z, dist, inv_d);
-  const bool in_contact = (dist < min_dist) && (dist > kEps);
-  const float nx = x * inv_d, ny = y * inv_d, nz = z * inv_d;
-  const float pen = k_contact * (min_dist - dist);
-  if (in_contact) {
-    fx = fx + pen * nx;
-    fy = fy + pen * ny;
-    fz = fz + pen * nz;
-  }
-
-  const float ro_n = fx * nx + fy * ny + fz * nz;
-  const float tx = fx - ro_n * nx, ty = fy - ro_n * ny, tz = fz - ro_n * nz;
-  float tmag, inv_t;
-  dist_inv<FAST>(tx * tx + ty * ty + tz * tz, tmag, inv_t);
-  const bool fric = in_contact && (tmag > kEps);
-  const float fmag = -fminf(tmag, mu * fabsf(ro_n));
-  if (fric) {
-    fx = fx + fmag * tx * inv_t;
-    fy = fy + fmag * ty * inv_t;
-    fz = fz + fmag * tz * inv_t;
-  }
-
-  const float inv_m = 1.0f / mass;
-  float vx = (p.vx + fx * inv_m * dt) * damp;
-  float vy = (p.vy + fy * inv_m * dt) * damp;
-  float vz = (p.vz + fz * inv_m * dt) * damp;
-  x = x + vx * dt;
-  y = y + vy * dt;
-  z = z + vz * dt;
-
-  float fdist, inv_f;
-  dist_inv<FAST>(x * x + y * y + z * z, fdist, inv_f);
-  const bool pen2 = fdist < min_dist;
-  const bool pen_safe = pen2 && (fdist > kEps);
-  const bool pen_center = pen2 && !pen_safe;
-  x = pen_safe ? x * inv_f * min_dist : (pen_center ? 0.0f : x);
-  y = pen_safe ? y * inv_f * min_dist : (pen_center ? min_dist : y);
-  z = pen_safe ? z * inv_f * min_dist : (pen_center ? 0.0f : z);
-  if (pen2) {
-    vx = 0.0f;
-    vy = 0.0f;
-    vz = 0.0f;
-  }
-
-  if (PINS && pin_mask[i] != 0.0f) {
-    x = pin_pos[i];
-    y = pin_pos[hw + i];
-    z = pin_pos[2 * hw + i];
-    vx = 0.0f;
-    vy = 0.0f;
-    vz = 0.0f;
-  }
-  pos_out[i] = x;
-  pos_out[hw + i] = y;
-  pos_out[2 * hw + i] = z;
-  vel_out[i] = vx;
-  vel_out[hw + i] = vy;
-  vel_out[2 * hw + i] = vz;
+  cloth::substep_particle<FAST, PINS>(prm, pos, vel, pin_mask, pin_pos,
+                                      pos_out, vel_out, r, c, h, w);
 }
 
+// Batched worlds: the 1-D grid walks (world, tile) with the tiles of one
+// world adjacent; world offsets are 64-bit (4096 worlds of 3 x 60 x 60
+// floats are 44M floats a plane set, and larger batches or grids pass
+// 2^31).
 template <bool FAST, bool PINS>
-cudaError_t run(const float* params, const float* pos_in, const float* vel_in,
-                const float* pin_mask, const float* pin_pos, float* pos_a,
-                float* vel_a, float* pos_b, float* vel_b, int h, int w,
-                int n_steps, cudaStream_t stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((w + block.x - 1) / block.x, (h + block.y - 1) / block.y);
+__global__ void __launch_bounds__(kBlockW * kBlockH)
+    substep_kernel_batched(const float* __restrict__ prm,
+                           const float* __restrict__ pos,
+                           const float* __restrict__ vel,
+                           const float* __restrict__ pin_mask,
+                           const float* __restrict__ pin_pos,
+                           float* __restrict__ pos_out,
+                           float* __restrict__ vel_out, int h, int w,
+                           int tiles_x, int tiles_per_world) {
+  const int64_t world = blockIdx.x / tiles_per_world;
+  const int tile = static_cast<int>(blockIdx.x % tiles_per_world);
+  const int c = (tile % tiles_x) * kBlockW + threadIdx.x;
+  const int r = (tile / tiles_x) * kBlockH + threadIdx.y;
+  if (r >= h || c >= w) return;
+  const int64_t plane = static_cast<int64_t>(h) * w;
+  const int64_t state = 3 * plane * world;
+  cloth::substep_particle<FAST, PINS>(
+      prm + cloth::kNumParams * world, pos + state, vel + state,
+      PINS ? pin_mask + plane * world : pin_mask,
+      PINS ? pin_pos + state : pin_pos, pos_out + state, vel_out + state, r,
+      c, h, w);
+}
+
+// n_steps launches ping-ponging between buffers a and b; `launch(src_p,
+// src_v, dst_p, dst_v)` enqueues one substep.
+template <typename Launch>
+cudaError_t ping_pong(const float* pos_in, const float* vel_in, float* pos_a,
+                      float* vel_a, float* pos_b, float* vel_b, int n_steps,
+                      Launch launch) {
   const float* src_p = pos_in;
   const float* src_v = vel_in;
   for (int s = 0; s < n_steps; ++s) {
     float* dst_p = (s % 2 == 0) ? pos_a : pos_b;
     float* dst_v = (s % 2 == 0) ? vel_a : vel_b;
-    substep_kernel<FAST, PINS><<<grid, block, 0, stream>>>(
-        params, src_p, src_v, pin_mask, pin_pos, dst_p, dst_v, h, w);
+    launch(src_p, src_v, dst_p, dst_v);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     src_p = dst_p;
@@ -234,12 +111,50 @@ cudaError_t run(const float* params, const float* pos_in, const float* vel_in,
   return cudaSuccess;
 }
 
+template <bool FAST, bool PINS>
+cudaError_t run(const float* params, const float* pos_in, const float* vel_in,
+                const float* pin_mask, const float* pin_pos, float* pos_a,
+                float* vel_a, float* pos_b, float* vel_b, int h, int w,
+                int n_steps, cudaStream_t stream) {
+  const dim3 block(kBlockW, kBlockH);
+  const dim3 grid((w + kBlockW - 1) / kBlockW, (h + kBlockH - 1) / kBlockH);
+  return ping_pong(pos_in, vel_in, pos_a, vel_a, pos_b, vel_b, n_steps,
+                   [&](const float* sp, const float* sv, float* dp,
+                       float* dv) {
+                     substep_kernel<FAST, PINS><<<grid, block, 0, stream>>>(
+                         params, sp, sv, pin_mask, pin_pos, dp, dv, h, w);
+                   });
+}
+
+template <bool FAST, bool PINS>
+cudaError_t run_batched(const float* params, const float* pos_in,
+                        const float* vel_in, const float* pin_mask,
+                        const float* pin_pos, float* pos_a, float* vel_a,
+                        float* pos_b, float* vel_b, int n_worlds, int h,
+                        int w, int n_steps, cudaStream_t stream) {
+  const int tiles_x = (w + kBlockW - 1) / kBlockW;
+  const int tiles_per_world = tiles_x * ((h + kBlockH - 1) / kBlockH);
+  const int64_t blocks = static_cast<int64_t>(tiles_per_world) * n_worlds;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  const dim3 block(kBlockW, kBlockH);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  return ping_pong(pos_in, vel_in, pos_a, vel_a, pos_b, vel_b, n_steps,
+                   [&](const float* sp, const float* sv, float* dp,
+                       float* dv) {
+                     substep_kernel_batched<FAST, PINS>
+                         <<<grid, block, 0, stream>>>(
+                             params, sp, sv, pin_mask, pin_pos, dp, dv, h, w,
+                             tiles_x, tiles_per_world);
+                   });
+}
+
 }  // namespace
 
-// n_steps fused substeps. Substep s writes buffer a when s is even and b
-// when it is odd, so the result is in a for odd n_steps and in b for even.
-// pos_in/vel_in are only read. pin_mask is f32 [h, w] (pinned where != 0)
-// and pin_pos f32 [3, h, w]; both are ignored when use_pins is 0.
+// n_steps fused substeps of one world. Substep s writes buffer a when s is
+// even and b when it is odd, so the result is in a for odd n_steps and in
+// b for even. pos_in/vel_in are only read. params is f32 [16]; pin_mask is
+// f32 [h, w] (pinned where != 0) and pin_pos f32 [3, h, w]; both are
+// ignored when use_pins is 0.
 extern "C" int wpe_cloth_multi_step(const float* params, const float* pos_in,
                                     const float* vel_in,
                                     const float* pin_mask,
@@ -262,4 +177,32 @@ extern "C" int wpe_cloth_multi_step(const float* params, const float* pos_in,
                   : run<false, false>(params, pos_in, vel_in, pin_mask,
                                       pin_pos, pos_a, vel_a, pos_b, vel_b, h,
                                       w, n_steps, s);
+}
+
+// The same for n_worlds independent worlds in one launch per substep:
+// params f32 [n_worlds, 16] (one row per world), pos/vel and the buffers
+// f32 [n_worlds, 3, h, w], pin_mask f32 [n_worlds, h, w], pin_pos f32
+// [n_worlds, 3, h, w].
+extern "C" int wpe_cloth_multi_step_batched(
+    const float* params, const float* pos_in, const float* vel_in,
+    const float* pin_mask, const float* pin_pos, float* pos_a, float* vel_a,
+    float* pos_b, float* vel_b, int n_worlds, int h, int w, int n_steps,
+    int use_pins, int fast_math, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (fast_math) {
+    return use_pins
+               ? run_batched<true, true>(params, pos_in, vel_in, pin_mask,
+                                         pin_pos, pos_a, vel_a, pos_b, vel_b,
+                                         n_worlds, h, w, n_steps, s)
+               : run_batched<true, false>(params, pos_in, vel_in, pin_mask,
+                                          pin_pos, pos_a, vel_a, pos_b, vel_b,
+                                          n_worlds, h, w, n_steps, s);
+  }
+  return use_pins
+             ? run_batched<false, true>(params, pos_in, vel_in, pin_mask,
+                                        pin_pos, pos_a, vel_a, pos_b, vel_b,
+                                        n_worlds, h, w, n_steps, s)
+             : run_batched<false, false>(params, pos_in, vel_in, pin_mask,
+                                         pin_pos, pos_a, vel_a, pos_b, vel_b,
+                                         n_worlds, h, w, n_steps, s);
 }

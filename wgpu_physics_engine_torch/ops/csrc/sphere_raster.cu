@@ -8,7 +8,9 @@
 // on a miss). The TPU kernels differ only in where the instance table
 // sits: K2 holds it whole in SMEM (N <= 16384), K3 cuts it into SMEM
 // chunks. Here the sorted table stays in global memory at any N, so one
-// kernel covers both.
+// kernel covers both. The TPU package launched them once per world in
+// datagen (Mosaic rejects batched SMEM scalars); here one launch covers a
+// batch of worlds, each with its own tables, rays and znear.
 //
 // What bounds it on the H100: per pixel and candidate ~12 flops and one
 // IEEE sqrt, and the candidate's 16 bytes, which every pixel of the tile
@@ -19,19 +21,25 @@
 // at 256x256 with the 65,536 draped instances of the flagship (H100 SXM,
 // 700 W): 7.2 ms, because the wide (8, 128) bins give only 64 tiles (64
 // CTAs on 132 SMs) and each tile's ring holds thousands of candidates.
-// Splitting a tile's pixels over several CTAs is the next step.
+// Splitting a tile's pixels over several CTAs is the next step. In
+// datagen (3,600 instances a world) a batch of worlds gives 64 tiles per
+// world and the CTAs fill the card.
 //
-// Design: one CTA per (8, 128) pixel tile, one thread per pixel. The CTA
-// walks the tile's four candidate ranges from `wins` in order (the three
-// row-ring ranges, then the global range), loading up to 1024 candidates
-// at a time into shared memory, and each thread keeps the FIRST strict
-// minimum of t in sorted-index order, the tie rule of `_hit_sweep`, so the
-// winners match the TPU kernel bit for bit. Tiles are ceil-divided; the
-// ragged edge pixels take part in loading and barriers but write nothing.
+// Design: one CTA per (world, (8, 128) pixel tile), one thread per pixel,
+// world offsets in 64 bits (4096 worlds of 256x256 rays are 805M floats).
+// The CTA walks the tile's four candidate ranges from `wins` in order (the
+// three row-ring ranges, then the global range), loading up to 1024
+// candidates at a time into shared memory, and each thread keeps the FIRST
+// strict minimum of t in sorted-index order, the tie rule of `_hit_sweep`,
+// so the winners match the TPU kernel bit for bit. Tiles are ceil-divided;
+// the ragged edge pixels take part in loading and barriers but write
+// nothing. A single world is the same launch with one world.
 
 #include <cuda_runtime.h>
 
 #include <math_constants.h>
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -49,21 +57,29 @@ __global__ void __launch_bounds__(kThreads)
                          float* __restrict__ tmin_out,
                          int* __restrict__ inst_out,
                          float* __restrict__ oc_out, int n, int h, int w,
-                         int tx_tiles) {
+                         int tx_tiles, int n_tiles) {
   __shared__ float s_ox[kThreads];
   __shared__ float s_oy[kThreads];
   __shared__ float s_oz[kThreads];
   __shared__ float s_cc[kThreads];
 
-  const int tile = blockIdx.x;
+  const int64_t world = blockIdx.x / n_tiles;
+  const int tile = static_cast<int>(blockIdx.x % n_tiles);
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  wins += world * n_tiles * 8;
+  ocb += world * 4 * n;
+  dirs += world * 3 * hw;
+  tmin_out += world * hw;
+  inst_out += world * hw;
+  oc_out += world * 3 * hw;
+
   const int row = (tile / tx_tiles) * kTileH + threadIdx.y;
   const int col = (tile % tx_tiles) * kTileW + threadIdx.x;
   const int tid = threadIdx.y * kTileW + threadIdx.x;
   const bool live = row < h && col < w;
-  const int hw = h * w;
-  const int pix = row * w + col;
+  const int64_t pix = static_cast<int64_t>(row) * w + col;
 
-  const float znear = *znear_p;
+  const float znear = znear_p[world];
   float dx = 0.0f, dy = 0.0f, dz = 0.0f;
   if (live) {
     dx = dirs[pix];
@@ -116,18 +132,25 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// wins: i32 [n_tiles, 8], four [start, end) ranges per tile into the
-// sorted table; ocb: f32 [4, n] (eye-relative centre xyz, |oc|^2 - r^2);
-// dirs: f32 [3, h, w]; znear: f32 [1] on the device. Outputs tmin f32
-// [h, w], inst i32 [h, w] (sorted index), oc f32 [3, h, w].
+// n_worlds worlds in one launch. Per world: wins i32 [n_tiles, 8], four
+// [start, end) ranges per tile into the sorted table; ocb f32 [4, n]
+// (eye-relative centre xyz, |oc|^2 - r^2); dirs f32 [3, h, w]; znear f32
+// (one per world, on the device). Outputs tmin f32 [h, w], inst i32 [h, w]
+// (sorted index), oc f32 [3, h, w]. All arrays hold the worlds back to
+// back (a leading [n_worlds] axis).
 extern "C" int wpe_sphere_raster(const float* znear, const int* wins,
                                  const float* ocb, const float* dirs,
                                  float* tmin_out, int* inst_out,
-                                 float* oc_out, int n, int h, int w,
-                                 int ty_tiles, int tx_tiles, void* stream) {
+                                 float* oc_out, int n_worlds, int n, int h,
+                                 int w, int ty_tiles, int tx_tiles,
+                                 void* stream) {
+  const int n_tiles = ty_tiles * tx_tiles;
+  const int64_t blocks = static_cast<int64_t>(n_tiles) * n_worlds;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   const dim3 block(kTileW, kTileH);
-  const dim3 grid(ty_tiles * tx_tiles);
+  const dim3 grid(static_cast<unsigned>(blocks));
   sphere_raster_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      znear, wins, ocb, dirs, tmin_out, inst_out, oc_out, n, h, w, tx_tiles);
+      znear, wins, ocb, dirs, tmin_out, inst_out, oc_out, n, h, w, tx_tiles,
+      n_tiles);
   return static_cast<int>(cudaGetLastError());
 }

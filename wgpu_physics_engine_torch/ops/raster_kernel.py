@@ -9,13 +9,18 @@ The counterpart of ``wgpu_physics_engine_tpu/ops/raster_pallas.py``
   screen tile, sorts them stably by tile and builds each tile's four
   candidate ranges — the same (8, 128) bins, sorted order and candidate
   sets as the JAX prologue, so the winners agree bit for bit;
+  :func:`tiled_prologue_batched` does so for B worlds in one pass (the
+  counterpart of the JAX datagen's ``vmap`` of the prologue);
 * :func:`sphere_raster_kernel` launches ``csrc/sphere_raster.cu`` (one CTA
-  per tile; one kernel for any instance count, where the TPU needed K3's
-  chunked SMEM table beyond 16,384 instances);
+  per (world, tile); one kernel for any instance count, where the TPU
+  needed K3's chunked SMEM table beyond 16,384 instances, and one launch
+  for a batch of worlds, where the TPU launched per world because Mosaic
+  rejects batched SMEM scalars);
 * :func:`sphere_raster_plain` sweeps ALL instances in the sorted order, in
   chunks, with the same hit expression and the same first-strict-minimum
-  tie rule. The binning is conservative (an instance outside a tile's
-  ranges hits no pixel of it), so the sweep equals the kernel's output;
+  tie rule (world by world for a batch). The binning is conservative (an
+  instance outside a tile's ranges hits no pixel of it), so the sweep
+  equals the kernel's output;
 * :func:`sphere_raster_binned` takes the plain version for a CPU tensor
   and the kernel for a CUDA tensor, and raises for anything else.
 
@@ -41,7 +46,7 @@ TILE_H, TILE_W = 8, 128
 LAUNCHES = 0
 
 _SIGNATURES = {
-    "wpe_sphere_raster": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    "wpe_sphere_raster": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                          + [ctypes.c_void_p],
 }
 
@@ -54,33 +59,44 @@ def tile_grid(h: int, w: int) -> Tuple[int, int]:
     return -(-h // TILE_H), -(-w // TILE_W)
 
 
-def tiled_prologue(camera_rot: torch.Tensor, eye: torch.Tensor,
-                   centers: torch.Tensor, radius, znear: torch.Tensor,
-                   tan_half: torch.Tensor, aspect: torch.Tensor, h: int,
-                   w: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Project centres, bin by screen tile, sort, and build each tile's
-    candidate ranges. Returns ``(wins [T, 8] int32, ocb [4, N] f32,
-    order [N] int32)``: per tile the [start, end) ranges of the three
-    row-ring tiles and of the global range, the sorted eye-relative
-    centres with ``|oc|² - r²``, and the sort permutation."""
+def tiled_prologue_batched(
+        camera_rot: torch.Tensor, eye: torch.Tensor, centers: torch.Tensor,
+        radius, znear: torch.Tensor, tan_half: torch.Tensor,
+        aspect: torch.Tensor, h: int, w: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`tiled_prologue` for B worlds in one pass: ``camera_rot``
+    [B, 3, 3], ``eye`` [B, 3], ``centers`` [B, N, 3], ``radius`` a number
+    or [B], ``znear``/``tan_half``/``aspect`` [B] (or 0-d, shared).
+    Returns ``(wins [B, T, 8] int32, ocb [B, 4, N] f32, order [B, N]
+    int32)``. Each world is binned on its own: a stable argsort along the
+    instance axis, one histogram of tile ids per world, and every float op
+    elementwise, so world i's tables equal the single-world prologue's."""
     dev = centers.device
     th, tw = TILE_H, TILE_W
     ty_t, tx_t = tile_grid(h, w)
     n_tiles = ty_t * tx_t
-    n = centers.shape[0]
+    b, n = centers.shape[0], centers.shape[1]
     f32 = torch.float32
-    r = torch.tensor(radius, dtype=f32, device=dev)
 
-    oc = (centers - eye[None, :]).to(f32)                      # [N, 3] world
-    cc = torch.sum(oc * oc, dim=1) - r * r
+    def per_world(x):
+        """A 0-d or [B] value as [B, 1], broadcasting against [B, N]."""
+        return torch.as_tensor(x, dtype=f32, device=dev).reshape(-1, 1)
+
+    r = per_world(radius)
+    znear, tan_half, aspect = per_world(znear), per_world(tan_half), per_world(aspect)
+    rot = camera_rot[:, None]                                  # [B, 1, 3, 3]
+
+    oc = (centers - eye[:, None, :]).to(f32)                   # [B, N, 3] world
+    ox, oy, oz = oc.unbind(-1)
+    cc = ox * ox + oy * oy + oz * oz - r * r
     # oc @ camera_rotᵀ, written out
-    cv = (oc[:, 0:1] * camera_rot[:, 0] + oc[:, 1:2] * camera_rot[:, 1]
-          + oc[:, 2:3] * camera_rot[:, 2])                     # [N, 3] view
-    depth = -cv[:, 2]
+    cv = (oc[..., 0:1] * rot[..., 0] + oc[..., 1:2] * rot[..., 1]
+          + oc[..., 2:3] * rot[..., 2])                        # [B, N, 3] view
+    depth = -cv[..., 2]
     safe = depth > (znear + r)
     d = torch.where(safe, depth, 1.0)
-    col = ((cv[:, 0] / d) / (tan_half * aspect) + 1.0) * 0.5 * w - 0.5
-    row = (1.0 - (cv[:, 1] / d) / tan_half) * 0.5 * h - 0.5
+    col = ((cv[..., 0] / d) / (tan_half * aspect) + 1.0) * 0.5 * w - 0.5
+    row = (1.0 - (cv[..., 1] / d) / tan_half) * 0.5 * h - 0.5
     # conservative pixel radius: near depth (d - r), scaled by the
     # worst-case off-axis silhouette elongation 1/cos²θ_corner
     elong = 1.0 + tan_half * tan_half * (1.0 + aspect * aspect)
@@ -95,10 +111,12 @@ def tiled_prologue(camera_rot: torch.Tensor, eye: torch.Tensor,
                      0, ty_t - 1)
     tid = torch.where(fits, ty * tx_t + tx, n_tiles).to(torch.int64)
 
-    order = torch.argsort(tid, stable=True)
-    counts = torch.bincount(tid, minlength=n_tiles + 1)
-    tile_start = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                            torch.cumsum(counts, 0)])
+    order = torch.argsort(tid, dim=-1, stable=True)            # [B, N]
+    worlds = torch.arange(b, device=dev)[:, None]
+    counts = torch.bincount((tid + worlds * (n_tiles + 1)).reshape(-1),
+                            minlength=b * (n_tiles + 1)).reshape(b, -1)
+    tile_start = torch.cat([torch.zeros((b, 1), dtype=torch.int64, device=dev),
+                            torch.cumsum(counts, -1)], dim=-1)  # [B, T + 1]
 
     # per-tile windows: 3 row-ring ranges (the x-ring is contiguous in the
     # x-minor tile order) + the global range
@@ -106,20 +124,39 @@ def tiled_prologue(camera_rot: torch.Tensor, eye: torch.Tensor,
     txs = torch.arange(tx_t, device=dev)[None, :]
     wins = []
     for dy in (-1, 0, 1):
-        oky = (tys + dy >= 0) & (tys + dy < ty_t)
+        oky = ((tys + dy >= 0) & (tys + dy < ty_t)).expand(ty_t, tx_t)
         nty = torch.clamp(tys + dy, 0, ty_t - 1)
         x0 = torch.clamp_min(txs - 1, 0)
         x1 = torch.clamp_max(txs + 1, tx_t - 1)
-        s = tile_start[nty * tx_t + x0]
-        e = tile_start[nty * tx_t + x1 + 1]
-        wins.append(torch.where(oky, s, 0).reshape(-1))
-        wins.append(torch.where(oky, e, 0).reshape(-1))
-    wins.append(tile_start[n_tiles].expand(n_tiles))
-    wins.append(torch.full((n_tiles,), n, dtype=torch.int64, device=dev))
-    wins = torch.stack(wins, dim=-1).to(torch.int32)            # [T, 8]
+        s = tile_start[:, (nty * tx_t + x0).reshape(-1)]
+        e = tile_start[:, (nty * tx_t + x1 + 1).reshape(-1)]
+        oky = oky.reshape(-1)
+        wins.append(torch.where(oky, s, 0))
+        wins.append(torch.where(oky, e, 0))
+    wins.append(tile_start[:, n_tiles:n_tiles + 1].expand(b, n_tiles))
+    wins.append(torch.full((b, n_tiles), n, dtype=torch.int64, device=dev))
+    wins = torch.stack(wins, dim=-1).to(torch.int32)            # [B, T, 8]
 
-    ocb = torch.cat([oc[order].T, cc[order][None]], dim=0).contiguous()
+    oc_sorted = torch.gather(oc, 1, order[..., None].expand(b, n, 3))
+    ocb = torch.cat([oc_sorted.transpose(1, 2),
+                     torch.gather(cc, 1, order)[:, None]], dim=1).contiguous()
     return wins, ocb, order.to(torch.int32)
+
+
+def tiled_prologue(camera_rot: torch.Tensor, eye: torch.Tensor,
+                   centers: torch.Tensor, radius, znear: torch.Tensor,
+                   tan_half: torch.Tensor, aspect: torch.Tensor, h: int,
+                   w: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Project centres, bin by screen tile, sort, and build each tile's
+    candidate ranges. Returns ``(wins [T, 8] int32, ocb [4, N] f32,
+    order [N] int32)``: per tile the [start, end) ranges of the three
+    row-ring tiles and of the global range, the sorted eye-relative
+    centres with ``|oc|² - r²``, and the sort permutation. The batched
+    prologue at one world."""
+    wins, ocb, order = tiled_prologue_batched(
+        camera_rot[None], eye[None], centers[None], radius, znear, tan_half,
+        aspect, h, w)
+    return wins[0], ocb[0], order[0]
 
 
 def sphere_raster_plain(ocb: torch.Tensor, dirs: torch.Tensor,
@@ -127,7 +164,13 @@ def sphere_raster_plain(ocb: torch.Tensor, dirs: torch.Tensor,
     """Brute-force nearest hit over every instance of the sorted table
     ``ocb`` [4, N] for rays ``dirs`` [3, H, W]. Returns ``(tmin [H, W]
     (+inf on a miss), inst [H, W] int32 (sorted index, -1 on a miss),
-    oc [3, H, W] (the winner's eye-relative centre, 0 on a miss))``."""
+    oc [3, H, W] (the winner's eye-relative centre, 0 on a miss))``.
+    A batch (``ocb`` [B, 4, N], ``dirs`` [B, 3, H, W], ``znear`` [B]) runs
+    the sweep world by world and stacks the results."""
+    if dirs.ndim == 4:
+        zn = torch.as_tensor(znear, device=dirs.device).expand(dirs.shape[0])
+        outs = [sphere_raster_plain(o, d, z) for o, d, z in zip(ocb, dirs, zn)]
+        return tuple(torch.stack(x) for x in zip(*outs))
     h, w = dirs.shape[-2:]
     p = h * w
     n = ocb.shape[1]
@@ -160,35 +203,44 @@ def sphere_raster_plain(ocb: torch.Tensor, dirs: torch.Tensor,
 def sphere_raster_kernel(wins: torch.Tensor, ocb: torch.Tensor,
                          dirs: torch.Tensor, znear: torch.Tensor):
     """``csrc/sphere_raster.cu`` on CUDA tensors; same outputs as
-    :func:`sphere_raster_plain`."""
+    :func:`sphere_raster_plain`. One world (``wins`` [T, 8], ``ocb`` [4, N],
+    ``dirs`` [3, H, W], ``znear`` 0-d) or a batch (a leading [B] on each,
+    ``znear`` [B] or shared) in one launch over (world, tile)."""
     global LAUNCHES
     dev = dirs.device
     if dev.type != "cuda":
         raise ValueError(f"raster kernel needs CUDA tensors, got {dev}")
+    batched = dirs.ndim == 4
+    lead = tuple(dirs.shape[:1]) if batched else ()
     h, w = dirs.shape[-2:]
     ty_t, tx_t = tile_grid(h, w)
-    n = ocb.shape[1]
-    if (dirs.dtype != torch.float32 or tuple(dirs.shape) != (3, h, w)
-            or ocb.dtype != torch.float32 or ocb.shape[0] != 4
+    n = ocb.shape[-1]
+    if (dirs.dtype != torch.float32 or tuple(dirs.shape) != lead + (3, h, w)
+            or ocb.dtype != torch.float32 or tuple(ocb.shape) != lead + (4, n)
             or wins.dtype != torch.int32
-            or tuple(wins.shape) != (ty_t * tx_t, 8)
+            or tuple(wins.shape) != lead + (ty_t * tx_t, 8)
             or ocb.device != dev or wins.device != dev):
-        raise ValueError("sphere_raster_kernel: expected dirs f32 [3, H, W], "
-                         "ocb f32 [4, N], wins i32 [tiles, 8] on one device; "
-                         f"got {tuple(dirs.shape)} {tuple(ocb.shape)} "
-                         f"{tuple(wins.shape)} {wins.dtype} on {dirs.device} "
-                         f"{ocb.device} {wins.device}")
+        raise ValueError("sphere_raster_kernel: expected dirs f32 [B?, 3, H, "
+                         "W], ocb f32 [B?, 4, N], wins i32 [B?, tiles, 8] on "
+                         f"one device; got {tuple(dirs.shape)} "
+                         f"{tuple(ocb.shape)} {tuple(wins.shape)} {wins.dtype} "
+                         f"on {dirs.device} {ocb.device} {wins.device}")
+    n_worlds = lead[0] if batched else 1
     dirs, ocb, wins = dirs.contiguous(), ocb.contiguous(), wins.contiguous()
-    zn = torch.as_tensor(znear, dtype=torch.float32, device=dev).reshape(1)
-    tmin = torch.empty((h, w), dtype=torch.float32, device=dev)
-    inst = torch.empty((h, w), dtype=torch.int32, device=dev)
-    oc = torch.empty((3, h, w), dtype=torch.float32, device=dev)
+    zn = torch.as_tensor(znear, dtype=torch.float32, device=dev)
+    zn = zn.expand(lead).reshape(n_worlds).contiguous()
+    tmin = torch.empty(lead + (h, w), dtype=torch.float32, device=dev)
+    inst = torch.empty(lead + (h, w), dtype=torch.int32, device=dev)
+    oc = torch.empty(lead + (3, h, w), dtype=torch.float32, device=dev)
+    if n_worlds == 0:
+        return tmin, inst, oc
     lib = _build.load("sphere_raster", _SIGNATURES)
     with torch.cuda.device(dev):
         err = lib.wpe_sphere_raster(
             zn.data_ptr(), wins.data_ptr(), ocb.data_ptr(), dirs.data_ptr(),
             tmin.data_ptr(), inst.data_ptr(), oc.data_ptr(),
-            n, h, w, ty_t, tx_t, torch.cuda.current_stream().cuda_stream)
+            n_worlds, n, h, w, ty_t, tx_t,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "sphere_raster launch")
     LAUNCHES += 1
     return tmin, inst, oc
@@ -196,8 +248,9 @@ def sphere_raster_kernel(wins: torch.Tensor, ocb: torch.Tensor,
 
 def sphere_raster_binned(wins: torch.Tensor, ocb: torch.Tensor,
                          dirs: torch.Tensor, znear: torch.Tensor):
-    """``(tmin, inst, oc)`` from prebuilt bins: the plain version for a
-    CPU tensor, the kernel for a CUDA tensor; any other device raises."""
+    """``(tmin, inst, oc)`` from prebuilt bins, for one world or a batch:
+    the plain version for a CPU tensor, the kernel for a CUDA tensor; any
+    other device raises."""
     dev = dirs.device.type
     if dev == "cpu":
         return sphere_raster_plain(ocb, dirs, znear)

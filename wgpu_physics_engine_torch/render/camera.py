@@ -9,6 +9,11 @@ z ∈ [0, 1].
 
 The matrices are built in fp32 on the CPU and then moved to the caller's
 device, so a camera is the same on every device.
+
+A batch of cameras (the counterpart of ``jax.vmap(make_camera)``) is a
+``Camera`` whose leaves carry a leading worlds axis: ``make_camera`` builds
+one from ``[B]`` tensors of radius, theta and phi, and ``pixel_rays`` then
+returns ``eye [B, 3]`` and ``dirs [B, 3, H, W]``.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ _F32 = torch.float32
 
 
 class Camera(NamedTuple):
-    """Resolved camera: view/proj matrices and eye position (fp32)."""
+    """Resolved camera: view/proj matrices and eye position (fp32), each
+    leaf with a leading ``[B]`` axis for a batch of cameras."""
 
     view: torch.Tensor   # [4, 4]
     proj: torch.Tensor   # [4, 4]
@@ -36,23 +42,27 @@ class Camera(NamedTuple):
 
 
 def _t(v) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=_F32)
+    return torch.as_tensor(v, dtype=_F32, device="cpu")
 
 
 def orbit_eye(target, radius, theta, phi) -> torch.Tensor:
-    """Eye position on the orbit sphere."""
+    """Eye position on the orbit sphere: ``[3]``, or ``[B, 3]`` for ``[B]``
+    radius/theta/phi."""
     target, radius, theta, phi = _t(target), _t(radius), _t(theta), _t(phi)
     offset = torch.stack([
         radius * torch.cos(phi) * torch.sin(theta),
         radius * torch.sin(phi),
         radius * torch.cos(phi) * torch.cos(theta),
-    ])
+    ], dim=-1)
     return target + offset
 
 
 def look_at(eye, target, up=(0.0, 1.0, 0.0)) -> torch.Tensor:
-    """Right-handed view matrix (the camera looks down −z in view space)."""
+    """Right-handed view matrix (the camera looks down −z in view space);
+    ``[4, 4]``, or ``[B, 4, 4]`` for eyes ``[B, 3]``."""
     eye, target, up = _t(eye), _t(target), _t(up)
+    if eye.ndim > 1:
+        return _look_at_batched(eye, target, up)
     f = target - eye
     f = f / torch.linalg.norm(f)
     s = torch.linalg.cross(f, up)
@@ -63,6 +73,21 @@ def look_at(eye, target, up=(0.0, 1.0, 0.0)) -> torch.Tensor:
     view[:3, :3] = rot
     view[:3, 3] = -rot @ eye
     view[3, 3] = 1.0
+    return view
+
+
+def _look_at_batched(eye, target, up) -> torch.Tensor:
+    """:func:`look_at` for eyes ``[B, 3]``."""
+    f = target - eye
+    f = f / torch.linalg.norm(f, dim=-1, keepdim=True)
+    s = torch.linalg.cross(f, up.expand_as(f))
+    s = s / torch.linalg.norm(s, dim=-1, keepdim=True)
+    u = torch.linalg.cross(s, f)
+    rot = torch.stack([s, u, -f], dim=-2)  # rows: right, up, -forward
+    view = torch.zeros(eye.shape[:-1] + (4, 4), dtype=_F32)
+    view[..., :3, :3] = rot
+    view[..., :3, 3] = -(rot @ eye[..., None])[..., 0]
+    view[..., 3, 3] = 1.0
     return view
 
 
@@ -84,7 +109,11 @@ def make_camera(config: cfg.CameraConfig = cfg.CameraConfig(),
                 aspect: float = 1.0, radius=None, theta=None, phi=None,
                 target=None, device=None) -> Camera:
     """Build a camera from config with optional per-call overrides (the
-    egui zoom slider equivalent — cloth.rs:1389-1391), on ``device``."""
+    egui zoom slider equivalent — cloth.rs:1389-1391), on ``device``.
+
+    ``radius``/``theta``/``phi`` given as ``[B]`` tensors build a batch of
+    cameras: every leaf gets a leading ``[B]`` axis, the shared ones
+    (``proj``, ``fovy_rad``, ``aspect``, ``znear``, ``zfar``) broadcast."""
     radius = config.radius if radius is None else radius
     theta = config.theta if theta is None else theta
     phi = config.phi if phi is None else phi
@@ -100,26 +129,34 @@ def make_camera(config: cfg.CameraConfig = cfg.CameraConfig(),
         znear=_t(config.znear),
         zfar=_t(config.zfar),
     )
+    lead = eye.shape[:-1]
+    if lead:
+        cam = Camera(*(a.expand(lead + a.shape[a.ndim - ref:]).contiguous()
+                       for a, ref in zip(cam, (2, 2, 1, 0, 0, 0, 0))))
     return Camera(*(a.to(device) for a in cam))
 
 
 def pixel_rays(camera: Camera, height: int,
                width: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-pixel primary rays in WORLD space: (origin [3], dirs [3, H, W]).
+    """Per-pixel primary rays in WORLD space: (origin [3], dirs [3, H, W]),
+    or (``[B, 3]``, ``[B, 3, H, W]``) for a batch of cameras.
 
     Pixel centres; row 0 is the top of the image (NDC y = +1 edge).
     Directions are normalized.
     """
     dev = camera.eye.device
+    lead = camera.eye.shape[:-1]
     j = (torch.arange(width, dtype=_F32, device=dev) + 0.5) / width * 2.0 - 1.0
     i = 1.0 - (torch.arange(height, dtype=_F32, device=dev) + 0.5) / height * 2.0
-    tan_half = torch.tan(camera.fovy_rad / 2.0)
-    vx = (j[None, :] * tan_half * camera.aspect).expand(height, width)
-    vy = (i[:, None] * tan_half).expand(height, width)
+    tan_half = torch.tan(camera.fovy_rad / 2.0)[..., None, None]
+    aspect = camera.aspect[..., None, None]
+    vx = (j[None, :] * tan_half * aspect).expand(lead + (height, width))
+    vy = (i[:, None] * tan_half).expand(lead + (height, width))
     vz = torch.full((height, width), -1.0, dtype=_F32, device=dev)
-    rot = camera.view[:3, :3]                          # world→view
+    rot = camera.view[..., :3, :3, None, None]         # world→view
     # rotᵀ @ d, written out (no matmul, so no TF32 question on the card)
-    d_world = torch.stack([rot[0, k] * vx + rot[1, k] * vy + rot[2, k] * vz
-                           for k in range(3)])
-    norm = torch.sqrt(torch.sum(d_world * d_world, dim=0, keepdim=True))
+    d_world = torch.stack([rot[..., 0, k, :, :] * vx + rot[..., 1, k, :, :] * vy
+                           + rot[..., 2, k, :, :] * vz for k in range(3)],
+                          dim=-3)
+    norm = torch.sqrt(torch.sum(d_world * d_world, dim=-3, keepdim=True))
     return camera.eye, d_world / norm

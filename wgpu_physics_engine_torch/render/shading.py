@@ -8,7 +8,8 @@
 * diffuse = tex.rgb · clamp(n·l, ambient=0.1, 1) · luminosity=2.4
 * specular (toggleable) = ks · max(r·v, 0)^shininess · white
 
-Inputs are channels-first ``[3, ...]`` view-space tensors.
+Inputs are channels-first ``[3, H, W]`` view-space tensors, or ``[B, 3, H,
+W]`` for a batch of worlds.
 """
 
 from __future__ import annotations
@@ -19,21 +20,22 @@ from ..core import config as cfg
 
 
 def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    n = torch.sqrt(torch.sum(v * v, dim=0, keepdim=True))
+    n = torch.sqrt(torch.sum(v * v, dim=-3, keepdim=True))
     return v / torch.clamp_min(n, eps)
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.sum(a * b, dim=0)
+    return torch.sum(a * b, dim=-3)
 
 
 def phong(pos_view: torch.Tensor, normal_view: torch.Tensor,
           albedo: torch.Tensor, light_pos_view: torch.Tensor,
           light: cfg.LightConfig, compute_specular=None) -> torch.Tensor:
     """Shade pixels. ``pos_view``/``normal_view``: [3, H, W]; ``albedo``:
-    [H, W, 3]; ``light_pos_view``: [3]. Returns [H, W, 3]."""
+    [H, W, 3]; ``light_pos_view``: [3]. Returns [H, W, 3]. A batch of
+    worlds adds a leading ``[B]`` axis to every argument and the result."""
     n = _normalize(normal_view)
-    l = _normalize(light_pos_view[:, None, None] - pos_view)
+    l = _normalize(light_pos_view[..., :, None, None] - pos_view)
     v = _normalize(-pos_view)
 
     shading = torch.clamp(_dot(n, l), light.ambient, 1.0)
@@ -42,7 +44,7 @@ def phong(pos_view: torch.Tensor, normal_view: torch.Tensor,
     if compute_specular is None:
         compute_specular = light.compute_specular
     # reflect(-l, n) = -l - 2*dot(n, -l)*n = 2*dot(n,l)*n - l
-    r = _normalize(2.0 * _dot(n, l)[None] * n - l)
+    r = _normalize(2.0 * _dot(n, l)[..., None, :, :] * n - l)
     r_dot_v = torch.clamp_min(_dot(r, v), 0.0)
     spec = (light.ks * torch.pow(r_dot_v, light.shininess))[..., None]
     spec_on = 1.0 if compute_specular else 0.0

@@ -1,8 +1,10 @@
 """Textures: file loading (PIL), procedural fallbacks and bilinear sampling
 (the counterpart of ``wgpu_physics_engine_tpu/render/texture.py``).
 
-A texture is an fp32 ``[Th, Tw, 3]`` tensor in [0, 1]; sampling is bilinear
-with wrap addressing (the wgpu sampler default used by the reference apps).
+A texture is an fp32 ``[Th, Tw, 3]`` tensor in [0, 1], or the packed RGB8
+format of :func:`pack_rgb8` (one int32 ``[Th, Tw]`` plane); sampling is
+bilinear with wrap addressing (the wgpu sampler default used by the
+reference apps).
 """
 
 from __future__ import annotations
@@ -36,20 +38,35 @@ _ASSET_MAP = {
 }
 
 
-def get(name_or_path: str, size: int = 256, device=None) -> torch.Tensor:
+def _downsample(tex: torch.Tensor, max_size: int) -> torch.Tensor:
+    """Box-filter a texture down by powers of 2 until both dims fit
+    ``max_size`` (a mip level)."""
+    while max(tex.shape[0], tex.shape[1]) > max_size:
+        h2, w2 = tex.shape[0] // 2, tex.shape[1] // 2
+        tex = tex[: 2 * h2, : 2 * w2].reshape(h2, 2, w2, 2, 3).mean((1, 3))
+    return tex
+
+
+def get(name_or_path: str, size: int = 256, device=None,
+        max_size: int | None = None) -> torch.Tensor:
     """Resolve a texture by file path or by the reference's asset names
     (``textures/``: grey/red/texture/mesh/diffuse/moon1024/earth2048).
     Known names load the package assets (``assets/``); anything else falls
-    back to a procedural equivalent."""
+    back to a procedural equivalent.
+
+    ``max_size``: if set, file-loaded textures are box-downsampled to fit
+    (a mip level); datagen renders 256² frames from the 256 mip."""
     if os.path.exists(name_or_path):
-        return load_texture(name_or_path, device)
+        tex = load_texture(name_or_path, device)
+        return _downsample(tex, max_size) if max_size else tex
     key = os.path.splitext(os.path.basename(name_or_path))[0].lower()
     asset = _ASSET_MAP.get(key)
     if asset is not None:
         path = os.path.join(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))), "assets", asset)
         if os.path.exists(path):
-            return load_texture(path, device)
+            tex = load_texture(path, device)
+            return _downsample(tex, max_size) if max_size else tex
     if key in ("red",):
         return solid((1.0, 0.0, 0.0), device=device)
     if key in ("grey", "gray"):
@@ -117,9 +134,60 @@ def sample_bilinear(tex: torch.Tensor, u: torch.Tensor,
     return torch.stack(chans, dim=-1)
 
 
+def pack_rgb8(tex: torch.Tensor) -> torch.Tensor:
+    """Quantize an fp32 [H, W, 3] texture to 8 bits a channel and pack it
+    into one int32 [H, W] plane (0x00RRGGBB).
+
+    The JAX package packs into uint32; torch has no full uint32
+    arithmetic, and 24 bits fit an int32 with the sign bit clear, so the
+    shifts and masks of :func:`sample_bilinear_packed` give the same
+    channels. A bilinear sample then gathers one value per tap instead of
+    three, from a table a third the size. The 8-bit quantization is
+    lossless for file-loaded assets (8-bit sources)."""
+    q = torch.clamp(tex * 255.0 + 0.5, 0.0, 255.0).to(torch.int32)
+    return (q[..., 0] << 16) | (q[..., 1] << 8) | q[..., 2]
+
+
+def sample_bilinear_packed(packed: torch.Tensor, u: torch.Tensor,
+                           v: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample from a :func:`pack_rgb8` texture: the wrap
+    addressing and lerp order of :func:`sample_bilinear`, one gather per
+    tap. Equals the unpacked sampler on 8-bit-quantized inputs up to the
+    k*(1/255) vs k/255 rounding of the unpack (<= 1e-7)."""
+    th, tw = packed.shape
+    x = u * tw - 0.5
+    y = v * th - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    x0i = torch.remainder(x0.to(torch.int64), tw)
+    x1i = torch.remainder(x0i + 1, tw)
+    y0i = torch.remainder(y0.to(torch.int64), th)
+    y1i = torch.remainder(y0i + 1, th)
+    t00 = packed[y0i, x0i]
+    t01 = packed[y0i, x1i]
+    t10 = packed[y1i, x0i]
+    t11 = packed[y1i, x1i]
+    inv = torch.tensor(1.0 / 255.0, dtype=_F32, device=packed.device)
+    chans = []
+    for shift in (16, 8, 0):
+        c00 = ((t00 >> shift) & 0xFF).to(_F32) * inv
+        c01 = ((t01 >> shift) & 0xFF).to(_F32) * inv
+        c10 = ((t10 >> shift) & 0xFF).to(_F32) * inv
+        c11 = ((t11 >> shift) & 0xFF).to(_F32) * inv
+        top = c00 * (1 - fx) + c01 * fx
+        bot = c10 * (1 - fx) + c11 * fx
+        chans.append(top * (1 - fy) + bot * fy)
+    return torch.stack(chans, dim=-1)
+
+
 def sample(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample of an fp32 [H, W, 3] texture (the packed uint32
-    format of the JAX package comes with the datagen port)."""
+    """Format-dispatching bilinear sample: a packed int32 [H, W] plane
+    (:func:`pack_rgb8`) or an fp32 [H, W, 3] texture."""
+    if tex.ndim == 2:
+        return sample_bilinear_packed(tex, u, v)
     if tex.ndim != 3:
-        raise ValueError(f"expected an [H, W, 3] texture, got {tuple(tex.shape)}")
+        raise ValueError(f"expected an [H, W, 3] texture or a packed [H, W] "
+                         f"plane, got {tuple(tex.shape)}")
     return sample_bilinear(tex, u, v)

@@ -3,18 +3,22 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through the entry points a user calls, after
-building the hand-written CUDA kernels from ``ops/csrc`` and holding each
-against its plain torch version on the card: the flagship scene, a
+Drives the port's three paths through the entry points a user calls,
+after building the hand-written CUDA kernels from ``ops/csrc`` and holding
+each against its plain torch version on the card: the flagship scene, a
 256×256 mass-spring cloth over the lit, textured globe, stepped 5
 simulated seconds (2,400 substeps at 480 Hz) and rendered at 256×256
-(``ClothScene.simulate``/``render`` and the CLI); and batched datagen,
-4,096 worlds of the 60×60 reference cloth stepped and rendered to 256×256
+(``ClothScene.simulate``/``render`` and the CLI); batched datagen, 4,096
+worlds of the 60×60 reference cloth stepped and rendered to 256×256
 frames and compressed (``generate_trajectory_dataset`` and the CLI's
-``datagen``/``decode``). Phases:
+``datagen``/``decode``); and training through the simulator, the gravity
+fit of ``examples/differentiable_cloth.py`` at 256² through
+``models.cloth.multi_step_diff`` (K1 forward, the substep adjoint of
+``ops/csrc/cloth_grad.cu`` backward). Phases:
 
 1. the card: CUDA present, ``nvidia-smi`` name and power limit;
-2. the build of both kernels (nvcc, timed);
+2. the build of the three kernel libraries (one nvcc each, all started
+   together, timed);
 3. the cloth kernel vs its plain version at 256² with the top row pinned:
    1 substep <= 1e-6 abs, 240 substeps <= 1e-5 on pos, fast_math vs the
    exact path <= 1e-4 after 330 substeps, and the fast_math kernel within
@@ -62,9 +66,33 @@ version and bound, phase 9's raster launch, one steady frame of
 one ``torch.profiler`` trace of a frame split into K5, raster, composite,
 codec and copy with the device's idle share.
 
+11. the substep adjoint vs its plain version at 256² with the top row
+   pinned, on phase 5's draped state (the share of particles in contact is
+   reported and must be above zero) and on a free-fall state: one substep
+   (state, parameter and pin cotangents <= 1e-5 max-relative, bitwise
+   reported), ``multi_step_diff`` over a 48-substep segment (gradients of a
+   fixed random linear loss <= 1e-4 max-relative against the same path
+   with the plain stepper, trace and adjoint), the trace's last state equal
+   to the forward's output bit for bit; and the same at 1024² over 4
+   substeps;
+12. the training path, with the launch counters reset just before it and
+   read just after: the example's gravity fit at 256² (``--kernel``, 480
+   substeps, segment 48, 8 iterations); the loss falls, all is finite, K1
+   and the adjoint launched the expected number of times; then one Newton
+   step from the kernel gradient (240 substeps) lands the COM height within
+   1e-3 of its target.
+
+Then phases 6 and 7 for the training path: the adjoint per substep beside
+its plain version and bound, value_and_grad of 480 substeps at 256²
+(particle-steps/s; the plain path on 48), K1 per substep at 512² and
+1024², and one ``torch.profiler`` trace of a 48-substep value_and_grad
+with the kernel time per launch, the gaps and the device's idle share.
+
 Any failed check raises, so the script exits non-zero; with no CUDA device
 it exits non-zero before doing anything. The next-to-last line of stdout is
-``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``. The
+``cloth_step`` launches are those of phases 5 and 12 (K1 steps the
+flagship and runs the training path's forward and traces).
 Images and the full results go to ``chiprun_out/``.
 """
 
@@ -75,6 +103,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -114,6 +143,25 @@ OPS_EDGE = 34
 OPS_PARTICLE = 82
 # per (pixel, candidate) of the sphere sweep: b 5, disc 2, t 3, tests 3
 OPS_RAY_SPHERE = 13
+# fp32 operations of the substep adjoint (csrc/cloth_grad.cu): per spring
+# edge 116, its forward force again (34, the linearization point) and its
+# adjoint 82 (difference, length, unit vector, stretch, relative velocity
+# and s again 25; Ē 3, s̄ 5, s̄c 1, ū 9, ū·d 5, L̄ 4, d̄ 9, Δv̄ 3, parameter
+# terms 3; 12 to add x̄ and v̄ to both ends, 3 to sum k̄, c̄, rest̄); per
+# particle 258, the forward integration again (82) and its adjoint 176
+# (projection 25, Euler and damping 39, friction 61, contact 40, gravity 4,
+# the seven parameter terms 7)
+OPS_VJP_EDGE = 116
+OPS_VJP_PARTICLE = 258
+# bytes a particle and substep the adjoint must move: the trajectory state
+# read (24), the incoming cotangent read (24), the outgoing one written (24)
+VJP_BYTES = 72
+# phase 11's segment (the training path's, examples/differentiable_cloth.py
+# SEGMENT), and the grid and substeps of its large check (the size of JAX's
+# streamed tier, K9)
+FIT_SEG = 48
+BIG = 1024
+BIG_STEPS = 4
 
 
 def _check(cond: bool, what: str) -> None:
@@ -311,23 +359,29 @@ def _dg_frame(tex, chunks, codec_k):
 
 
 @contextlib.contextmanager
-def _plain_wrappers():
-    """Inside, the cloth and raster kernels' wrappers run their plain
-    versions on the card (and count no launch), so a datagen run goes
-    through the path's own code with the plain stepper and sweep."""
-    from wgpu_physics_engine_torch.ops import cloth_kernel, raster_kernel
+def _plain_kernels():
+    """Inside, the kernels' wrappers (the cloth stepper and its trace, the
+    substep adjoint's walk, the raster) run their plain versions on the
+    card and count no launch, so a path runs its own code with the plain
+    versions."""
+    from wgpu_physics_engine_torch.ops import (cloth_grad_kernel, cloth_kernel,
+                                               raster_kernel)
 
-    saved = cloth_kernel.multi_step_kernel, raster_kernel.sphere_raster_kernel
-    cloth_kernel.multi_step_kernel = (
-        lambda s, p, dt, n, fast_math=False:
-        cloth_kernel.multi_step_plain(s, p, dt, n, fast_math))
+    saved = (cloth_kernel.multi_step_kernel_packed, cloth_kernel.trace_kernel,
+             cloth_grad_kernel._walk_kernel,
+             raster_kernel.sphere_raster_kernel)
+    cloth_kernel.multi_step_kernel_packed = cloth_kernel.multi_step_plain_packed
+    cloth_kernel.trace_kernel = cloth_kernel.trace_plain
+    cloth_grad_kernel._walk_kernel = cloth_grad_kernel._walk_plain
     raster_kernel.sphere_raster_kernel = (
         lambda wins, ocb, dirs, znear:
         raster_kernel.sphere_raster_plain(ocb, dirs, znear))
     try:
         yield
     finally:
-        cloth_kernel.multi_step_kernel, raster_kernel.sphere_raster_kernel = saved
+        (cloth_kernel.multi_step_kernel_packed, cloth_kernel.trace_kernel,
+         cloth_grad_kernel._walk_kernel,
+         raster_kernel.sphere_raster_kernel) = saved
 
 
 def _classify(img):
@@ -585,7 +639,7 @@ def _phase10_datagen(settled, dev, card, cli_main):
         params=type(settled.params)(*(a[:16] for a in settled.params)))
     runs, ends = {}, {}
     for way in ("kernel", "plain", "twin"):
-        with _plain_wrappers() if way == "plain" else contextlib.nullcontext():
+        with _plain_kernels() if way == "plain" else contextlib.nullcontext():
             runs[way] = []
             for _, im, bs in datagen.generate_trajectory_dataset(
                     ClothConfig(), generator=torch.Generator().manual_seed(
@@ -748,6 +802,342 @@ def _dg_trace(tex, chunks, card) -> dict:
             "device_ops": len(dev), "split_us": split, "idle_share": idle}
 
 
+def _max_rel(a, b) -> float:
+    """max |a - b| over max |b| (float64)."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _diff_grads(state, params, n, seg, wp, wv):
+    """Gradients of sum(pos * wp) + sum(vel * wv) after ``multi_step_diff``
+    with respect to pos, vel, pin_pos, every ClothParams leaf and dt, and
+    the output state."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.state import ClothParams
+    from wgpu_physics_engine_torch.models import cloth
+
+    leaves = [a.detach().clone().requires_grad_(True) for a in params]
+    pos, vel, pin_pos = (a.detach().clone().requires_grad_(True)
+                         for a in (state.pos, state.vel, state.pin_pos))
+    dt = torch.tensor(DT, device=pos.device, requires_grad=True)
+    out = cloth.multi_step_diff(
+        state._replace(pos=pos, vel=vel, pin_pos=pin_pos),
+        ClothParams(*leaves), dt, n, segment=seg)
+    loss = (out.pos * wp).sum() + (out.vel * wv).sum()
+    names = ["pos", "vel", "pin_pos", *ClothParams._fields, "dt"]
+    grads = torch.autograd.grad(loss, [pos, vel, pin_pos, *leaves, dt])
+    return dict(zip(names, grads)), out
+
+
+def _adjoint_case(label, state, params, n_diff, card) -> dict:
+    """Phase 11 on one pinned state: one substep of the adjoint kernel
+    against its plain version, ``multi_step_diff`` over ``n_diff`` substeps
+    (one segment) against the plain path, and the trace against the
+    forward."""
+    import torch
+
+    from wgpu_physics_engine_torch.ops import cloth_grad_kernel, cloth_kernel
+
+    dev = state.pos.device
+    h, w = state.pos.shape[-2:]
+    prm = cloth_kernel._pack_params(params, DT).to(dev)
+    g = torch.Generator().manual_seed(h + 17)
+    cp, cv, wp, wv = (torch.randn((3, h, w), generator=g).to(dev)
+                      for _ in range(4))
+    x = state.pos
+    contact = float((torch.linalg.vector_norm(x, dim=0) < prm[14])
+                    .float().mean())
+    planes = torch.cat([state.pos, state.vel])
+    pins = (state.pin_mask, state.pin_pos)
+    before = cloth_grad_kernel.LAUNCHES
+    k = cloth_grad_kernel.substep_vjp_kernel(planes, cp, cv, prm, pins)
+    torch.cuda.synchronize()
+    n_launch = cloth_grad_kernel.LAUNCHES - before
+    pl = cloth_grad_kernel.substep_vjp_plain(planes, cp, cv, prm, pins)
+    rel = {name: _max_rel(a, b) for name, a, b in
+           zip(("ct_pos", "ct_vel", "ct_prm", "ct_pin"), k, pl)}
+    err = max(_maxdiff(a, b) for a, b in zip(k, pl))
+    bitwise = bool(torch.equal(k[0], pl[0]) and torch.equal(k[1], pl[1]))
+    pin_bitwise = bool(torch.equal(k[3], pl[3]))
+    print(f"phase 11 cloth_substep_vjp {label} @{h}x{w} pinned, 1 substep "
+          f"[{card}]: max-relative {', '.join(f'{a} {b:.3e}' for a, b in rel.items())} "
+          f"(<=1e-5); state cotangents bitwise {bitwise}, pin bitwise "
+          f"{pin_bitwise}; max abs {err:.3e}; launches {n_launch}; particles "
+          f"in contact {contact:.4f}")
+    _check(n_launch == 1, f"adjoint {label} launched {n_launch} times")
+    _check(all(v <= 1e-5 for v in rel.values()), f"adjoint {label}: {rel}")
+    _check(float(k[3].abs().max()) > 0, f"adjoint {label}: no pin cotangent")
+
+    # the trace's last state is the forward's output, bit for bit
+    traj = cloth_kernel.trace(state, prm, n_diff + 1)
+    fwd = cloth_kernel.multi_step_kernel(state, params, DT, n_diff)
+    trace_ok = bool(torch.equal(traj[n_diff, :3], fwd.pos)
+                    and torch.equal(traj[n_diff, 3:], fwd.vel))
+    del traj
+    # multi_step_diff, one segment, kernels against the plain versions
+    gk, out_k = _diff_grads(state, params, n_diff, n_diff, wp, wv)
+    with _plain_kernels():
+        gp, out_p = _diff_grads(state, params, n_diff, n_diff, wp, wv)
+    torch.cuda.synchronize()
+    primal = bool(torch.equal(out_k.pos, out_p.pos)
+                  and torch.equal(out_k.vel, out_p.vel))
+    drel = {}
+    for name in gk:
+        a, b = gk[name], gp[name]
+        if float(b.abs().max()) < 1e-6:
+            drel[name] = float(a.abs().max())   # both ~0: the absolute value
+            _check(drel[name] < 1e-6, f"multi_step_diff {label} {name}: "
+                   f"{drel[name]} where the plain path gives ~0")
+        else:
+            drel[name] = _max_rel(a, b)
+    worst = max(drel, key=drel.get)
+    finite = all(bool(torch.isfinite(v).all()) for v in gk.values())
+    print(f"phase 11 multi_step_diff {label} @{h}x{w}, {n_diff} substeps "
+          f"(one segment) [{card}]: gradients vs the plain path max-relative "
+          f"{drel[worst]:.3e} ({worst}) (<=1e-4), pos {drel['pos']:.3e}, vel "
+          f"{drel['vel']:.3e}, pin_pos {drel['pin_pos']:.3e}, dt "
+          f"{drel['dt']:.3e}; primal equal {primal}; finite {finite}; trace's "
+          f"last state == forward {trace_ok}")
+    _check(trace_ok, f"trace {label}: last state != forward")
+    _check(primal, f"multi_step_diff {label}: primal differs from plain")
+    _check(finite, f"multi_step_diff {label}: gradients not finite")
+    _check(drel[worst] <= 1e-4, f"multi_step_diff {label}: {drel}")
+    return {"contact_share": contact, "substep_rel": rel,
+            "substep_bitwise": bitwise, "pin_bitwise": pin_bitwise,
+            "substep_max_abs": err, "diff_rel": drel, "trace_equal": trace_ok,
+            "primal_equal": primal}, err
+
+
+def _phase11_adjoint(draped, free, params, dev, card):
+    """Phase 11: the adjoint kernel against its plain version at 256² (the
+    draped state of phase 5 and a free-fall state, both with the top row
+    pinned) and at 1024² over 4 substeps."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import (ClothParams,
+                                                      init_cloth_state)
+
+    def pinned(s):
+        pin = torch.zeros(s.pos.shape[-2:], dtype=torch.bool, device=dev)
+        pin[0] = True
+        return s._replace(pin_mask=pin, pin_pos=s.pos)
+
+    res, err = {}, 0.0
+    res["draped"], e = _adjoint_case("draped", pinned(draped), params,
+                                     FIT_SEG, card)
+    err = max(err, e)
+    _check(res["draped"]["contact_share"] > 0, "draped state: no contact")
+    res["free"], e = _adjoint_case("free fall", pinned(free), params, FIT_SEG,
+                                   card)
+    err = max(err, e)
+    cfg_big = ClothConfig(height=BIG, width=BIG)
+    big = init_cloth_state(cfg_big, device=dev)
+    g = torch.Generator().manual_seed(BIG)
+    big = big._replace(vel=torch.randn((3, BIG, BIG), generator=g).to(dev))
+    res[f"{BIG}"], e = _adjoint_case(
+        f"free fall, random velocities", pinned(big),
+        ClothParams.from_config(cfg_big, device=dev), BIG_STEPS, card)
+    err = max(err, e)
+    return res, err
+
+
+def _phase12_trainer(dev, card) -> dict:
+    """Phase 12: the example's gravity fit at 256², counted, and the Newton
+    check."""
+    import math
+
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import (ClothParams,
+                                                      init_cloth_state)
+    from wgpu_physics_engine_torch.examples import differentiable_cloth
+    from wgpu_physics_engine_torch.models import cloth
+    from wgpu_physics_engine_torch.ops import (cloth_grad_kernel, cloth_kernel,
+                                               raster_kernel)
+
+    torch.cuda.synchronize()
+    cloth_kernel.LAUNCHES = 0
+    cloth_kernel.LAUNCHES_BATCHED = 0
+    raster_kernel.LAUNCHES = 0
+    cloth_grad_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    hist = differentiable_cloth.main(["--kernel", "--grid", str(GRID),
+                                      "--device", str(dev)])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {"cloth_step": cloth_kernel.LAUNCHES,
+                "cloth_substep_vjp": cloth_grad_kernel.LAUNCHES,
+                "cloth_step_batched": cloth_kernel.LAUNCHES_BATCHED,
+                "sphere_raster": raster_kernel.LAUNCHES}
+    n, seg, iters = (differentiable_cloth.N_SUBSTEPS,
+                     differentiable_cloth.SEGMENT, differentiable_cloth.ITERS)
+    # per iteration: the forward, then per segment a trace of seg - 1
+    # substeps and an adjoint walk of seg
+    want = {"cloth_step": iters * (n + n - -(-n // seg)),
+            "cloth_substep_vjp": iters * n}
+    finite = all(math.isfinite(a) and math.isfinite(b) for a, b in hist)
+    print(f"phase 12 training path [{card}]: python -m wgpu_physics_engine_"
+          f"torch.examples.differentiable_cloth --kernel --grid {GRID} "
+          f"({iters} iterations x {n} substeps, segment {seg}) {fit_s:.3f} "
+          f"s host clock; loss {hist[0][0]:.5f} -> "
+          f"{hist[-1][0]:.5f}, gravity -> {hist[-1][1]:.4f}; launches "
+          f"{launches}, expected {want}")
+    _check(finite, f"trainer history not finite: {hist}")
+    _check(hist[-1][0] < hist[0][0], f"trainer loss did not fall: {hist}")
+    _check(all(launches[k] == v for k, v in want.items()),
+           f"training path launches {launches}, expected {want}")
+
+    # one Newton step: the COM height after free fall is linear in gravity
+    c = ClothConfig(height=GRID, width=GRID)
+    s0 = init_cloth_state(c, device=dev)
+    base = ClothParams.from_config(c, device=dev)
+
+    def rollout(g):
+        out = cloth.multi_step_diff(s0, base._replace(gravity=g), DT, 240,
+                                    segment=FIT_SEG)
+        return out.pos[1].mean()
+
+    g0 = torch.tensor(-9.81, device=dev, requires_grad=True)
+    y0 = rollout(g0)
+    (dy,) = torch.autograd.grad(y0, g0)
+    y0 = float(y0.detach())
+    g_star = g0.detach() - (y0 - 36.0) / dy
+    y_star = float(rollout(g_star))
+    print(f"phase 12 Newton step @{GRID}x{GRID}, 240 substeps: y0 {y0:.6f}, "
+          f"dy/dg {float(dy):.6e}, g* {float(g_star):.6f}, y(g*) "
+          f"{y_star:.6f} (|y - 36| {abs(y_star - 36.0):.3e} <= 1e-3)")
+    _check(abs(y_star - 36.0) <= 1e-3, f"Newton step lands at {y_star}")
+    return {"history": hist, "fit_s": fit_s, "launches": launches,
+            "expected": want, "newton": {"y0": y0, "dy": float(dy),
+                                         "g_star": float(g_star),
+                                         "y_star": y_star}}
+
+
+def _grad_times(params, dev, card) -> dict:
+    """Phases 6 and 7 for the training path."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import (ClothParams,
+                                                      init_cloth_state)
+    from wgpu_physics_engine_torch.examples import differentiable_cloth as dc
+    from wgpu_physics_engine_torch.ops import cloth_grad_kernel, cloth_kernel
+
+    res = {}
+    cfg = ClothConfig(height=GRID, width=GRID)
+    s0 = init_cloth_state(cfg, device=dev)
+    prm = cloth_kernel._pack_params(params, DT).to(dev)
+    traj = cloth_kernel.trace(s0, prm, FIT_SEG)
+    g = torch.Generator().manual_seed(5)
+    cp, cv = (torch.randn((3, GRID, GRID), generator=g).to(dev)
+              for _ in range(2))
+    k_ms = _best_ms(lambda: cloth_grad_kernel._walk_kernel(
+        traj, cp, cv, prm, None)) / FIT_SEG
+    n_plain = 8
+    p_ms = _best_ms(lambda: cloth_grad_kernel._walk_plain(
+        traj[:n_plain], cp, cv, prm, None)) / n_plain
+    from wgpu_physics_engine_torch.ops.cloth_kernel import _FAMILIES
+
+    edges = sum((GRID - dr) * (GRID - abs(dc)) for dr, dc, _ in _FAMILIES)
+    b_ms, b_by = _bound(VJP_BYTES * GRID * GRID,
+                        OPS_VJP_EDGE * edges + OPS_VJP_PARTICLE * GRID * GRID)
+    res["vjp"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                  "bound_by": b_by}
+    print(f"phase 6 cloth_substep_vjp @{GRID}x{GRID} [{card}]: kernel "
+          f"{k_ms:.5f} ms/substep (walk of {FIT_SEG}), plain {p_ms:.5f} "
+          f"ms/substep (walk of {n_plain}), bound {b_ms:.5f} ms ({b_by}), "
+          f"kernel at {b_ms / k_ms:.4f} of the bound")
+    del traj
+
+    base = ClothParams.from_config(cfg, device=dev)
+    dt = torch.tensor(DT, device=dev)
+
+    def value_and_grad(n):
+        gr = torch.tensor(-9.81, device=dev, requires_grad=True)
+        y = dc.rollout(s0, base, gr, dt, True, n, dc.SEGMENT)
+        return torch.autograd.grad((y - dc.TARGET_Y) ** 2, gr)
+
+    vg = {}
+    for label, n, ctx in (("kernel", dc.N_SUBSTEPS, contextlib.nullcontext),
+                          ("plain", dc.SEGMENT, _plain_kernels)):
+        with ctx():
+            value_and_grad(n)
+            ts = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                value_and_grad(n)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t0)
+        rate = GRID * GRID * n / min(ts)
+        vg[label] = {"substeps": n, "s": ts, "psteps_per_s": rate}
+        print(f"phase 6 value_and_grad {label} @{GRID}x{GRID}, {n} substeps, "
+              f"segment {FIT_SEG} [{card}]: best {min(ts) * 1e3:.3f} ms of "
+              f"{', '.join(f'{t * 1e3:.3f}' for t in ts)} (host clock) = "
+              f"{rate:.4e} particle-steps/s")
+    res["value_and_grad"] = vg
+
+    k1 = {}
+    for side in (512, BIG):
+        c = ClothConfig(height=side, width=side)
+        s = init_cloth_state(c, device=dev)
+        pr = ClothParams.from_config(c, device=dev)
+        ms = _best_ms(lambda: cloth_kernel.multi_step_kernel(
+            s, pr, DT, 240)) / 240
+        bm, bb = _cloth_bound(side, side, 1, 240)
+        k1[str(side)] = {"ms": ms, "bound_ms": bm / 240, "bound_by": bb,
+                         "psteps_per_s": side * side / (ms / 1e3)}
+        print(f"phase 6 cloth_step (K1) @{side}x{side} [{card}]: {ms:.5f} "
+              f"ms/substep = {side * side / (ms / 1e3):.4e} particle-steps/s, "
+              f"bound {bm / 240:.5f} ms ({bb})")
+    res["k1_large"] = k1
+
+    # one traced value_and_grad of one segment
+    dev_spans, host = _trace(lambda: value_and_grad(dc.SEGMENT),
+                             os.path.join(OUT, "trace_value_and_grad.json"))
+    kinds = {"K1 substep_kernel": "substep_kernel",
+             "vjp_integrate": "vjp_integrate", "vjp_springs": "vjp_springs",
+             "reduce_partials": "reduce_partials"}
+    per = {}
+    for label, key in kinds.items():
+        ds = [b - a for a, b, name in dev_spans if key in name]
+        per[label] = {"launches": len(ds),
+                      "us_per_launch": sum(ds) / max(len(ds), 1)}
+    t0 = min([a for a, _ in host] + [a for a, _, _ in dev_spans])
+    t1 = max([b for _, b in host] + [b for _, b, _ in dev_spans])
+    spans = sorted((a, b) for a, b, _ in dev_spans)
+    busy = _union_us(spans)
+    # gaps between consecutive device ops: the short ones separate the
+    # launches of one C loop, the long ones are the host's work between
+    # them (autograd, the small torch ops around each segment)
+    gaps = sorted(max(0.0, spans[i + 1][0] - spans[i][1])
+                  for i in range(len(spans) - 1))
+    median = gaps[len(gaps) // 2] if gaps else 0.0
+    long_gaps = [g for g in gaps if g > 20.0]
+    res["trace"] = {"window_us": t1 - t0, "device_busy_us": busy,
+                    "device_ops": len(dev_spans), "per_kernel": per,
+                    "median_gap_us": median,
+                    "gaps_over_20us": {"n": len(long_gaps),
+                                       "us": sum(long_gaps),
+                                       "max_us": max(gaps, default=0.0)},
+                    "idle_share": 1.0 - busy / (t1 - t0)}
+    print(f"phase 7 trace value_and_grad, {dc.SEGMENT} substeps @{GRID}x{GRID} "
+          f"[{card}]: window {t1 - t0:.1f} us (host, profiled), device busy "
+          f"{busy:.1f} us in {len(dev_spans)} device ops; median gap between "
+          f"them {median:.3f} us, {len(long_gaps)} gaps over 20 us totalling "
+          f"{sum(long_gaps):.1f} us (largest {max(gaps, default=0.0):.1f}); "
+          + ", ".join(f"{k} {v['launches']} x {v['us_per_launch']:.3f} us"
+                      for k, v in per.items())
+          + f"; device idle share {1.0 - busy / (t1 - t0):.4f}")
+    _check(per["vjp_integrate"]["launches"] == dc.SEGMENT
+           and per["vjp_springs"]["launches"] == dc.SEGMENT,
+           f"value_and_grad trace: adjoint launches {per}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -772,7 +1162,8 @@ def main() -> int:
     from wgpu_physics_engine_torch.core.state import (ClothParams,
                                                       init_cloth_state)
     from wgpu_physics_engine_torch.models.scenes import ClothScene
-    from wgpu_physics_engine_torch.ops import _build, cloth_kernel, raster_kernel
+    from wgpu_physics_engine_torch.ops import (_build, cloth_grad_kernel,
+                                               cloth_kernel, raster_kernel)
     from wgpu_physics_engine_torch.parallel import datagen
     from wgpu_physics_engine_torch.render import camera as cam_mod
     from wgpu_physics_engine_torch.utils import viewer
@@ -781,16 +1172,30 @@ def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     results = {"card": card}
 
-    # ---- phase 2: build both kernels from the checkout's sources ----
+    # ---- phase 2: build the kernel libraries, one nvcc each, together ----
+    libs = {"cloth_step": cloth_kernel._SIGNATURES,
+            "sphere_raster": raster_kernel._SIGNATURES,
+            "cloth_grad": cloth_grad_kernel._SIGNATURES}
+    build_s = {}
+
+    def build(name):
+        t = time.time()
+        _build.build(name)
+        build_s[name] = time.time() - t
+
     t0 = time.time()
-    _build.load("cloth_step", cloth_kernel._SIGNATURES)
-    t1 = time.time()
-    _build.load("sphere_raster", raster_kernel._SIGNATURES)
-    t2 = time.time()
-    results["build_s"] = {"cloth_step": t1 - t0, "sphere_raster": t2 - t1}
-    print(f"phase 2 build: cloth_step {t1 - t0:.2f} s, sphere_raster "
-          f"{t2 - t1:.2f} s (nvcc {_build.nvcc_path()})")
-    for name in ("cloth_step", "sphere_raster"):
+    threads = [threading.Thread(target=build, args=(n,)) for n in libs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for name, sig in libs.items():
+        _build.load(name, sig)         # raises if a build failed
+    results["build_s"] = {**build_s, "all": time.time() - t0}
+    print(f"phase 2 build (in parallel): " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in build_s.items())
+        + f"; all {time.time() - t0:.2f} s (nvcc {_build.nvcc_path()})")
+    for name in libs:
         with open(os.path.join(_build.lib_dir(name), "build.log")) as f:
             for line in f:
                 if "registers" in line or "spill" in line:
@@ -1011,6 +1416,19 @@ def main() -> int:
     chunks, tex = dg.pop("chunks"), dg.pop("tex")
     dg["trace"] = _dg_trace(tex, chunks, card)
     results["datagen_times"] = dg
+    del chunks, tex, settled
+
+    # ---- phase 11: the substep adjoint vs its plain version ----
+    results["cloth_substep_vjp"], vjp_err = _phase11_adjoint(
+        scene.state, k240, params, dev, card)
+
+    # ---- phase 12: the training path, counted ----
+    results["training"] = _phase12_trainer(dev, card)
+    tr_launches = results["training"]["launches"]
+
+    # ---- phases 6 and 7 for the training path ----
+    gt = _grad_times(params, dev, card)
+    results["training_times"] = gt
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
 
@@ -1018,7 +1436,7 @@ def main() -> int:
         {"name": "cloth_step", "route": "cuda",
          "source": "wgpu_physics_engine_torch/ops/csrc/cloth_step.cu",
          "replaces": "wgpu_physics_engine_tpu/ops/cloth_pallas.py:195",
-         "launches": launches["cloth_step"],
+         "launches": launches["cloth_step"] + tr_launches["cloth_step"],
          "max_abs_err": max(e1, e240, efp), "ms": k_ms / n,
          "plain_ms": p_ms / n, "bound_ms": k1_bound / n, "bound_by": k1_by,
          "library_ms": None},
@@ -1035,6 +1453,13 @@ def main() -> int:
          "launches": launches["sphere_raster"] + dg_launches["sphere_raster"],
          "max_abs_err": max(r_err, r9_err), "ms": rk_ms, "plain_ms": rp_ms,
          "bound_ms": r_bound, "bound_by": r_by, "library_ms": None},
+        {"name": "cloth_substep_vjp", "route": "cuda",
+         "source": "wgpu_physics_engine_torch/ops/csrc/cloth_grad.cu",
+         "replaces": "wgpu_physics_engine_tpu/ops/cloth_pallas_grad.py:269",
+         "launches": tr_launches["cloth_substep_vjp"],
+         "max_abs_err": vjp_err, "ms": gt["vjp"]["ms"],
+         "plain_ms": gt["vjp"]["plain_ms"], "bound_ms": gt["vjp"]["bound_ms"],
+         "bound_by": gt["vjp"]["bound_by"], "library_ms": None},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,10 @@ JAX-importing ``tests/conftest.py``:
 
 Both kernels are built with ``-fmad=false`` and transcribe their plain
 versions op for op, so the exact paths are held to bitwise equality; the
-cloth kernel's fast_math path (rsqrt) to 1e-5 after 25 substeps.
+cloth kernel's fast_math path (rsqrt) to 1e-5 after 25 substeps. The
+substep adjoint (``csrc/cloth_grad.cu``) is held to its plain version
+within 1e-5 max-relative (its parameter cotangents are sums taken in
+another order), and ``multi_step_diff`` to the plain path within 1e-4.
 """
 
 import numpy as np
@@ -18,7 +21,8 @@ import torch
 from wgpu_physics_engine_torch.core import config as cfg
 from wgpu_physics_engine_torch.core import state as st
 from wgpu_physics_engine_torch.models import scenes
-from wgpu_physics_engine_torch.ops import cloth_kernel, raster_kernel
+from wgpu_physics_engine_torch.models import cloth
+from wgpu_physics_engine_torch.ops import cloth_grad_kernel, cloth_kernel, raster_kernel
 from wgpu_physics_engine_torch.render import camera
 
 DT = 1.0 / 480.0
@@ -241,3 +245,104 @@ def test_cli_gif_on_cuda(dev, tmp_path):
     assert rc == 0 and out.exists()
     assert cloth_kernel.LAUNCHES - k0 == 2 * 8      # 2 frames of 8 substeps
     assert raster_kernel.LAUNCHES - r0 == 2
+
+
+def _max_rel(a, b):
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max().clamp_min(1e-30))
+
+
+def _grad_state(dev, h, w, case):
+    """A state entering a substep and its pins: in free fall with random
+    velocities, draped on the globe (contact, friction and projection run),
+    or draped with the top row pinned."""
+    c = cfg.ClothConfig(height=h, width=w)
+    p = st.ClothParams.from_config(c, device=dev)
+    s = st.init_cloth_state(c, device=dev)
+    rng = np.random.default_rng(11)
+    if case == "free":
+        s = s._replace(vel=torch.tensor(
+            rng.standard_normal((3, h, w)).astype(np.float32), device=dev))
+    else:
+        s = cloth_kernel.multi_step(s, p, DT, 1500)
+        dist = torch.linalg.vector_norm(s.pos, dim=0)
+        assert bool((dist < 10.1).any())
+    if case == "pinned":
+        mask = torch.zeros((h, w), dtype=torch.bool, device=dev)
+        mask[0] = True
+        s = s._replace(pin_mask=mask, pin_pos=s.pos)
+    return s, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["free", "contact", "pinned"])
+def test_substep_vjp_kernel_matches_plain(dev, case):
+    h, w = 40, 70
+    s, p = _grad_state(dev, h, w, case)
+    prm = cloth_kernel._pack_params(p, DT)
+    planes = torch.cat([s.pos, s.vel])
+    rng = np.random.default_rng(12)
+    cp, cv = (torch.tensor(rng.standard_normal((3, h, w)).astype(np.float32),
+                           device=dev) for _ in range(2))
+    pins = None if s.pin_mask is None else (s.pin_mask, s.pin_pos)
+    before = cloth_grad_kernel.LAUNCHES
+    got = cloth_grad_kernel.substep_vjp(planes, cp, cv, prm, pins)
+    torch.cuda.synchronize()
+    assert cloth_grad_kernel.LAUNCHES == before + 1
+    ref = cloth_grad_kernel.substep_vjp_plain(planes, cp, cv, prm, pins)
+    for a, b in zip(got[:3], ref[:3]):
+        assert _max_rel(a, b) <= 1e-5
+    if pins is not None:
+        assert _max_rel(got[3], ref[3]) <= 1e-5
+        assert float(got[3].abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_trace_kernel_equals_forward(dev):
+    s, p = _grad_state(dev, 33, 70, "pinned")
+    prm = cloth_kernel._pack_params(p, DT)
+    before = cloth_kernel.LAUNCHES
+    traj = cloth_kernel.trace(s, prm, 9)
+    torch.cuda.synchronize()
+    assert cloth_kernel.LAUNCHES == before + 8
+    out = cloth_kernel.multi_step_kernel(s, p, DT, 8)
+    assert torch.equal(traj[8, :3], out.pos) and torch.equal(traj[8, 3:], out.vel)
+    assert torch.equal(traj, cloth_kernel.trace_plain(s, prm, 9))
+
+
+def _linear_loss_grads(state, params, n, segment, dev, wp, wv):
+    leaves = [a.detach().clone().requires_grad_(True) for a in params]
+    pos = state.pos.detach().clone().requires_grad_(True)
+    vel = state.vel.detach().clone().requires_grad_(True)
+    dt = torch.tensor(DT, device=dev, requires_grad=True)
+    s = state._replace(pos=pos, vel=vel)
+    out = cloth.multi_step_diff(s, st.ClothParams(*leaves), dt, n,
+                                segment=segment)
+    loss = (out.pos * wp).sum() + (out.vel * wv).sum()
+    return torch.autograd.grad(loss, [*leaves, pos, vel, dt]), out
+
+
+@pytest.mark.cuda
+def test_multi_step_diff_cuda_matches_cpu_plain(dev):
+    """The kernel path on the card against the plain path on the CPU, in
+    free fall with random velocities (no contact: the CPU's sqrt rounds
+    apart from the card's by an ulp, which could flip a contact test)."""
+    h, w = 24, 40
+    s, p = _grad_state(dev, h, w, "free")
+    rng = np.random.default_rng(13)
+    wp, wv = (torch.tensor(rng.standard_normal((3, h, w)).astype(np.float32))
+              for _ in range(2))
+    k0, g0 = cloth_kernel.LAUNCHES, cloth_grad_kernel.LAUNCHES
+    got, out = _linear_loss_grads(s, p, 48, 16, dev, wp.to(dev), wv.to(dev))
+    torch.cuda.synchronize()
+    assert cloth_grad_kernel.LAUNCHES - g0 == 48
+    assert cloth_kernel.LAUNCHES - k0 == 48 + 3 * 15     # forward + traces
+    cpu = st.ClothState(pos=s.pos.cpu(), vel=s.vel.cpu())
+    ref, _ = _linear_loss_grads(cpu, st.ClothParams(*(a.cpu() for a in p)),
+                                48, 16, "cpu", wp, wv)
+    for a, b in zip(got, ref):
+        if float(b.abs().max()) < 1e-6:
+            assert float(a.abs().max()) < 1e-6
+            continue
+        assert _max_rel(a.cpu(), b) <= 1e-4
+    assert torch.equal(out.pos, cloth_kernel.multi_step(s, p, DT, 48).pos)

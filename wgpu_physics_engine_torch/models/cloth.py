@@ -12,17 +12,20 @@ same fp32 expressions as the JAX stencil path.
 Semantics are ``forces.wgsl`` (``compute_springs``) followed by
 ``compute_movement.wgsl`` (``main``). ``jax.lax.scan`` over substeps
 becomes a Python loop; the fused kernel path is
-:mod:`wgpu_physics_engine_torch.ops.cloth_kernel`.
+:mod:`wgpu_physics_engine_torch.ops.cloth_kernel`, and
+:func:`multi_step_diff` is the differentiable fused path
+(:mod:`wgpu_physics_engine_torch.ops.cloth_grad_kernel`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..core.state import ClothParams, ClothState
+from ..ops import cloth_grad_kernel
 
 _EPS = 1e-6
 
@@ -46,8 +49,16 @@ def _edge_slices(h: int, w: int, dr: int, dc: int):
 
 
 def _norm(a: torch.Tensor) -> torch.Tensor:
-    """Euclidean norm over the leading (xyz) axis."""
-    return torch.sqrt(torch.sum(a * a, dim=0))
+    """Euclidean norm over the leading (xyz) axis, with a gradient-safe
+    zero (``_safe_norm`` of the JAX package): the primal is ``torch.sqrt``
+    bit for bit (sqrt(0) = 0), but the sqrt never sees 0, whose derivative
+    is inf (and inf times a ``where`` mask's 0 is NaN). An even grid puts
+    a particle at x = z = 0, whose friction tangent is exactly zero under
+    gravity alone."""
+    sq = torch.sum(a * a, dim=0)
+    positive = sq > 0
+    return torch.where(positive, torch.sqrt(torch.where(positive, sq, 1.0)),
+                       0.0)
 
 
 def _edge_force(p0, p1, v0, v1, k, c, rest):
@@ -149,6 +160,25 @@ def multi_step(state: ClothState, params: ClothParams, dt,
     for _ in range(n_steps):
         state = substep(state, params, dt)
     return state
+
+
+def multi_step_diff(state: ClothState, params: ClothParams, dt,
+                    n_steps: int, segment: Optional[int] = None) -> ClothState:
+    """Differentiable ``n_steps`` fused substeps of one world: the
+    counterpart of the JAX package's ``multi_step_diff``.
+
+    ``torch.autograd`` carries gradients with respect to ``state.pos``,
+    ``state.vel``, ``state.pin_pos``, every ``ClothParams`` leaf and
+    ``dt``. The forward is ``ops.cloth_kernel.multi_step`` run in segments
+    of ``segment`` substeps (default 64), so its output equals that
+    function's bit for bit; the backward re-runs each segment with the
+    same stepper and walks it in reverse with the hand-written adjoint of
+    one substep (``ops.cloth_grad_kernel``). A CPU state takes the plain
+    versions, a CUDA state the kernels (K1 and ``csrc/cloth_grad.cu``), at
+    every grid size: the TPU's size tiers and its XLA fallback have no
+    counterpart here."""
+    return cloth_grad_kernel.multi_step(state, params, dt, n_steps,
+                                        segment=segment)
 
 
 def frame_substeps(delta_time: float, time_scale: float, hz: float = 480.0,

@@ -1,3 +1,3 @@
-from . import cloth_kernel, raster_kernel
+from . import cloth_grad_kernel, cloth_kernel, raster_kernel
 
-__all__ = ["cloth_kernel", "raster_kernel"]
+__all__ = ["cloth_grad_kernel", "cloth_kernel", "raster_kernel"]

@@ -17,7 +17,11 @@ batch of worlds ``_multi_step_lanes`` → ``_lanes_kernel``, kernel K5, and
 * :func:`multi_step` takes the plain version for a CPU tensor and a
   kernel for a CUDA tensor, and raises for anything else. There is no
   fallback on CUDA, and no size limit: the TPU's VMEM routing
-  (``_VMEM_PARTICLE_LIMIT``) and lane folding have no counterpart here.
+  (``_VMEM_PARTICLE_LIMIT``) and lane folding have no counterpart here;
+* :func:`trace` re-runs substeps of one world with the same stepper and
+  keeps each substep's input state, ``[K, 6, H, W]``: the trajectory the
+  backward pass of ``ops/cloth_grad_kernel.py`` walks (the counterpart of
+  ``cloth_pallas_grad._trace_kernel``, which runs K1's body).
 
 All paths read one packed parameter vector per world (:func:`_pack_params`),
 so the damping factor ``speed_damp ** dt`` is computed once per call, as in
@@ -42,9 +46,9 @@ _FAMILIES = (
     (0, 2, 2), (2, 0, 2),     # bend 2-right, 2-down
 )
 
-# Kernel launches by :func:`multi_step_kernel` (one per substep): K1 for
-# one world, K5 for a batch. A run reads them to show that its path went
-# through the kernels.
+# Kernel launches by :func:`multi_step_kernel` and :func:`trace_kernel`
+# (one per substep): K1 for one world, K5 for a batch. A run reads them to
+# show that its path went through the kernels.
 LAUNCHES = 0
 LAUNCHES_BATCHED = 0
 
@@ -53,6 +57,8 @@ _SIGNATURES = {
                             + [ctypes.c_void_p],
     "wpe_cloth_multi_step_batched": [ctypes.c_void_p] * 9
                                     + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "wpe_cloth_trace": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p],
 }
 
 
@@ -110,8 +116,14 @@ def _family_masks(h, w, device):
 
 
 def _exact_dist_inv(d2):
-    """(dist, 1/dist) with the zero guard; d2 = squared distance."""
-    dist = torch.sqrt(d2)
+    """(dist, 1/dist) with the zero guard; d2 = squared distance.
+
+    Gradient-safe (``cloth_pallas_grad._gradsafe_dist_inv``): the sqrt
+    never sees 0, whose derivative is inf (and inf times a ``where``
+    mask's 0 is NaN). The primal is ``sqrtf`` bit for bit, NaN included,
+    since only d2 == 0 takes the guard."""
+    nonzero = d2 != 0
+    dist = torch.where(nonzero, torch.sqrt(torch.where(nonzero, d2, 1.0)), 0.0)
     safe = dist >= _EPS
     inv = torch.where(safe, 1.0 / torch.where(safe, dist, 1.0), 0.0)
     return dist, inv
@@ -124,17 +136,13 @@ def _fast_dist_inv(d2):
     return torch.where(pos_d2, d2 * inv, 0.0), torch.where(pos_d2, inv, 0.0)
 
 
-def _substep_planes(carry, masks, prm, dist_inv, pins=None):
-    """One substep on six ``[h, w]`` (or ``[B, h, w]``) planes (x, y, z, vx,
-    vy, vz): the transcription of ``cloth_pallas._substep_planes``. ``prm``
-    is the packed parameter vector as 16 0-d tensors, or for a batch as 16
-    ``[B, 1, 1]`` tensors; ``pins`` is ``(pin_bool, px, py, pz)``."""
+def _spring_planes(carry, masks, prm, dist_inv):
+    """The spring stencil of ``cloth_pallas._substep_planes``
+    (forces.wgsl:143-313): the force planes (fx, fy, fz), family by family
+    in ``_FAMILIES`` order, +E on the anchor and then -E shifted back onto
+    the other end."""
     x, y, z, vx, vy, vz = carry
     k, c, rest = prm[0:3], prm[3:6], prm[6:9]
-    k_contact, mu, mass, gravity = prm[9], prm[10], prm[11], prm[12]
-    damp_factor, min_dist, dt = prm[13], prm[14], prm[15]
-
-    # ---- spring stencil (forces.wgsl:143-313) ----
     fx = torch.zeros_like(x)
     fy = torch.zeros_like(x)
     fz = torch.zeros_like(x)
@@ -160,8 +168,17 @@ def _substep_planes(carry, masks, prm, dist_inv, pins=None):
         fx = fx - _shift(ex, -dr, -dc)
         fy = fy - _shift(ey, -dr, -dc)
         fz = fz - _shift(ez, -dr, -dc)
+    return fx, fy, fz
 
-    # ---- integrate (compute_movement.wgsl:70-174) ----
+
+def _integrate_planes(carry, force, prm, dist_inv, pins=None):
+    """Gravity → contact → friction → Euler + damping → projection → pins
+    (compute_movement.wgsl:70-174) on planes: the integration of
+    ``cloth_pallas._substep_planes``."""
+    x, y, z, vx, vy, vz = carry
+    fx, fy, fz = force
+    k_contact, mu, mass, gravity = prm[9], prm[10], prm[11], prm[12]
+    damp_factor, min_dist, dt = prm[13], prm[14], prm[15]
     fy = fy + mass * gravity
 
     dist, inv_d = dist_inv(x * x + y * y + z * z)
@@ -214,11 +231,20 @@ def _substep_planes(carry, masks, prm, dist_inv, pins=None):
     return x, y, z, vx, vy, vz
 
 
-def _plane_params(params: ClothParams, dt, state: ClothState):
-    """The packed vector as the 16 scalars :func:`_substep_planes` reads:
-    0-d for one world or shared parameters, ``[B, 1, 1]`` for per-world
-    ``[B]`` parameters of a batch."""
-    prm = _pack_params(params, dt).to(state.pos.device)
+def _substep_planes(carry, masks, prm, dist_inv, pins=None):
+    """One substep on six ``[h, w]`` (or ``[B, h, w]``) planes (x, y, z, vx,
+    vy, vz): the transcription of ``cloth_pallas._substep_planes``. ``prm``
+    is the packed parameter vector as 16 0-d tensors, or for a batch as 16
+    ``[B, 1, 1]`` tensors; ``pins`` is ``(pin_bool, px, py, pz)``."""
+    force = _spring_planes(carry, masks, prm, dist_inv)
+    return _integrate_planes(carry, force, prm, dist_inv, pins)
+
+
+def _plane_params(prm: torch.Tensor, state: ClothState):
+    """The packed vector (``[16]`` or ``[B, 16]``) as the 16 scalars
+    :func:`_substep_planes` reads: 0-d for one world or shared parameters,
+    ``[B, 1, 1]`` for per-world parameters of a batch."""
+    prm = prm.to(state.pos.device)
     if prm.ndim == 1:
         return prm.unbind(0)
     if state.pos.ndim != 4 or prm.shape[0] != state.pos.shape[0]:
@@ -227,24 +253,59 @@ def _plane_params(params: ClothParams, dt, state: ClothState):
     return prm[:, :, None, None].unbind(1)
 
 
+def _plain_pins(state: ClothState):
+    if state.pin_mask is None:
+        return None
+    return (state.pin_mask != 0, *state.pin_pos.unbind(-3))
+
+
 def multi_step_plain(state: ClothState, params: ClothParams, dt,
                      n_steps: int, fast_math: bool = False) -> ClothState:
     """``n_steps`` substeps of :func:`_substep_planes` on any device, for
     one world (``pos`` ``[3, H, W]``, 0-d params) or a batch (``pos``
     ``[B, 3, H, W]``, params ``[B]`` or shared 0-d; pins, if any, batched
     alongside: ``pin_mask`` ``[B, H, W]``, ``pin_pos`` ``[B, 3, H, W]``)."""
+    return multi_step_plain_packed(state, _pack_params(params, dt), n_steps,
+                                   fast_math)
+
+
+def multi_step_plain_packed(state: ClothState, prm: torch.Tensor,
+                            n_steps: int,
+                            fast_math: bool = False) -> ClothState:
+    """:func:`multi_step_plain` on the packed vector of
+    :func:`_pack_params`."""
     h, w = state.pos.shape[-2:]
-    prm = _plane_params(params, dt, state)
+    prm = _plane_params(prm, state)
     masks = _family_masks(h, w, state.pos.device)
     dist_inv = _fast_dist_inv if fast_math else _exact_dist_inv
-    pins = None
-    if state.pin_mask is not None:
-        pins = (state.pin_mask != 0, *state.pin_pos.unbind(-3))
+    pins = _plain_pins(state)
     carry = (*state.pos.unbind(-3), *state.vel.unbind(-3))
     for _ in range(n_steps):
         carry = _substep_planes(carry, masks, prm, dist_inv, pins)
     return state._replace(pos=torch.stack(carry[:3], dim=-3),
                           vel=torch.stack(carry[3:], dim=-3))
+
+
+def trace_plain(state: ClothState, prm: torch.Tensor,
+                n_states: int) -> torch.Tensor:
+    """The states entering substeps 0 .. n_states-1 of one world from
+    ``state`` (exact path): ``traj[s]`` is ``(x, y, z, vx, vy, vz)`` after
+    s substeps, ``[n_states, 6, H, W]``. Each comes from the same substep
+    as :func:`multi_step_plain_packed`, so ``traj[s]`` equals that
+    function's ``s`` substeps bit for bit."""
+    h, w = state.pos.shape[-2:]
+    plane = _plane_params(prm, state)
+    masks = _family_masks(h, w, state.pos.device)
+    pins = _plain_pins(state)
+    traj = torch.empty((n_states, 6, h, w), dtype=torch.float32,
+                       device=state.pos.device)
+    carry = (*state.pos.unbind(-3), *state.vel.unbind(-3))
+    for s in range(n_states):
+        if s:
+            carry = _substep_planes(carry, masks, plane, _exact_dist_inv,
+                                    pins)
+        traj[s] = torch.stack(carry)
+    return traj
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +328,13 @@ def multi_step_kernel(state: ClothState, params: ClothParams, dt,
     the single-world kernel (K1), a ``[B, 3, H, W]`` state the batched one
     (K5), with one parameter row per world (``[B]`` params, or shared 0-d
     params broadcast to every row)."""
-    global LAUNCHES, LAUNCHES_BATCHED
+    return multi_step_kernel_packed(state, _pack_params(params, dt), n_steps,
+                                    fast_math)
+
+
+def _kernel_inputs(state: ClothState, prm: torch.Tensor):
+    """Checked, contiguous kernel inputs: (pos, vel, the parameter table
+    ``lead + (16,)``, the pin pointers, lead, h, w)."""
     pos, vel = state.pos, state.vel
     if pos.device.type != "cuda":
         raise ValueError(f"cloth kernel needs CUDA tensors, got {pos.device}")
@@ -278,24 +345,34 @@ def multi_step_kernel(state: ClothState, params: ClothParams, dt,
     h, w = pos.shape[-2:]
     _check_plane(pos, lead + (3, h, w), pos.device, "pos")
     _check_plane(vel, lead + (3, h, w), pos.device, "vel")
-    if n_steps <= 0 or pos.numel() == 0:
-        return state
     pos, vel = pos.contiguous(), vel.contiguous()
-    prm = _pack_params(params, dt).to(pos.device)
-    if prm.shape[:-1] not in ((), lead):
+    prm = prm.detach().to(device=pos.device, dtype=torch.float32)
+    if prm.shape[:-1] not in ((), lead) or prm.shape[-1:] != (16,):
         raise ValueError(f"params: expected 0-d or {lead} leaves for a state "
                          f"of {tuple(pos.shape)}, got {tuple(prm.shape[:-1])}")
     prm = prm.expand(lead + (16,)).contiguous()
-    use_pins = state.pin_mask is not None
-    if use_pins:
+    pins = None
+    if state.pin_mask is not None:
         pin_mask = state.pin_mask.to(device=pos.device, dtype=torch.float32)
         pin_mask = pin_mask.contiguous()
         pin_pos = state.pin_pos.contiguous()
         _check_plane(pin_mask, lead + (h, w), pos.device, "pin_mask")
         _check_plane(pin_pos, lead + (3, h, w), pos.device, "pin_pos")
-        pin_ptrs = (pin_mask.data_ptr(), pin_pos.data_ptr())
-    else:
-        pin_ptrs = (None, None)
+        pins = (pin_mask, pin_pos)
+    return pos, vel, prm, pins, lead, h, w
+
+
+def multi_step_kernel_packed(state: ClothState, prm: torch.Tensor,
+                             n_steps: int,
+                             fast_math: bool = False) -> ClothState:
+    """:func:`multi_step_kernel` on the packed vector of
+    :func:`_pack_params` (``[16]``, or ``[B, 16]`` for a batch)."""
+    global LAUNCHES, LAUNCHES_BATCHED
+    pos, vel, prm, pins, lead, h, w = _kernel_inputs(state, prm)
+    if n_steps <= 0 or pos.numel() == 0:
+        return state
+    pin_ptrs = ((pins[0].data_ptr(), pins[1].data_ptr()) if pins
+                else (None, None))
     bufs = torch.empty((4,) + lead + (3, h, w), dtype=torch.float32,
                        device=pos.device)
     lib = _build.load("cloth_step", _SIGNATURES)
@@ -306,11 +383,12 @@ def multi_step_kernel(state: ClothState, params: ClothParams, dt,
         stream = torch.cuda.current_stream().cuda_stream
         if lead:
             err = lib.wpe_cloth_multi_step_batched(
-                *ptrs, lead[0], h, w, n_steps, int(use_pins), int(fast_math),
-                stream)
+                *ptrs, lead[0], h, w, n_steps, int(pins is not None),
+                int(fast_math), stream)
         else:
             err = lib.wpe_cloth_multi_step(
-                *ptrs, h, w, n_steps, int(use_pins), int(fast_math), stream)
+                *ptrs, h, w, n_steps, int(pins is not None), int(fast_math),
+                stream)
     _build.check(lib, err, "cloth_step launch")
     if lead:
         LAUNCHES_BATCHED += n_steps
@@ -318,6 +396,46 @@ def multi_step_kernel(state: ClothState, params: ClothParams, dt,
         LAUNCHES += n_steps
     out = bufs[0:2] if n_steps % 2 else bufs[2:4]
     return state._replace(pos=out[0], vel=out[1])
+
+
+def trace_kernel(state: ClothState, prm: torch.Tensor,
+                 n_states: int) -> torch.Tensor:
+    """:func:`trace_plain` with K1 (exact path): the start state is copied
+    into ``traj[0]`` and substep s reads ``traj[s]`` and writes
+    ``traj[s + 1]``, ``n_states - 1`` launches of the same kernel as
+    :func:`multi_step_kernel`, so the trajectory equals the forward bit for
+    bit. One world only."""
+    global LAUNCHES
+    pos, vel, prm, pins, lead, h, w = _kernel_inputs(state, prm)
+    if lead:
+        raise ValueError(f"trace takes one world, got {tuple(pos.shape)}")
+    traj = torch.empty((n_states, 6, h, w), dtype=torch.float32,
+                       device=pos.device)
+    if n_states <= 0:
+        return traj
+    traj[0, :3] = pos
+    traj[0, 3:] = vel
+    if n_states == 1 or pos.numel() == 0:
+        return traj
+    pin_ptrs = ((pins[0].data_ptr(), pins[1].data_ptr()) if pins
+                else (None, None))
+    lib = _build.load("cloth_step", _SIGNATURES)
+    with torch.cuda.device(pos.device):
+        err = lib.wpe_cloth_trace(
+            prm.data_ptr(), *pin_ptrs, traj.data_ptr(), h, w, n_states,
+            int(pins is not None), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "cloth_step trace launch")
+    LAUNCHES += n_states - 1
+    return traj
+
+
+def _dispatch(state: ClothState, plain, kernel):
+    dev = state.pos.device.type
+    if dev == "cpu":
+        return plain
+    if dev == "cuda":
+        return kernel
+    raise ValueError(f"no cloth stepper for device {state.pos.device}")
 
 
 def multi_step(state: ClothState, params: ClothParams, dt, n_steps: int,
@@ -329,9 +447,18 @@ def multi_step(state: ClothState, params: ClothParams, dt, n_steps: int,
 
     ``fast_math=True`` computes distances with rsqrt instead of
     sqrt + divide (≈1 ulp a step off the exact path)."""
-    dev = state.pos.device.type
-    if dev == "cpu":
-        return multi_step_plain(state, params, dt, n_steps, fast_math)
-    if dev == "cuda":
-        return multi_step_kernel(state, params, dt, n_steps, fast_math)
-    raise ValueError(f"no cloth stepper for device {state.pos.device}")
+    return multi_step_packed(state, _pack_params(params, dt), n_steps,
+                             fast_math)
+
+
+def multi_step_packed(state: ClothState, prm: torch.Tensor, n_steps: int,
+                      fast_math: bool = False) -> ClothState:
+    """:func:`multi_step` on the packed vector of :func:`_pack_params`."""
+    step = _dispatch(state, multi_step_plain_packed, multi_step_kernel_packed)
+    return step(state, prm, n_steps, fast_math)
+
+
+def trace(state: ClothState, prm: torch.Tensor, n_states: int) -> torch.Tensor:
+    """The trajectory ``[n_states, 6, H, W]`` of one world: CPU → the plain
+    version, CUDA → K1, any other device raises."""
+    return _dispatch(state, trace_plain, trace_kernel)(state, prm, n_states)

@@ -63,6 +63,32 @@ __global__ void __launch_bounds__(kBlockW * kBlockH)
                                       pos_out, vel_out, r, c, h, w);
 }
 
+// The trajectory of one world for the backward pass (ops/cloth_grad_kernel.py):
+// traj is f32 [n_states, 6, h, w] (pos planes then vel planes) with the
+// start state in traj[0]; substep s reads traj[s] and writes traj[s + 1],
+// one launch of the exact K1 kernel each, so traj[s] equals s substeps of
+// wpe_cloth_multi_step bit for bit. Replaces `_trace_kernel` (K7) and
+// `_trace_kernel_stream` (K9) of wgpu_physics_engine_tpu/ops/
+// cloth_pallas_grad.py, which rerun K1's body for the same purpose.
+template <bool PINS>
+cudaError_t trace(const float* params, const float* pin_mask,
+                  const float* pin_pos, float* traj, int h, int w,
+                  int n_states, cudaStream_t stream) {
+  const dim3 block(kBlockW, kBlockH);
+  const dim3 grid((w + kBlockW - 1) / kBlockW, (h + kBlockH - 1) / kBlockH);
+  const int64_t plane = static_cast<int64_t>(h) * w;
+  for (int s = 0; s + 1 < n_states; ++s) {
+    const float* src = traj + 6 * plane * s;
+    float* dst = traj + 6 * plane * (s + 1);
+    substep_kernel<false, PINS><<<grid, block, 0, stream>>>(
+        params, src, src + 3 * plane, pin_mask, pin_pos, dst, dst + 3 * plane,
+        h, w);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 // Batched worlds: the 1-D grid walks (world, tile) with the tiles of one
 // world adjacent; world offsets are 64-bit (4096 worlds of 3 x 60 x 60
 // floats are 44M floats a plane set, and larger batches or grids pass
@@ -205,4 +231,18 @@ extern "C" int wpe_cloth_multi_step_batched(
              : run_batched<false, false>(params, pos_in, vel_in, pin_mask,
                                          pin_pos, pos_a, vel_a, pos_b, vel_b,
                                          n_worlds, h, w, n_steps, s);
+}
+
+// n_states - 1 exact substeps of one world along the trajectory traj (see
+// `trace` above); params f32 [16], pin_mask f32 [h, w], pin_pos f32
+// [3, h, w] (ignored when use_pins is 0).
+extern "C" int wpe_cloth_trace(const float* params, const float* pin_mask,
+                               const float* pin_pos, float* traj, int h,
+                               int w, int n_states, int use_pins,
+                               void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return use_pins
+             ? trace<true>(params, pin_mask, pin_pos, traj, h, w, n_states, s)
+             : trace<false>(params, pin_mask, pin_pos, traj, h, w, n_states,
+                            s);
 }

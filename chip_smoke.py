@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths through the entry points a user calls,
+Drives the port's four paths through the entry points a user calls,
 after building the hand-written CUDA kernels from ``ops/csrc`` and holding
 each against its plain torch version on the card: the flagship scene, a
 256×256 mass-spring cloth over the lit, textured globe, stepped 5
@@ -14,10 +14,13 @@ frames and compressed (``generate_trajectory_dataset`` and the CLI's
 ``datagen``/``decode``); and training through the simulator, the gravity
 fit of ``examples/differentiable_cloth.py`` at 256² through
 ``models.cloth.multi_step_diff`` (K1 forward, the substep adjoint of
-``ops/csrc/cloth_grad.cu`` backward). Phases:
+``ops/csrc/cloth_grad.cu`` backward); and the granular pile, 1M particles
+with sorted-grid contact stepped 2 simulated seconds at 240 Hz through
+the granular kernel of ``ops/csrc/granular_step.cu`` and rendered
+(``GranularScene`` and the CLI's ``granular``). Phases:
 
 1. the card: CUDA present, ``nvidia-smi`` name and power limit;
-2. the build of the three kernel libraries (one nvcc each, all started
+2. the build of the four kernel libraries (one nvcc each, all started
    together, timed);
 3. the cloth kernel vs its plain version at 256² with the top row pinned:
    1 substep <= 1e-6 abs, 240 substeps <= 1e-5 on pos, fast_math vs the
@@ -83,16 +86,44 @@ codec and copy with the device's idle share.
    1e-3 of its target.
 
 Then phases 6 and 7 for the training path: the adjoint per substep beside
-its plain version and bound, value_and_grad of 480 substeps at 256²
-(particle-steps/s; the plain path on 48), K1 per substep at 512² and
-1024², and one ``torch.profiler`` trace of a 48-substep value_and_grad
-with the kernel time per launch, the gaps and the device's idle share.
+its plain version and bound at 256² and at 1024², value_and_grad of 480
+substeps at 256² (particle-steps/s; the plain path on 48), K1 per substep
+at 512² and 1024², and one ``torch.profiler`` trace of a 48-substep
+value_and_grad with the kernel time per launch, the gaps and the device's
+idle share.
+
+13. the granular kernel (K10) vs its plain version at 1M particles over
+   the rebuild's candidate set, for the default configuration and the
+   bench's (thin CIV, slab 640, rebuild every 16), on the fresh lattice
+   (there also the window formulation and an undersized slab, whose
+   dropped count must be above zero) and on phase 14's pile: one substep
+   pos and vel <= 1e-5, one rebuild block pos <= 1e-5 and vel <= 1e-4; the
+   share of particles in contact (above zero on the pile) and the dropped
+   count, exact and the fast indicator;
+14. the granular main path, with the launch counters reset just before it
+   and read just after: ``GranularScene`` at 1M, ``simulate(2.0)`` at 240
+   Hz, a 256×256 frame and the ``granular`` CLI; K10 launched once a
+   substep, all finite and inside the box, the pile fallen, the ensemble
+   (mean and max height, kinetic energy) within 1e-2 relative of the plain
+   version's run of the same scene, sand and wireframe pixels in the frame
+   and the CLI's PNG; then the raster kernel against its plain version on
+   that frame's own bins (1M instances), as in phase 4.
+
+Then phases 6 and 7 for the granular path: K10 per substep at 1M beside
+its plain version and its bound from the run's candidate slots (10
+operations each) and touching pairs (11 more each) (both
+configurations on the fresh lattice, the default one on the pile), the
+rebuild, ``multi_step``'s particle-steps/s (bench configuration, 64
+substeps, best of 3: the counterpart of ``bench.py``'s ``granular_1m``),
+and one ``torch.profiler`` trace of a rebuild block split into rebuild,
+K10 and idle.
 
 Any failed check raises, so the script exits non-zero; with no CUDA device
 it exits non-zero before doing anything. The next-to-last line of stdout is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``. The
 ``cloth_step`` launches are those of phases 5 and 12 (K1 steps the
-flagship and runs the training path's forward and traces).
+flagship and runs the training path's forward and traces); the raster's
+those of phases 5, 10 and 14.
 Images and the full results go to ``chiprun_out/``.
 """
 
@@ -162,6 +193,26 @@ VJP_BYTES = 72
 FIT_SEG = 48
 BIG = 1024
 BIG_STEPS = 4
+# the granular slice (BASELINE.json configs[2]): particles, substep, the
+# main path's simulated seconds (scene) and the CLI's, its frame, the
+# bench's configuration (bench.py:172) and its substeps (bench.py:153)
+GR_N = 1_000_000
+GR_DT = 1.0 / 240.0
+GR_SECONDS = 2.0
+GR_CLI_SECONDS = 1.0
+GR_FRAME = (256, 256)
+GR_BENCH = dict(rebuild_every=16, pallas_slab=640, thin=True)
+GR_MS_STEPS = 64
+SAND = (0.86, 0.65, 0.35)
+# fp32 operations of K10 per candidate slot (difference 3, d2 5, the two
+# tests 2), per touching pair on top (sqrt and divide 2, weight 3, sums 6)
+# and per particle (gravity 1, velocity 6, position 6, per axis 4
+# compares, a clamp of 2 and the reflection 1); bytes a particle (pos and
+# vel read, the cid read, pos and vel written)
+OPS_SLOT = 10
+OPS_TOUCH = 11
+OPS_GR_PARTICLE = 34
+GR_BYTES = 52
 
 
 def _check(cond: bool, what: str) -> None:
@@ -294,6 +345,47 @@ def _profile(scene, params, wins, card) -> dict:
     return res
 
 
+def _raster_vs_plain(wins, ocb, dirs, znear, label: str, min_hits: float):
+    """The raster kernel against its plain version on one world's bins:
+    hit agreement and the winner on >= 0.9999 of the pixels and hits, tmin
+    (where both hit) and the winner's centre (where the winners agree)
+    <= 1e-6, a miss exactly (+inf, 0), and more than ``min_hits`` hits."""
+    import torch
+
+    from wgpu_physics_engine_torch.ops import raster_kernel
+
+    h, w = dirs.shape[-2:]
+    kt, ki, ko = raster_kernel.sphere_raster_kernel(wins, ocb, dirs, znear)
+    pt, pi, po = raster_kernel.sphere_raster_plain(ocb, dirs, znear)
+    torch.cuda.synchronize()
+    hit_k, hit_p = ki >= 0, pi >= 0
+    agree = float((hit_k == hit_p).float().mean())
+    both = hit_k & hit_p
+    same = (ki == pi) & hit_k
+    n_hit = int(hit_k.sum())
+    n_same = int(same.sum())
+    # tmin on every pixel both sides hit, whoever won; oc where the
+    # winner agrees; misses must be exactly (+inf, 0) on both sides
+    et = _maxdiff(kt[both], pt[both]) if bool(both.any()) else 0.0
+    eo = _maxdiff(ko[:, same], po[:, same]) if n_same else 0.0
+    miss = ~hit_k
+    miss_ok = bool(torch.isinf(kt[miss]).all()
+                   and (ko[:, miss] == 0).all())
+    bitwise = bool(torch.equal(ki, pi) and torch.equal(kt, pt)
+                   and torch.equal(ko, po))
+    print(f"{label}: hit agree {agree:.6f} (>=0.9999), hits {n_hit}, "
+          f"same winner {n_same} (>=0.9999 of hits), tmin {et:.3e} "
+          f"oc {eo:.3e} (<=1e-6), bitwise {bitwise}")
+    _check(n_hit > min_hits, f"raster {h}x{w}: only {n_hit} hits")
+    _check(agree >= 0.9999, f"raster {h}x{w} hit agreement {agree}")
+    _check(n_same >= 0.9999 * n_hit,
+           f"raster {h}x{w}: winner agrees on {n_same} of {n_hit} hits")
+    _check(et <= 1e-6 and eo <= 1e-6, f"raster {h}x{w} diff {et} {eo}")
+    _check(miss_ok, f"raster {h}x{w}: a miss is not (+inf, 0)")
+    return {"hit_agree": agree, "hits": n_hit, "same_winner": n_same,
+            "err_tmin": et, "err_oc": eo, "bitwise": bitwise}
+
+
 def _bound(nbytes: float, ops: float):
     """The least time (ms) the card could take: the larger of the bytes over
     HBM bandwidth and the fp32 operations over the fp32 peak, and which."""
@@ -361,27 +453,30 @@ def _dg_frame(tex, chunks, codec_k):
 @contextlib.contextmanager
 def _plain_kernels():
     """Inside, the kernels' wrappers (the cloth stepper and its trace, the
-    substep adjoint's walk, the raster) run their plain versions on the
-    card and count no launch, so a path runs its own code with the plain
-    versions."""
+    substep adjoint's walk, the raster, the granular substep) run their
+    plain versions on the card and count no launch, so a path runs its own
+    code with the plain versions."""
     from wgpu_physics_engine_torch.ops import (cloth_grad_kernel, cloth_kernel,
-                                               raster_kernel)
+                                               granular_kernel, raster_kernel)
 
     saved = (cloth_kernel.multi_step_kernel_packed, cloth_kernel.trace_kernel,
              cloth_grad_kernel._walk_kernel,
-             raster_kernel.sphere_raster_kernel)
+             raster_kernel.sphere_raster_kernel,
+             granular_kernel.substep_sorted_kernel)
     cloth_kernel.multi_step_kernel_packed = cloth_kernel.multi_step_plain_packed
     cloth_kernel.trace_kernel = cloth_kernel.trace_plain
     cloth_grad_kernel._walk_kernel = cloth_grad_kernel._walk_plain
     raster_kernel.sphere_raster_kernel = (
         lambda wins, ocb, dirs, znear:
         raster_kernel.sphere_raster_plain(ocb, dirs, znear))
+    granular_kernel.substep_sorted_kernel = granular_kernel.substep_sorted_plain
     try:
         yield
     finally:
         (cloth_kernel.multi_step_kernel_packed, cloth_kernel.trace_kernel,
          cloth_grad_kernel._walk_kernel,
-         raster_kernel.sphere_raster_kernel) = saved
+         raster_kernel.sphere_raster_kernel,
+         granular_kernel.substep_sorted_kernel) = saved
 
 
 def _classify(img):
@@ -1052,6 +1147,29 @@ def _grad_times(params, dev, card) -> dict:
           f"kernel at {b_ms / k_ms:.4f} of the bound")
     del traj
 
+    # the adjoint at 1024² (the size of JAX's streamed tier, K9)
+    cfg_big = ClothConfig(height=BIG, width=BIG)
+    s_big = init_cloth_state(cfg_big, device=dev)
+    prm_big = cloth_kernel._pack_params(
+        ClothParams.from_config(cfg_big, device=dev), DT).to(dev)
+    n_big, n_big_plain = 8, 2
+    traj = cloth_kernel.trace(s_big, prm_big, n_big)
+    cp, cv = (torch.randn((3, BIG, BIG), generator=g).to(dev) for _ in range(2))
+    kb_ms = _best_ms(lambda: cloth_grad_kernel._walk_kernel(
+        traj, cp, cv, prm_big, None)) / n_big
+    pb_ms = _best_ms(lambda: cloth_grad_kernel._walk_plain(
+        traj[:n_big_plain], cp, cv, prm_big, None)) / n_big_plain
+    edges_big = sum((BIG - dr) * (BIG - abs(dc)) for dr, dc, _ in _FAMILIES)
+    bb_ms, bb_by = _bound(VJP_BYTES * BIG * BIG,
+                          OPS_VJP_EDGE * edges_big + OPS_VJP_PARTICLE * BIG * BIG)
+    res["vjp_1024"] = {"ms": kb_ms, "plain_ms": pb_ms, "bound_ms": bb_ms,
+                       "bound_by": bb_by}
+    print(f"phase 6 cloth_substep_vjp @{BIG}x{BIG} [{card}]: kernel "
+          f"{kb_ms:.5f} ms/substep (walk of {n_big}), plain {pb_ms:.5f} "
+          f"ms/substep (walk of {n_big_plain}), bound {bb_ms:.5f} ms "
+          f"({bb_by}), kernel at {bb_ms / kb_ms:.4f} of the bound")
+    del traj
+
     base = ClothParams.from_config(cfg, device=dev)
     dt = torch.tensor(DT, device=dev)
 
@@ -1138,6 +1256,292 @@ def _grad_times(params, dev, card) -> dict:
     return res
 
 
+def _gr_configs() -> dict:
+    """The granular pile at full width: the default configuration and the
+    bench's (``bench.py:172``)."""
+    from wgpu_physics_engine_torch.models.granular import GranularConfig
+
+    return {"default": GranularConfig(num_particles=GR_N),
+            "bench": GranularConfig(num_particles=GR_N, **GR_BENCH)}
+
+
+def _k10_case(state, cfg, label, card, need_drop=False):
+    """Phase 13 on one state and configuration: K10 against its plain
+    version over the rebuild's candidate set, one substep (pos and vel
+    <= 1e-5) and one rebuild block (pos <= 1e-5, vel <= 1e-4); the share of
+    particles in contact and the dropped count (exact, and the fast
+    indicator)."""
+    import torch
+
+    from wgpu_physics_engine_torch.models import granular
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    n = state.pos.shape[-1]
+    grid, slabs, d_exact = granular.rebuild(state.pos, state.vel, cfg,
+                                            stats=True)
+    _, _, d_fast = granular.rebuild(state.pos, state.vel, cfg)
+    prm = gk.kernel_params(cfg, GR_DT, state.pos.device)
+    p0, v0 = grid.sorted_pos, grid.sorted_vel
+    before = gk.LAUNCHES
+    kp, kv = gk.substep_sorted_kernel(p0, v0, prm, slabs)
+    torch.cuda.synchronize()
+    launched = gk.LAUNCHES - before
+    pp, pv = gk.substep_sorted_plain(p0, v0, prm, slabs)
+    e1 = max(_maxdiff(kp, pp), _maxdiff(kv, pv))
+    for _ in range(cfg.rebuild_every - 1):
+        kp, kv = gk.substep_sorted_kernel(kp, kv, prm, slabs)
+        pp, pv = gk.substep_sorted_plain(pp, pv, prm, slabs)
+    torch.cuda.synchronize()
+    eb_p, eb_v = _maxdiff(kp, pp), _maxdiff(kv, pv)
+    (a_lo, a_hi), (b_lo, b_hi) = gk.slab_ranges(slabs, n)
+    f = (gk._pass_sums(p0, a_lo, a_hi, prm[0], prm[1])
+         + gk._pass_sums(p0, b_lo, b_hi, prm[0], prm[1]))
+    contact = float((f != 0).any(0).float().mean())
+    cand = gk.candidate_count(slabs, n)
+    finite = bool(torch.isfinite(kp).all() and torch.isfinite(kv).all())
+    print(f"phase 13 granular_step (K10) {label} @{n} [{card}]: 1 substep "
+          f"{e1:.3e} (<=1e-5); {cfg.rebuild_every}-substep block pos "
+          f"{eb_p:.3e} (<=1e-5) vel {eb_v:.3e} (<=1e-4); launches {launched}; "
+          f"candidates {cand} ({cand / n:.2f} a particle); particles in "
+          f"contact {contact:.4f}; dropped exact {int(d_exact)}, fast "
+          f"indicator {int(d_fast)}; finite {finite}")
+    _check(launched == 1, f"K10 {label} launched {launched} times")
+    _check(e1 <= 1e-5, f"K10 {label} 1 substep diff {e1}")
+    _check(eb_p <= 1e-5 and eb_v <= 1e-4,
+           f"K10 {label} block diff {eb_p} {eb_v}")
+    _check(finite, f"K10 {label} state not finite")
+    if need_drop:
+        _check(int(d_exact) > 0, f"K10 {label}: the slab is not undersized")
+    return {"err_1": e1, "err_block_pos": eb_p, "err_block_vel": eb_v,
+            "candidates": cand, "contact_share": contact,
+            "dropped_exact": int(d_exact), "dropped_fast": int(d_fast)}, \
+        max(e1, eb_p, eb_v)
+
+
+def _phase13_k10(state, label, card, extra: bool):
+    """Phase 13: K10 vs plain at 1M for the default and the bench
+    configuration; with ``extra`` also the window formulation (civ=False)
+    and an undersized slab (block 256, slab 128)."""
+    import dataclasses
+
+    res, err = {}, 0.0
+    cases = dict(_gr_configs())
+    if extra:
+        d = cases["default"]
+        cases["windows"] = dataclasses.replace(d, civ=False)
+        cases["undersized"] = dataclasses.replace(d, pallas_block=256,
+                                                  pallas_slab=128)
+    for name, cfg in cases.items():
+        res[name], e = _k10_case(state, cfg, f"{label} {name}", card,
+                                 need_drop=name == "undersized")
+        err = max(err, e)
+    return res, err
+
+
+def _pile_stats(state) -> dict:
+    """The ensemble of a pile: mean and max height, kinetic energy a
+    particle (unit mass)."""
+    v2 = (state.vel.double() ** 2).sum(0)
+    return {"y_mean": float(state.pos[1].double().mean()),
+            "y_max": float(state.pos[1].max()),
+            "ke": float(0.5 * v2.mean())}
+
+
+def _gr_pixels(img):
+    """(sand, blue) pixel counts of a float [H, W, 3] or uint8 frame."""
+    import numpy as np
+
+    img = np.asarray(img, np.float64)
+    if img.max() > 1.5:
+        img = img / 255.0
+    sand = (np.abs(img - np.asarray(SAND)).max(-1) <= 0.5 / 255).sum()
+    blue = (np.abs(img - np.asarray([0.0, 0.0, 1.0])).max(-1)
+            <= 0.5 / 255).sum()
+    return int(sand), int(blue)
+
+
+def _phase14_granular(dev, card, cli_main):
+    """Phase 14: the granular main path, counted: GranularScene at 1M,
+    simulate 2 s at 240 Hz, a frame, and the CLI; the checks on it and the
+    ensemble against the plain version's run of the same scene."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from wgpu_physics_engine_torch.models.scenes import GranularScene
+    from wgpu_physics_engine_torch.ops import granular_kernel, raster_kernel
+    from wgpu_physics_engine_torch.render import camera as cam_mod
+    from wgpu_physics_engine_torch.utils import viewer
+
+    cfg = _gr_configs()["default"]
+    fh, fw = GR_FRAME
+    png = os.path.join(OUT, "granular_cli.png")
+    scene = GranularScene(cfg, device=dev)
+    scene.resize(fw, fh)
+    y_start = float(scene.state.pos[1].mean())
+    torch.cuda.synchronize()
+    granular_kernel.LAUNCHES = 0
+    raster_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    scene.simulate(GR_SECONDS)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    img = scene.render(fh, fw)
+    rc = cli_main(["granular", "--particles", str(GR_N), "--size", str(fh),
+                   str(fw), "--seconds", str(GR_CLI_SECONDS), "--out", png,
+                   "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {"granular_step": granular_kernel.LAUNCHES,
+                "sphere_raster": raster_kernel.LAUNCHES}
+    substeps = round(GR_SECONDS * 240) + round(GR_CLI_SECONDS * 240)
+    print(f"phase 14 granular main path [{card}]: GranularScene("
+          f"GranularConfig(num_particles={GR_N})) simulate({GR_SECONDS}) "
+          f"{sim_s:.3f} s host clock ({round(GR_SECONDS * 240)} substeps, "
+          f"dropped {scene.dropped}) + render{GR_FRAME} + CLI --seconds "
+          f"{GR_CLI_SECONDS} (rc {rc}); launches {launches}, substeps "
+          f"{substeps}")
+    _check(rc == 0, f"granular CLI returned {rc}")
+    _check(launches["granular_step"] == substeps,
+           f"K10 launched {launches['granular_step']} times, not {substeps}")
+    _check(launches["sphere_raster"] >= 2, f"raster launches {launches}")
+    viewer.save_png(img, os.path.join(OUT, "granular.png"))
+
+    # the raster kernel at this path's shapes (1M instances of radius 0.04),
+    # held against its plain version on the frame's own bins (the counts
+    # are already read)
+    cam = scene.camera()
+    eye, dirs = cam_mod.pixel_rays(cam, fh, fw)
+    wins, ocb, _ = raster_kernel.tiled_prologue(
+        cam.view[:3, :3], eye, scene.state.pos.T, float(cfg.radius),
+        cam.znear, torch.tan(cam.fovy_rad / 2.0), cam.aspect, fh, fw)
+    raster = _raster_vs_plain(
+        wins, ocb, dirs, cam.znear, f"phase 14 sphere_raster vs plain "
+        f"@{fh}x{fw}, {GR_N} instances (the granular frame)", 100)
+    del wins, ocb, dirs
+
+    pos = scene.state.pos
+    limit = torch.tensor(cfg.bounds - cfg.radius, dtype=torch.float32)
+    finite = bool(torch.isfinite(pos).all()
+                  and torch.isfinite(scene.state.vel).all())
+    inside = float(pos.abs().max()) <= float(limit)
+    got = _pile_stats(scene.state)
+    with _plain_kernels():
+        ref_scene = GranularScene(cfg, device=dev)
+        t0 = time.perf_counter()
+        ref_scene.simulate(GR_SECONDS)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    ref = _pile_stats(ref_scene.state)
+    rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in got}
+    sand, blue = _gr_pixels(img)
+    cli_sand, cli_blue = _gr_pixels(np.asarray(Image.open(png).convert("RGB"))
+                                    if os.path.exists(png) else
+                                    np.zeros((1, 1, 3)))
+    print(f"phase 14 pile: finite {finite}, |pos| <= bounds - radius "
+          f"{inside}, mean height {y_start:.5f} -> {got['y_mean']:.5f}; "
+          f"kernel vs plain run ({plain_s:.3f} s host clock) {got} vs {ref}, "
+          f"relative {rel} (<=1e-2); frame {fh}x{fw} sand px {sand}, "
+          f"wireframe px {blue}; CLI png sand px {cli_sand}, wireframe px "
+          f"{cli_blue}")
+    _check(finite, "granular state not finite")
+    _check(inside, "a particle left the box")
+    _check(got["y_mean"] < y_start, "the pile did not fall")
+    _check(all(v <= 1e-2 for v in rel.values()),
+           f"granular ensemble off: {rel}")
+    _check(sand > 100 and blue > 100, f"frame lacks sand/wireframe: "
+           f"{sand} {blue}")
+    _check(cli_sand > 100 and cli_blue > 100,
+           f"CLI png lacks sand/wireframe: {cli_sand} {cli_blue}")
+    del ref_scene
+    return {"launches": launches, "substeps": substeps, "simulate_s": sim_s,
+            "plain_simulate_s": plain_s, "dropped": scene.dropped,
+            "raster": raster,
+            "y_start": y_start, "kernel": got, "plain": ref, "rel": rel,
+            "sand_px": sand, "wire_px": blue, "cli_sand_px": cli_sand,
+            "cli_wire_px": cli_blue}, scene.state
+
+
+def _gr_times(fresh, settled, card) -> dict:
+    """Phases 6 and 7 for the granular path: K10 a substep at 1M (both
+    configurations on the fresh lattice, the default one on the settled
+    pile) beside its plain version and its bound from this run's candidate
+    slots and touching pairs, the rebuild, multi_step's particle-steps/s (64 substeps, bench
+    configuration, best of 3, the counterpart of ``granular_1m``), and one
+    torch.profiler trace of a rebuild block split into rebuild, K10 and
+    idle."""
+    import torch
+
+    from wgpu_physics_engine_torch.models import granular
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    res = {}
+    cases = [(f"{k} fresh", c, fresh) for k, c in _gr_configs().items()]
+    cases.append(("default settled", _gr_configs()["default"], settled))
+    for label, cfg, st in cases:
+        n = st.pos.shape[-1]
+        grid, slabs, _ = granular.rebuild(st.pos, st.vel, cfg)
+        prm = gk.kernel_params(cfg, GR_DT, st.pos.device)
+        p0, v0 = grid.sorted_pos, grid.sorted_vel
+        k_ms = _best_ms(lambda: gk.substep_sorted_kernel(p0, v0, prm, slabs))
+        p_ms = _best_ms(lambda: gk.substep_sorted_plain(p0, v0, prm, slabs))
+        r_ms = _best_ms(lambda: granular.rebuild(st.pos, st.vel, cfg))
+        cand = gk.candidate_count(slabs, n)
+        touch = gk.touching_count(p0, prm, slabs)
+        b_ms, b_by = _bound(GR_BYTES * n, OPS_SLOT * cand + OPS_TOUCH * touch
+                            + OPS_GR_PARTICLE * n)
+        res[label] = {"ms": k_ms, "plain_ms": p_ms, "rebuild_ms": r_ms,
+                      "candidates": cand, "touching": touch,
+                      "bound_ms": b_ms, "bound_by": b_by}
+        print(f"phase 6 granular_step (K10) {label} @{n} [{card}]: kernel "
+              f"{k_ms:.4f} ms/substep, plain {p_ms:.4f} ms/substep, bound "
+              f"{b_ms:.5f} ms ({b_by}; {cand} candidate slots, {touch} "
+              f"touching), kernel at {b_ms / k_ms:.4f} of the bound; rebuild "
+              f"{r_ms:.4f} ms")
+
+    cfg = _gr_configs()["bench"]
+    ts = []
+    for i in range(4):                         # a warm-up, then best of 3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        granular.multi_step(fresh, cfg, GR_DT, GR_MS_STEPS)
+        torch.cuda.synchronize()
+        if i:
+            ts.append(time.perf_counter() - t0)
+    n = fresh.pos.shape[-1]
+    rate = n * GR_MS_STEPS / min(ts)
+    res["multi_step_bench"] = {"substeps": GR_MS_STEPS, "s": ts,
+                               "psteps_per_s": rate}
+    print(f"phase 6 granular multi_step bench config (rebuild_every 16, "
+          f"slab 640, thin) @{n}, {GR_MS_STEPS} substeps [{card}]: best "
+          f"{min(ts) * 1e3:.3f} ms of {', '.join(f'{t * 1e3:.3f}' for t in ts)}"
+          f" (host clock) = {rate:.4e} particle-steps/s")
+
+    cfg = _gr_configs()["default"]
+    dev_spans, host = _trace(
+        lambda: granular._run_block_kernel(fresh.pos, fresh.vel, cfg, GR_DT,
+                                           cfg.rebuild_every),
+        os.path.join(OUT, "trace_granular_block.json"))
+    k10 = [b - a for a, b, name in dev_spans if "granular_step" in name]
+    other = [b - a for a, b, name in dev_spans if "granular_step" not in name]
+    t0 = min([a for a, _ in host] + [a for a, _, _ in dev_spans])
+    t1 = max([b for _, b in host] + [b for _, b, _ in dev_spans])
+    busy = _union_us([(a, b) for a, b, _ in dev_spans])
+    res["trace_block"] = {"window_us": t1 - t0, "device_busy_us": busy,
+                          "k10_launches": len(k10), "k10_us": sum(k10),
+                          "rebuild_us": sum(other),
+                          "rebuild_ops": len(other),
+                          "idle_share": 1.0 - busy / (t1 - t0)}
+    print(f"phase 7 trace one rebuild block (default, {cfg.rebuild_every} "
+          f"substeps) @{n} [{card}]: window {t1 - t0:.1f} us (host, "
+          f"profiled), device busy {busy:.1f} us: K10 {len(k10)} x "
+          f"{sum(k10) / max(len(k10), 1):.1f} us, rebuild {sum(other):.1f} us "
+          f"in {len(other)} device ops; device idle share "
+          f"{1.0 - busy / (t1 - t0):.4f}")
+    _check(len(k10) == cfg.rebuild_every,
+           f"granular trace shows {len(k10)} K10 launches")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1163,7 +1567,8 @@ def main() -> int:
                                                       init_cloth_state)
     from wgpu_physics_engine_torch.models.scenes import ClothScene
     from wgpu_physics_engine_torch.ops import (_build, cloth_grad_kernel,
-                                               cloth_kernel, raster_kernel)
+                                               cloth_kernel, granular_kernel,
+                                               raster_kernel)
     from wgpu_physics_engine_torch.parallel import datagen
     from wgpu_physics_engine_torch.render import camera as cam_mod
     from wgpu_physics_engine_torch.utils import viewer
@@ -1175,7 +1580,8 @@ def main() -> int:
     # ---- phase 2: build the kernel libraries, one nvcc each, together ----
     libs = {"cloth_step": cloth_kernel._SIGNATURES,
             "sphere_raster": raster_kernel._SIGNATURES,
-            "cloth_grad": cloth_grad_kernel._SIGNATURES}
+            "cloth_grad": cloth_grad_kernel._SIGNATURES,
+            "granular_step": granular_kernel._SIGNATURES}
     build_s = {}
 
     def build(name):
@@ -1248,39 +1654,12 @@ def main() -> int:
         wins, ocb, _ = raster_kernel.tiled_prologue(
             cam.view[:3, :3], eye, centers, cfg.particle_radius, cam.znear,
             torch.tan(cam.fovy_rad / 2.0), cam.aspect, h, w)
-        kt, ki, ko = raster_kernel.sphere_raster_kernel(wins, ocb, dirs,
-                                                        cam.znear)
-        pt, pi, po = raster_kernel.sphere_raster_plain(ocb, dirs, cam.znear)
-        torch.cuda.synchronize()
-        hit_k, hit_p = ki >= 0, pi >= 0
-        agree = float((hit_k == hit_p).float().mean())
-        both = hit_k & hit_p
-        same = (ki == pi) & hit_k
-        n_hit = int(hit_k.sum())
-        n_same = int(same.sum())
-        # tmin on every pixel both sides hit, whoever won; oc where the
-        # winner agrees; misses must be exactly (+inf, 0) on both sides
-        et = _maxdiff(kt[both], pt[both]) if bool(both.any()) else 0.0
-        eo = _maxdiff(ko[:, same], po[:, same]) if n_same else 0.0
-        miss = ~hit_k
-        miss_ok = bool(torch.isinf(kt[miss]).all()
-                       and (ko[:, miss] == 0).all())
-        bitwise = bool(torch.equal(ki, pi) and torch.equal(kt, pt)
-                       and torch.equal(ko, po))
-        print(f"phase 4 sphere_raster vs plain @{h}x{w}, {GRID * GRID} "
-              f"instances: hit agree {agree:.6f} (>=0.9999), hits {n_hit}, "
-              f"same winner {n_same} (>=0.9999 of hits), tmin {et:.3e} "
-              f"oc {eo:.3e} (<=1e-6), bitwise {bitwise}")
-        _check(n_hit > 0.05 * h * w, f"raster {h}x{w}: only {n_hit} hits")
-        _check(agree >= 0.9999, f"raster {h}x{w} hit agreement {agree}")
-        _check(n_same >= 0.9999 * n_hit,
-               f"raster {h}x{w}: winner agrees on {n_same} of {n_hit} hits")
-        _check(et <= 1e-6 and eo <= 1e-6, f"raster {h}x{w} diff {et} {eo}")
-        _check(miss_ok, f"raster {h}x{w}: a miss is not (+inf, 0)")
-        r_err = max(r_err, et, eo)
-        r_cases[f"{h}x{w}"] = {"hit_agree": agree, "hits": n_hit,
-                               "same_winner": n_same, "err_tmin": et,
-                               "err_oc": eo, "bitwise": bitwise}
+        r_cases[f"{h}x{w}"] = _raster_vs_plain(
+            wins, ocb, dirs, cam.znear,
+            f"phase 4 sphere_raster vs plain @{h}x{w}, {GRID * GRID} "
+            f"instances", 0.05 * h * w)
+        r_err = max(r_err, r_cases[f"{h}x{w}"]["err_tmin"],
+                    r_cases[f"{h}x{w}"]["err_oc"])
     results["sphere_raster"] = r_cases
 
     # ---- phase 5: the main path, counted ----
@@ -1429,6 +1808,29 @@ def main() -> int:
     # ---- phases 6 and 7 for the training path ----
     gt = _grad_times(params, dev, card)
     results["training_times"] = gt
+
+    # ---- phase 13: K10 vs its plain version at 1M, the fresh lattice ----
+    from wgpu_physics_engine_torch.models import granular
+
+    fresh = granular.init_state(_gr_configs()["default"],
+                                torch.Generator().manual_seed(0), device=dev)
+    k10 = {}
+    k10["fresh"], k10_err = _phase13_k10(fresh, "fresh", card, extra=True)
+
+    # ---- phase 14: the granular main path, counted ----
+    results["granular"], pile = _phase14_granular(dev, card, cli_main)
+    gr_launches = results["granular"]["launches"]
+
+    # ---- phase 13 on the settled pile of phase 14 ----
+    k10["settled"], e = _phase13_k10(pile, "settled", card, extra=False)
+    k10_err = max(k10_err, e)
+    _check(k10["settled"]["default"]["contact_share"] > 0,
+           "settled pile: no particle in contact")
+    results["granular_step"] = k10
+
+    # ---- phases 6 and 7 for the granular path ----
+    grt = _gr_times(fresh, pile, card)
+    results["granular_times"] = grt
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
 
@@ -1450,8 +1852,12 @@ def main() -> int:
         {"name": "sphere_raster", "route": "cuda",
          "source": "wgpu_physics_engine_torch/ops/csrc/sphere_raster.cu",
          "replaces": "wgpu_physics_engine_tpu/ops/raster_pallas.py:209",
-         "launches": launches["sphere_raster"] + dg_launches["sphere_raster"],
-         "max_abs_err": max(r_err, r9_err), "ms": rk_ms, "plain_ms": rp_ms,
+         "launches": (launches["sphere_raster"] + dg_launches["sphere_raster"]
+                      + gr_launches["sphere_raster"]),
+         "max_abs_err": max(r_err, r9_err,
+                            results["granular"]["raster"]["err_tmin"],
+                            results["granular"]["raster"]["err_oc"]),
+         "ms": rk_ms, "plain_ms": rp_ms,
          "bound_ms": r_bound, "bound_by": r_by, "library_ms": None},
         {"name": "cloth_substep_vjp", "route": "cuda",
          "source": "wgpu_physics_engine_torch/ops/csrc/cloth_grad.cu",
@@ -1460,6 +1866,14 @@ def main() -> int:
          "max_abs_err": vjp_err, "ms": gt["vjp"]["ms"],
          "plain_ms": gt["vjp"]["plain_ms"], "bound_ms": gt["vjp"]["bound_ms"],
          "bound_by": gt["vjp"]["bound_by"], "library_ms": None},
+        {"name": "granular_step", "route": "cuda",
+         "source": "wgpu_physics_engine_torch/ops/csrc/granular_step.cu",
+         "replaces": "wgpu_physics_engine_tpu/ops/granular_pallas.py:684",
+         "launches": gr_launches["granular_step"], "max_abs_err": k10_err,
+         "ms": grt["default fresh"]["ms"],
+         "plain_ms": grt["default fresh"]["plain_ms"],
+         "bound_ms": grt["default fresh"]["bound_ms"],
+         "bound_by": grt["default fresh"]["bound_by"], "library_ms": None},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

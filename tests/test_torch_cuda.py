@@ -346,3 +346,77 @@ def test_multi_step_diff_cuda_matches_cpu_plain(dev):
             continue
         assert _max_rel(a.cpu(), b) <= 1e-4
     assert torch.equal(out.pos, cloth_kernel.multi_step(s, p, DT, 48).pos)
+
+
+# --- the granular kernel (K10, csrc/granular_step.cu) ---
+
+GRANULAR = dict(num_particles=1500, bounds=2.0, radius=0.08, restitution=0.4,
+                rebuild_every=4, pallas_block=128, pallas_slab=512)
+
+
+def _settled_pile(dev, **kw):
+    from wgpu_physics_engine_torch.models import granular
+
+    c = granular.GranularConfig(**{**GRANULAR, **kw})
+    s = granular.init_state(c, torch.Generator().manual_seed(3), device=dev)
+    return c, granular.multi_step(s, c, 1.0 / 240.0, 200)   # on the floor
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(), dict(thin=True, pallas_slab=768),
+                                dict(civ=False), dict(pallas_slab=128)],
+                         ids=["civ", "thin", "windows", "undersized"])
+def test_granular_kernel_matches_plain(dev, kw):
+    """K10 against its plain version on the card over the same candidate
+    set (slab truncation included): one substep and one rebuild block,
+    positions 1e-5 and velocities 1e-4 (sums in another order)."""
+    from wgpu_physics_engine_torch.models import granular
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    c, s = _settled_pile(dev, **kw)
+    grid, slabs, dropped = granular.rebuild(s.pos, s.vel, c, stats=True)
+    assert (int(dropped) > 0) == (c.pallas_slab == 128)
+    prm = gk.kernel_params(c, 1.0 / 240.0, dev)
+    kp, kv = grid.sorted_pos, grid.sorted_vel
+    pp, pv = kp, kv
+    before = gk.LAUNCHES
+    for step in range(c.rebuild_every):
+        kp, kv = gk.substep_sorted(kp, kv, prm, slabs)
+        pp, pv = gk.substep_sorted_plain(pp, pv, prm, slabs)
+        torch.cuda.synchronize()
+        tol = 1e-5 if step == 0 else 1e-4
+        assert float((kp - pp).abs().max()) <= 1e-5
+        assert float((kv - pv).abs().max()) <= tol
+    assert gk.LAUNCHES == before + c.rebuild_every
+
+
+@pytest.mark.cuda
+def test_granular_multi_step_cuda_matches_cpu_plain(dev):
+    from wgpu_physics_engine_torch.models import granular
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    c, s = _settled_pile(dev)
+    before = gk.LAUNCHES
+    got, d = granular.multi_step(s, c, 1.0 / 240.0, 6, return_stats=True)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES == before + 6
+    cpu = s._replace(pos=s.pos.cpu(), vel=s.vel.cpu())
+    ref, dr = granular.multi_step(cpu, c, 1.0 / 240.0, 6, return_stats=True)
+    assert int(d) == int(dr) == 0
+    torch.testing.assert_close(got.pos.cpu(), ref.pos, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got.vel.cpu(), ref.vel, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_granular_scene_on_cuda(dev):
+    from wgpu_physics_engine_torch.models import granular
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    sc = scenes.GranularScene(granular.GranularConfig(num_particles=4000),
+                              device=dev)
+    before = gk.LAUNCHES
+    sc.simulate(0.1)
+    img = sc.render(128, 128)
+    assert gk.LAUNCHES == before + 24
+    assert torch.isfinite(sc.state.pos).all() and np.isfinite(img).all()
+    assert (np.abs(img - np.asarray([0.86, 0.65, 0.35])).max(-1) < 1e-6).sum() > 0

@@ -9,7 +9,10 @@ with a plain torch version beside it that CPU tensors take. This package
 never imports jax.
 
 Ported so far: the flagship cloth scene (``models.scenes.ClothScene``:
-step + render) and its CLI, ``python -m wgpu_physics_engine_torch cloth``.
+step + render) and its CLI, ``python -m wgpu_physics_engine_torch cloth``;
+batched cloth datagen; gradients through the cloth; and the granular pile
+(``models.scenes.GranularScene``, ``python -m wgpu_physics_engine_torch
+granular``).
 """
 
 __version__ = "0.1.0"
@@ -19,8 +22,10 @@ from .core.config import CameraConfig, ClothConfig, GlobeConfig, LightConfig
 from .core.state import (
     ClothParams,
     ClothState,
+    ParticleState,
     init_cloth_state,
     params_from_numpy,
+    particle_state_from_numpy,
     state_from_numpy,
 )
 
@@ -32,7 +37,9 @@ __all__ = [
     "LightConfig",
     "ClothParams",
     "ClothState",
+    "ParticleState",
     "init_cloth_state",
     "params_from_numpy",
+    "particle_state_from_numpy",
     "state_from_numpy",
 ]

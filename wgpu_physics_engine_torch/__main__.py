@@ -1,9 +1,12 @@
-"""CLI entry point: run the flagship cloth scene headless and write a PNG
-or an animated GIF, generate a batched cloth dataset, or decode one.
+"""CLI entry point: run the flagship cloth scene or the granular pile
+headless and write a PNG or an animated GIF, generate a batched cloth
+dataset, or decode one.
 
     python -m wgpu_physics_engine_torch cloth --grid 256 --size 256 256 \\
         --seconds 5 --out cloth.png
     python -m wgpu_physics_engine_torch cloth --seconds 3 --gif cloth.gif
+    python -m wgpu_physics_engine_torch granular --particles 1000000 \\
+        --seconds 2 --size 256 256 --out pile.png
     python -m wgpu_physics_engine_torch datagen --worlds 64 --frames 8 \\
         --codec-k 16 --outdir datagen_out
     python -m wgpu_physics_engine_torch decode --indir datagen_out
@@ -24,7 +27,7 @@ import time
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="wgpu_physics_engine_torch")
-    p.add_argument("scene", choices=["cloth", "datagen", "decode"])
+    p.add_argument("scene", choices=["cloth", "granular", "datagen", "decode"])
     p.add_argument("--out", default=None, help="PNG path for a single frame")
     p.add_argument("--gif", default=None, help="animated GIF path")
     p.add_argument("--seconds", type=float, default=3.0,
@@ -34,6 +37,8 @@ def main(argv=None) -> int:
                    metavar=("H", "W"))
     p.add_argument("--grid", type=int, default=None,
                    help="cloth particles per side (default 60)")
+    p.add_argument("--particles", type=int, default=None,
+                   help="granular: particle count (default 20000)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda)")
     p.add_argument("--worlds", type=int, default=64,
@@ -83,7 +88,14 @@ def main(argv=None) -> int:
         height=args.grid, width=args.grid)
     if args.scene == "datagen":
         return _datagen(args, c, t0)
-    s = scenes.ClothScene(config=c, device=args.device)
+    if args.scene == "granular":
+        from .models.granular import GranularConfig
+
+        s = scenes.GranularScene(
+            config=GranularConfig(num_particles=args.particles or 20_000),
+            device=args.device)
+    else:
+        s = scenes.ClothScene(config=c, device=args.device)
     h, w = args.size
     # App::resize before the first frame: sync the camera aspect to the
     # output size

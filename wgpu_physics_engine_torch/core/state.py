@@ -11,7 +11,9 @@ NamedTuples across (after ``np.asarray`` on each leaf), so a state stepped
 by one package can be stepped on by the other. They take one world (0-d
 params, ``[3, H, W]`` state) or a batch of worlds (``[B]`` params, ``[B, 3,
 H, W]`` / ``[B, H, W]`` state leaves) alike
-(``parallel.datagen.world_batch_from_numpy`` carries a whole batch).
+(``parallel.datagen.world_batch_from_numpy`` carries a whole batch);
+``particle_state_from_numpy`` does the same for a particle pile's
+``[3, N]`` ``ParticleState``.
 """
 
 from __future__ import annotations
@@ -68,6 +70,14 @@ class ClothState(NamedTuple):
     pin_pos: Optional[torch.Tensor] = None
 
 
+class ParticleState(NamedTuple):
+    """Free-particle SoA state: ``pos``/``vel`` fp32 ``[3, N]`` (the
+    granular pile, ``models/granular.py``)."""
+
+    pos: torch.Tensor
+    vel: torch.Tensor
+
+
 def _f32(v, device) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=device)
 
@@ -115,4 +125,12 @@ def state_from_numpy(s, device=None) -> ClothState:
     return ClothState(pos=conv(s.pos, np.float32), vel=conv(s.vel, np.float32),
                       pin_mask=conv(s.pin_mask, np.bool_),
                       pin_pos=conv(s.pin_pos, np.float32))
+
+
+def particle_state_from_numpy(s, device=None) -> ParticleState:
+    """The JAX package's ``ParticleState`` (``pos``/``vel`` ``[3, N]``, as
+    numpy or anything ``np.asarray`` takes) → the port's, on ``device``."""
+    return ParticleState(
+        pos=torch.tensor(np.asarray(s.pos, np.float32), device=device),
+        vel=torch.tensor(np.asarray(s.vel, np.float32), device=device))
 

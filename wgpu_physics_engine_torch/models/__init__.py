@@ -1,3 +1,3 @@
-from . import cloth, scenes
+from . import broadphase, cloth, granular, scenes
 
-__all__ = ["cloth", "scenes"]
+__all__ = ["broadphase", "cloth", "granular", "scenes"]

@@ -1,5 +1,6 @@
-"""Application layer: the flagship cloth scene as a scene object (the
-counterpart of ``ClothScene`` in ``wgpu_physics_engine_tpu/models/scenes.py``).
+"""Application layer: the flagship cloth scene and the granular pile as
+scene objects (the counterparts of ``ClothScene`` and ``GranularScene`` in
+``wgpu_physics_engine_tpu/models/scenes.py``).
 
 A host-side stateful wrapper around the functional core with the
 ``update(delta_time)`` / ``render(h, w)`` frame contract of wgpu-bootstrap's
@@ -22,7 +23,7 @@ from ..core.state import ClothParams, init_cloth_state
 from ..ops import cloth_kernel
 from .. import render as R
 from ..render import texture as T
-from . import cloth
+from . import cloth, granular
 
 
 class _FrameClock:
@@ -185,3 +186,107 @@ class ClothScene(_SceneBase):
 
         return sum(topology.spring_counts(self.config.height,
                                           self.config.width))
+
+
+class GranularScene(_SceneBase):
+    """Granular pile: the free-particle box (sim 4) scaled to up to millions
+    of spheres with particle-particle contact through the sorted-grid broad
+    phase and the granular kernel K10 (BASELINE configs[2]); the
+    counterpart of the JAX package's ``GranularScene``.
+
+    Geometry lives in the static :class:`granular.GranularConfig` (radius
+    and bounds shape the broad-phase grid; :meth:`reconfigure` replaces
+    them). The material constants (``k_contact``, ``gravity``,
+    ``restitution``) are 0-d device tensors riding the kernel's parameter
+    vector, so their setters rebuild nothing. The jitter of the initial
+    pile comes from a ``torch.Generator`` seeded with ``seed``."""
+
+    def __init__(self, config=None, camera_cfg=None,
+                 light=cfg.LightConfig(), aspect=800 / 600, seed: int = 0,
+                 device="cuda"):
+        config = config or granular.GranularConfig(num_particles=20_000)
+        camera_cfg = camera_cfg or cfg.CameraConfig(
+            radius=3.2 * config.bounds, phi=0.35, theta=0.4)
+        super().__init__(camera_cfg, light, aspect, device)
+        self.config = config
+        self.state = granular.init_state(
+            config, torch.Generator().manual_seed(seed), device=self.device)
+        self.k_contact = self._f32(config.k_contact)
+        self.gravity = self._f32(config.gravity)
+        self.restitution = self._f32(config.restitution)
+        self.time_scale = 1.0
+        self.hz = 240.0
+        self.max_substeps = 8         # the substep clamp of a frame
+        self.dropped = 0              # broad-phase overflow telemetry
+
+    def _f32(self, v: float) -> torch.Tensor:
+        return torch.tensor(v, dtype=torch.float32, device=self.device)
+
+    # --- egui sliders (device tensors: nothing is rebuilt) ---
+    def set_gravity(self, g: float) -> None:
+        self.gravity = self._f32(g)
+
+    def set_k_contact(self, k: float) -> None:
+        self.k_contact = self._f32(k)
+
+    def set_restitution(self, e: float) -> None:
+        self.restitution = self._f32(e)
+
+    @property
+    def params(self):
+        """Viewer-facing material view (``.gravity``, ``.k_contact``,
+        ``.restitution``)."""
+        import types
+
+        return types.SimpleNamespace(gravity=self.gravity,
+                                     k_contact=self.k_contact,
+                                     restitution=self.restitution)
+
+    def set_time_scale(self, s: float) -> None:
+        self.time_scale = s
+
+    def reconfigure(self, **changes) -> None:
+        """Replace static physics config (resets nothing). Material keys go
+        to the runtime tensors."""
+        for key, setter in (("k_contact", self.set_k_contact),
+                            ("gravity", self.set_gravity),
+                            ("restitution", self.set_restitution)):
+            if key in changes:
+                setter(changes.pop(key))
+        if changes:
+            self.config = dataclasses.replace(self.config, **changes)
+
+    def _advance(self, n: int) -> None:
+        self.state, d = granular.multi_step(
+            self.state, self.config, 1.0 / self.hz, n, return_stats=True,
+            k_contact=self.k_contact, gravity=self.gravity,
+            restitution=self.restitution)
+        self.dropped = max(self.dropped, int(d))
+
+    def update(self, delta_time: Optional[float] = None) -> None:
+        dt = self.clock.tick()
+        if delta_time is not None:
+            dt = delta_time
+        n = int(round(self.time_scale * dt * self.hz))
+        self._advance(min(max(n, 1), self.max_substeps))
+
+    def simulate(self, seconds: float, hz: Optional[float] = None) -> None:
+        """Run physics headless in one call (no substep clamp)."""
+        if hz is not None:
+            self.hz = hz
+        self._advance(max(1, int(round(seconds * self.hz))))
+
+    def render(self, height: int = 600, width: int = 800) -> np.ndarray:
+        fb = R.clear(height, width, device=self.device)
+        cam = self.camera()
+        segs = R.geometry.wireframe_box(
+            float(self.config.bounds)).reshape(-1, 2, 3)
+        fb = R.draw_lines(fb, cam, segs, color=(0.0, 0.0, 1.0))
+        fb = R.draw_instanced_spheres(
+            fb, cam, self.state.pos.T, float(self.config.radius),
+            flat_color=(0.86, 0.65, 0.35))      # sand
+        return self._to_image(fb)
+
+    @property
+    def instance_count(self) -> int:
+        return self.config.num_particles

@@ -1,3 +1,4 @@
-from . import cloth_grad_kernel, cloth_kernel, raster_kernel
+from . import cloth_grad_kernel, cloth_kernel, granular_kernel, raster_kernel
 
-__all__ = ["cloth_grad_kernel", "cloth_kernel", "raster_kernel"]
+__all__ = ["cloth_grad_kernel", "cloth_kernel", "granular_kernel",
+           "raster_kernel"]

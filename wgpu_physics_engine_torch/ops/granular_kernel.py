@@ -1,0 +1,520 @@
+"""Granular contact substeps on sorted state: the rebuild-time slab
+structures, the CUDA kernel K10, its plain torch version, and the dispatch
+between them.
+
+The counterpart of ``wgpu_physics_engine_tpu/ops/granular_pallas.py``
+(``substep_sorted`` → ``_kernel``, kernel K10, with its three pair phases
+``_pair_force_phase``, ``_pair_force_phase_pipelined`` and
+``_pair_force_phase_civ``):
+
+* the rebuild-time code is plain torch, equal to the JAX package's bit for
+  bit: :func:`civ_bounds`, :func:`build_windows` (per-particle window
+  ranges, the window formulation) and :func:`build_offsets_civ` (the CIV
+  formulation: per-block slab offsets only, the exact ``stats=True``
+  dropped count or the sound fast indicator). Both return a
+  :class:`SlabSet`, the frozen candidate set of one rebuild block;
+* :func:`substep_sorted_plain` computes one substep over that set in eager
+  torch: per group, the candidates of each particle's window that lie in
+  its block's slab A ``[offa, offa + slab)`` or, when ``offb > offa``, in
+  slab B from ``max(offb, offa + slab)`` to ``offb + slab`` — the two
+  interval tests of the TPU kernel, so the candidate set (and ``dropped``)
+  is the JAX package's even when slabs truncate windows. It gathers each
+  group's candidates at the widest window of a chunk of particles and sums
+  the A parts group by group, then the B parts, then adds the two, K10's
+  order (a group's sum in double, rounded once, as in the kernel);
+* :func:`substep_sorted_kernel` launches ``csrc/granular_step.cu`` once
+  per substep on the current stream (one thread per sorted particle);
+* :func:`substep_sorted` takes the plain version for a CPU tensor and the
+  kernel for a CUDA tensor, and raises for anything else. There is no
+  fallback and no size limit.
+
+Full CIV (9 cid intervals), thin CIV (3) and the window formulation
+(``civ=False``, or grids with a dimension below 3) are one kernel: only
+the windows differ (from ``cell_start`` and the cid, or read from the
+``windows`` table). The TPU's ``pipeline`` option changes no bit of K10's
+result and has no counterpart; nor have the padding to ``n_pad`` (it
+survives only in the clipping of the slab offsets, which binds the
+candidate set), ``_NGP`` group padding, the 8-row SMEM offset tiles, the
+f32 cid plane or ``_CHUNK_BUDGET``.
+
+Pair force: ``touching = valid & d2 < md² & d2 > 1e-12`` and ``w =
+k·(md/sqrt(d2) − 1)``, summed as ``w·d``, then gravity on y, semi-implicit
+Euler and the wall clamp and reflect per axis, the op order of
+``models/granular._frozen_substep``. Both versions take ``1/sqrt`` (the
+TPU kernel's rsqrt is one rounding away) and write out of place.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..models import broadphase
+from . import _build
+
+_I32 = torch.int32
+
+# Kernel launches by :func:`substep_sorted_kernel` (one per substep). A run
+# reads it to show that its path went through the kernel.
+LAUNCHES = 0
+
+_SIGNATURES = {
+    "wpe_granular_step": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p],
+}
+
+# elements (rows × window) a gather of the plain version may hold, and the
+# rows over which it takes the widest window
+_PLAIN_ELEMS = 1 << 24
+_TILE_ROWS = 1024
+
+
+class SlabSet(NamedTuple):
+    """The frozen candidate set of one rebuild block: the slab offsets of
+    each block of ``block`` sorted slots and either the window table
+    (window formulation) or the sorted cids with ``cell_start`` and the
+    cid intervals (CIV)."""
+
+    off: torch.Tensor                       # [nb, ng, 2] int32 (offa, offb)
+    block: int
+    slab: int
+    windows: Optional[torch.Tensor] = None  # [2, n, ng] int32 starts, ends
+    cid: Optional[torch.Tensor] = None      # [n] int32 sorted cell ids
+    cell_start: Optional[torch.Tensor] = None   # [num_cells + 3] int32
+    bounds: Optional[Tuple[Tuple[int, int], ...]] = None  # CIV intervals
+
+    @property
+    def ng(self) -> int:
+        return self.off.shape[1]
+
+
+def _floordiv(x: torch.Tensor, d: int) -> torch.Tensor:
+    return torch.div(x, d, rounding_mode="floor")
+
+
+def _slab_offsets(hs: torch.Tensor, he: torch.Tensor, slab: int, n_pad: int):
+    """128-aligned A/B slab offsets of each block from the head ``hs`` and
+    end ``he`` of its window hull ([nb, ng]), clipped to ``[0, n_pad -
+    slab]``; ``offb == offa`` means "no slab B"."""
+    hi = n_pad - slab
+    offa = torch.clamp(_floordiv(hs, 128) * 128, 0, hi)
+    offb_raw = torch.clamp(_floordiv(he - slab + 127, 128) * 128, 0, hi)
+    need_b = he > offa + slab
+    return offa, torch.where(need_b, offb_raw, offa), need_b
+
+
+def _exact_dropped(s, e, offa, offb, n, block, slab, n_pad):
+    """Window entries outside both slabs (per-particle windows ``s``/``e``
+    [n, ng]), saturated at 2**31 - 128."""
+    pad = n_pad - n
+    nb = n_pad // block
+    ng = s.shape[1]
+    sblk = torch.nn.functional.pad(s.long(), (0, 0, 0, pad),
+                                   value=n).reshape(nb, block, ng)
+    eblk = torch.nn.functional.pad(e.long(), (0, 0, 0, pad),
+                                   value=n).reshape(nb, block, ng)
+    oa = offa[:, None, :].long()
+    ob = offb[:, None, :].long()
+    gap = torch.clamp_min(torch.minimum(eblk, ob)
+                          - torch.maximum(sblk, oa + slab), 0)
+    beyond = torch.clamp_min(eblk - torch.maximum(sblk, ob + slab), 0)
+    return torch.clamp_max((gap + beyond).sum(), 2 ** 31 - 128).to(_I32)
+
+
+def civ_bounds(spec: broadphase.GridSpec, thin: bool):
+    """Static per-group cid-difference intervals of CIV mode: candidate j
+    is valid for centre i in group g iff ``cid_j - cid_i ∈ [lo_g, hi_g]``.
+    Full mode, group (dx, dy): ``dx·D + dy·d2 ± 1`` (the exact z-triple);
+    thin mode, group dx: ``dx·D ± (d2 + 1)`` (the y/z-merged superset). The
+    intervals do not clip at grid borders; a wrapped cell lies ≥ 2 cells
+    away along some axis (hence ``dims ≥ 3``), outside the contact
+    distance."""
+    if spec.num_cells >= 2 ** 24:
+        raise ValueError("cid exceeds the f32 exact-integer range of the "
+                         "reference's cid plane")
+    if min(spec.dims) < 3:
+        raise ValueError(f"CIV border-wrap safety needs dims >= 3 (got "
+                         f"{spec.dims})")
+    d1, d2 = spec.dims[1], spec.dims[2]
+    big = d1 * d2
+    if thin:
+        return tuple((dx * big - d2 - 1, dx * big + d2 + 1)
+                     for dx in (-1, 0, 1))
+    return tuple((dx * big + dy * d2 - 1, dx * big + dy * d2 + 1)
+                 for dx, dy in broadphase.OFFSETS_XY)
+
+
+def build_windows(grid: broadphase.SortedGrid, spec: broadphase.GridSpec,
+                  block: int, slab: int, n_pad: int, thin: bool = False
+                  ) -> Tuple[SlabSet, torch.Tensor]:
+    """Per-particle window ranges and per-block slab offsets (the window
+    formulation, ``granular_pallas.build_windows``). Default: the 9
+    z-triple windows of ``broadphase.group_window_ranges``; ``thin=True``:
+    three dx groups, each one merged range from ``cell_start[lin(x+dx,
+    y-1, z-1)]`` to ``cell_start[lin(x+dx, y+1, z+1) + 1]``. Windows of an
+    off-grid group are empty and anchored at the particle's own slot, so
+    border blocks keep tight hulls.
+
+    Returns ``(SlabSet, dropped)``: the windows as ``[2, n, ng]`` int32
+    and ``dropped``, the window entries outside both slabs (int32 0-d)."""
+    n = grid.sorted_cid.shape[0]
+    dev = grid.sorted_cid.device
+    d0, d1, d2 = spec.dims
+    cid = grid.sorted_cid.to(_I32)
+    cx = _floordiv(cid, d1 * d2)
+    rem = cid - cx * (d1 * d2)
+    c = torch.stack([cx, _floordiv(rem, d2), rem - _floordiv(rem, d2) * d2])
+    cs = grid.cell_start
+    if thin:
+        y0 = torch.clamp_min(c[1] - 1, 0)
+        y1 = torch.clamp_max(c[1] + 1, d1 - 1)
+        z0 = torch.clamp_min(c[2] - 1, 0)
+        z1 = torch.clamp_max(c[2] + 1, d2 - 1)
+        starts_l, ends_l, oks_l = [], [], []
+        for dx in (-1, 0, 1):
+            okx = (c[0] + dx >= 0) & (c[0] + dx < d0)
+            ncx = torch.clamp(c[0] + dx, 0, d0 - 1)
+            lo = (ncx * d1 + y0) * d2 + z0
+            hi = (ncx * d1 + y1) * d2 + z1
+            starts_l.append(cs[lo.long()])
+            ends_l.append(cs[(hi + 1).long()])
+            oks_l.append(okx)
+        g_starts = torch.stack(starts_l, dim=-1)
+        g_ends = torch.stack(ends_l, dim=-1)
+        g_ok = torch.stack(oks_l, dim=-1)
+    else:
+        g_starts, g_ends, g_ok = broadphase.group_window_ranges(c, spec, cs)
+    slot = torch.arange(n, dtype=_I32, device=dev)[:, None]
+    starts = torch.where(g_ok, g_starts, slot)               # [n, ng]
+    ends = torch.where(g_ok, g_ends, slot)
+    pad = n_pad - n
+    nb = n_pad // block
+    ng = starts.shape[1]
+    # pad rows hold the empty window [n, n): the last block's hull stays at
+    # the array tail
+    sblk = torch.nn.functional.pad(starts, (0, 0, 0, pad),
+                                   value=n).reshape(nb, block, ng)
+    eblk = torch.nn.functional.pad(ends, (0, 0, 0, pad),
+                                   value=n).reshape(nb, block, ng)
+    smin = sblk.amin(1)
+    emax = eblk.amax(1)
+    offa, offb, _ = _slab_offsets(smin, emax, slab, n_pad)
+    dropped = _exact_dropped(starts, ends, offa, offb, n, block, slab, n_pad)
+    off = torch.stack([offa, offb], dim=-1).to(_I32).contiguous()
+    windows = torch.stack([starts, ends]).to(_I32).contiguous()
+    return SlabSet(off=off, block=block, slab=slab, windows=windows), dropped
+
+
+def build_offsets_civ(grid: broadphase.SortedGrid, spec: broadphase.GridSpec,
+                      block: int, slab: int, n_pad: int, thin: bool = False,
+                      stats: bool = False) -> Tuple[SlabSet, torch.Tensor]:
+    """Per-block slab offsets of CIV mode (``granular_pallas.
+    build_offsets_civ``): by monotonicity of ``cell_start`` a block's
+    window hull is ``cell_start[cmin + lo_g]`` .. ``cell_start[cmax + hi_g +
+    1]``, two gathers per block and group instead of per particle.
+
+    ``dropped``: with ``stats=True`` the exact count of window entries
+    outside both slabs (per-particle gathers); with ``stats=False`` the
+    reference's SOUND fast indicator, nonzero whenever entries are really
+    dropped, which may over-report (an empty window whose anchor lies in
+    the A–B gap fires it with nothing dropped). Ported as it is.
+
+    Returns ``(SlabSet, dropped)`` with the sorted cids, ``cell_start`` and
+    the intervals of :func:`civ_bounds`."""
+    n = grid.sorted_cid.shape[0]
+    bounds = civ_bounds(spec, thin)
+    nb = n_pad // block
+    pad = n_pad - n
+    ncells = spec.num_cells
+    cid = grid.sorted_cid.to(_I32)
+    cs = grid.cell_start
+    cid_pad = (torch.cat([cid, cid[-1:].expand(pad)]) if pad else cid).long()
+    cblk = cid_pad.reshape(nb, block)
+    cmin = cblk.amin(1)
+    cmax = cblk.amax(1)
+    hs = torch.stack([cs[torch.clamp(cmin + lo, 0, ncells)]
+                      for lo, _ in bounds], dim=-1).long()    # [nb, ng]
+    he = torch.stack([cs[torch.clamp(cmax + hi + 1, 0, ncells)]
+                      for _, hi in bounds], dim=-1).long()
+    he = torch.maximum(he, hs)
+    offa, offb, need_b = _slab_offsets(hs, he, slab, n_pad)
+    slabs = SlabSet(off=torch.stack([offa, offb], dim=-1).to(_I32).contiguous(),
+                    block=block, slab=slab, cid=cid.contiguous(),
+                    cell_start=cs.contiguous(), bounds=bounds)
+    if stats:
+        s, e = group_windows(slabs)
+        return slabs, _exact_dropped(s, e, offa, offb, n, block, slab, n_pad)
+    beyond = torch.clamp_min(he - (offb + slab), 0).sum()
+    gaps = []
+    for g, (lo, hi) in enumerate(bounds):
+        ob = offb[:, g]
+        # s_i < offb  <=>  cid_i <= cid[offb - 1] - lo (cell_start /
+        # sorted-cid duality); the largest such cid has the largest window
+        # end among the windows reaching the gap
+        qb = cid_pad[torch.clamp(ob - 1, 0, n_pad - 1)]
+        t = qb - lo
+        cstar = torch.where(cblk <= t[:, None], cblk, -1).amax(1)
+        e_star = cs[torch.clamp(cstar + hi + 1, 0, ncells)].long()
+        cnt = torch.clamp_min(torch.minimum(e_star, ob) - (offa[:, g] + slab),
+                              0)
+        gaps.append(torch.where(need_b[:, g] & (cstar >= 0), cnt, 0))
+    dropped = beyond + torch.stack(gaps).sum()
+    return slabs, torch.clamp_max(dropped, 2 ** 31 - 128).to(_I32)
+
+
+def group_windows(slabs: SlabSet) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-particle window ``(starts, ends)`` ``[n, ng]`` int64: read from
+    the window table, or in CIV mode ``cell_start[clip(cid + lo_g)]`` ..
+    ``cell_start[clip(cid + hi_g + 1)]``, the slots whose cid difference
+    lies in the group's interval."""
+    if slabs.windows is not None:
+        return slabs.windows[0].long(), slabs.windows[1].long()
+    ncells = slabs.cell_start.shape[0] - 3
+    cid = slabs.cid.long()
+    cs = slabs.cell_start
+    s = torch.stack([cs[torch.clamp(cid + lo, 0, ncells)]
+                     for lo, _ in slabs.bounds], dim=-1)
+    e = torch.stack([cs[torch.clamp(cid + hi + 1, 0, ncells)]
+                     for _, hi in slabs.bounds], dim=-1)
+    return s.long(), e.long()
+
+
+def slab_ranges(slabs: SlabSet, n: int):
+    """Each particle's candidate ranges ``(a_lo, a_hi), (b_lo, b_hi)``
+    ``[n, ng]``: its window inside its block's slab A, and inside slab B
+    past slab A (empty where ``hi <= lo``)."""
+    s, e = group_windows(slabs)
+    blk = _floordiv(torch.arange(n, device=s.device), slabs.block)
+    oa = slabs.off[blk, :, 0].long()
+    ob = slabs.off[blk, :, 1].long()
+    a_lo = torch.maximum(s, oa)
+    a_hi = torch.minimum(e, oa + slabs.slab)
+    b_lo = torch.maximum(s, torch.maximum(ob, oa + slabs.slab))
+    b_hi = torch.where(ob > oa, torch.minimum(e, ob + slabs.slab), b_lo)
+    return (a_lo, a_hi), (b_lo, b_hi)
+
+
+def candidate_count(slabs: SlabSet, n: int) -> int:
+    """Candidate slots the substep tests over all particles (window ∩
+    slab coverage): the data-dependent work of one substep."""
+    (a_lo, a_hi), (b_lo, b_hi) = slab_ranges(slabs, n)
+    return int(torch.clamp_min(a_hi - a_lo, 0).sum()
+               + torch.clamp_min(b_hi - b_lo, 0).sum())
+
+
+def kernel_params(config, dt, device, k_contact=None, gravity=None,
+                  restitution=None) -> torch.Tensor:
+    """The 6-float parameter vector on ``device``: 0:min_dist 1:k_contact
+    2:gravity 3:dt 4:restitution 5:wall_limit. ``k_contact`` / ``gravity``
+    / ``restitution`` / ``dt`` may be 0-d tensors (a slider rewrites them
+    and rebuilds nothing); ``None`` takes the config's value."""
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32).to(device)
+
+    return torch.stack([
+        2.0 * f32(config.radius),
+        f32(config.k_contact if k_contact is None else k_contact),
+        f32(config.gravity if gravity is None else gravity),
+        f32(dt),
+        f32(config.restitution if restitution is None else restitution),
+        f32(config.bounds - config.radius),
+    ])
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+def _chunks(tile_max, n: int):
+    """Consecutive row ranges ``(r0, r1, width)`` over ``_TILE_ROWS``-row
+    tiles with per-tile widest windows ``tile_max``: each range holds at
+    most ``_PLAIN_ELEMS`` gathered elements at its widest window (or one
+    tile). Tiles without candidates are skipped."""
+    out, r0, w = [], None, 0
+    for t, wt in enumerate(tile_max):
+        a = t * _TILE_ROWS
+        if wt == 0:
+            if r0 is not None:
+                out.append((r0, a, w))
+                r0 = None
+            continue
+        if r0 is not None and (a + _TILE_ROWS - r0) * max(w, wt) > _PLAIN_ELEMS:
+            out.append((r0, a, w))
+            r0 = None
+        if r0 is None:
+            r0, w = a, 0
+        w = max(w, wt)
+    if r0 is not None:
+        out.append((r0, n, w))
+    return out
+
+
+def _pass_pairs(pos: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, md):
+    """The candidates ``[lo, hi)`` of each particle and group, gathered
+    group by group in row chunks: yields ``(r0, r1, (dx, dy, dz), d2,
+    touching)``, each ``[r1 - r0, width]`` at the chunk's widest window."""
+    n, ng = lo.shape
+    if n == 0:
+        return
+    width = torch.clamp_min(hi - lo, 0)
+    n_tiles = -(-n // _TILE_ROWS)
+    tile_max = torch.nn.functional.pad(
+        width, (0, 0, 0, n_tiles * _TILE_ROWS - n)).reshape(
+            n_tiles, _TILE_ROWS, ng).amax(1).T.tolist()       # one sync
+    md2 = md * md
+    rows_all = torch.arange(n, device=pos.device)
+    for g in range(ng):
+        for r0, r1, w in _chunks(tile_max[g], n):
+            rows = rows_all[r0:r1, None]
+            idx = lo[r0:r1, g, None] + torch.arange(w, device=pos.device)
+            valid = (idx < hi[r0:r1, g, None]) & (idx != rows)
+            idx = torch.clamp_max(idx, n - 1)
+            dx = pos[0, r0:r1, None] - pos[0][idx]
+            dy = pos[1, r0:r1, None] - pos[1][idx]
+            dz = pos[2, r0:r1, None] - pos[2][idx]
+            d2 = dx * dx + dy * dy + dz * dz
+            touching = valid & (d2 < md2) & (d2 > 1e-12)
+            yield r0, r1, (dx, dy, dz), d2, touching
+
+
+def _pass_sums(pos: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+               md, kc) -> torch.Tensor:
+    """Pair-force sums ``[3, n]`` over the candidates ``[lo, hi)`` of each
+    particle and group, group by group (each group's sum added to the
+    running total, K10's order). Each term ``w·d`` is a float; a group's
+    sum is taken in double and rounded once, as the kernel does, so the
+    two agree whatever order the terms are summed in (but for rounding
+    ties)."""
+    out = torch.zeros_like(pos)
+    for r0, r1, ds, d2, touching in _pass_pairs(pos, lo, hi, md):
+        inv = 1.0 / torch.sqrt(torch.where(touching, d2, 1.0))
+        wgt = torch.where(touching, kc * (md * inv - 1.0), 0.0)
+        for a, d in enumerate(ds):
+            s = torch.sum((wgt * d).double(), dim=1)
+            out[a, r0:r1] += s.float()
+    return out
+
+
+def touching_count(pos: torch.Tensor, params: torch.Tensor,
+                   slabs: SlabSet) -> int:
+    """Candidate slots of one substep on sorted ``pos`` that touch (the
+    pairs whose force the substep computes, each seen from both ends): with
+    :func:`candidate_count`, the data-dependent work of one substep."""
+    md = params.to(pos.device)[0]
+    (a_lo, a_hi), (b_lo, b_hi) = slab_ranges(slabs, pos.shape[1])
+    total = torch.zeros((), dtype=torch.int64, device=pos.device)
+    for lo, hi in ((a_lo, a_hi), (b_lo, b_hi)):
+        for *_, touching in _pass_pairs(pos, lo, hi, md):
+            total += touching.sum()
+    return int(total)
+
+
+def _integrate(pos, vel, f, params):
+    """Gravity on y → semi-implicit Euler → wall clamp & reflect, per
+    axis (``_kernel`` :724-747)."""
+    _, _, grav, dt, e, lim = params.unbind(0)
+    fx, fy, fz = f.unbind(0)
+    fy = fy + grav                                        # unit mass
+    new_p, new_v = [], []
+    for p0, v0, fa in zip(pos.unbind(0), vel.unbind(0), (fx, fy, fz)):
+        v = v0 + fa * dt
+        p = p0 + v * dt
+        hit = ((p < -lim) & (v < 0.0)) | ((p > lim) & (v > 0.0))
+        new_p.append(torch.minimum(torch.maximum(p, -lim), lim))
+        new_v.append(torch.where(hit, -e * v, v))
+    return torch.stack(new_p), torch.stack(new_v)
+
+
+def substep_sorted_plain(pos: torch.Tensor, vel: torch.Tensor,
+                         params: torch.Tensor, slabs: SlabSet):
+    """One substep on sorted state ``pos``/``vel`` ``[3, n]`` over the
+    candidate set ``slabs``, on any device; returns new ``(pos, vel)``."""
+    params = params.to(pos.device)
+    md, kc = params[0], params[1]
+    (a_lo, a_hi), (b_lo, b_hi) = slab_ranges(slabs, pos.shape[1])
+    f = (_pass_sums(pos, a_lo, a_hi, md, kc)
+         + _pass_sums(pos, b_lo, b_hi, md, kc))
+    return _integrate(pos, vel, f, params)
+
+
+# ---------------------------------------------------------------------------
+# Kernel
+# ---------------------------------------------------------------------------
+
+def _check(a: torch.Tensor, dtype, shape, device, what: str) -> None:
+    if a.dtype != dtype or tuple(a.shape) != tuple(shape) or a.device != device:
+        raise ValueError(f"{what}: expected {dtype} {tuple(shape)} on {device}, "
+                         f"got {a.dtype} {tuple(a.shape)} on {a.device}")
+
+
+def substep_sorted_kernel(pos: torch.Tensor, vel: torch.Tensor,
+                          params: torch.Tensor, slabs: SlabSet):
+    """One substep of ``csrc/granular_step.cu`` on CUDA tensors: one launch
+    on the current stream, one CTA per block of ``slabs.block`` sorted
+    slots (at most 1024), new output buffers (the inputs are only read)."""
+    global LAUNCHES
+    dev = pos.device
+    if dev.type != "cuda":
+        raise ValueError(f"granular kernel needs CUDA tensors, got {dev}")
+    n = pos.shape[-1]
+    _check(pos, torch.float32, (3, n), dev, "pos")
+    _check(vel, torch.float32, (3, n), dev, "vel")
+    block, slab, ng = slabs.block, slabs.slab, slabs.ng
+    if not 1 <= block <= 1024 or slab < 1 or not 1 <= ng <= 9:
+        raise ValueError(f"granular kernel takes 1 <= block <= 1024, slab >= 1 "
+                         f"and 1..9 groups (got {block}, {slab}, {ng})")
+    if slabs.off.shape[0] * block < n:
+        raise ValueError(f"slab offsets cover {slabs.off.shape[0]} blocks of "
+                         f"{block}, fewer than {n} particles")
+    _check(slabs.off, _I32, (slabs.off.shape[0], ng, 2), dev, "off")
+    prm = params.detach().to(device=dev, dtype=torch.float32).contiguous()
+    _check(prm, torch.float32, (6,), dev, "params")
+    pos, vel, off = pos.contiguous(), vel.contiguous(), slabs.off.contiguous()
+    bounds = (ctypes.c_int * 18)()
+    if slabs.windows is not None:
+        _check(slabs.windows, _I32, (2, n, ng), dev, "windows")
+        wins = slabs.windows.contiguous()
+        cid_ptr = cs_ptr = None
+        ncells = 0
+    else:
+        if slabs.bounds is None or len(slabs.bounds) != ng:
+            raise ValueError("CIV slabs need one cid interval per group")
+        _check(slabs.cid, _I32, (n,), dev, "cid")
+        cs = slabs.cell_start.contiguous()
+        _check(cs, _I32, (cs.shape[0],), dev, "cell_start")
+        cid = slabs.cid.contiguous()
+        cid_ptr, cs_ptr = cid.data_ptr(), cs.data_ptr()
+        ncells = cs.shape[0] - 3
+        for g, (lo, hi) in enumerate(slabs.bounds):
+            bounds[g], bounds[ng + g] = lo, hi
+        wins = None
+    pos_out = torch.empty_like(pos)
+    vel_out = torch.empty_like(vel)
+    if n == 0:
+        return pos_out, vel_out
+    lib = _build.load("granular_step", _SIGNATURES)
+    with torch.cuda.device(dev):
+        err = lib.wpe_granular_step(
+            prm.data_ptr(), pos.data_ptr(), vel.data_ptr(), cid_ptr, cs_ptr,
+            None if wins is None else wins.data_ptr(), off.data_ptr(),
+            pos_out.data_ptr(), vel_out.data_ptr(), ctypes.addressof(bounds),
+            n, ng, block, slab, ncells,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "granular_step launch")
+    LAUNCHES += 1
+    return pos_out, vel_out
+
+
+def substep_sorted(pos: torch.Tensor, vel: torch.Tensor, params: torch.Tensor,
+                   slabs: SlabSet):
+    """One substep on sorted state; the drop-in counterpart of
+    ``granular_pallas.substep_sorted``. A CPU tensor takes the plain
+    version, a CUDA tensor the kernel; any other device raises."""
+    dev = pos.device.type
+    if dev == "cpu":
+        return substep_sorted_plain(pos, vel, params, slabs)
+    if dev == "cuda":
+        return substep_sorted_kernel(pos, vel, params, slabs)
+    raise ValueError(f"no granular stepper for device {pos.device}")

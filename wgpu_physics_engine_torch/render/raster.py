@@ -1,6 +1,6 @@
 """Headless renderer passes over an explicit framebuffer (the counterpart of
 ``wgpu_physics_engine_tpu/render/raster.py``: ``Framebuffer``, ``clear``,
-``draw_globe`` and ``draw_instanced_spheres``).
+``draw_globe``, ``draw_instanced_spheres`` and ``draw_lines``).
 
 The globe and every cloth instance — the reference draws all of them as
 instanced UV-sphere meshes (cloth.rs:1350-1379) — are rendered
@@ -165,3 +165,56 @@ def draw_instanced_spheres(
     color = torch.as_tensor(flat_color, dtype=torch.float32,
                             device=dirs.device).expand(fb.color.shape)
     return _composite(fb, hit, p_view, color, camera)
+
+
+def _affine_rows(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``v @ m[:3, :3].T + m[:3, 3]`` for ``v`` [L, 3], written out."""
+    return torch.stack([v[:, 0] * m[i, 0] + v[:, 1] * m[i, 1]
+                        + v[:, 2] * m[i, 2] + m[i, 3] for i in range(3)],
+                       dim=1)
+
+
+def draw_lines(fb: Framebuffer, camera: Camera, segments,
+               color=(0.0, 0.0, 1.0), px_width: float = 1.0) -> Framebuffer:
+    """Line-list pass (the wireframe bounds box, the reference's
+    wireframe_shader). ``segments``: [L, 2, 3] world-space endpoints (a
+    tensor or an array). Screen-space distance test per pixel, depth-tested
+    against the interpolated segment depth. One framebuffer, no batch."""
+    h, w = fb.depth.shape
+    dev = fb.depth.device
+    seg = torch.as_tensor(segments, dtype=torch.float32, device=dev)
+    view = camera.view.to(dev)
+    proj = camera.proj.to(dev)
+
+    def project(v):
+        vv = _affine_rows(view, v)
+        wc = -vv[:, 2]
+        ndc = _affine_rows(proj, vv) / wc[:, None]
+        return (torch.stack([(ndc[:, 0] + 1) * 0.5 * w,
+                             (1 - ndc[:, 1]) * 0.5 * h], 1), ndc[:, 2], wc)
+
+    pa, za, wa = project(seg[:, 0, :])
+    pb, zb, wb = project(seg[:, 1, :])
+    znear = camera.znear.to(dev)
+    ok = (wa > znear) & (wb > znear)
+
+    px = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5)[None, :, None]
+    py = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5)[:, None, None]
+    ab = pb - pa                                       # [L, 2]
+    ap_x = px - pa[None, None, :, 0]
+    ap_y = py - pa[None, None, :, 1]
+    ab2 = ab[:, 0] * ab[:, 0] + ab[:, 1] * ab[:, 1]
+    s = ((ap_x * ab[None, None, :, 0] + ap_y * ab[None, None, :, 1])
+         / torch.clamp_min(ab2, 1e-12))
+    s = torch.clamp(s, 0.0, 1.0)
+    dx = ap_x - s * ab[None, None, :, 0]
+    dy = ap_y - s * ab[None, None, :, 1]
+    dist2 = dx * dx + dy * dy
+    on_line = (dist2 <= (0.5 + px_width / 2) ** 2) & ok[None, None, :]
+    z = za[None, None, :] + s * (zb - za)[None, None, :]
+    z = torch.where(on_line, z, torch.inf)
+    zmin = torch.amin(z, dim=2)
+    win = (zmin < fb.depth) & torch.isfinite(zmin)
+    c = torch.as_tensor(color, dtype=torch.float32, device=dev)
+    return Framebuffer(color=torch.where(win[..., None], c, fb.color),
+                       depth=torch.where(win, zmin, fb.depth))

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's four paths through the entry points a user calls,
+Drives the port's six paths through the entry points a user calls,
 after building the hand-written CUDA kernels from ``ops/csrc`` and holding
 each against its plain torch version on the card: the flagship scene, a
 256×256 mass-spring cloth over the lit, textured globe, stepped 5
@@ -17,7 +17,13 @@ fit of ``examples/differentiable_cloth.py`` at 256² through
 ``ops/csrc/cloth_grad.cu`` backward); and the granular pile, 1M particles
 with sorted-grid contact stepped 2 simulated seconds at 240 Hz through
 the granular kernel of ``ops/csrc/granular_step.cu`` and rendered
-(``GranularScene`` and the CLI's ``granular``). Phases:
+(``GranularScene`` and the CLI's ``granular``); gradients through granular
+contact at 1M (``granular.multi_step_diff``: the pair-force kernel K11
+forward, K11 and its directional derivative K12 backward) and the
+system-identification fit of ``examples/inverse_granular.py``; and cloth
+self-collision at 256² (``ClothScene(self_collide=True)`` and the CLI's
+``cloth --self-collide``: K11 on the cloth's thin candidate set and the
+cloth substep with a force plane K1f), with its gradient. Phases:
 
 1. the card: CUDA present, ``nvidia-smi`` name and power limit;
 2. the build of the four kernel libraries (one nvcc each, all started
@@ -118,12 +124,52 @@ substeps, best of 3: the counterpart of ``bench.py``'s ``granular_1m``),
 and one ``torch.profiler`` trace of a rebuild block split into rebuild,
 K10 and idle.
 
+15. the contact kernels against their plain versions: K11 and K12 at 1M
+   on phase 13's fresh lattice in the default and the bench
+   configurations, and on the self-collision candidate set (thin, block
+   256, slab 640) of phase 5's draped cloth: the force and J·u within 1e-5
+   relative to the largest component (bitwise reported), K12's force equal
+   to K11's, ``<J u, v>`` against ``<u, J v>`` within 1e-4 relative where
+   nothing is dropped, and K11 with the plain integrate equal to one K10
+   substep bit for bit; K1f at 256² with the top row pinned and that set's
+   forces within 1e-6 of its plain version, and with a zero force plane
+   equal to K1 bit for bit;
+16. the granular gradient path, with the launch counters reset just before
+   it and read just after: ``granular.multi_step_diff`` at 1M, default
+   configuration, 16 substeps at 240 Hz (two segments), on the fresh
+   lattice lowered to the floor so that the restitution branch fires
+   (nothing dropped); the primal against ``multi_step`` (pos 5e-7, vel
+   5e-6), the gradients of a fixed linear loss w.r.t. pos, vel, dt, k,
+   g and e finite, nonzero and within 1e-4 max-relative of the same path
+   with the plain K11 and K12; K11 launched twice a substep (forward and
+   the backward's re-run), K12 once; then the example's fit (150 Adam
+   iterations), whose loss must fall 10×;
+17. the self-collision path, with the launch counters reset just before
+   it and read just after: ``ClothScene`` 256² ``self_collide=True``,
+   ``simulate(2.0)``, a frame and the CLI's ``cloth --self-collide``; K11
+   and K1f launched once a substep; finite, r_min >= R + r - 1e-3, nothing
+   dropped over the scene's schedule, globe and particle pixels; then
+   ``multi_step_self_collide_diff`` over 16 substeps of the scene's end
+   state: the gradients of pos, vel, dt and every ``ClothParams`` leaf
+   within 1e-4 max-relative of its plain versions.
+
+Then phases 6 and 7 for these paths: K11 and K12 a launch at 1M and K1f at
+256² beside their plain versions and bounds (K12's operations from its
+own body), granular value_and_grad particle-steps/s at 1M (16 substeps),
+the counterpart of ``bench.py``'s ``self_collide_256`` (256², 512
+substeps, rebuild every 32, slab 640, skin 0.5·r), and one
+``torch.profiler`` trace each of a granular gradient segment and of a
+self-collision rebuild block split into rebuild, the kernels, the rest
+and idle.
+
 Any failed check raises, so the script exits non-zero; with no CUDA device
 it exits non-zero before doing anything. The next-to-last line of stdout is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``. The
 ``cloth_step`` launches are those of phases 5 and 12 (K1 steps the
 flagship and runs the training path's forward and traces); the raster's
-those of phases 5, 10 and 14.
+those of phases 5, 10 and 14; ``granular_forces`` (K11) those of phases 16
+and 17, ``granular_force_jvp`` (K12) phase 16's and ``cloth_step_force``
+(K1f) phase 17's.
 Images and the full results go to ``chiprun_out/``.
 """
 
@@ -213,6 +259,32 @@ OPS_SLOT = 10
 OPS_TOUCH = 11
 OPS_GR_PARTICLE = 34
 GR_BYTES = 52
+# K11 and K12: bytes a particle (K11: pos and cid read, f written; K12: pos,
+# the tangent and cid read, f and J.u written) and K12's fp32 operations per
+# touching pair on top of K11's (tangent difference 3, d.du 5, g 5, w du -
+# g d 9, sums 3)
+K11_BYTES = 28
+K12_BYTES = 52
+OPS_TOUCH_JVP = 25
+# the gradient path (phase 16): substeps at 240 Hz (two rebuild segments
+# of the default configuration) and the example's Adam iterations
+GR_DIFF_STEPS = 16
+FIT_ITERS = 150
+# cloth self-collision (phase 17, BASELINE.json configs[3]): the scene's
+# schedule (rebuild every 8, block 256; its slab is the scene's
+# SELF_COLLIDE_SLAB), the default slab (phase 15's candidate set and
+# bench.py's self_collide_256), the scene's simulated seconds and the
+# CLI's, the differentiable check's substeps, the substeps of
+# self_collide_256 (bench.py:185), and the back-to-back launches a kernel
+# timing averages over
+SC_REBUILD = 8
+SC_BLOCK = 256
+SC_SLAB = 640
+SC_SECONDS = 2.0
+SC_CLI_SECONDS = 3.0
+SC_DIFF_STEPS = 16
+SC_BENCH_STEPS = 512
+REPS = 10
 
 
 def _check(cond: bool, what: str) -> None:
@@ -393,14 +465,18 @@ def _bound(nbytes: float, ops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def _cloth_bound(h: int, w: int, n_worlds: int, n_steps: int):
+def _cloth_bound(h: int, w: int, n_worlds: int, n_steps: int,
+                 extra_bytes: float = 0.0, extra_ops: float = 0.0):
     """Bound of one cloth call: pos and vel read once and written once
-    (48 B a particle), and the operations of every substep."""
+    (48 B a particle, plus ``extra_bytes``), and the operations of every
+    substep (plus ``extra_ops`` a particle and substep: K1f reads a force
+    plane, 12 B, and adds it, 3 operations)."""
     from wgpu_physics_engine_torch.ops.cloth_kernel import _FAMILIES
 
     edges = sum((h - dr) * (w - abs(dc)) for dr, dc, _ in _FAMILIES)
-    ops = n_worlds * n_steps * (OPS_EDGE * edges + OPS_PARTICLE * h * w)
-    return _bound(48.0 * n_worlds * h * w, ops)
+    ops = n_worlds * n_steps * (OPS_EDGE * edges
+                                + (OPS_PARTICLE + extra_ops) * h * w)
+    return _bound((48.0 + extra_bytes) * n_worlds * h * w, ops)
 
 
 def _raster_bound(wins, n: int, h: int, w: int):
@@ -452,31 +528,44 @@ def _dg_frame(tex, chunks, codec_k):
 
 @contextlib.contextmanager
 def _plain_kernels():
-    """Inside, the kernels' wrappers (the cloth stepper and its trace, the
-    substep adjoint's walk, the raster, the granular substep) run their
+    """Inside, the kernels' wrappers (the cloth stepper, its trace and its
+    force-plane substep, the substep adjoint's walk, the raster, the
+    granular substep, pair forces and their directional derivative) run their
     plain versions on the card and count no launch, so a path runs its own
     code with the plain versions."""
     from wgpu_physics_engine_torch.ops import (cloth_grad_kernel, cloth_kernel,
                                                granular_kernel, raster_kernel)
 
     saved = (cloth_kernel.multi_step_kernel_packed, cloth_kernel.trace_kernel,
+             cloth_kernel.substep_with_force_kernel,
              cloth_grad_kernel._walk_kernel,
              raster_kernel.sphere_raster_kernel,
-             granular_kernel.substep_sorted_kernel)
+             granular_kernel.substep_sorted_kernel,
+             granular_kernel.contact_forces_sorted_kernel,
+             granular_kernel.contact_force_jvp_sorted_kernel)
     cloth_kernel.multi_step_kernel_packed = cloth_kernel.multi_step_plain_packed
     cloth_kernel.trace_kernel = cloth_kernel.trace_plain
+    cloth_kernel.substep_with_force_kernel = (
+        cloth_kernel.substep_with_force_plain)
     cloth_grad_kernel._walk_kernel = cloth_grad_kernel._walk_plain
     raster_kernel.sphere_raster_kernel = (
         lambda wins, ocb, dirs, znear:
         raster_kernel.sphere_raster_plain(ocb, dirs, znear))
     granular_kernel.substep_sorted_kernel = granular_kernel.substep_sorted_plain
+    granular_kernel.contact_forces_sorted_kernel = (
+        granular_kernel.contact_forces_sorted_plain)
+    granular_kernel.contact_force_jvp_sorted_kernel = (
+        granular_kernel.contact_force_jvp_sorted_plain)
     try:
         yield
     finally:
         (cloth_kernel.multi_step_kernel_packed, cloth_kernel.trace_kernel,
+         cloth_kernel.substep_with_force_kernel,
          cloth_grad_kernel._walk_kernel,
          raster_kernel.sphere_raster_kernel,
-         granular_kernel.substep_sorted_kernel) = saved
+         granular_kernel.substep_sorted_kernel,
+         granular_kernel.contact_forces_sorted_kernel,
+         granular_kernel.contact_force_jvp_sorted_kernel) = saved
 
 
 def _classify(img):
@@ -1542,6 +1631,622 @@ def _gr_times(fresh, settled, card) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Contact gradients and cloth self-collision (phases 15-17)
+# ---------------------------------------------------------------------------
+
+def _sc_structs(state, params, slab, block=SC_BLOCK):
+    """The self-collision candidate set of a cloth state (thin CIV, the
+    scene's grid with a skin of 2·r): (sorted positions, slabs, md, kc,
+    grid order, dropped exact)."""
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.models import cloth
+
+    h, w = state.pos.shape[-2:]
+    c = ClothConfig(height=h, width=w)
+    spec = cloth.default_self_collision_grid(c, skin=2.0 * c.particle_radius)
+    flat = state.pos.reshape(3, h * w)
+    grid, slabs, dropped = cloth._frozen_structs(
+        flat, state.vel.reshape(3, h * w), spec, block, slab, stats=True)
+    return (grid.sorted_pos, slabs, 2.0 * params.particle_radius,
+            params.k_contact, grid.order, int(dropped))
+
+
+def _contact_case(p, slabs, md, kc, label, card, dropped, vel=None,
+                  prm=None):
+    """K11 and K12 against their plain versions on one candidate set: the
+    force and J·u within 1e-5 relative to the largest component (bitwise
+    reported), K12's force equal to K11's, the symmetry <Ju, v> = <u, Jv>
+    within 1e-4 relative where nothing is dropped, and with a granular
+    state (``vel``, ``prm``) K11 with the plain integrate against one K10
+    substep bit for bit."""
+    import numpy as np
+    import torch
+
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    n = p.shape[-1]
+    rng = np.random.default_rng(15)
+    u, v = (torch.tensor(rng.standard_normal((3, n)).astype(np.float32),
+                         device=p.device) for _ in range(2))
+    before = (gk.LAUNCHES_FORCES, gk.LAUNCHES_JVP)
+    f = gk.contact_forces_sorted_kernel(p, md, kc, slabs)
+    ft = gk.contact_force_jvp_sorted_kernel(p, u, md, kc, slabs)
+    torch.cuda.synchronize()
+    launched = (gk.LAUNCHES_FORCES - before[0], gk.LAUNCHES_JVP - before[1])
+    f_p = gk.contact_forces_sorted_plain(p, md, kc, slabs)
+    ft_p = gk.contact_force_jvp_sorted_plain(p, u, md, kc, slabs)
+    ef = _maxdiff(f, f_p)
+    ej = _maxdiff(ft[3:], ft_p[3:])
+    rf = ef / max(float(f_p.abs().max()), 1e-30)
+    rj = ej / max(float(ft_p[3:].abs().max()), 1e-30)
+    bitwise = bool(torch.equal(f, f_p) and torch.equal(ft, ft_p))
+    same_f = bool(torch.equal(ft[:3], f))
+    res = {"err_f": ef, "err_ju": ej, "rel_f": rf, "rel_ju": rj,
+           "bitwise": bitwise, "dropped": dropped,
+           "f_max": float(f_p.abs().max()),
+           "touching": gk.touching_count(p, torch.stack([
+               torch.as_tensor(md, device=p.device),
+               torch.as_tensor(kc, device=p.device)]), slabs)}
+    sym = None
+    if dropped == 0:
+        jv = gk.contact_force_jvp_sorted_kernel(p, v, md, kc, slabs)[3:]
+        a = float((ft[3:].double() * v.double()).sum())
+        b = float((u.double() * jv.double()).sum())
+        sym = abs(a - b) / max(abs(a), 1e-30)
+        res["symmetry"] = sym
+    k10 = None
+    if prm is not None:
+        kp, kv = gk.substep_sorted_kernel(p, vel, prm, slabs)
+        ip, iv = gk._integrate(p, vel, f, prm)
+        k10 = bool(torch.equal(kp, ip) and torch.equal(kv, iv))
+        res["k11_integrate_equals_k10"] = k10
+    print(f"phase 15 {label} @{n} [{card}]: K11 vs plain {ef:.3e} ({rf:.3e} "
+          f"rel, <=1e-5), K12 J.u vs plain {ej:.3e} ({rj:.3e} rel, <=1e-5), "
+          f"bitwise {bitwise}; K12 f == K11 f {same_f}; launches {launched}; "
+          f"|f| max {res['f_max']:.4g}, touching {res['touching']}; dropped "
+          f"{dropped}; symmetry <Ju,v>/<u,Jv> {sym} (<=1e-4); K11 + plain "
+          f"integrate == K10 {k10}")
+    _check(launched == (1, 1), f"{label}: launches {launched}")
+    _check(rf <= 1e-5 and rj <= 1e-5, f"{label}: K11/K12 off {rf} {rj}")
+    _check(same_f, f"{label}: K12's force differs from K11's")
+    _check(res["touching"] > 0, f"{label}: no touching pair")
+    _check(sym is None or sym <= 1e-4, f"{label}: J not symmetric ({sym})")
+    _check(k10 is None or k10, f"{label}: K11 + integrate != K10")
+    return res, max(ef, ej)
+
+
+def _phase15(fresh, draped, params, card):
+    """Phase 15: K11 and K12 against their plain versions at 1M (default
+    and bench configurations, the fresh lattice) and on the self-collision
+    candidate set of the draped flagship; K1f at 256² pinned against its
+    plain version, and with a zero force plane against K1."""
+    import torch
+
+    from wgpu_physics_engine_torch.models import broadphase, granular
+    from wgpu_physics_engine_torch.ops import cloth_kernel
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    res, err = {}, 0.0
+    for name, cfg in _gr_configs().items():
+        grid, slabs, d = granular.rebuild(fresh.pos, fresh.vel, cfg,
+                                          stats=True)
+        prm = gk.kernel_params(cfg, GR_DT, fresh.pos.device)
+        res[name], e = _contact_case(
+            grid.sorted_pos, slabs, prm[0], prm[1], f"granular {name} fresh",
+            card, int(d), vel=grid.sorted_vel, prm=prm)
+        err = max(err, e)
+    p, slabs, md, kc, order, d = _sc_structs(draped, params, SC_SLAB)
+    res["self_collide"], e = _contact_case(
+        p, slabs, md, kc, f"self-collision set of the draped {GRID}x{GRID} "
+        f"cloth (thin, block {SC_BLOCK}, slab {SC_SLAB})", card, d)
+    err = max(err, e)
+
+    # K1f at 256² with the top row pinned and that set's pair forces
+    h, w = draped.pos.shape[-2:]
+    f_self = gk.contact_forces_sorted_kernel(p, md, kc, slabs)[
+        :, broadphase._inverse(order)].reshape(3, h, w)
+    pin = torch.zeros((h, w), dtype=torch.bool, device=draped.pos.device)
+    pin[0] = True
+    s = draped._replace(pin_mask=pin, pin_pos=draped.pos)
+    before = cloth_kernel.LAUNCHES_FORCE
+    k = cloth_kernel.substep_with_force_kernel(s, params, DT, f_self)
+    torch.cuda.synchronize()
+    launched = cloth_kernel.LAUNCHES_FORCE - before
+    pl = cloth_kernel.substep_with_force_plain(s, params, DT, f_self)
+    ek = max(_maxdiff(k.pos, pl.pos), _maxdiff(k.vel, pl.vel))
+    bitwise = bool(torch.equal(k.pos, pl.pos) and torch.equal(k.vel, pl.vel))
+    z = cloth_kernel.substep_with_force_kernel(s, params, DT,
+                                               torch.zeros_like(f_self))
+    k1 = cloth_kernel.multi_step_kernel(s, params, DT, 1)
+    k1_same = bool(torch.equal(z.pos, k1.pos) and torch.equal(z.vel, k1.vel))
+    moved = _maxdiff(k.vel, k1.vel)
+    print(f"phase 15 cloth_step_force (K1f) @{h}x{w} pinned, draped, with the "
+          f"self-collision forces [{card}]: vs plain {ek:.3e} (<=1e-6), "
+          f"bitwise {bitwise}; fext = 0 equals K1 bit for bit {k1_same}; the "
+          f"force plane moves vel by {moved:.3e}; launches {launched}")
+    _check(launched == 1, f"K1f launched {launched} times")
+    _check(ek <= 1e-6, f"K1f vs plain {ek}")
+    _check(k1_same, "K1f with fext = 0 differs from K1")
+    _check(moved > 0, "the self-collision forces moved nothing")
+    _check(torch.equal(k.pos[:, 0], s.pos[:, 0]), "K1f pinned row moved")
+    res["cloth_step_force"] = {"err": ek, "bitwise": bitwise,
+                               "k1_bitwise_at_zero": k1_same}
+    return res, err, ek
+
+
+def _lowered(fresh, cfg):
+    """The fresh lattice lowered to just above the floor and falling at 1
+    unit/s, so the floor's restitution branch fires inside 16 substeps
+    (the lattice itself, and its dropped count of 0, are unchanged)."""
+    import torch
+
+    pos = fresh.pos.clone()
+    lim = cfg.bounds - cfg.radius
+    pos[1] += (0.02 - lim) - float(pos[1].min())
+    vel = torch.zeros_like(fresh.vel)
+    vel[1] = -1.0
+    return fresh._replace(pos=pos, vel=vel)
+
+
+def _gr_grads(state, cfg, n, wp, wv):
+    """Gradients of sum(pos * wp) + sum(vel * wv) after
+    ``granular.multi_step_diff`` with respect to pos, vel, dt, k_contact,
+    gravity and restitution, and the output state."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.state import ParticleState
+    from wgpu_physics_engine_torch.models import granular
+
+    dev = state.pos.device
+    leaves = [state.pos.detach().clone(), state.vel.detach().clone()] + [
+        torch.tensor(v, dtype=torch.float32, device=dev)
+        for v in (GR_DT, cfg.k_contact, cfg.gravity, cfg.restitution)]
+    for t in leaves:
+        t.requires_grad_(True)
+    out = granular.multi_step_diff(
+        ParticleState(pos=leaves[0], vel=leaves[1]), cfg, leaves[2], n,
+        k_contact=leaves[3], gravity=leaves[4], restitution=leaves[5])
+    loss = (out.pos * wp).sum() + (out.vel * wv).sum()
+    names = ("pos", "vel", "dt", "k_contact", "gravity", "restitution")
+    grads = torch.autograd.grad(loss, leaves)
+    return dict(zip(names, grads)), ParticleState(pos=out.pos.detach(),
+                                                  vel=out.vel.detach())
+
+
+def _phase16(fresh, dev, card):
+    """Phase 16: the granular gradient path at 1M, counted, against the
+    production path and against itself with the plain K11 and K12; then
+    the example's fit on the card."""
+    import numpy as np
+    import torch
+
+    from wgpu_physics_engine_torch.examples import inverse_granular as ig
+    from wgpu_physics_engine_torch.models import granular
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    cfg = _gr_configs()["default"]
+    st = _lowered(fresh, cfg)
+    prod, d = granular.multi_step(st, cfg, GR_DT, GR_DIFF_STEPS,
+                                  return_stats=True)
+    rng = np.random.default_rng(16)
+    wp, wv = (torch.tensor(rng.standard_normal((3, GR_N)).astype(np.float32),
+                           device=dev) for _ in range(2))
+    torch.cuda.synchronize()
+    gk.LAUNCHES_FORCES = 0
+    gk.LAUNCHES_JVP = 0
+    t0 = time.perf_counter()
+    grads, out = _gr_grads(st, cfg, GR_DIFF_STEPS, wp, wv)
+    torch.cuda.synchronize()
+    vg_s = time.perf_counter() - t0
+    launches = {"granular_forces": gk.LAUNCHES_FORCES,
+                "granular_force_jvp": gk.LAUNCHES_JVP}
+    ep = _maxdiff(out.pos, prod.pos)
+    ev = _maxdiff(out.vel, prod.vel)
+    with _plain_kernels():
+        ref, _ = _gr_grads(st, cfg, GR_DIFF_STEPS, wp, wv)
+    rel = {k: _max_rel(grads[k], ref[k]) for k in grads}
+    mags = {k: float(g.abs().max()) for k, g in grads.items()}
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    print(f"phase 16 granular multi_step_diff @{GR_N}, default configuration, "
+          f"{GR_DIFF_STEPS} substeps at 240 Hz, the lattice lowered to the "
+          f"floor [{card}]: dropped {int(d)}; value_and_grad {vg_s:.3f} s "
+          f"host clock (first call); launches {launches}; primal vs "
+          f"multi_step pos {ep:.3e} (<=5e-7) vel {ev:.3e} (<=5e-6); "
+          f"gradients finite {finite}, max |g| {mags}; vs the plain K11/K12 "
+          f"max-relative {rel} (<=1e-4)")
+    _check(int(d) == 0, f"granular diff: dropped {int(d)}")
+    _check(launches == {"granular_forces": 2 * GR_DIFF_STEPS,
+                        "granular_force_jvp": GR_DIFF_STEPS},
+           f"granular diff launches {launches}")
+    _check(ep <= 5e-7 and ev <= 5e-6, f"granular diff primal {ep} {ev}")
+    _check(finite and all(m > 0 for m in mags.values()),
+           f"granular gradients not finite or zero: {mags}")
+    _check(all(r <= 1e-4 for r in rel.values()),
+           f"granular gradients vs plain: {rel}")
+    res = {"dropped": int(d), "launches": launches, "err_primal_pos": ep,
+           "err_primal_vel": ev, "grad_max": mags, "rel_vs_plain": rel,
+           "value_and_grad_first_s": vg_s}
+
+    config, state, target, true, n_steps = ig.make_problem(device=dev)
+    losses = []
+    t0 = time.perf_counter()
+    fitted = ig.fit(config, state, target, true, n_steps, n_iters=FIT_ITERS,
+                    verbose=False, losses=losses)
+    fit_s = time.perf_counter() - t0
+    rec = {k: (float(fitted[k]), float(true[k])) for k in fitted}
+    print(f"phase 16 examples/inverse_granular.py on the card [{card}]: "
+          f"{FIT_ITERS} Adam iterations in {fit_s:.2f} s, loss "
+          f"{losses[0]:.4e} -> {losses[-1]:.4e} "
+          f"({losses[0] / max(losses[-1], 1e-30):.1f}x, >=10x); recovered vs "
+          f"true {rec}")
+    _check(all(np.isfinite(losses)), "inverse_granular loss not finite")
+    _check(losses[-1] * 10.0 <= losses[0],
+           f"inverse_granular loss fell only {losses[0]} -> {losses[-1]}")
+    res["fit"] = {"iters": FIT_ITERS, "s": fit_s, "loss_first": losses[0],
+                  "loss_last": losses[-1], "recovered_vs_true": rec}
+    return res
+
+
+def _sc_grads(state, params, n, wp, wv):
+    """Gradients of sum(pos * wp) + sum(vel * wv) after
+    ``multi_step_self_collide_diff`` (rebuild every 8, block 256, slab
+    640) with respect to pos, vel, dt and every ClothParams leaf."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import ClothParams
+    from wgpu_physics_engine_torch.models import cloth, scenes
+
+    h, w = state.pos.shape[-2:]
+    c = ClothConfig(height=h, width=w)
+    spec = cloth.default_self_collision_grid(c, skin=2.0 * c.particle_radius)
+    leaves = [a.detach().clone().requires_grad_(True) for a in params]
+    pos, vel = (a.detach().clone().requires_grad_(True)
+                for a in (state.pos, state.vel))
+    dt = torch.tensor(DT, device=pos.device, requires_grad=True)
+    out = cloth.multi_step_self_collide_diff(
+        state._replace(pos=pos, vel=vel), ClothParams(*leaves), dt, n, spec,
+        rebuild_every=SC_REBUILD, pallas_block=SC_BLOCK,
+        pallas_slab=scenes.SELF_COLLIDE_SLAB)
+    loss = (out.pos * wp).sum() + (out.vel * wv).sum()
+    names = ["pos", "vel", "dt", *ClothParams._fields]
+    return dict(zip(names, torch.autograd.grad(loss, [pos, vel, dt,
+                                                      *leaves])))
+
+
+def _phase17(dev, card, cli_main):
+    """Phase 17: the self-collision path, counted: ClothScene 256² with
+    self_collide, simulate 2 s, a frame and the CLI; the checks; then the
+    differentiable path against its plain versions."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import init_cloth_state
+    from wgpu_physics_engine_torch.models import cloth, scenes
+    from wgpu_physics_engine_torch.ops import cloth_kernel, raster_kernel
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+    from wgpu_physics_engine_torch.utils import viewer
+
+    cfg = ClothConfig(height=GRID, width=GRID)
+    fh, fw = FRAME
+    png = os.path.join(OUT, "cloth_self_collide_cli.png")
+    scene = scenes.ClothScene(cfg, self_collide=True, device=dev)
+    scene.resize(fw, fh)
+    torch.cuda.synchronize()
+    gk.LAUNCHES_FORCES = 0
+    cloth_kernel.LAUNCHES_FORCE = 0
+    raster_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    scene.simulate(SC_SECONDS)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    img = scene.render(fh, fw)
+    rc = cli_main(["cloth", "--self-collide", "--grid", str(GRID), "--size",
+                   str(fh), str(fw), "--seconds", str(SC_CLI_SECONDS),
+                   "--out", png, "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {"granular_forces": gk.LAUNCHES_FORCES,
+                "cloth_step_force": cloth_kernel.LAUNCHES_FORCE,
+                "sphere_raster": raster_kernel.LAUNCHES}
+    substeps = round(SC_SECONDS * HZ) + round(SC_CLI_SECONDS * HZ)
+    print(f"phase 17 self-collision main path [{card}]: ClothScene({GRID}x"
+          f"{GRID}, self_collide=True) simulate({SC_SECONDS}) {sim_s:.3f} s "
+          f"host clock ({round(SC_SECONDS * HZ)} substeps, rebuild every "
+          f"{SC_REBUILD}) + render{FRAME} + CLI --self-collide --seconds "
+          f"{SC_CLI_SECONDS} (rc {rc}); launches {launches}, substeps "
+          f"{substeps}")
+    _check(rc == 0, f"self-collide CLI returned {rc}")
+    _check(launches["granular_forces"] == substeps
+           and launches["cloth_step_force"] == substeps,
+           f"self-collision launches {launches}, not {substeps} each")
+    viewer.save_png(img, os.path.join(OUT, "cloth_self_collide.png"))
+
+    again, d = cloth.multi_step_self_collide(
+        init_cloth_state(cfg, device=dev), scene.params, DT,
+        round(SC_SECONDS * HZ), scene._sc_grid, rebuild_every=SC_REBUILD,
+        pallas_slab=scenes.SELF_COLLIDE_SLAB, return_stats=True)
+    same = bool(torch.equal(again.pos, scene.state.pos))
+    pos = scene.state.pos
+    finite = bool(torch.isfinite(pos).all()
+                  and torch.isfinite(scene.state.vel).all())
+    r_min = float(torch.linalg.norm(pos, dim=0).min())
+    r_lim = cfg.globe_radius + cfg.particle_radius - 1e-3
+    t_img = torch.from_numpy(img)
+    red = int((t_img == torch.tensor([1.0, 0.0, 0.0])).all(-1).sum())
+    n_bg = int(((t_img - torch.tensor([0.05, 0.05, 0.08])).abs().amax(-1)
+                < 1e-6).sum())
+    globe = fh * fw - red - n_bg
+    cli = np.asarray(Image.open(png).convert("RGB")) if os.path.exists(
+        png) else np.zeros((1, 1, 3), np.uint8)
+    cli_red = int((cli == [255, 0, 0]).all(-1).sum())
+    print(f"phase 17 cloth: finite {finite}, r_min {r_min:.5f} (>= "
+          f"{r_lim:.5f}), dropped over the scene's schedule {int(d)} (the "
+          f"stats run equals the scene bit for bit: {same}); frame particle "
+          f"px {red}, globe px {globe}; CLI png particle px {cli_red}")
+    _check(finite, "self-colliding cloth not finite")
+    _check(r_min >= r_lim, f"self-colliding cloth inside the globe: {r_min}")
+    _check(int(d) == 0, f"self-collision dropped {int(d)} window entries")
+    _check(same, "the stats run differs from the scene's run")
+    _check(red > 100 and globe > 100, f"frame lacks globe/particles: {red} "
+           f"{globe}")
+    _check(cli_red > 100, f"self-collide CLI png lacks particles: {cli_red}")
+    res = {"launches": launches, "substeps": substeps, "simulate_s": sim_s,
+           "r_min": r_min, "dropped": int(d), "particle_px": red,
+           "globe_px": globe, "cli_particle_px": cli_red}
+
+    rng = np.random.default_rng(17)
+    wp, wv = (torch.tensor(rng.standard_normal((3, GRID, GRID)).astype(
+        np.float32), device=dev) for _ in range(2))
+    got = _sc_grads(scene.state, scene.params, SC_DIFF_STEPS, wp, wv)
+    with _plain_kernels():
+        ref = _sc_grads(scene.state, scene.params, SC_DIFF_STEPS, wp, wv)
+    rel = {k: (_max_rel(got[k], ref[k]) if float(ref[k].abs().max()) > 0
+               else float(got[k].abs().max())) for k in got}
+    finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+    print(f"phase 17 multi_step_self_collide_diff @{GRID}x{GRID}, "
+          f"{SC_DIFF_STEPS} substeps, rebuild every {SC_REBUILD} [{card}]: "
+          f"finite {finite}; kernels vs plain versions max-relative {rel} "
+          f"(<=1e-4; an exact zero on both sides reads 0)")
+    _check(finite, "self-collision gradients not finite")
+    _check(all(r <= 1e-4 for r in rel.values()),
+           f"self-collision gradients vs plain: {rel}")
+    _check(float(got["k_contact"].abs().max()) > 0
+           and float(got["particle_radius"].abs().max()) > 0,
+           "no gradient through the self-contact kernel")
+    res["diff_rel_vs_plain"] = rel
+    return res, scene.state, scene.params
+
+
+def _is_k11(name: str) -> bool:
+    return "granular_forces_kernel" in name and "true" not in name
+
+
+def _is_k12(name: str) -> bool:
+    return "granular_forces_kernel" in name and "true" in name
+
+
+def _trace_split(fn, path, kernels: dict, range_name: str):
+    """One torch.profiler trace of ``fn``: device time split into the
+    named kernels (``kernels`` maps a name to a test of the device op's
+    name), the device ops issued
+    inside the user range ``range_name`` ("rebuild") and the rest
+    ("other"), with the window and the device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "user_annotation"
+              and e["name"] == range_name]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") == "cuda_runtime"
+              and "correlation" in e.get("args", {})}
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    split = {k: 0.0 for k in kernels}
+    counts = {k: 0 for k in kernels}
+    split.update(rebuild=0.0, other=0.0)
+    rebuild_ops = 0
+    for e in dev:
+        key = next((k for k, test in kernels.items() if test(e["name"])),
+                   None)
+        if key is not None:
+            split[key] += e["dur"]
+            counts[key] += 1
+            continue
+        t = launch.get(e.get("args", {}).get("correlation"))
+        if t is not None and any(a <= t <= b for a, b in ranges):
+            split["rebuild"] += e["dur"]
+            rebuild_ops += 1
+        else:
+            split["other"] += e["dur"]
+    host = [(e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("cat") in ("cpu_op", "cuda_runtime", "user_annotation")]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in dev]
+    _check(bool(spans) and bool(host), f"trace {path}: no device/host spans")
+    t0 = min(a for a, _ in host + spans)
+    t1 = max(b for _, b in host + spans)
+    busy = _union_us(spans)
+    return {"window_us": t1 - t0, "device_busy_us": busy,
+            "device_ops": len(dev), "split_us": split, "launches": counts,
+            "rebuild_ops": rebuild_ops, "rebuilds": len(ranges),
+            "idle_share": 1.0 - busy / (t1 - t0)}
+
+
+def _contact_times(fresh, sc_state, params, dev, card) -> dict:
+    """Phases 6 and 7 for the contact-gradient and self-collision paths:
+    K11, K12 (1M, default configuration, fresh lattice) and K1f (256², the
+    self-colliding cloth of phase 17, with its pair forces) a launch
+    beside their plain
+    versions and bounds; granular value_and_grad particle-steps/s at 1M;
+    the counterpart of bench.py's self_collide_256; one trace each of a
+    granular gradient segment and of a self-collision rebuild block."""
+    import numpy as np
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import init_cloth_state
+    from wgpu_physics_engine_torch.models import (broadphase, cloth, granular,
+                                                  scenes)
+    from wgpu_physics_engine_torch.ops import cloth_kernel
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    def per_launch(fn):
+        """CUDA events over REPS back-to-back launches (the device stays
+        busy when a launch outlasts its host issue), best of 3."""
+        return _best_ms(lambda: [fn() for _ in range(REPS)]) / REPS
+
+    res = {}
+    cfg = _gr_configs()["default"]
+    n = GR_N
+    grid, slabs, _ = granular.rebuild(fresh.pos, fresh.vel, cfg)
+    prm = gk.kernel_params(cfg, GR_DT, dev)
+    p = grid.sorted_pos
+    u = torch.tensor(np.random.default_rng(6).standard_normal(
+        (3, n)).astype(np.float32), device=dev)
+    cand = gk.candidate_count(slabs, n)
+    touch = gk.touching_count(p, prm, slabs)
+    for name, k_fn, p_fn, nbytes, ops_touch in (
+            ("granular_forces",
+             lambda: gk.contact_forces_sorted_kernel(p, prm[0], prm[1], slabs),
+             lambda: gk.contact_forces_sorted_plain(p, prm[0], prm[1], slabs),
+             K11_BYTES, OPS_TOUCH),
+            ("granular_force_jvp",
+             lambda: gk.contact_force_jvp_sorted_kernel(p, u, prm[0], prm[1],
+                                                        slabs),
+             lambda: gk.contact_force_jvp_sorted_plain(p, u, prm[0], prm[1],
+                                                       slabs),
+             K12_BYTES, OPS_TOUCH + OPS_TOUCH_JVP)):
+        k_ms = per_launch(k_fn)
+        p_ms = _best_ms(p_fn)
+        b_ms, b_by = _bound(nbytes * n, OPS_SLOT * cand + ops_touch * touch)
+        res[name] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "candidates": cand, "touching": touch}
+        print(f"phase 6 {name} @{n}, default configuration, fresh lattice "
+              f"[{card}]: kernel {k_ms:.4f} ms a launch ({REPS} back to back), "
+              f"plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}; {cand} candidate slots, {touch} "
+              f"touching), kernel at {b_ms / k_ms:.4f} of the bound")
+
+    sp, sslabs, md, kc, order, _ = _sc_structs(sc_state, params,
+                                               scenes.SELF_COLLIDE_SLAB)
+    h, w = sc_state.pos.shape[-2:]
+    f_self = gk.contact_forces_sorted_kernel(sp, md, kc, sslabs)[
+        :, broadphase._inverse(order)].reshape(3, h, w)
+    k_ms = per_launch(lambda: cloth_kernel.substep_with_force_kernel(
+        sc_state, params, DT, f_self))
+    p_ms = _best_ms(lambda: cloth_kernel.substep_with_force_plain(
+        sc_state, params, DT, f_self))
+    b_ms, b_by = _cloth_bound(h, w, 1, 1, extra_bytes=12.0, extra_ops=3.0)
+    res["cloth_step_force"] = {"host_bound_ms": k_ms, "plain_ms": p_ms,
+                               "bound_ms": b_ms, "bound_by": b_by}
+    sc_ms = per_launch(lambda: gk.contact_forces_sorted_kernel(sp, md, kc,
+                                                               sslabs))
+    print(f"phase 6 cloth_step_force (K1f) @{h}x{w} [{card}]: {k_ms:.5f} ms a "
+          f"launch over {REPS} back to back (host bound: the device time "
+          f"is the trace's, below), plain {p_ms:.4f} ms, bound {b_ms:.6f} ms "
+          f"({b_by}); K11 on this cloth's self-collision set (slab "
+          f"{scenes.SELF_COLLIDE_SLAB}) {sc_ms:.5f} ms a launch")
+    res["granular_forces_self_collide_ms"] = sc_ms
+
+    st = _lowered(fresh, cfg)
+    rng = np.random.default_rng(16)
+    wp, wv = (torch.tensor(rng.standard_normal((3, n)).astype(np.float32),
+                           device=dev) for _ in range(2))
+    ts = []
+    for i in range(4):                         # a warm-up, then best of 3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _gr_grads(st, cfg, GR_DIFF_STEPS, wp, wv)
+        torch.cuda.synchronize()
+        if i:
+            ts.append(time.perf_counter() - t0)
+    rate = n * GR_DIFF_STEPS / min(ts)
+    res["granular_value_and_grad"] = {"substeps": GR_DIFF_STEPS, "s": ts,
+                                      "psteps_per_s": rate}
+    print(f"phase 6 granular value_and_grad @{n}, {GR_DIFF_STEPS} substeps "
+          f"(2 segments) [{card}]: best {min(ts) * 1e3:.3f} ms of "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in ts)} (host clock) = "
+          f"{rate:.4e} particle-steps/s")
+
+    c = ClothConfig(height=GRID, width=GRID)
+    spec = cloth.default_self_collision_grid(c, skin=0.5 * c.particle_radius)
+    s0 = init_cloth_state(c, device=dev)
+    ts = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cloth.multi_step_self_collide(s0, params, DT, SC_BENCH_STEPS, spec,
+                                      rebuild_every=32, pallas_slab=640)
+        torch.cuda.synchronize()
+        if i:
+            ts.append(time.perf_counter() - t0)
+    rate = GRID * GRID * SC_BENCH_STEPS / min(ts)
+    res["self_collide_256"] = {"substeps": SC_BENCH_STEPS, "s": ts,
+                               "psteps_per_s": rate}
+    print(f"phase 6 self_collide_256 ({GRID}x{GRID}, {SC_BENCH_STEPS} "
+          f"substeps, rebuild every 32, slab 640, skin 0.5 r) [{card}]: best "
+          f"{min(ts) * 1e3:.3f} ms of {', '.join(f'{t * 1e3:.3f}' for t in ts)}"
+          f" (host clock) = {rate:.4e} particle-steps/s")
+
+    seg = cfg.rebuild_every
+    tr = _trace_split(lambda: _gr_grads(st, cfg, seg, wp, wv),
+                      os.path.join(OUT, "trace_granular_grad_segment.json"),
+                      {"k11": _is_k11, "k12": _is_k12},
+                      "granular.rebuild")
+    res["trace_grad_segment"] = tr
+    print(f"phase 7 trace one granular gradient segment (value_and_grad, "
+          f"{seg} substeps) @{n} [{card}]: window {tr['window_us']:.1f} us "
+          f"(host, profiled), device busy {tr['device_busy_us']:.1f} us in "
+          f"{tr['device_ops']} device ops; device us "
+          + ", ".join(f"{k} {v:.1f}" for k, v in tr["split_us"].items())
+          + f" (launches {tr['launches']}, {tr['rebuilds']} rebuilds of "
+          f"{tr['rebuild_ops']} device ops; 'other' is the integrate, its "
+          f"autograd transpose and the gathers); device idle share "
+          f"{tr['idle_share']:.4f}")
+    _check(tr["launches"] == {"k11": 2 * seg, "k12": seg},
+           f"gradient trace launches {tr['launches']}")
+
+    sgrid = cloth.default_self_collision_grid(c, skin=2.0 * c.particle_radius)
+    tr = _trace_split(
+        lambda: cloth._self_collide_block(sc_state, params, DT, SC_REBUILD,
+                                          sgrid, SC_BLOCK,
+                                          scenes.SELF_COLLIDE_SLAB),
+        os.path.join(OUT, "trace_self_collide_block.json"),
+        {"k11": _is_k11, "k1f": lambda name: "substep_kernel" in name},
+        "cloth.self_collide.rebuild")
+    res["trace_self_collide_block"] = tr
+    print(f"phase 7 trace one self-collision rebuild block ({SC_REBUILD} "
+          f"substeps) @{GRID}x{GRID}, phase 17's cloth [{card}]: window "
+          f"{tr['window_us']:.1f} us (host, profiled), device busy "
+          f"{tr['device_busy_us']:.1f} us in {tr['device_ops']} device ops; "
+          f"device us " + ", ".join(f"{k} {v:.1f}"
+                                   for k, v in tr["split_us"].items())
+          + f" (launches {tr['launches']}; 'other' is the frozen-order "
+          f"gathers and the scatter back); device idle share "
+          f"{tr['idle_share']:.4f}")
+    _check(tr["launches"] == {"k11": SC_REBUILD, "k1f": SC_REBUILD},
+           f"self-collision trace launches {tr['launches']}")
+    k1f = res["cloth_step_force"]
+    k1f["ms"] = tr["split_us"]["k1f"] / SC_REBUILD / 1e3
+    print(f"phase 6 cloth_step_force (K1f) @{h}x{w} [{card}]: "
+          f"{k1f['ms']:.6f} ms of device time a launch (the trace), bound "
+          f"{k1f['bound_ms']:.6f} ms, kernel at "
+          f"{k1f['bound_ms'] / k1f['ms']:.4f} of the bound")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1831,6 +2536,24 @@ def main() -> int:
     # ---- phases 6 and 7 for the granular path ----
     grt = _gr_times(fresh, pile, card)
     results["granular_times"] = grt
+    del pile
+
+    # ---- phase 15: K11, K12 and K1f vs their plain versions ----
+    results["contact_kernels"], ct_err, k1f_err = _phase15(
+        fresh, scene.state, params, card)
+
+    # ---- phase 16: the granular gradient path, counted ----
+    results["granular_grad"] = _phase16(fresh, dev, card)
+    gg_launches = results["granular_grad"]["launches"]
+
+    # ---- phase 17: the self-collision path, counted ----
+    results["self_collide"], sc_state, sc_params = _phase17(dev, card,
+                                                            cli_main)
+    sc_launches = results["self_collide"]["launches"]
+
+    # ---- phases 6 and 7 for the contact-gradient and self-collision paths
+    ctt = _contact_times(fresh, sc_state, sc_params, dev, card)
+    results["contact_times"] = ctt
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
 
@@ -1874,6 +2597,32 @@ def main() -> int:
          "plain_ms": grt["default fresh"]["plain_ms"],
          "bound_ms": grt["default fresh"]["bound_ms"],
          "bound_by": grt["default fresh"]["bound_by"], "library_ms": None},
+        {"name": "granular_forces", "route": "cuda",
+         "source": "wgpu_physics_engine_torch/ops/csrc/granular_step.cu",
+         "replaces": "wgpu_physics_engine_tpu/ops/granular_pallas.py:750",
+         "launches": (gg_launches["granular_forces"]
+                      + sc_launches["granular_forces"]),
+         "max_abs_err": ct_err, "ms": ctt["granular_forces"]["ms"],
+         "plain_ms": ctt["granular_forces"]["plain_ms"],
+         "bound_ms": ctt["granular_forces"]["bound_ms"],
+         "bound_by": ctt["granular_forces"]["bound_by"], "library_ms": None},
+        {"name": "granular_force_jvp", "route": "cuda",
+         "source": "wgpu_physics_engine_torch/ops/csrc/granular_step.cu",
+         "replaces": "wgpu_physics_engine_tpu/ops/granular_pallas.py:1000",
+         "launches": gg_launches["granular_force_jvp"],
+         "max_abs_err": ct_err, "ms": ctt["granular_force_jvp"]["ms"],
+         "plain_ms": ctt["granular_force_jvp"]["plain_ms"],
+         "bound_ms": ctt["granular_force_jvp"]["bound_ms"],
+         "bound_by": ctt["granular_force_jvp"]["bound_by"],
+         "library_ms": None},
+        {"name": "cloth_step_force", "route": "cuda",
+         "source": "wgpu_physics_engine_torch/ops/csrc/cloth_step.cu",
+         "replaces": "wgpu_physics_engine_tpu/ops/cloth_pallas.py:682",
+         "launches": sc_launches["cloth_step_force"],
+         "max_abs_err": k1f_err, "ms": ctt["cloth_step_force"]["ms"],
+         "plain_ms": ctt["cloth_step_force"]["plain_ms"],
+         "bound_ms": ctt["cloth_step_force"]["bound_ms"],
+         "bound_by": ctt["cloth_step_force"]["bound_by"], "library_ms": None},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -12,6 +12,11 @@ cloth kernel's fast_math path (rsqrt) to 1e-5 after 25 substeps. The
 substep adjoint (``csrc/cloth_grad.cu``) is held to its plain version
 within 1e-5 max-relative (its parameter cotangents are sums taken in
 another order), and ``multi_step_diff`` to the plain path within 1e-4.
+The contact kernels K11 and K12 are held to their plain versions within
+1e-5 relative (each group's sum in double, rounded once), K11 with the
+plain integrate to K10 bit for bit, K1f to its plain version within 1e-6
+and, with a zero force plane, to K1 bit for bit; the granular gradient
+path on the card to the CPU plain path within 1e-4.
 """
 
 import numpy as np
@@ -420,3 +425,110 @@ def test_granular_scene_on_cuda(dev):
     assert gk.LAUNCHES == before + 24
     assert torch.isfinite(sc.state.pos).all() and np.isfinite(img).all()
     assert (np.abs(img - np.asarray([0.86, 0.65, 0.35])).max(-1) < 1e-6).sum() > 0
+
+
+# --- contact gradients and self-collision (K11, K12, K1f) ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(), dict(thin=True, pallas_slab=768),
+                                dict(civ=False)],
+                         ids=["civ", "thin", "windows"])
+def test_granular_forces_and_jvp_match_plain(dev, kw):
+    """K11 and K12 against their plain versions on the card over the same
+    candidate set (1e-5 relative to the largest component), K12's force
+    equal to K11's, and K11 with the plain integrate equal to one K10
+    substep bit for bit (one device code for both forces)."""
+    from wgpu_physics_engine_torch.models import granular
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    c, s = _settled_pile(dev, **kw)
+    grid, slabs, _ = granular.rebuild(s.pos, s.vel, c)
+    prm = gk.kernel_params(c, 1.0 / 240.0, dev)
+    p = grid.sorted_pos
+    u = torch.tensor(np.random.default_rng(4).standard_normal(
+        tuple(p.shape)).astype(np.float32), device=dev)
+    before = (gk.LAUNCHES_FORCES, gk.LAUNCHES_JVP)
+    f = gk.contact_forces_sorted(p, prm[0], prm[1], slabs)
+    ft = gk.contact_force_jvp_sorted(p, u, prm[0], prm[1], slabs)
+    torch.cuda.synchronize()
+    assert (gk.LAUNCHES_FORCES, gk.LAUNCHES_JVP) == (before[0] + 1,
+                                                     before[1] + 1)
+    f_ref = gk.contact_forces_sorted_plain(p, prm[0], prm[1], slabs)
+    ft_ref = gk.contact_force_jvp_sorted_plain(p, u, prm[0], prm[1], slabs)
+    assert float(f_ref.abs().max()) > 0
+    assert float((f - f_ref).abs().max()) <= 1e-5 * float(f_ref.abs().max())
+    assert float((ft - ft_ref).abs().max()) <= 1e-5 * float(
+        ft_ref.abs().max())
+    assert torch.equal(ft[:3], f)
+    kp, kv = gk.substep_sorted_kernel(p, grid.sorted_vel, prm, slabs)
+    ip, iv = gk._integrate(p, grid.sorted_vel, f, prm)
+    assert torch.equal(kp, ip) and torch.equal(kv, iv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pins", [False, True])
+def test_cloth_substep_with_force_matches_plain_and_k1(dev, pins):
+    """K1f against its plain version (1e-6, one substep) and, with a zero
+    force plane, against K1 bit for bit."""
+    h, w = 48, 40
+    c = cfg.ClothConfig(height=h, width=w)
+    s = st.init_cloth_state(c, device=dev)
+    rng = np.random.default_rng(8)
+    s = s._replace(vel=torch.tensor(
+        (0.5 * rng.standard_normal((3, h, w))).astype(np.float32), device=dev))
+    if pins:
+        mask = torch.zeros((h, w), dtype=torch.bool, device=dev)
+        mask[0] = True
+        s = s._replace(pin_mask=mask, pin_pos=s.pos)
+    p = st.ClothParams.from_config(c, device=dev)
+    fext = torch.tensor((20.0 * rng.standard_normal((3, h, w))).astype(
+        np.float32), device=dev)
+    before = cloth_kernel.LAUNCHES_FORCE
+    got = cloth_kernel.substep_with_force(s, p, DT, fext)
+    torch.cuda.synchronize()
+    assert cloth_kernel.LAUNCHES_FORCE == before + 1
+    ref = cloth_kernel.substep_with_force_plain(s, p, DT, fext)
+    torch.testing.assert_close(got.pos, ref.pos, atol=1e-6, rtol=0)
+    torch.testing.assert_close(got.vel, ref.vel, atol=1e-6, rtol=0)
+    zero = cloth_kernel.substep_with_force(s, p, DT, torch.zeros_like(fext))
+    k1 = cloth_kernel.multi_step(s, p, DT, 1)
+    assert torch.equal(zero.pos, k1.pos) and torch.equal(zero.vel, k1.vel)
+
+
+@pytest.mark.cuda
+def test_granular_multi_step_diff_cuda_matches_cpu_plain(dev):
+    """The granular gradient path on the card (K11 forward, K11 and K12
+    backward) against the same path on the CPU (plain versions): the
+    primal and the gradients w.r.t. pos, vel, dt, k, g, e within 1e-4
+    max-relative."""
+    from wgpu_physics_engine_torch.models import granular
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    c, s = _settled_pile(dev)
+    s = s._replace(vel=s.vel * 8.0)
+    rng = np.random.default_rng(6)
+    wp, wv = (rng.standard_normal(tuple(s.pos.shape)).astype(np.float32)
+              for _ in range(2))
+
+    def grads(device):
+        leaves = [s.pos.to(device), s.vel.to(device)] + [
+            torch.tensor(v, dtype=torch.float32, device=device)
+            for v in (1.0 / 240.0, c.k_contact, c.gravity, c.restitution)]
+        leaves = [t.clone().requires_grad_() for t in leaves]
+        out = granular.multi_step_diff(
+            st.ParticleState(pos=leaves[0], vel=leaves[1]), c, leaves[2], 6,
+            k_contact=leaves[3], gravity=leaves[4], restitution=leaves[5])
+        loss = ((out.pos * torch.tensor(wp, device=device)).sum()
+                + (out.vel * torch.tensor(wv, device=device)).sum())
+        return out, torch.autograd.grad(loss, leaves)
+
+    before = (gk.LAUNCHES_FORCES, gk.LAUNCHES_JVP)
+    out, got = grads(dev)
+    torch.cuda.synchronize()
+    assert (gk.LAUNCHES_FORCES - before[0], gk.LAUNCHES_JVP - before[1]) == (
+        12, 6)
+    ref_out, ref = grads("cpu")
+    torch.testing.assert_close(out.pos.cpu(), ref_out.pos, atol=1e-5, rtol=0)
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        assert _max_rel(a.cpu(), b) <= 1e-4

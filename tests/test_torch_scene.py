@@ -145,9 +145,39 @@ def test_cli_gif_on_cpu(tmp_path, capsys):
 
 
 def test_self_collide_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        tscenes.ClothScene(tcfg.ClothConfig(height=8, width=8),
-                           self_collide=True, device="cpu")
+    """Cloth self-collision, once the scene flag that raised: now
+    ``ClothScene(self_collide=True)`` steps one frame (8 substeps, the broad
+    phase frozen for 8) and matches the JAX scene within the contact
+    contract (pos 1e-5, vel 1e-4), launching no kernel on the CPU."""
+    from wgpu_physics_engine_torch.ops import granular_kernel
+
+    c = dict(height=12, width=12)
+    j = jscenes.ClothScene(jcfg.ClothConfig(**c), self_collide=True)
+    t = tscenes.ClothScene(tcfg.ClothConfig(**c), self_collide=True,
+                           device="cpu")
+    assert t._sc_grid.dims == j._sc_grid.dims
+    for scene in (j, t):
+        scene.update(1.0 / 60.0)
+    np.testing.assert_allclose(t.state.pos.numpy(), np.asarray(j.state.pos),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(t.state.vel.numpy(), np.asarray(j.state.vel),
+                               atol=1e-4, rtol=0)
+    assert (cloth_kernel.LAUNCHES_FORCE, granular_kernel.LAUNCHES_FORCES) == (
+        0, 0)
+
+
+def test_cli_self_collide_writes_png(tmp_path, capsys):
+    from PIL import Image
+
+    from wgpu_physics_engine_torch.__main__ import main
+
+    out = tmp_path / "cloth_sc.png"
+    rc = main(["cloth", "--self-collide", "--grid", "8", "--size", "32", "48",
+               "--seconds", "0.05", "--out", str(out), "--device", "cpu"])
+    assert rc == 0 and "wrote" in capsys.readouterr().out
+    img = np.asarray(Image.open(out).convert("RGB"))
+    assert img.shape == (32, 48, 3)
+    assert (img != np.round(BG * 255).astype(np.uint8)).any(-1).sum() > 10
 
 
 def test_scene_on_cuda_without_cuda_raises():

@@ -5,6 +5,8 @@ dataset, or decode one.
     python -m wgpu_physics_engine_torch cloth --grid 256 --size 256 256 \\
         --seconds 5 --out cloth.png
     python -m wgpu_physics_engine_torch cloth --seconds 3 --gif cloth.gif
+    python -m wgpu_physics_engine_torch cloth --self-collide --grid 256 \\
+        --out cloth_sc.png
     python -m wgpu_physics_engine_torch granular --particles 1000000 \\
         --seconds 2 --size 256 256 --out pile.png
     python -m wgpu_physics_engine_torch datagen --worlds 64 --frames 8 \\
@@ -39,6 +41,8 @@ def main(argv=None) -> int:
                    help="cloth particles per side (default 60)")
     p.add_argument("--particles", type=int, default=None,
                    help="granular: particle count (default 20000)")
+    p.add_argument("--self-collide", action="store_true",
+                   help="cloth: enable cloth-cloth contact (spatial hash)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda)")
     p.add_argument("--worlds", type=int, default=64,
@@ -95,7 +99,8 @@ def main(argv=None) -> int:
             config=GranularConfig(num_particles=args.particles or 20_000),
             device=args.device)
     else:
-        s = scenes.ClothScene(config=c, device=args.device)
+        s = scenes.ClothScene(config=c, self_collide=args.self_collide,
+                              device=args.device)
     h, w = args.size
     # App::resize before the first frame: sync the camera aspect to the
     # output size

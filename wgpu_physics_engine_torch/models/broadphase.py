@@ -195,7 +195,7 @@ def pair_forces_sorted(grid: SortedGrid, spec: GridSpec, radius, k_contact,
     n = pos.shape[-1]
     dev = pos.device
     c = cell_coords(pos, spec, origin)
-    min_dist = 2.0 * torch.tensor(radius, dtype=_F32, device=dev)
+    min_dist = 2.0 * torch.as_tensor(radius, dtype=_F32, device=dev)
     slot_self = torch.arange(n, device=dev)
     k_idx = torch.arange(window, device=dev)
     g_starts, g_ends, g_ok = group_window_ranges(c, spec, grid.cell_start)

@@ -1,7 +1,7 @@
 """Granular pile: up to millions of free particles with gravity, ground
 plane bounce, box walls and uniform-grid pairwise contact (BASELINE
-configs[2]): the counterpart of ``wgpu_physics_engine_tpu/models/granular.py``
-(its differentiable ``multi_step_diff`` is not ported yet).
+configs[2]): the counterpart of ``wgpu_physics_engine_tpu/models/granular.py``,
+its differentiable :func:`multi_step_diff` included.
 
 Two broad-phase schedules:
 
@@ -203,26 +203,29 @@ def rebuild(pos: torch.Tensor, vel: torch.Tensor, config: GranularConfig,
     set of one block (CIV offsets, or the window table where ``civ`` is
     off or a grid dimension is below 3). Returns ``(grid, slabs,
     dropped)``; ``stats`` selects the exact dropped count (CIV) over the
-    sound fast indicator."""
-    spec = config.grid_spec()
-    grid = broadphase.build_sorted_grid(pos, vel, spec)
-    n = pos.shape[-1]
-    block, slab = config.pallas_block, config.pallas_slab
-    # a multiple of block that also fits one slab: the offsets are clipped
-    # to [0, n_pad - slab], which binds the candidate set
-    n_pad = -(-max(n, slab) // block) * block
-    civ_ok = config.civ and min(spec.dims) >= 3
-    if config.thin and not civ_ok:
-        raise ValueError(
-            "thin=True requires civ=True and a grid with dims >= 3 on "
-            f"every axis (got {spec.dims})")
-    if civ_ok:
-        slabs, dropped = granular_kernel.build_offsets_civ(
-            grid, spec, block, slab, n_pad, thin=config.thin, stats=stats)
-    else:
-        slabs, dropped = granular_kernel.build_windows(grid, spec, block, slab,
-                                                       n_pad)
-    return grid, slabs, dropped
+    sound fast indicator. A profiler trace shows it as the range
+    ``granular.rebuild``."""
+    with torch.profiler.record_function("granular.rebuild"):
+        spec = config.grid_spec()
+        grid = broadphase.build_sorted_grid(pos, vel, spec)
+        n = pos.shape[-1]
+        block, slab = config.pallas_block, config.pallas_slab
+        # a multiple of block that also fits one slab: the offsets are
+        # clipped to [0, n_pad - slab], which binds the candidate set
+        n_pad = -(-max(n, slab) // block) * block
+        civ_ok = config.civ and min(spec.dims) >= 3
+        if config.thin and not civ_ok:
+            raise ValueError(
+                "thin=True requires civ=True and a grid with dims >= 3 on "
+                f"every axis (got {spec.dims})")
+        if civ_ok:
+            slabs, dropped = granular_kernel.build_offsets_civ(
+                grid, spec, block, slab, n_pad, thin=config.thin,
+                stats=stats)
+        else:
+            slabs, dropped = granular_kernel.build_windows(grid, spec, block,
+                                                           slab, n_pad)
+        return grid, slabs, dropped
 
 
 def _run_block_kernel(pos: torch.Tensor, vel: torch.Tensor,
@@ -242,6 +245,157 @@ def _run_block_kernel(pos: torch.Tensor, vel: torch.Tensor,
     for _ in range(length):
         pos, vel = granular_kernel.substep_sorted(pos, vel, prm, slabs)
     return pos, vel, grid.order, dropped
+
+
+def _mirror_substep(pos, vel, f, prm):
+    """The integrate phase of a substep on sorted ``[3, n]`` state with the
+    pair force ``f`` as an input: gravity → semi-implicit Euler → wall clamp
+    and reflect, per axis in K10's op order (``granular_kernel._integrate``,
+    the JAX package's ``_mirror_substep``). ``prm`` is the parameter vector
+    of ``granular_kernel.kernel_params``; the differentiable half of the
+    substep, whose ``torch.autograd`` transpose the backward pass takes
+    (and with it the dt, gravity and restitution cotangents)."""
+    return granular_kernel._integrate(pos, vel, f, prm)
+
+
+def _diff_structs(pos, vel, config: GranularConfig):
+    """The rebuild of the differentiable path: the sorted grid and the CIV
+    candidate set (``rebuild``). The discrete structure (order, cids,
+    offsets) is locally constant in the positions: gradients flow through
+    the values, the frozen schedule's own contract."""
+    grid, slabs, _ = rebuild(pos, vel, config)
+    return grid, slabs
+
+
+def _diff_segment_fwd(pos, vel, config: GranularConfig, prm, length: int):
+    """One frozen block of the differentiable path: rebuild, then
+    ``length`` substeps of (K11 → the plain integrate). Original order in
+    and out."""
+    grid, slabs = _diff_structs(pos, vel, config)
+    posc, velc = grid.sorted_pos, grid.sorted_vel
+    for _ in range(length):
+        f = granular_kernel.contact_forces_sorted(posc, prm[0], prm[1], slabs)
+        posc, velc = _mirror_substep(posc, velc, f, prm)
+    inv = broadphase._inverse(grid.order)
+    return posc[:, inv], velc[:, inv]
+
+
+def _diff_segment_bwd(pos0, vel0, config: GranularConfig, prm, length: int,
+                      pbar, vbar):
+    """The transpose of :func:`_diff_segment_fwd`: re-run the segment
+    keeping (pos, vel, f) per substep, then walk it backwards. Each step
+    transposes the integrate with ``torch.autograd`` of
+    :func:`_mirror_substep` (which also yields the dt, gravity and
+    restitution cotangents) and adds the pair-force term ``Jᵀf̄ = J·f̄``
+    from K12 (J is symmetric where nothing is dropped). ``k_contact``'s
+    cotangent uses the force's linearity in it: ``⟨f̄, f⟩ / k``.
+
+    Returns the cotangents of pos and vel entering the segment (original
+    order) and of dt, k_contact, gravity and restitution."""
+    grid, slabs = _diff_structs(pos0, vel0, config)
+    md, kc = prm[0], prm[1]
+    posc, velc = grid.sorted_pos, grid.sorted_vel
+    trace = []
+    for _ in range(length):
+        f = granular_kernel.contact_forces_sorted(posc, md, kc, slabs)
+        trace.append((posc, velc, f))
+        posc, velc = _mirror_substep(posc, velc, f, prm)
+    order = grid.order.long()
+    pbc, vbc = pbar[:, order], vbar[:, order]
+    prm_bar = torch.zeros_like(prm)
+    f_dot = torch.zeros((), dtype=torch.float64, device=prm.device)
+    for posc, velc, f in reversed(trace):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_()
+                      for t in (posc, velc, f, prm)]
+            out = _mirror_substep(*leaves)
+            pb1, vb1, fbar, g = torch.autograd.grad(out, leaves, (pbc, vbc))
+        ft = granular_kernel.contact_force_jvp_sorted(posc, fbar, md, kc,
+                                                      slabs)
+        f_dot = f_dot + (fbar.double() * f.double()).sum()
+        pbc, vbc = pb1 + ft[3:], vb1
+        prm_bar = prm_bar + g
+    kcb = torch.where(kc == 0.0, 0.0, f_dot / torch.where(kc == 0.0, 1.0, kc))
+    inv = broadphase._inverse(grid.order)
+    return (pbc[:, inv], vbc[:, inv], prm_bar[3], kcb.float(), prm_bar[2],
+            prm_bar[4])
+
+
+def _segments(config: GranularConfig, n_steps: int):
+    k = max(1, config.rebuild_every)
+    n_full, rem = divmod(n_steps, k)
+    return [k] * n_full + ([rem] if rem else [])
+
+
+class _DiffCore(torch.autograd.Function):
+    """``n_steps`` differentiable substeps, checkpointed per rebuild
+    segment: the forward keeps each segment's start state; the backward
+    walks the segments in reverse with :func:`_diff_segment_bwd`."""
+
+    @staticmethod
+    def forward(ctx, pos, vel, dt, kc, grav, e, config, n_steps):
+        prm = granular_kernel.kernel_params(config, dt, pos.device, kc, grav, e)
+        starts = []
+        for length in _segments(config, n_steps):
+            starts += [pos, vel]
+            pos, vel = _diff_segment_fwd(pos, vel, config, prm, length)
+        ctx.save_for_backward(prm, *starts)
+        ctx.config = config
+        ctx.n_steps = n_steps
+        return pos, vel
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, pbar, vbar):
+        prm, *starts = ctx.saved_tensors
+        config = ctx.config
+        acc = [torch.zeros((), dtype=torch.float32, device=prm.device)] * 4
+        lengths = _segments(config, ctx.n_steps)
+        for s in reversed(range(len(lengths))):
+            pbar, vbar, *ds = _diff_segment_bwd(
+                starts[2 * s], starts[2 * s + 1], config, prm, lengths[s],
+                pbar, vbar)
+            acc = [a + d for a, d in zip(acc, ds)]
+        return (pbar, vbar, *acc, None, None)
+
+
+def multi_step_diff(state: ParticleState, config: GranularConfig, dt,
+                    n_steps: int, k_contact=None, gravity=None,
+                    restitution=None) -> ParticleState:
+    """Differentiable ``multi_step`` on the kernel route.
+
+    ``torch.autograd`` carries gradients with respect to ``state.pos``,
+    ``state.vel``, ``dt`` and the physics parameters ``k_contact`` /
+    ``gravity`` / ``restitution`` (each defaults to the config's value;
+    pass a 0-d tensor that requires grad to fit it, the system-ID use of
+    ``examples/inverse_granular.py``). Forward: K11 (the production contact
+    kernel's force) and the plain integrate per substep on the frozen
+    schedule, which equals :func:`multi_step` on the kernel route up to
+    the order of the sort within a cell. Backward, per rebuild segment in
+    reverse: re-run the segment keeping (state, force) per substep,
+    transpose the integrate with ``torch.autograd`` and apply the pair
+    force's transpose ``Jᵀf̄`` with K12 (J is symmetric: the force is
+    conservative). Memory: one segment's trajectory. A CPU state takes the
+    plain versions, a CUDA state the kernels.
+
+    Gradient contract (the JAX package's): contact activation and wall
+    hits differentiate piecewise, the broad-phase structure is locally
+    constant, and slab drops must be zero (``multi_step(...,
+    return_stats=True)``) or J loses its symmetry on the dropped pairs.
+    Needs the CIV kernel path (``civ=True``, grid dims >= 3)."""
+    spec = config.grid_spec()
+    if not (config.civ and min(spec.dims) >= 3):
+        raise ValueError(
+            "multi_step_diff needs the CIV kernel path: civ=True and "
+            f"grid dims >= 3 (got {spec.dims})")
+    dev = state.pos.device
+    kc = config.k_contact if k_contact is None else k_contact
+    grav = config.gravity if gravity is None else gravity
+    e = config.restitution if restitution is None else restitution
+    pos, vel = _DiffCore.apply(state.pos, state.vel, _f32(dt, dev),
+                               _f32(kc, dev), _f32(grav, dev), _f32(e, dev),
+                               config, n_steps)
+    return ParticleState(pos=pos, vel=vel)
 
 
 def multi_step(state: ParticleState, config: GranularConfig, dt,

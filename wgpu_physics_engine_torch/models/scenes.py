@@ -12,6 +12,7 @@ slider rewrites a tensor and rebuilds no kernel. Scenes take an explicit
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -24,6 +25,17 @@ from ..ops import cloth_kernel
 from .. import render as R
 from ..render import texture as T
 from . import cloth, granular
+
+
+# The slab of the scene's thin self-collision candidate set. The scene's
+# grid has a skin of 2·particle_radius (cells of 0.405 at the default
+# radius), so at 256² an x-column of cells of the falling sheet holds ~900
+# particles and a block's window hull spans up to two of them: with the
+# default 640 a rebuild in the first simulated second drops up to 13.2M
+# window entries, with 1024 none while the cloth falls (H100,
+# tools/self_collide_slab_probe.py). Once the cloth lands on the globe and
+# folds, every slab up to 2560 drops entries.
+SELF_COLLIDE_SLAB = 1024
 
 
 class _FrameClock:
@@ -99,6 +111,13 @@ class ClothScene(_SceneBase):
     ``use_kernel=True`` steps with ``ops.cloth_kernel.multi_step`` (the
     CUDA kernel on a CUDA device, its plain version on the CPU);
     ``use_kernel=False`` with the stencil path ``models.cloth.multi_step``.
+    ``self_collide=True`` adds cloth-cloth contact (BASELINE configs[3], an
+    extension over the reference, which lets the cloth pass through
+    itself): ``models.cloth.multi_step_self_collide`` with the broad phase
+    frozen for 8 substeps, the pair forces from the granular contact
+    kernel K11 and the cloth substep with a force plane K1f, on a grid
+    with a skin of 2·particle_radius and a slab of
+    :data:`SELF_COLLIDE_SLAB`.
     """
 
     def __init__(self, config=cfg.ClothConfig(), globe_texture=None,
@@ -106,9 +125,6 @@ class ClothScene(_SceneBase):
                  camera_cfg=cfg.CameraConfig(), light=cfg.LightConfig(),
                  aspect=1200 / 800, use_kernel: bool = True,
                  self_collide: bool = False, device="cuda"):
-        if self_collide:
-            raise NotImplementedError(
-                "cloth self-collision is not ported to torch yet")
         super().__init__(camera_cfg, light, aspect, device)
         self.config = config
         self.params = ClothParams.from_config(config, device=self.device)
@@ -119,6 +135,9 @@ class ClothScene(_SceneBase):
         self.particle_color = particle_color
         self.time_scale = config.time_scale
         self.use_kernel = use_kernel
+        self.self_collide = self_collide
+        self._sc_grid = cloth.default_self_collision_grid(
+            config, skin=2.0 * config.particle_radius)
 
     def _f32(self, v: float) -> torch.Tensor:
         return torch.tensor(v, dtype=torch.float32, device=self.device)
@@ -148,6 +167,11 @@ class ClothScene(_SceneBase):
             pin_pos=self.state.pos)
 
     def _stepper(self):
+        if self.self_collide:
+            return functools.partial(cloth.multi_step_self_collide,
+                                     grid_spec=self._sc_grid,
+                                     rebuild_every=8,
+                                     pallas_slab=SELF_COLLIDE_SLAB)
         return cloth_kernel.multi_step if self.use_kernel else cloth.multi_step
 
     def update(self, delta_time: Optional[float] = None) -> None:

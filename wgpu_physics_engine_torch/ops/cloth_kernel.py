@@ -18,6 +18,11 @@ batch of worlds ``_multi_step_lanes`` → ``_lanes_kernel``, kernel K5, and
   kernel for a CUDA tensor, and raises for anything else. There is no
   fallback on CUDA, and no size limit: the TPU's VMEM routing
   (``_VMEM_PARTICLE_LIMIT``) and lane folding have no counterpart here;
+* :func:`substep_with_force` is one substep of one world with an external
+  force plane added after the springs (``cloth_pallas.substep_with_force``,
+  K1f; the cloth self-collision loop feeds its pair forces in here): its
+  plain version, and on CUDA the same device body as K1 with one more
+  force plane read;
 * :func:`trace` re-runs substeps of one world with the same stepper and
   keeps each substep's input state, ``[K, 6, H, W]``: the trajectory the
   backward pass of ``ops/cloth_grad_kernel.py`` walks (the counterpart of
@@ -51,6 +56,8 @@ _FAMILIES = (
 # show that its path went through the kernels.
 LAUNCHES = 0
 LAUNCHES_BATCHED = 0
+# Launches of K1f by :func:`substep_with_force_kernel` (one per substep).
+LAUNCHES_FORCE = 0
 
 _SIGNATURES = {
     "wpe_cloth_multi_step": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
@@ -59,6 +66,8 @@ _SIGNATURES = {
                                     + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "wpe_cloth_trace": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p],
+    "wpe_cloth_substep_with_force": [ctypes.c_void_p] * 8
+                                    + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 
 
@@ -231,12 +240,16 @@ def _integrate_planes(carry, force, prm, dist_inv, pins=None):
     return x, y, z, vx, vy, vz
 
 
-def _substep_planes(carry, masks, prm, dist_inv, pins=None):
+def _substep_planes(carry, masks, prm, dist_inv, pins=None, fext=None):
     """One substep on six ``[h, w]`` (or ``[B, h, w]``) planes (x, y, z, vx,
     vy, vz): the transcription of ``cloth_pallas._substep_planes``. ``prm``
     is the packed parameter vector as 16 0-d tensors, or for a batch as 16
-    ``[B, 1, 1]`` tensors; ``pins`` is ``(pin_bool, px, py, pz)``."""
+    ``[B, 1, 1]`` tensors; ``pins`` is ``(pin_bool, px, py, pz)``; ``fext``
+    an external force ``(fx, fy, fz)`` added to the spring force before
+    gravity (K1f)."""
     force = _spring_planes(carry, masks, prm, dist_inv)
+    if fext is not None:
+        force = tuple(f + e for f, e in zip(force, fext))
     return _integrate_planes(carry, force, prm, dist_inv, pins)
 
 
@@ -306,6 +319,22 @@ def trace_plain(state: ClothState, prm: torch.Tensor,
                                     pins)
         traj[s] = torch.stack(carry)
     return traj
+
+
+def substep_with_force_plain(state: ClothState, params: ClothParams, dt,
+                             fext: torch.Tensor) -> ClothState:
+    """One exact substep of one world (``[3, H, W]``) with the external
+    force ``fext`` ``[3, H, W]`` added to the spring force before gravity
+    (the cloth self-collision pair forces), on any device: the plain
+    version of K1f, ``cloth_pallas.substep_with_force``."""
+    h, w = state.pos.shape[-2:]
+    prm = _plane_params(_pack_params(params, dt), state)
+    carry = (*state.pos.unbind(-3), *state.vel.unbind(-3))
+    carry = _substep_planes(carry, _family_masks(h, w, state.pos.device), prm,
+                            _exact_dist_inv, _plain_pins(state),
+                            fext.to(state.pos.device).unbind(-3))
+    return state._replace(pos=torch.stack(carry[:3], dim=-3),
+                          vel=torch.stack(carry[3:], dim=-3))
 
 
 # ---------------------------------------------------------------------------
@@ -429,6 +458,36 @@ def trace_kernel(state: ClothState, prm: torch.Tensor,
     return traj
 
 
+def substep_with_force_kernel(state: ClothState, params: ClothParams, dt,
+                              fext: torch.Tensor) -> ClothState:
+    """K1f on a CUDA state of one world: one launch of ``csrc/
+    cloth_step.cu``'s ``wpe_cloth_substep_with_force`` on the current
+    stream, the same device body as K1 with one more force plane, into new
+    buffers."""
+    global LAUNCHES_FORCE
+    pos, vel, prm, pins, lead, h, w = _kernel_inputs(
+        state, _pack_params(params, dt))
+    if lead:
+        raise ValueError(f"substep_with_force takes one world, got "
+                         f"{tuple(pos.shape)}")
+    _check_plane(fext, (3, h, w), pos.device, "fext")
+    fext = fext.detach().contiguous()
+    out = torch.empty((2, 3, h, w), dtype=torch.float32, device=pos.device)
+    if pos.numel() == 0:
+        return state._replace(pos=out[0], vel=out[1])
+    pin_ptrs = ((pins[0].data_ptr(), pins[1].data_ptr()) if pins
+                else (None, None))
+    lib = _build.load("cloth_step", _SIGNATURES)
+    with torch.cuda.device(pos.device):
+        err = lib.wpe_cloth_substep_with_force(
+            prm.data_ptr(), pos.data_ptr(), vel.data_ptr(), *pin_ptrs,
+            fext.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), h, w,
+            int(pins is not None), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "cloth_step substep_with_force launch")
+    LAUNCHES_FORCE += 1
+    return state._replace(pos=out[0], vel=out[1])
+
+
 def _dispatch(state: ClothState, plain, kernel):
     dev = state.pos.device.type
     if dev == "cpu":
@@ -462,3 +521,13 @@ def trace(state: ClothState, prm: torch.Tensor, n_states: int) -> torch.Tensor:
     """The trajectory ``[n_states, 6, H, W]`` of one world: CPU → the plain
     version, CUDA → K1, any other device raises."""
     return _dispatch(state, trace_plain, trace_kernel)(state, prm, n_states)
+
+
+def substep_with_force(state: ClothState, params: ClothParams, dt,
+                       fext: torch.Tensor) -> ClothState:
+    """One fused exact substep with the external force plane ``fext`` (the
+    counterpart of ``cloth_pallas.substep_with_force``; its ``fast_math``
+    has no caller and no counterpart): CPU → the plain version, CUDA → K1f,
+    any other device raises."""
+    step = _dispatch(state, substep_with_force_plain, substep_with_force_kernel)
+    return step(state, params, dt, fext)

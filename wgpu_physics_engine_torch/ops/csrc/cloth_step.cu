@@ -1,10 +1,16 @@
-// Fused cloth substeps for Hopper (sm_90a): one world (K1) and a batch of
-// independent worlds (K5). Both run the per-particle body of
-// cloth_substep.cuh, one thread per particle, one launch per substep.
+// Fused cloth substeps for Hopper (sm_90a): one world (K1), one world with
+// an external force plane (K1f) and a batch of independent worlds (K5).
+// All run the per-particle body of cloth_substep.cuh, one thread per
+// particle, one launch per substep.
 //
 // Replaces: wgpu_physics_engine_tpu/ops/cloth_pallas.py
 //   * `_kernel` (K1), the single-world fused substeps, with
 //     `wpe_cloth_multi_step`;
+//   * `_kernel(extra_force=True)` (K1f, reached through
+//     `substep_with_force` :682 -> :708), one substep with a per-particle
+//     external force added after the springs (the cloth self-collision pair
+//     forces), with `wpe_cloth_substep_with_force`: the same body with one
+//     more force plane read, 12 bytes a particle more than K1;
 //   * `_lanes_kernel` (K5) and `_batched_kernel` (K5b), the same physics for
 //     B worlds with a per-world parameter row, with
 //     `wpe_cloth_multi_step_batched`. K5 folds several padded worlds into
@@ -47,20 +53,22 @@ namespace {
 constexpr int kBlockW = 32;
 constexpr int kBlockH = 8;
 
-template <bool FAST, bool PINS>
+template <bool FAST, bool PINS, bool EXT = false>
 __global__ void __launch_bounds__(kBlockW * kBlockH)
     substep_kernel(const float* __restrict__ prm,
                    const float* __restrict__ pos,
                    const float* __restrict__ vel,
                    const float* __restrict__ pin_mask,
                    const float* __restrict__ pin_pos,
+                   const float* __restrict__ fext,
                    float* __restrict__ pos_out, float* __restrict__ vel_out,
                    int h, int w) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
   if (r >= h || c >= w) return;
-  cloth::substep_particle<FAST, PINS>(prm, pos, vel, pin_mask, pin_pos,
-                                      pos_out, vel_out, r, c, h, w);
+  cloth::substep_particle<FAST, PINS, EXT>(prm, pos, vel, pin_mask, pin_pos,
+                                           fext, pos_out, vel_out, r, c, h,
+                                           w);
 }
 
 // The trajectory of one world for the backward pass (ops/cloth_grad_kernel.py):
@@ -81,8 +89,8 @@ cudaError_t trace(const float* params, const float* pin_mask,
     const float* src = traj + 6 * plane * s;
     float* dst = traj + 6 * plane * (s + 1);
     substep_kernel<false, PINS><<<grid, block, 0, stream>>>(
-        params, src, src + 3 * plane, pin_mask, pin_pos, dst, dst + 3 * plane,
-        h, w);
+        params, src, src + 3 * plane, pin_mask, pin_pos, nullptr, dst,
+        dst + 3 * plane, h, w);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -113,8 +121,8 @@ __global__ void __launch_bounds__(kBlockW * kBlockH)
   cloth::substep_particle<FAST, PINS>(
       prm + cloth::kNumParams * world, pos + state, vel + state,
       PINS ? pin_mask + plane * world : pin_mask,
-      PINS ? pin_pos + state : pin_pos, pos_out + state, vel_out + state, r,
-      c, h, w);
+      PINS ? pin_pos + state : pin_pos, nullptr, pos_out + state,
+      vel_out + state, r, c, h, w);
 }
 
 // n_steps launches ping-ponging between buffers a and b; `launch(src_p,
@@ -148,7 +156,8 @@ cudaError_t run(const float* params, const float* pos_in, const float* vel_in,
                    [&](const float* sp, const float* sv, float* dp,
                        float* dv) {
                      substep_kernel<FAST, PINS><<<grid, block, 0, stream>>>(
-                         params, sp, sv, pin_mask, pin_pos, dp, dv, h, w);
+                         params, sp, sv, pin_mask, pin_pos, nullptr, dp, dv,
+                         h, w);
                    });
 }
 
@@ -245,4 +254,24 @@ extern "C" int wpe_cloth_trace(const float* params, const float* pin_mask,
              ? trace<true>(params, pin_mask, pin_pos, traj, h, w, n_states, s)
              : trace<false>(params, pin_mask, pin_pos, traj, h, w, n_states,
                             s);
+}
+
+// One exact substep of one world with the external force plane fext f32
+// [3, h, w] added after the springs (K1f): pos_in/vel_in are only read, the
+// result is written to pos_out/vel_out; params and pins as for
+// wpe_cloth_multi_step.
+extern "C" int wpe_cloth_substep_with_force(
+    const float* params, const float* pos_in, const float* vel_in,
+    const float* pin_mask, const float* pin_pos, const float* fext,
+    float* pos_out, float* vel_out, int h, int w, int use_pins,
+    void* stream) {
+  if (fext == nullptr) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  const dim3 block(kBlockW, kBlockH);
+  const dim3 grid((w + kBlockW - 1) / kBlockW, (h + kBlockH - 1) / kBlockH);
+  auto kernel = use_pins ? substep_kernel<false, true, true>
+                         : substep_kernel<false, false, true>;
+  kernel<<<grid, block, 0, s>>>(params, pos_in, vel_in, pin_mask, pin_pos,
+                                fext, pos_out, vel_out, h, w);
+  return static_cast<int>(cudaGetLastError());
 }

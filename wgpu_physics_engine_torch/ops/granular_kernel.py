@@ -1,11 +1,13 @@
-"""Granular contact substeps on sorted state: the rebuild-time slab
-structures, the CUDA kernel K10, its plain torch version, and the dispatch
-between them.
+"""Granular contact on sorted state: the rebuild-time slab structures, the
+CUDA kernels K10 (a substep), K11 (the pair forces alone) and K12 (the
+forces and their directional derivative), their plain torch versions, and
+the dispatch between them.
 
 The counterpart of ``wgpu_physics_engine_tpu/ops/granular_pallas.py``
 (``substep_sorted`` → ``_kernel``, kernel K10, with its three pair phases
 ``_pair_force_phase``, ``_pair_force_phase_pipelined`` and
-``_pair_force_phase_civ``):
+``_pair_force_phase_civ``; ``contact_forces_sorted`` → ``_forces_kernel``,
+K11; ``contact_force_jvp_sorted`` → ``_jvp_kernel``, K12):
 
 * the rebuild-time code is plain torch, equal to the JAX package's bit for
   bit: :func:`civ_bounds`, :func:`build_windows` (per-particle window
@@ -22,11 +24,17 @@ The counterpart of ``wgpu_physics_engine_tpu/ops/granular_pallas.py``
   group's candidates at the widest window of a chunk of particles and sums
   the A parts group by group, then the B parts, then adds the two, K10's
   order (a group's sum in double, rounded once, as in the kernel);
-* :func:`substep_sorted_kernel` launches ``csrc/granular_step.cu`` once
-  per substep on the current stream (one thread per sorted particle);
-* :func:`substep_sorted` takes the plain version for a CPU tensor and the
-  kernel for a CUDA tensor, and raises for anything else. There is no
-  fallback and no size limit.
+* :func:`contact_forces_sorted_plain` is that force alone, and
+  :func:`contact_force_jvp_sorted_plain` the force with ``J·u`` written by
+  hand (K12's terms; the tests hold it against ``torch.autograd``);
+* :func:`substep_sorted_kernel`, :func:`contact_forces_sorted_kernel` and
+  :func:`contact_force_jvp_sorted_kernel` launch the three entry points of
+  ``csrc/granular_step.cu`` once per call on the current stream (one
+  thread per sorted particle, one slab walk);
+* :func:`substep_sorted`, :func:`contact_forces_sorted` and
+  :func:`contact_force_jvp_sorted` take the plain version for a CPU tensor
+  and the kernel for a CUDA tensor, and raise for anything else. There is
+  no fallback and no size limit.
 
 Full CIV (9 cid intervals), thin CIV (3) and the window formulation
 (``civ=False``, or grids with a dimension below 3) are one kernel: only
@@ -60,9 +68,18 @@ _I32 = torch.int32
 # reads it to show that its path went through the kernel.
 LAUNCHES = 0
 
+# Kernel launches by :func:`contact_forces_sorted_kernel` (K11) and
+# :func:`contact_force_jvp_sorted_kernel` (K12), one per call.
+LAUNCHES_FORCES = 0
+LAUNCHES_JVP = 0
+
 _SIGNATURES = {
     "wpe_granular_step": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                          + [ctypes.c_void_p],
+    "wpe_granular_forces": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p],
+    "wpe_granular_force_jvp": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                              + [ctypes.c_void_p],
 }
 
 # elements (rows × window) a gather of the plain version may hold, and the
@@ -353,8 +370,9 @@ def _chunks(tile_max, n: int):
 
 def _pass_pairs(pos: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, md):
     """The candidates ``[lo, hi)`` of each particle and group, gathered
-    group by group in row chunks: yields ``(r0, r1, (dx, dy, dz), d2,
-    touching)``, each ``[r1 - r0, width]`` at the chunk's widest window."""
+    group by group in row chunks: yields ``(r0, r1, idx, (dx, dy, dz), d2,
+    touching)``, each ``[r1 - r0, width]`` at the chunk's widest window
+    (``idx`` the candidates' slots)."""
     n, ng = lo.shape
     if n == 0:
         return
@@ -376,24 +394,38 @@ def _pass_pairs(pos: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, md):
             dz = pos[2, r0:r1, None] - pos[2][idx]
             d2 = dx * dx + dy * dy + dz * dz
             touching = valid & (d2 < md2) & (d2 > 1e-12)
-            yield r0, r1, (dx, dy, dz), d2, touching
+            yield r0, r1, idx, (dx, dy, dz), d2, touching
 
 
 def _pass_sums(pos: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-               md, kc) -> torch.Tensor:
+               md, kc, u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Pair-force sums ``[3, n]`` over the candidates ``[lo, hi)`` of each
     particle and group, group by group (each group's sum added to the
     running total, K10's order). Each term ``w·d`` is a float; a group's
     sum is taken in double and rounded once, as the kernel does, so the
     two agree whatever order the terms are summed in (but for rounding
-    ties)."""
-    out = torch.zeros_like(pos)
-    for r0, r1, ds, d2, touching in _pass_pairs(pos, lo, hi, md):
+    ties).
+
+    With a tangent field ``u`` ``[3, n]`` also the sums of the directional
+    derivative, ``[6, n]`` (f, then J·u), K12's terms written by hand:
+    ``w·du − g·d`` with ``du = u_i − u_j`` and ``g = k·md·inv³·(d·du)``
+    (the comparisons are constants)."""
+    out = torch.zeros((3 if u is None else 6, pos.shape[1]), dtype=pos.dtype,
+                      device=pos.device)
+    for r0, r1, idx, ds, d2, touching in _pass_pairs(pos, lo, hi, md):
         inv = 1.0 / torch.sqrt(torch.where(touching, d2, 1.0))
         wgt = torch.where(touching, kc * (md * inv - 1.0), 0.0)
         for a, d in enumerate(ds):
             s = torch.sum((wgt * d).double(), dim=1)
             out[a, r0:r1] += s.float()
+        if u is None:
+            continue
+        dus = [u[a, r0:r1, None] - u[a][idx] for a in range(3)]
+        dot = ds[0] * dus[0] + ds[1] * dus[1] + ds[2] * dus[2]
+        g = torch.where(touching, kc * md * inv * inv * inv * dot, 0.0)
+        for a, (d, du) in enumerate(zip(ds, dus)):
+            s = torch.sum((wgt * du - g * d).double(), dim=1)
+            out[3 + a, r0:r1] += s.float()
     return out
 
 
@@ -413,7 +445,9 @@ def touching_count(pos: torch.Tensor, params: torch.Tensor,
 
 def _integrate(pos, vel, f, params):
     """Gravity on y → semi-implicit Euler → wall clamp & reflect, per
-    axis (``_kernel`` :724-747)."""
+    axis (``_kernel`` :724-747). Differentiable in every input (the
+    gradient path's transpose of the integrate is ``torch.autograd`` of
+    this function)."""
     _, _, grav, dt, e, lim = params.unbind(0)
     fx, fy, fz = f.unbind(0)
     fy = fy + grav                                        # unit mass
@@ -427,15 +461,43 @@ def _integrate(pos, vel, f, params):
     return torch.stack(new_p), torch.stack(new_v)
 
 
+def _md_kc(md, kc, device):
+    return (torch.as_tensor(md, dtype=torch.float32).detach().to(device),
+            torch.as_tensor(kc, dtype=torch.float32).detach().to(device))
+
+
+def _slab_sums(pos, md, kc, slabs: SlabSet, u=None) -> torch.Tensor:
+    """Slab A's sums, then slab B's, then their sum: K10's force (and
+    with ``u`` K12's J·u beside it)."""
+    md, kc = _md_kc(md, kc, pos.device)
+    (a_lo, a_hi), (b_lo, b_hi) = slab_ranges(slabs, pos.shape[1])
+    return (_pass_sums(pos, a_lo, a_hi, md, kc, u)
+            + _pass_sums(pos, b_lo, b_hi, md, kc, u))
+
+
+def contact_forces_sorted_plain(pos: torch.Tensor, md, kc,
+                                slabs: SlabSet) -> torch.Tensor:
+    """The pair contact forces ``[3, n]`` on sorted ``pos`` ``[3, n]`` over
+    the candidate set ``slabs`` (contact distance ``md``, stiffness ``kc``,
+    floats or 0-d tensors), on any device."""
+    return _slab_sums(pos, md, kc, slabs)
+
+
+def contact_force_jvp_sorted_plain(pos: torch.Tensor, u: torch.Tensor, md,
+                                   kc, slabs: SlabSet) -> torch.Tensor:
+    """The pair forces and their directional derivative along ``u``
+    ``[3, n]`` (sorted like ``pos``): ``[6, n]``, f then J·u, on any
+    device. Its f equals :func:`contact_forces_sorted_plain`'s bit for
+    bit; J·u is written by hand, not taken from ``torch.autograd``."""
+    return _slab_sums(pos, md, kc, slabs, u)
+
+
 def substep_sorted_plain(pos: torch.Tensor, vel: torch.Tensor,
                          params: torch.Tensor, slabs: SlabSet):
     """One substep on sorted state ``pos``/``vel`` ``[3, n]`` over the
     candidate set ``slabs``, on any device; returns new ``(pos, vel)``."""
     params = params.to(pos.device)
-    md, kc = params[0], params[1]
-    (a_lo, a_hi), (b_lo, b_hi) = slab_ranges(slabs, pos.shape[1])
-    f = (_pass_sums(pos, a_lo, a_hi, md, kc)
-         + _pass_sums(pos, b_lo, b_hi, md, kc))
+    f = contact_forces_sorted_plain(pos, params[0], params[1], slabs)
     return _integrate(pos, vel, f, params)
 
 
@@ -449,18 +511,11 @@ def _check(a: torch.Tensor, dtype, shape, device, what: str) -> None:
                          f"got {a.dtype} {tuple(a.shape)} on {a.device}")
 
 
-def substep_sorted_kernel(pos: torch.Tensor, vel: torch.Tensor,
-                          params: torch.Tensor, slabs: SlabSet):
-    """One substep of ``csrc/granular_step.cu`` on CUDA tensors: one launch
-    on the current stream, one CTA per block of ``slabs.block`` sorted
-    slots (at most 1024), new output buffers (the inputs are only read)."""
-    global LAUNCHES
-    dev = pos.device
-    if dev.type != "cuda":
-        raise ValueError(f"granular kernel needs CUDA tensors, got {dev}")
-    n = pos.shape[-1]
-    _check(pos, torch.float32, (3, n), dev, "pos")
-    _check(vel, torch.float32, (3, n), dev, "vel")
+def _cand_args(slabs: SlabSet, n: int, dev):
+    """The candidate set as the C entry points take it: ``(cid, cell_start,
+    windows, off)`` pointers (None where unused), the host bounds table, and
+    ``(ng, block, slab, ncells)``; plus the tensors the pointers read, which
+    the caller keeps alive over the launch."""
     block, slab, ng = slabs.block, slabs.slab, slabs.ng
     if not 1 <= block <= 1024 or slab < 1 or not 1 <= ng <= 9:
         raise ValueError(f"granular kernel takes 1 <= block <= 1024, slab >= 1 "
@@ -469,14 +524,12 @@ def substep_sorted_kernel(pos: torch.Tensor, vel: torch.Tensor,
         raise ValueError(f"slab offsets cover {slabs.off.shape[0]} blocks of "
                          f"{block}, fewer than {n} particles")
     _check(slabs.off, _I32, (slabs.off.shape[0], ng, 2), dev, "off")
-    prm = params.detach().to(device=dev, dtype=torch.float32).contiguous()
-    _check(prm, torch.float32, (6,), dev, "params")
-    pos, vel, off = pos.contiguous(), vel.contiguous(), slabs.off.contiguous()
+    off = slabs.off.contiguous()
     bounds = (ctypes.c_int * 18)()
     if slabs.windows is not None:
         _check(slabs.windows, _I32, (2, n, ng), dev, "windows")
-        wins = slabs.windows.contiguous()
-        cid_ptr = cs_ptr = None
+        keep = (off, slabs.windows.contiguous())
+        ptrs = (None, None, keep[1].data_ptr(), off.data_ptr())
         ncells = 0
     else:
         if slabs.bounds is None or len(slabs.bounds) != ng:
@@ -484,12 +537,34 @@ def substep_sorted_kernel(pos: torch.Tensor, vel: torch.Tensor,
         _check(slabs.cid, _I32, (n,), dev, "cid")
         cs = slabs.cell_start.contiguous()
         _check(cs, _I32, (cs.shape[0],), dev, "cell_start")
-        cid = slabs.cid.contiguous()
-        cid_ptr, cs_ptr = cid.data_ptr(), cs.data_ptr()
+        keep = (off, slabs.cid.contiguous(), cs)
+        ptrs = (keep[1].data_ptr(), cs.data_ptr(), None, off.data_ptr())
         ncells = cs.shape[0] - 3
         for g, (lo, hi) in enumerate(slabs.bounds):
             bounds[g], bounds[ng + g] = lo, hi
-        wins = None
+    return ptrs, bounds, (ng, block, slab, ncells), keep
+
+
+def _cuda_pos(pos: torch.Tensor, what: str) -> torch.Tensor:
+    if pos.device.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {pos.device}")
+    _check(pos, torch.float32, (3, pos.shape[-1]), pos.device, "pos")
+    return pos.contiguous()
+
+
+def substep_sorted_kernel(pos: torch.Tensor, vel: torch.Tensor,
+                          params: torch.Tensor, slabs: SlabSet):
+    """One substep of ``csrc/granular_step.cu`` on CUDA tensors: one launch
+    on the current stream, one CTA per block of ``slabs.block`` sorted
+    slots (at most 1024), new output buffers (the inputs are only read)."""
+    global LAUNCHES
+    pos = _cuda_pos(pos, "granular kernel")
+    dev, n = pos.device, pos.shape[-1]
+    _check(vel, torch.float32, (3, n), dev, "vel")
+    ptrs, bounds, dims, _keep = _cand_args(slabs, n, dev)
+    prm = params.detach().to(device=dev, dtype=torch.float32).contiguous()
+    _check(prm, torch.float32, (6,), dev, "params")
+    vel = vel.contiguous()
     pos_out = torch.empty_like(pos)
     vel_out = torch.empty_like(vel)
     if n == 0:
@@ -497,14 +572,76 @@ def substep_sorted_kernel(pos: torch.Tensor, vel: torch.Tensor,
     lib = _build.load("granular_step", _SIGNATURES)
     with torch.cuda.device(dev):
         err = lib.wpe_granular_step(
-            prm.data_ptr(), pos.data_ptr(), vel.data_ptr(), cid_ptr, cs_ptr,
-            None if wins is None else wins.data_ptr(), off.data_ptr(),
+            prm.data_ptr(), pos.data_ptr(), vel.data_ptr(), *ptrs,
             pos_out.data_ptr(), vel_out.data_ptr(), ctypes.addressof(bounds),
-            n, ng, block, slab, ncells,
-            torch.cuda.current_stream().cuda_stream)
+            n, *dims, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "granular_step launch")
     LAUNCHES += 1
     return pos_out, vel_out
+
+
+def _pair_prm(md, kc, dev) -> torch.Tensor:
+    md, kc = _md_kc(md, kc, dev)
+    return torch.stack([md, kc]).contiguous()
+
+
+def contact_forces_sorted_kernel(pos: torch.Tensor, md, kc,
+                                 slabs: SlabSet) -> torch.Tensor:
+    """K11: the pair forces ``[3, n]`` of ``csrc/granular_step.cu``
+    (``wpe_granular_forces``, K10's force code) on CUDA tensors, one launch
+    on the current stream."""
+    global LAUNCHES_FORCES
+    pos = _cuda_pos(pos, "granular force kernel")
+    dev, n = pos.device, pos.shape[-1]
+    ptrs, bounds, dims, _keep = _cand_args(slabs, n, dev)
+    prm = _pair_prm(md, kc, dev)
+    f = torch.empty_like(pos)
+    if n == 0:
+        return f
+    lib = _build.load("granular_step", _SIGNATURES)
+    with torch.cuda.device(dev):
+        err = lib.wpe_granular_forces(
+            prm.data_ptr(), pos.data_ptr(), *ptrs, f.data_ptr(),
+            ctypes.addressof(bounds), n, *dims,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "granular_forces launch")
+    LAUNCHES_FORCES += 1
+    return f
+
+
+def contact_force_jvp_sorted_kernel(pos: torch.Tensor, u: torch.Tensor, md,
+                                    kc, slabs: SlabSet) -> torch.Tensor:
+    """K12: ``[6, n]``, the pair forces and their directional derivative
+    along ``u`` (``wpe_granular_force_jvp``), on CUDA tensors, one launch
+    on the current stream."""
+    global LAUNCHES_JVP
+    pos = _cuda_pos(pos, "granular force-jvp kernel")
+    dev, n = pos.device, pos.shape[-1]
+    _check(u, torch.float32, (3, n), dev, "u")
+    u = u.contiguous()
+    ptrs, bounds, dims, _keep = _cand_args(slabs, n, dev)
+    prm = _pair_prm(md, kc, dev)
+    ft = torch.empty((6, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return ft
+    lib = _build.load("granular_step", _SIGNATURES)
+    with torch.cuda.device(dev):
+        err = lib.wpe_granular_force_jvp(
+            prm.data_ptr(), pos.data_ptr(), u.data_ptr(), *ptrs,
+            ft.data_ptr(), ctypes.addressof(bounds), n, *dims,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "granular_force_jvp launch")
+    LAUNCHES_JVP += 1
+    return ft
+
+
+def _dispatch(pos: torch.Tensor, plain, kernel):
+    dev = pos.device.type
+    if dev == "cpu":
+        return plain
+    if dev == "cuda":
+        return kernel
+    raise ValueError(f"no granular contact kernel for device {pos.device}")
 
 
 def substep_sorted(pos: torch.Tensor, vel: torch.Tensor, params: torch.Tensor,
@@ -512,9 +649,28 @@ def substep_sorted(pos: torch.Tensor, vel: torch.Tensor, params: torch.Tensor,
     """One substep on sorted state; the drop-in counterpart of
     ``granular_pallas.substep_sorted``. A CPU tensor takes the plain
     version, a CUDA tensor the kernel; any other device raises."""
-    dev = pos.device.type
-    if dev == "cpu":
-        return substep_sorted_plain(pos, vel, params, slabs)
-    if dev == "cuda":
-        return substep_sorted_kernel(pos, vel, params, slabs)
-    raise ValueError(f"no granular stepper for device {pos.device}")
+    step = _dispatch(pos, substep_sorted_plain, substep_sorted_kernel)
+    return step(pos, vel, params, slabs)
+
+
+def contact_forces_sorted(pos: torch.Tensor, md, kc,
+                          slabs: SlabSet) -> torch.Tensor:
+    """The pair contact forces ``[3, n]`` on sorted ``pos``; the counterpart
+    of ``granular_pallas.contact_forces_sorted`` (no pad rows). CPU → the
+    plain version, CUDA → K11, any other device raises."""
+    fn = _dispatch(pos, contact_forces_sorted_plain,
+                   contact_forces_sorted_kernel)
+    return fn(pos, md, kc, slabs)
+
+
+def contact_force_jvp_sorted(pos: torch.Tensor, u: torch.Tensor, md, kc,
+                             slabs: SlabSet) -> torch.Tensor:
+    """``[6, n]``: the pair forces and ``J·u`` on sorted state; the
+    counterpart of ``granular_pallas.contact_force_jvp_sorted`` (no pad
+    rows). J is symmetric where no slab entry is dropped (the force is the
+    negative gradient of a pair potential, the candidate relation is
+    symmetric), so ``u = f̄`` gives the transpose the backward passes
+    need. CPU → the plain version, CUDA → K12, any other device raises."""
+    fn = _dispatch(pos, contact_force_jvp_sorted_plain,
+                   contact_force_jvp_sorted_kernel)
+    return fn(pos, u, md, kc, slabs)

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's six paths through the entry points a user calls,
+Drives the port's paths through the entry points a user calls,
 after building the hand-written CUDA kernels from ``ops/csrc`` and holding
 each against its plain torch version on the card: the flagship scene, a
 256×256 mass-spring cloth over the lit, textured globe, stepped 5
@@ -23,10 +23,16 @@ forward, K11 and its directional derivative K12 backward) and the
 system-identification fit of ``examples/inverse_granular.py``; and cloth
 self-collision at 256² (``ClothScene(self_collide=True)`` and the CLI's
 ``cloth --self-collide``: K11 on the cloth's thin candidate set and the
-cloth substep with a force plane K1f), with its gradient. Phases:
+cloth substep with a force plane K1f), with its gradient; the
+free-particle box, 10 textured spheres in a wireframe box drawn at
+600×800 through the untiled sphere raster K4 of
+``ops/csrc/sphere_raster_untiled.cu`` (``FreeParticleScene`` and the CLI's
+``particles``); and the mesh scenes at 600×800 (``CubeScene``,
+``TexturedCubeScene``, ``GlobeScene`` with and without the mesh, and the
+CLI's ``cube``, ``textured`` and ``globe``). Phases:
 
 1. the card: CUDA present, ``nvidia-smi`` name and power limit;
-2. the build of the four kernel libraries (one nvcc each, all started
+2. the build of the five kernel libraries (one nvcc each, all started
    together, timed);
 3. the cloth kernel vs its plain version at 256² with the top row pinned:
    1 substep <= 1e-6 abs, 240 substeps <= 1e-5 on pos, fast_math vs the
@@ -162,14 +168,38 @@ substeps, rebuild every 32, slab 640, skin 0.5·r), and one
 self-collision rebuild block split into rebuild, the kernels, the rest
 and idle.
 
+18. the free-particle box (sim 4), with the launch counters reset just
+   before its main path and read just after: two ``FreeParticleScene``s
+   (documented-correct and ``bug_compat``), ``simulate(3.0)`` and a
+   600×800 frame each (a frame the untiled raster K4 draws: one launch
+   each), the CLI's ``particles --size 600 800`` (K4 once, the tiled
+   kernel never) and ``particles`` at 256×256 (the tiled kernel once, K4
+   never); all finite, |pos| <= bounds - radius + 1e-5 in the correct
+   mode, sphere and wireframe pixels, each frame within 1 in u8 of the CPU
+   frame of the same state on >= 99.9% of pixels; then K4 against its
+   plain version and against the tiled kernel, bit for bit, on the
+   scene's frame (10 instances) and on 16,384 (K4's ceiling: radius 0.25,
+   uniform in the box), with K4's, the plain version's and the tiled
+   kernel's times, K4's bound, one scene frame's time and one
+   ``torch.profiler`` trace of a frame (K4's device time a launch, the
+   device's busy time and idle share);
+19. the mesh scenes at 600×800: ``CubeScene``, ``TexturedCubeScene``,
+   ``GlobeScene`` (analytic and ``use_mesh=True``), each within 1 in u8 of
+   its CPU frame on >= 99.9% of pixels, showing geometry, with its ms a
+   frame; ``draw_mesh`` tile-binned against brute on the 16,128-triangle
+   globe (equal on >= 99.9% of pixels, nothing dropped) with both times;
+   one trace each of a cube and a mesh-globe frame; the CLI's ``cube``,
+   ``textured`` and ``globe``.
+
 Any failed check raises, so the script exits non-zero; with no CUDA device
 it exits non-zero before doing anything. The next-to-last line of stdout is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``. The
 ``cloth_step`` launches are those of phases 5 and 12 (K1 steps the
 flagship and runs the training path's forward and traces); the raster's
-those of phases 5, 10 and 14; ``granular_forces`` (K11) those of phases 16
-and 17, ``granular_force_jvp`` (K12) phase 16's and ``cloth_step_force``
-(K1f) phase 17's.
+those of phases 5, 10, 14 and 18; ``granular_forces`` (K11) those of
+phases 16 and 17, ``granular_force_jvp`` (K12) phase 16's,
+``cloth_step_force`` (K1f) phase 17's and ``sphere_raster_untiled`` (K4)
+phase 18's.
 Images and the full results go to ``chiprun_out/``.
 """
 
@@ -285,6 +315,16 @@ SC_CLI_SECONDS = 3.0
 SC_DIFF_STEPS = 16
 SC_BENCH_STEPS = 512
 REPS = 10
+# the free-particle box (phase 18): the scene's default frame (600x800, not
+# a multiple of (16, 128), so the untiled raster K4 draws it), its
+# simulated seconds, and K4's ceiling case: MAX_INSTANCES spheres of radius
+# 0.25 uniform in the box (bounds 10), seen by the scene's camera
+PT_FRAME = (600, 800)
+PT_SECONDS = 3.0
+PT_MAX_RADIUS = 0.25
+PT_SEED = 0
+# the mesh scenes (phase 19): the reference's 800x600 window
+MESH_FRAME = (600, 800)
 
 
 def _check(cond: bool, what: str) -> None:
@@ -529,7 +569,7 @@ def _dg_frame(tex, chunks, codec_k):
 @contextlib.contextmanager
 def _plain_kernels():
     """Inside, the kernels' wrappers (the cloth stepper, its trace and its
-    force-plane substep, the substep adjoint's walk, the raster, the
+    force-plane substep, the substep adjoint's walk, both rasters, the
     granular substep, pair forces and their directional derivative) run their
     plain versions on the card and count no launch, so a path runs its own
     code with the plain versions."""
@@ -540,6 +580,7 @@ def _plain_kernels():
              cloth_kernel.substep_with_force_kernel,
              cloth_grad_kernel._walk_kernel,
              raster_kernel.sphere_raster_kernel,
+             raster_kernel.sphere_raster_untiled_kernel,
              granular_kernel.substep_sorted_kernel,
              granular_kernel.contact_forces_sorted_kernel,
              granular_kernel.contact_force_jvp_sorted_kernel)
@@ -551,6 +592,8 @@ def _plain_kernels():
     raster_kernel.sphere_raster_kernel = (
         lambda wins, ocb, dirs, znear:
         raster_kernel.sphere_raster_plain(ocb, dirs, znear))
+    raster_kernel.sphere_raster_untiled_kernel = (
+        raster_kernel.sphere_raster_untiled_plain)
     granular_kernel.substep_sorted_kernel = granular_kernel.substep_sorted_plain
     granular_kernel.contact_forces_sorted_kernel = (
         granular_kernel.contact_forces_sorted_plain)
@@ -563,6 +606,7 @@ def _plain_kernels():
          cloth_kernel.substep_with_force_kernel,
          cloth_grad_kernel._walk_kernel,
          raster_kernel.sphere_raster_kernel,
+         raster_kernel.sphere_raster_untiled_kernel,
          granular_kernel.substep_sorted_kernel,
          granular_kernel.contact_forces_sorted_kernel,
          granular_kernel.contact_force_jvp_sorted_kernel) = saved
@@ -2247,6 +2291,315 @@ def _contact_times(fresh, sc_state, params, dev, card) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The free-particle box and the mesh scenes (phases 18-19)
+# ---------------------------------------------------------------------------
+
+def _u8(img):
+    import numpy as np
+
+    return (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.int16)
+
+
+def _trace_frame(fn, path, kernel: str = "") -> dict:
+    """One ``torch.profiler`` trace of ``fn`` (a frame): the host window,
+    the device's busy time and op count, its idle share, and the device
+    time and count of the kernels whose name holds ``kernel``."""
+    dev, host = _trace(fn, path)
+    t0 = min([a for a, _ in host] + [a for a, _, _ in dev])
+    t1 = max([b for _, b in host] + [b for _, b, _ in dev])
+    busy = _union_us([(a, b) for a, b, _ in dev])
+    ks = [b - a for a, b, name in dev if kernel and kernel in name]
+    return {"window_us": t1 - t0, "device_busy_us": busy,
+            "device_ops": len(dev), "idle_share": 1.0 - busy / (t1 - t0),
+            "kernel_us": sum(ks), "kernel_launches": len(ks)}
+
+
+def _k4_case(cam, centers, radius, label: str, card) -> dict:
+    """K4 on one frame of ``PT_FRAME``: against its plain version and
+    against the tiled kernel (winners mapped back to instance ids), both
+    bit for bit with hits above zero; then the times (CUDA events, best of
+    3) of K4 alone and with its prologue, of the plain version and of the
+    tiled kernel alone and with its prologue, and K4's bound: the rays in,
+    the two planes out and the table (bytes), or OPS_RAY_SPHERE operations
+    on every (pixel, instance) pair (the sweep has no early exit)."""
+    import torch
+
+    from wgpu_physics_engine_torch.ops import raster_kernel as rk
+    from wgpu_physics_engine_torch.render import camera as cam_mod
+
+    h, w = PT_FRAME
+    eye, dirs = cam_mod.pixel_rays(cam, h, w)
+    n = centers.shape[0]
+    zn = cam.znear
+    rot, tan_half = cam.view[:3, :3], torch.tan(cam.fovy_rad / 2.0)
+    ocb = rk.untiled_prologue(eye, centers, radius)
+    kt, ki = rk.sphere_raster_untiled_kernel(ocb, dirs, zn)
+    pt, pi = rk.sphere_raster_untiled_plain(ocb, dirs, zn)
+    wins, tocb, order = rk.tiled_prologue(rot, eye, centers, radius, zn,
+                                          tan_half, cam.aspect, h, w)
+    tt, ti, _ = rk.sphere_raster_kernel(wins, tocb, dirs, zn)
+    torch.cuda.synchronize()
+    ids = torch.where(ti >= 0, order[ti.clamp_min(0).long()], -1)
+    hits = int((ki >= 0).sum())
+    both = (ki >= 0) & (pi >= 0)
+    err = _maxdiff(kt[both], pt[both]) if bool(both.any()) else 0.0
+    plain_eq = bool(torch.equal(ki, pi) and torch.equal(kt, pt))
+    tiled_eq = bool(torch.equal(ids, ki) and torch.equal(tt, kt))
+    print(f"{label}: hits {hits}, K4 vs plain bitwise {plain_eq} (tmin "
+          f"{err:.3e}, winners differ on {int((ki != pi).sum())} px), K4 vs "
+          f"the tiled kernel bitwise {tiled_eq} (winners differ on "
+          f"{int((ids != ki).sum())} px)")
+    _check(hits > 0, f"{label}: no hit")
+    _check(plain_eq, f"{label}: K4 differs from its plain version")
+    _check(tiled_eq, f"{label}: K4 differs from the tiled kernel")
+
+    ms = _best_ms(lambda: rk.sphere_raster_untiled_kernel(ocb, dirs, zn))
+    ms_pro = _best_ms(lambda: rk.sphere_raster_untiled(eye, dirs, centers,
+                                                       radius, zn))
+    plain_ms = _best_ms(lambda: rk.sphere_raster_untiled_plain(ocb, dirs, zn))
+    tiled_ms = _best_ms(lambda: rk.sphere_raster_kernel(wins, tocb, dirs, zn))
+    tiled_pro = _best_ms(lambda: rk.sphere_raster_tiled(
+        rot, eye, dirs, centers, radius, zn, tan_half, cam.aspect))
+    p = h * w
+    bound, by = _bound(3 * p * 4 + 2 * p * 4 + 16 * n,
+                       float(p) * n * OPS_RAY_SPHERE)
+    print(f"phase 6 sphere_raster_untiled (K4) @{h}x{w}, {n} instances "
+          f"[{card}]: kernel {ms:.5f} ms ({ms_pro:.5f} with its prologue), "
+          f"plain {plain_ms:.5f} ms, bound {bound:.5f} ms ({by}), kernel at "
+          f"{bound / ms:.4f} of the bound; the tiled kernel (K2/K3) on the "
+          f"same frame {tiled_ms:.5f} ms ({tiled_pro:.5f} with its "
+          f"prologue)")
+    return {"n": n, "hits": hits, "bitwise_plain": plain_eq,
+            "bitwise_tiled": tiled_eq, "err_tmin": err, "ms": ms,
+            "ms_with_prologue": ms_pro, "plain_ms": plain_ms,
+            "tiled_ms": tiled_ms, "tiled_ms_with_prologue": tiled_pro,
+            "bound_ms": bound, "bound_by": by}
+
+
+def _phase18_particles(dev, card, cli_main) -> dict:
+    """Phase 18: the free-particle box. The main path, counted: two
+    ``FreeParticleScene``s (documented-correct and ``bug_compat``),
+    ``simulate(3.0)`` and a 600x800 frame each, the ``particles`` CLI at
+    600x800 (K4) and at its default 256x256 (the tiled kernel); then K4
+    against its plain version and the tiled kernel on the scene's frame
+    and on MAX_INSTANCES spheres, the frames against the CPU's, and the
+    times."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from wgpu_physics_engine_torch.core.config import FreeParticleConfig
+    from wgpu_physics_engine_torch.core.state import ParticleState
+    from wgpu_physics_engine_torch.models.scenes import FreeParticleScene
+    from wgpu_physics_engine_torch.ops import raster_kernel as rk
+    from wgpu_physics_engine_torch.utils import viewer
+
+    fh, fw = PT_FRAME
+    bg = np.asarray([0.05, 0.05, 0.08], np.float32)
+    png = os.path.join(OUT, "particles_cli.png")
+    png256 = os.path.join(OUT, "particles_cli_256.png")
+    modes = {"correct": False, "bug_compat": True}
+    sc = {k: FreeParticleScene(FreeParticleConfig(bug_compat=m), seed=PT_SEED,
+                               device=dev) for k, m in modes.items()}
+    torch.cuda.synchronize()
+    rk.LAUNCHES = 0
+    rk.LAUNCHES_UNTILED = 0
+    imgs, per_frame = {}, {}
+    for k, scene in sc.items():
+        scene.simulate(PT_SECONDS)
+        u0 = rk.LAUNCHES_UNTILED
+        imgs[k] = scene.render(fh, fw)
+        per_frame[k] = rk.LAUNCHES_UNTILED - u0
+    u0, t0 = rk.LAUNCHES_UNTILED, rk.LAUNCHES
+    rc = cli_main(["particles", "--size", str(fh), str(fw), "--out", png,
+                   "--device", "cuda"])
+    cli = (rk.LAUNCHES_UNTILED - u0, rk.LAUNCHES - t0)
+    u0, t0 = rk.LAUNCHES_UNTILED, rk.LAUNCHES
+    rc256 = cli_main(["particles", "--out", png256, "--device", "cuda"])
+    cli256 = (rk.LAUNCHES_UNTILED - u0, rk.LAUNCHES - t0)
+    torch.cuda.synchronize()
+    launches = {"sphere_raster_untiled": rk.LAUNCHES_UNTILED,
+                "sphere_raster": rk.LAUNCHES}
+    print(f"phase 18 free-particle main path [{card}]: FreeParticleScene x 2 "
+          f"(correct, bug_compat) simulate({PT_SECONDS}) + render{PT_FRAME} "
+          f"(K4 launches a frame {per_frame}) + CLI particles --size {fh} "
+          f"{fw} (rc {rc}; K4, tiled launches {cli}) + CLI particles at 256x256 "
+          f"(rc {rc256}; K4, tiled launches {cli256}); launches {launches}")
+    _check(rc == 0 and rc256 == 0, f"particles CLI returned {rc} {rc256}")
+    _check(all(v == 1 for v in per_frame.values()),
+           f"a {fh}x{fw} frame launched K4 {per_frame} times, not once")
+    _check(cli == (1, 0), f"CLI at {fh}x{fw}: K4, tiled launches {cli}")
+    _check(cli256 == (0, 1), f"CLI at 256x256: K4, tiled launches {cli256}")
+
+    res = {"launches": launches, "per_frame": per_frame, "cli": cli,
+           "cli256": cli256}
+    for k, scene in sc.items():
+        st = scene.state
+        finite = bool(torch.isfinite(st.pos).all()
+                      and torch.isfinite(st.vel).all())
+        limit = float(scene.params.bounds - scene.params.radius)
+        pmax = float(st.pos.abs().max())
+        img = imgs[k]
+        cpu = FreeParticleScene(FreeParticleConfig(bug_compat=modes[k]),
+                                seed=PT_SEED, device="cpu")
+        cpu.state = ParticleState(pos=st.pos.cpu(), vel=st.vel.cpu())
+        ref = cpu.render(fh, fw)
+        d = np.abs(_u8(img) - _u8(ref)).max(-1)
+        within = float((d <= 1).mean())
+        blue = int((img == [0.0, 0.0, 1.0]).all(-1).sum())
+        sphere = int(((np.abs(img - bg).max(-1) > 1e-6)
+                      & ~(img == [0.0, 0.0, 1.0]).all(-1)).sum())
+        # within 1 in u8 but for rare pixels: at a sphere's pole u is
+        # undefined and at a silhouette t is ill-conditioned, so an ulp of
+        # CPU vs CUDA libm there moves the texture sample by texels
+        print(f"phase 18 {k}: finite {finite}, max |pos| {pmax:.6f} (bounds "
+              f"- radius {limit}), frame {fh}x{fw}: sphere px {sphere}, "
+              f"wireframe px {blue}; vs the CPU frame from the same state: "
+              f"u8 diff <= 1 on {within:.6f} of px (>= 0.999), max {d.max()}")
+        _check(finite, f"{k}: particle state not finite")
+        if not modes[k]:
+            _check(pmax <= limit + 1e-5, f"{k}: a particle left the box")
+        _check(sphere > 1e-3 * fh * fw and blue > 1e-3 * fh * fw,
+               f"{k}: frame lacks spheres or wireframe: {sphere} {blue}")
+        _check(within >= 0.999, f"{k}: frame vs CPU within 1 on {within}")
+        viewer.save_png(img, os.path.join(OUT, f"particles_{k}.png"))
+        res[k] = {"max_abs_pos": pmax, "sphere_px": sphere, "wire_px": blue,
+                  "cpu_within_1": within, "cpu_max_diff": int(d.max())}
+    cli_img = np.asarray(Image.open(png).convert("RGB"))
+    _check(cli_img.shape == (fh, fw, 3)
+           and int((cli_img == [0, 0, 255]).all(-1).sum()) > 1e-3 * fh * fw,
+           "the CLI's PNG lacks the wireframe")
+
+    scene = sc["correct"]
+    cam = scene.camera()
+    res["k4_scene"] = _k4_case(
+        cam, scene.state.pos.T.contiguous(), float(scene.params.radius),
+        f"phase 18 K4 @{fh}x{fw}, the scene's {scene.config.num_particles} "
+        f"instances", card)
+    lim = FreeParticleConfig().bounds - PT_MAX_RADIUS
+    g = torch.Generator().manual_seed(PT_SEED)
+    big = ((torch.rand((rk.MAX_INSTANCES, 3), generator=g) * 2.0 - 1.0)
+           * lim).to(dev)
+    res["k4_max"] = _k4_case(cam, big, PT_MAX_RADIUS,
+                             f"phase 18 K4 @{fh}x{fw}, {rk.MAX_INSTANCES} "
+                             f"instances of radius {PT_MAX_RADIUS}", card)
+    res["frame_ms"] = _best_ms(lambda: scene.render(fh, fw))
+    tr = _trace_frame(lambda: scene.render(fh, fw),
+                      os.path.join(OUT, "trace_particles_frame.json"),
+                      "sphere_raster_untiled")
+    res["trace_frame"] = tr
+    _check(tr["kernel_launches"] == 1,
+           f"traced frame launched K4 {tr['kernel_launches']} times")
+    # K4's device time a launch at the main path's shapes: CUDA events
+    # around one call read the wrapper's host-side launch cost
+    res["k4_scene"]["device_ms"] = tr["kernel_us"] / 1e3
+    print(f"phase 6 FreeParticleScene frame {fh}x{fw} [{card}]: "
+          f"{res['frame_ms']:.4f} ms (lines, K4 and its prologue, texture, "
+          f"composite, copy to the host)")
+    print(f"phase 7 trace one FreeParticleScene frame {fh}x{fw} [{card}]: "
+          f"window {tr['window_us']:.1f} us (host, profiled), device busy "
+          f"{tr['device_busy_us']:.1f} us in {tr['device_ops']} device ops, "
+          f"K4 {tr['kernel_us']:.2f} us of device time (bound "
+          f"{res['k4_scene']['bound_ms'] * 1e3:.2f} us); device idle share "
+          f"{tr['idle_share']:.4f}")
+    return res
+
+
+def _phase19_meshes(dev, card, cli_main) -> dict:
+    """Phase 19: the mesh scenes at 600x800 on the card: each against its
+    CPU frame and showing geometry, its ms a frame; the tile-binned
+    resolver against the brute one on the 16,128-triangle globe; the CLI's
+    cube, textured and globe."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from wgpu_physics_engine_torch import render as R
+    from wgpu_physics_engine_torch.models import scenes
+    from wgpu_physics_engine_torch.utils import viewer
+
+    fh, fw = MESH_FRAME
+    bg = np.asarray([0.05, 0.05, 0.08], np.float32)
+    makers = {
+        "cube": lambda d: scenes.CubeScene(device=d),
+        "textured": lambda d: scenes.TexturedCubeScene(device=d),
+        "globe": lambda d: scenes.GlobeScene(device=d),
+        "globe_mesh": lambda d: scenes.GlobeScene(use_mesh=True, device=d),
+    }
+    res = {}
+    for name, make in makers.items():
+        scene = make(dev)
+        img = scene.render(fh, fw)
+        ms = _best_ms(lambda: scene.render(fh, fw))
+        t0 = time.perf_counter()
+        ref = make("cpu").render(fh, fw)
+        cpu_s = time.perf_counter() - t0
+        d = np.abs(_u8(img) - _u8(ref)).max(-1)
+        within = float((d <= 1).mean())
+        geo = int((np.abs(img - bg).max(-1) > 1e-6).sum())
+        print(f"phase 19 {name} @{fh}x{fw} [{card}]: {ms:.4f} ms a frame "
+              f"(CUDA events, best of 3, with the copy to the host); "
+              f"geometry px {geo}; vs the CPU frame ({cpu_s:.2f} s host "
+              f"clock): u8 diff <= 1 on {within:.6f} of px (>= 0.999), max "
+              f"{d.max()}")
+        _check(np.isfinite(img).all(), f"{name}: frame not finite")
+        _check(geo > 0.02 * fh * fw, f"{name}: only {geo} geometry pixels")
+        _check(within >= 0.999, f"{name}: frame vs CPU within 1 on {within}")
+        viewer.save_png(img, os.path.join(OUT, f"mesh_{name}.png"))
+        res[name] = {"ms": ms, "geometry_px": geo, "cpu_within_1": within,
+                     "cpu_max_diff": int(d.max())}
+
+    scene = scenes.GlobeScene(use_mesh=True, device=dev)
+    cam = scene.camera()
+    n_tris = int(scene.mesh.tris.shape[0])
+
+    def draw(binned):
+        return R.draw_mesh(R.clear(fh, fw, device=dev), cam, scene.mesh,
+                           texture=scene.texture, mode="phong",
+                           light=scene.light, binned=binned,
+                           return_stats=True)
+
+    (brute, _), (tiled, dropped) = draw(False), draw(True)
+    same = float(((tiled.color == brute.color).all(-1)
+                  & (tiled.depth == brute.depth)).float().mean())
+    brute_ms = _best_ms(lambda: draw(False))
+    tiled_ms = _best_ms(lambda: draw(True))
+    print(f"phase 19 draw_mesh binned vs brute, the globe mesh ({n_tris} "
+          f"triangles) @{fh}x{fw} [{card}]: equal on {same:.6f} of px (>= "
+          f"0.999), dropped {dropped}; brute {brute_ms:.4f} ms, binned "
+          f"{tiled_ms:.4f} ms (CUDA events, best of 3)")
+    _check(same >= 0.999, f"binned vs brute equal on {same}")
+    _check(dropped == 0, f"binned globe dropped {dropped}")
+    res["binned_vs_brute"] = {"tris": n_tris, "equal_share": same,
+                              "dropped": dropped, "brute_ms": brute_ms,
+                              "binned_ms": tiled_ms}
+
+    for name in ("cube", "globe_mesh"):
+        scene = makers[name](dev)
+        tr = _trace_frame(lambda: scene.render(fh, fw),
+                          os.path.join(OUT, f"trace_{name}_frame.json"))
+        res[name]["trace"] = tr
+        print(f"phase 7 trace one {name} frame {fh}x{fw} [{card}]: window "
+              f"{tr['window_us']:.1f} us (host, profiled), device busy "
+              f"{tr['device_busy_us']:.1f} us in {tr['device_ops']} device "
+              f"ops; device idle share {tr['idle_share']:.4f}")
+
+    for name in ("cube", "textured", "globe"):
+        png = os.path.join(OUT, f"{name}_cli.png")
+        rc = cli_main([name, "--size", str(fh), str(fw), "--out", png,
+                       "--device", "cuda"])
+        img = np.asarray(Image.open(png).convert("RGB")) / 255.0
+        geo = int((np.abs(img - bg).max(-1) > 0.01).sum())
+        print(f"phase 19 CLI {name} --size {fh} {fw} [{card}]: rc {rc}, "
+              f"geometry px {geo}")
+        _check(rc == 0 and geo > 0.02 * fh * fw,
+               f"CLI {name}: rc {rc}, px {geo}")
+        res[f"cli_{name}"] = {"rc": rc, "geometry_px": geo}
+    torch.cuda.synchronize()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2285,6 +2638,7 @@ def main() -> int:
     # ---- phase 2: build the kernel libraries, one nvcc each, together ----
     libs = {"cloth_step": cloth_kernel._SIGNATURES,
             "sphere_raster": raster_kernel._SIGNATURES,
+            "sphere_raster_untiled": raster_kernel._SIGNATURES_UNTILED,
             "cloth_grad": cloth_grad_kernel._SIGNATURES,
             "granular_step": granular_kernel._SIGNATURES}
     build_s = {}
@@ -2554,6 +2908,15 @@ def main() -> int:
     # ---- phases 6 and 7 for the contact-gradient and self-collision paths
     ctt = _contact_times(fresh, sc_state, sc_params, dev, card)
     results["contact_times"] = ctt
+    del fresh, sc_state
+
+    # ---- phase 18: the free-particle box and K4, counted ----
+    pt = _phase18_particles(dev, card, cli_main)
+    results["particles"] = pt
+    pt_launches = pt["launches"]
+
+    # ---- phase 19: the mesh scenes ----
+    results["meshes"] = _phase19_meshes(dev, card, cli_main)
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
 
@@ -2576,7 +2939,8 @@ def main() -> int:
          "source": "wgpu_physics_engine_torch/ops/csrc/sphere_raster.cu",
          "replaces": "wgpu_physics_engine_tpu/ops/raster_pallas.py:209",
          "launches": (launches["sphere_raster"] + dg_launches["sphere_raster"]
-                      + gr_launches["sphere_raster"]),
+                      + gr_launches["sphere_raster"]
+                      + pt_launches["sphere_raster"]),
          "max_abs_err": max(r_err, r9_err,
                             results["granular"]["raster"]["err_tmin"],
                             results["granular"]["raster"]["err_oc"]),
@@ -2623,6 +2987,16 @@ def main() -> int:
          "plain_ms": ctt["cloth_step_force"]["plain_ms"],
          "bound_ms": ctt["cloth_step_force"]["bound_ms"],
          "bound_by": ctt["cloth_step_force"]["bound_by"], "library_ms": None},
+        {"name": "sphere_raster_untiled", "route": "cuda",
+         "source": "wgpu_physics_engine_torch/ops/csrc/sphere_raster_untiled.cu",
+         "replaces": "wgpu_physics_engine_tpu/ops/raster_pallas.py:35",
+         "launches": pt_launches["sphere_raster_untiled"],
+         "max_abs_err": max(pt["k4_scene"]["err_tmin"],
+                            pt["k4_max"]["err_tmin"]),
+         "ms": pt["k4_scene"]["device_ms"],
+         "plain_ms": pt["k4_scene"]["plain_ms"],
+         "bound_ms": pt["k4_scene"]["bound_ms"],
+         "bound_by": pt["k4_scene"]["bound_by"], "library_ms": None},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

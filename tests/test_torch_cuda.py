@@ -16,8 +16,17 @@ The contact kernels K11 and K12 are held to their plain versions within
 1e-5 relative (each group's sum in double, rounded once), K11 with the
 plain integrate to K10 bit for bit, K1f to its plain version within 1e-6
 and, with a zero force plane, to K1 bit for bit; the granular gradient
-path on the card to the CPU plain path within 1e-4.
+path on the card to the CPU plain path within 1e-4. The untiled sphere
+raster (K4) is held to its plain version and to the tiled kernel bit for
+bit; the free-particle and mesh frames on the card to their CPU frames
+within 1 in u8 on >= 99.9% of pixels (CPU and CUDA libm round
+pow/atan2/asin apart by ulps, which a sphere's pole or silhouette
+amplifies);
+the golden scenes to ``tests/golden/*.png`` (at most 2 in u8 on < 2% of
+pixels, ``tests/test_render.py::test_golden_frame``'s tolerance).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -116,11 +125,15 @@ def test_scene_on_cuda_runs_both_kernels(dev):
     scene = scenes.ClothScene(c, device=dev)
     scene.resize(160, 64)
     k0, r0 = cloth_kernel.LAUNCHES, raster_kernel.LAUNCHES
+    u0 = raster_kernel.LAUNCHES_UNTILED
     scene.simulate(0.5)
     scene.update(1 / 60)
     img = scene.render(64, 160)
     assert cloth_kernel.LAUNCHES - k0 == 240 + 8
-    assert raster_kernel.LAUNCHES - r0 == 1
+    # 1,024 instances on a frame that is not a multiple of (16, 128): the
+    # untiled raster (K4), as in the JAX renderer
+    assert raster_kernel.LAUNCHES_UNTILED - u0 == 1
+    assert raster_kernel.LAUNCHES == r0
     assert img.shape == (64, 160, 3) and np.isfinite(img).all()
     ref = cloth_kernel.multi_step_plain(st.init_cloth_state(c, device=dev),
                                         scene.params, DT, 240)
@@ -244,12 +257,15 @@ def test_cli_gif_on_cuda(dev, tmp_path):
     from wgpu_physics_engine_torch.__main__ import main
 
     k0, r0 = cloth_kernel.LAUNCHES, raster_kernel.LAUNCHES
+    u0 = raster_kernel.LAUNCHES_UNTILED
     out = tmp_path / "cloth.gif"
     rc = main(["cloth", "--grid", "16", "--size", "32", "64", "--seconds",
                "0.2", "--fps", "10", "--gif", str(out)])
     assert rc == 0 and out.exists()
     assert cloth_kernel.LAUNCHES - k0 == 2 * 8      # 2 frames of 8 substeps
-    assert raster_kernel.LAUNCHES - r0 == 2
+    # 256 instances on a 32 x 64 frame: the untiled raster (K4)
+    assert raster_kernel.LAUNCHES_UNTILED - u0 == 2
+    assert raster_kernel.LAUNCHES == r0
 
 
 def _max_rel(a, b):
@@ -532,3 +548,119 @@ def test_granular_multi_step_diff_cuda_matches_cpu_plain(dev):
     for a, b in zip(got, ref):
         assert torch.isfinite(a).all()
         assert _max_rel(a.cpu(), b) <= 1e-4
+
+
+# --- the untiled sphere raster (K4), the free-particle and mesh scenes ---
+
+def _box_centers(dev, n, seed):
+    """n instances uniform in the free-particle box (bounds 10)."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand((n, 3), generator=g) * 20.0 - 10.0).to(dev)
+
+
+def _box_rays(dev, h, w):
+    tc = camera.make_camera(cfg.CameraConfig(radius=40.0, phi=0.3, theta=0.3),
+                            aspect=w / h, device=dev)
+    eye, dirs = camera.pixel_rays(tc, h, w)
+    return tc, eye, dirs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,radius", [(10, 1.0), (16384, 0.25)])
+def test_untiled_raster_kernel_matches_plain_and_tiled(dev, n, radius):
+    h, w = 120, 200
+    tc, eye, dirs = _box_rays(dev, h, w)
+    centers = _box_centers(dev, n, n)
+    before = raster_kernel.LAUNCHES_UNTILED
+    kt, ki = raster_kernel.sphere_raster_untiled(eye, dirs, centers, radius,
+                                                 tc.znear)
+    torch.cuda.synchronize()
+    assert raster_kernel.LAUNCHES_UNTILED == before + 1
+    ocb = raster_kernel.untiled_prologue(eye, centers, radius)
+    pt, pi = raster_kernel.sphere_raster_untiled_plain(ocb, dirs, tc.znear)
+    assert int((ki >= 0).sum()) > 50
+    assert torch.equal(ki, pi) and torch.equal(kt, pt)
+    wins, tocb, order = raster_kernel.tiled_prologue(
+        tc.view[:3, :3], eye, centers, radius, tc.znear,
+        torch.tan(tc.fovy_rad / 2.0), tc.aspect, h, w)
+    tt, ti, _ = raster_kernel.sphere_raster_kernel(wins, tocb, dirs, tc.znear)
+    ids = torch.where(ti >= 0, order[ti.clamp_min(0).long()], -1)
+    assert torch.equal(ids, ki) and torch.equal(tt, kt)
+
+
+@pytest.mark.cuda
+def test_free_particle_scene_on_cuda_takes_k4(dev):
+    s = scenes.FreeParticleScene(device=dev)
+    s.simulate(1.0)
+    u0, r0 = raster_kernel.LAUNCHES_UNTILED, raster_kernel.LAUNCHES
+    img = s.render(60, 80)
+    assert raster_kernel.LAUNCHES_UNTILED - u0 == 1
+    assert raster_kernel.LAUNCHES == r0
+    c = scenes.FreeParticleScene(device="cpu")
+    c.state = st.ParticleState(pos=s.state.pos.cpu(), vel=s.state.vel.cpu())
+    ref = c.render(60, 80)
+    # within 1 in u8 but for rare pixels: at a sphere's pole u = atan2(y,
+    # x) / 2π is undefined and at a silhouette t is ill-conditioned, so an
+    # ulp of CPU vs CUDA libm there moves the texture sample by texels
+    d = np.abs(np.round(img * 255) - np.round(ref * 255)).max(-1)
+    assert (d <= 1).mean() >= 0.999, (d <= 1).mean()
+    assert (np.abs(img - np.asarray([0.05, 0.05, 0.08])).max(-1) > 0.01).sum() > 30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binned", [False, True])
+def test_draw_mesh_cuda_matches_cpu(dev, binned):
+    from wgpu_physics_engine_torch import render as R
+
+    host = R.geometry.generate_uv_sphere(10.0, 32, 64)
+    tex = R.texture.checkerboard()
+    out = []
+    for d in (dev, "cpu"):
+        cam = camera.make_camera(cfg.CameraConfig(radius=30.0, phi=0.4),
+                                 aspect=1.5, device=d)
+        fb, dropped = R.draw_mesh(
+            R.clear(96, 144, device=d), cam, R.DeviceMesh.from_host(host, d),
+            texture=tex.to(d), light=cfg.LightConfig(), mode="phong",
+            binned=binned, return_stats=True)
+        out.append((fb.color.cpu(), fb.depth.cpu(), dropped))
+    (gc, gd, gdrop), (rc, rd, rdrop) = out
+    assert gdrop == rdrop == 0
+    assert ((gd < 1.0) == (rd < 1.0)).float().mean() >= 0.999
+    assert int((gd < 1.0).sum()) > 2000
+    both = (gd < 1.0) & (rd < 1.0)
+    assert float((gd - rd).abs()[both].max()) <= 1e-6
+    diff = (gc - rc).abs().amax(-1)
+    assert float((diff <= 1e-4).float().mean()) >= 0.999
+
+
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+
+
+def golden_frame_diff(name: str, device) -> np.ndarray:
+    """Per pixel and channel, |the port's frame - the committed golden
+    frame| in u8, for one of ``tests/golden/regen.py``'s scenes rendered on
+    ``device`` with its settings (64 × 64; the 12 × 12 cloth on the
+    stencil path after 0.5 s)."""
+    from PIL import Image
+
+    if name == "globe":
+        s = scenes.GlobeScene(device=device)
+    elif name == "cube":
+        s = scenes.CubeScene(device=device)
+    else:
+        s = scenes.ClothScene(config=cfg.ClothConfig(height=12, width=12),
+                              use_kernel=False, device=device)
+        s.simulate(0.5)
+    got = (np.clip(s.render(64, 64), 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    want = np.asarray(Image.open(os.path.join(GOLDEN, f"{name}.png"))
+                      .convert("RGB"))
+    assert got.shape == want.shape
+    return np.abs(got.astype(np.int32) - want.astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["globe", "cube", "cloth"])
+def test_golden_frame_on_cuda(dev, name):
+    diff = golden_frame_diff(name, dev)
+    assert diff.max() <= 2, f"max pixel diff {diff.max()}"
+    assert (diff > 0).mean() < 0.02, f"{(diff > 0).mean():.1%} pixels differ"

@@ -8,23 +8,33 @@ hand-written CUDA kernel in ``ops/csrc``, built by nvcc at first CUDA use,
 with a plain torch version beside it that CPU tensors take. This package
 never imports jax.
 
-Ported so far: the flagship cloth scene (``models.scenes.ClothScene``:
-step + render) and its CLI, ``python -m wgpu_physics_engine_torch cloth``;
-batched cloth datagen; gradients through the cloth; and the granular pile
-(``models.scenes.GranularScene``, ``python -m wgpu_physics_engine_torch
-granular``).
+Ported so far: every scene of the JAX CLI — the mesh cube, textured cube
+and globe (``CubeScene``, ``TexturedCubeScene``, ``GlobeScene``), the
+free-particle box (``FreeParticleScene``), the flagship cloth
+(``ClothScene``) and the granular pile (``GranularScene``), all in
+``models.scenes`` and behind ``python -m wgpu_physics_engine_torch
+{cube,textured,globe,particles,cloth,granular}``; batched cloth datagen;
+gradients through the cloth and through granular contact.
 """
 
 __version__ = "0.1.0"
 
 from .core import config
-from .core.config import CameraConfig, ClothConfig, GlobeConfig, LightConfig
+from .core.config import (
+    CameraConfig,
+    ClothConfig,
+    FreeParticleConfig,
+    GlobeConfig,
+    LightConfig,
+)
 from .core.state import (
     ClothParams,
     ClothState,
+    ParticleParams,
     ParticleState,
     init_cloth_state,
     params_from_numpy,
+    particle_params_from_numpy,
     particle_state_from_numpy,
     state_from_numpy,
 )
@@ -33,13 +43,16 @@ __all__ = [
     "config",
     "CameraConfig",
     "ClothConfig",
+    "FreeParticleConfig",
     "GlobeConfig",
     "LightConfig",
     "ClothParams",
     "ClothState",
+    "ParticleParams",
     "ParticleState",
     "init_cloth_state",
     "params_from_numpy",
+    "particle_params_from_numpy",
     "particle_state_from_numpy",
     "state_from_numpy",
 ]

@@ -1,7 +1,13 @@
-"""CLI entry point: run the flagship cloth scene or the granular pile
-headless and write a PNG or an animated GIF, generate a batched cloth
+"""CLI entry point: run a scene headless (the mesh cube, textured cube
+and globe, the free-particle box, the flagship cloth or the granular
+pile) and write a PNG or an animated GIF, generate a batched cloth
 dataset, or decode one.
 
+    python -m wgpu_physics_engine_torch cube --size 600 800 --out cube.png
+    python -m wgpu_physics_engine_torch textured --out tex.png
+    python -m wgpu_physics_engine_torch globe --out globe.png
+    python -m wgpu_physics_engine_torch particles --size 600 800 \\
+        --seconds 4 --gif box.gif
     python -m wgpu_physics_engine_torch cloth --grid 256 --size 256 256 \\
         --seconds 5 --out cloth.png
     python -m wgpu_physics_engine_torch cloth --seconds 3 --gif cloth.gif
@@ -29,11 +35,14 @@ import time
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="wgpu_physics_engine_torch")
-    p.add_argument("scene", choices=["cloth", "granular", "datagen", "decode"])
+    p.add_argument("scene", choices=["cube", "textured", "globe", "particles",
+                                     "cloth", "granular", "datagen",
+                                     "decode"])
     p.add_argument("--out", default=None, help="PNG path for a single frame")
     p.add_argument("--gif", default=None, help="animated GIF path")
     p.add_argument("--seconds", type=float, default=3.0,
-                   help="simulated seconds")
+                   help="simulated seconds (cloth, particles, granular; "
+                        "a GIF's length for every scene)")
     p.add_argument("--fps", type=int, default=20, help="GIF frames/sec")
     p.add_argument("--size", type=int, nargs=2, default=(256, 256),
                    metavar=("H", "W"))
@@ -92,7 +101,17 @@ def main(argv=None) -> int:
         height=args.grid, width=args.grid)
     if args.scene == "datagen":
         return _datagen(args, c, t0)
-    if args.scene == "granular":
+    if args.scene == "cube":
+        s = scenes.CubeScene(device=args.device)
+    elif args.scene == "textured":
+        s = scenes.TexturedCubeScene(device=args.device)
+    elif args.scene == "globe":
+        s = scenes.GlobeScene(device=args.device)
+    elif args.scene == "particles":
+        s = scenes.FreeParticleScene(
+            config=cfg.FreeParticleConfig(num_particles=10),
+            device=args.device)
+    elif args.scene == "granular":
         from .models.granular import GranularConfig
 
         s = scenes.GranularScene(
@@ -114,7 +133,8 @@ def main(argv=None) -> int:
         viewer.save_gif(frames, args.gif, fps=args.fps)
         print(f"wrote {args.gif}: {n} frames in {time.time()-t0:.1f}s")
     else:
-        s.simulate(args.seconds)
+        if hasattr(s, "simulate"):
+            s.simulate(args.seconds)
         out = args.out or f"{args.scene}.png"
         viewer.save_png(s.render(h, w), out)
         print(f"wrote {out} in {time.time()-t0:.1f}s")

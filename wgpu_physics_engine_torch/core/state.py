@@ -12,8 +12,9 @@ by one package can be stepped on by the other. They take one world (0-d
 params, ``[3, H, W]`` state) or a batch of worlds (``[B]`` params, ``[B, 3,
 H, W]`` / ``[B, H, W]`` state leaves) alike
 (``parallel.datagen.world_batch_from_numpy`` carries a whole batch);
-``particle_state_from_numpy`` does the same for a particle pile's
-``[3, N]`` ``ParticleState``.
+``particle_state_from_numpy`` and ``particle_params_from_numpy`` do the
+same for a particle set's ``[3, N]`` ``ParticleState`` and the
+free-particle box's ``ParticleParams``.
 """
 
 from __future__ import annotations
@@ -70,9 +71,28 @@ class ClothState(NamedTuple):
     pin_pos: Optional[torch.Tensor] = None
 
 
+class ParticleParams(NamedTuple):
+    """Dynamic params of the free-particle box (``SimulationUniform``,
+    instance.rs:79-87 / 4_instances_imgui/compute_movement.wgsl:10-17):
+    0-d fp32 tensors and ``gravity`` [3]."""
+
+    bounds: torch.Tensor
+    radius: torch.Tensor
+    gravity: torch.Tensor  # [3]
+    damping: torch.Tensor  # bound but unused, like the reference kernel
+
+    @classmethod
+    def from_config(cls, c: cfg.FreeParticleConfig,
+                    device=None) -> "ParticleParams":
+        return cls(bounds=_f32(c.bounds, device), radius=_f32(c.radius, device),
+                   gravity=_f32(c.gravity, device),
+                   damping=_f32(c.damping, device))
+
+
 class ParticleState(NamedTuple):
     """Free-particle SoA state: ``pos``/``vel`` fp32 ``[3, N]`` (the
-    granular pile, ``models/granular.py``)."""
+    free-particle box, ``models/particles.py``, and the granular pile,
+    ``models/granular.py``)."""
 
     pos: torch.Tensor
     vel: torch.Tensor
@@ -134,3 +154,10 @@ def particle_state_from_numpy(s, device=None) -> ParticleState:
         pos=torch.tensor(np.asarray(s.pos, np.float32), device=device),
         vel=torch.tensor(np.asarray(s.vel, np.float32), device=device))
 
+
+
+def particle_params_from_numpy(p, device=None) -> ParticleParams:
+    """The JAX package's ``ParticleParams`` → the port's, on ``device``."""
+    return ParticleParams(**{
+        f: torch.tensor(np.asarray(getattr(p, f), np.float32), device=device)
+        for f in ParticleParams._fields})

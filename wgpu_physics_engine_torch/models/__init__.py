@@ -1,3 +1,3 @@
-from . import broadphase, cloth, granular, scenes
+from . import broadphase, cloth, granular, particles, scenes
 
-__all__ = ["broadphase", "cloth", "granular", "scenes"]
+__all__ = ["broadphase", "cloth", "granular", "particles", "scenes"]

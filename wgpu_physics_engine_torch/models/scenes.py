@@ -1,6 +1,12 @@
-"""Application layer: the flagship cloth scene and the granular pile as
-scene objects (the counterparts of ``ClothScene`` and ``GranularScene`` in
-``wgpu_physics_engine_tpu/models/scenes.py``).
+"""Application layer: the reference's simulations as scene objects (the
+counterparts of the scenes of ``wgpu_physics_engine_tpu/models/scenes.py``):
+
+* :class:`CubeScene`          — sim 1 (flat-colored indexed cube)
+* :class:`TexturedCubeScene`  — sim 2 (diffuse textured cube)
+* :class:`GlobeScene`         — sim 3 (lit, textured UV sphere)
+* :class:`FreeParticleScene`  — sim 4 (bouncing spheres in a wireframe box)
+* :class:`ClothScene`         — sim 5, the flagship (cloth over the globe)
+* :class:`GranularScene`      — sim 4 scaled to contact-resolved piles
 
 A host-side stateful wrapper around the functional core with the
 ``update(delta_time)`` / ``render(h, w)`` frame contract of wgpu-bootstrap's
@@ -20,11 +26,11 @@ import numpy as np
 import torch
 
 from ..core import config as cfg
-from ..core.state import ClothParams, init_cloth_state
+from ..core.state import ClothParams, ParticleParams, init_cloth_state
 from ..ops import cloth_kernel
 from .. import render as R
 from ..render import texture as T
-from . import cloth, granular
+from . import cloth, granular, particles
 
 
 # The slab of the scene's thin self-collision candidate set. The scene's
@@ -101,6 +107,146 @@ class _SceneBase:
     @staticmethod
     def _to_image(fb: R.Framebuffer) -> np.ndarray:
         return torch.clamp(fb.color, 0.0, 1.0).cpu().numpy()
+
+
+def _texture(name: str, texture, device) -> torch.Tensor:
+    """``texture`` on ``device``, or the named asset when it is None."""
+    return (T.get(name, device=device) if texture is None
+            else texture.to(device))
+
+
+class CubeScene(_SceneBase):
+    """Sim 1: indexed draw of a per-face colored cube (cube_app.rs:156-296)."""
+
+    def __init__(self, camera_cfg=cfg.CameraConfig(radius=5.0, phi=0.5, theta=0.7),
+                 light=cfg.LightConfig(), aspect=800 / 600, device="cuda"):
+        super().__init__(camera_cfg, light, aspect, device)
+        self.mesh = R.DeviceMesh.from_host(R.geometry.cube_mesh(1.0),
+                                           device=self.device)
+
+    def update(self, delta_time: Optional[float] = None) -> None:
+        self.clock.tick()
+
+    def render(self, height: int = 600, width: int = 800) -> np.ndarray:
+        fb = R.clear(height, width, device=self.device)
+        fb = R.draw_mesh(fb, self.camera(), self.mesh, mode="color")
+        return self._to_image(fb)
+
+
+class TexturedCubeScene(_SceneBase):
+    """Sim 2: textured cube with clamped diffuse shading
+    (textured_cube_app.rs:111-369, cube_textured_shader.wgsl:59-76)."""
+
+    def __init__(self, texture: Optional[torch.Tensor] = None,
+                 camera_cfg=cfg.CameraConfig(radius=5.0, phi=0.5, theta=0.7),
+                 light=cfg.LightConfig(), aspect=800 / 600, device="cuda"):
+        super().__init__(camera_cfg, light, aspect, device)
+        self.mesh = R.DeviceMesh.from_host(R.geometry.cube_mesh(1.0),
+                                           device=self.device)
+        self.texture = _texture("texture", texture, self.device)
+
+    def update(self, delta_time: Optional[float] = None) -> None:
+        self.clock.tick()
+
+    def render(self, height: int = 600, width: int = 800) -> np.ndarray:
+        fb = R.clear(height, width, device=self.device)
+        fb = R.draw_mesh(fb, self.camera(), self.mesh, texture=self.texture,
+                         mode="diffuse", light=self.light)
+        return self._to_image(fb)
+
+
+class GlobeScene(_SceneBase):
+    """Sim 3: lit, textured UV sphere with Phong specular and a light
+    control panel (globe.rs:85-562). Renders analytically (an exact
+    sphere) by default; ``use_mesh=True`` rasterizes the tessellated mesh
+    like the reference (16,128 triangles at the default 64 × 128)."""
+
+    def __init__(self, config=cfg.GlobeConfig(), texture=None,
+                 camera_cfg=cfg.CameraConfig(), light=cfg.LightConfig(),
+                 aspect=800 / 600, use_mesh: bool = False, device="cuda"):
+        super().__init__(camera_cfg, light, aspect, device)
+        self.config = config
+        self.texture = _texture("moon1024", texture, self.device)
+        self.use_mesh = use_mesh
+        self.mesh = R.DeviceMesh.from_host(R.geometry.generate_uv_sphere(
+            config.radius, config.stack_count, config.sector_count),
+            device=self.device)
+
+    def update(self, delta_time: Optional[float] = None) -> None:
+        self.clock.tick()
+
+    def render(self, height: int = 600, width: int = 800) -> np.ndarray:
+        fb = R.clear(height, width, device=self.device)
+        cam = self.camera()
+        if self.use_mesh:
+            fb = R.draw_mesh(fb, cam, self.mesh, texture=self.texture,
+                             mode="phong", light=self.light)
+        else:
+            fb = R.draw_globe(fb, cam, self.config.radius, self.texture,
+                              self.light)
+        return self._to_image(fb)
+
+
+class FreeParticleScene(_SceneBase):
+    """Sim 4: N textured spheres bouncing in a wireframe box, with the
+    physics sliders (instance.rs:169-1017). The initial velocities come
+    from a ``torch.Generator`` seeded with ``seed``. Its default frame,
+    600×800, is not a multiple of (16, 128), so the spheres go through the
+    untiled raster (K4)."""
+
+    def __init__(self, config=cfg.FreeParticleConfig(), texture=None,
+                 camera_cfg=cfg.CameraConfig(radius=40.0, phi=0.3, theta=0.3),
+                 light=cfg.LightConfig(), aspect=800 / 600, seed: int = 0,
+                 device="cuda"):
+        super().__init__(camera_cfg, light, aspect, device)
+        self.config = config
+        self.params = ParticleParams.from_config(config, device=self.device)
+        self.state = particles.init_state(
+            config, torch.Generator().manual_seed(seed), device=self.device)
+        self.texture = _texture("moon1024", texture, self.device)
+        self.time_scale = config.time_scale
+
+    def _f32(self, v) -> torch.Tensor:
+        return torch.tensor(v, dtype=torch.float32, device=self.device)
+
+    # --- egui sliders (instance.rs:924-981) ---
+    def set_gravity(self, g) -> None:
+        self.params = self.params._replace(gravity=self._f32(g))
+
+    def set_bounds(self, b: float) -> None:
+        self.params = self.params._replace(bounds=self._f32(b))
+
+    def set_radius(self, r: float) -> None:
+        self.params = self.params._replace(radius=self._f32(r))
+
+    def set_time_scale(self, s: float) -> None:
+        self.time_scale = s
+
+    def update(self, delta_time: Optional[float] = None) -> None:
+        dt = self.clock.tick()
+        if delta_time is not None:
+            dt = delta_time
+        self.state = particles.multi_step(
+            self.state, self.params, self.time_scale * dt, 1,
+            bug_compat=self.config.bug_compat)
+
+    def simulate(self, seconds: float, hz: float = 60.0) -> None:
+        """Run physics headless at a fixed rate in one call."""
+        n = max(1, int(round(seconds * hz)))
+        self.state = particles.multi_step(
+            self.state, self.params, self.time_scale / hz, n,
+            bug_compat=self.config.bug_compat)
+
+    def render(self, height: int = 600, width: int = 800) -> np.ndarray:
+        fb = R.clear(height, width, device=self.device)
+        cam = self.camera()
+        segs = R.geometry.wireframe_box(
+            float(self.params.bounds)).reshape(-1, 2, 3)
+        fb = R.draw_lines(fb, cam, segs, color=(0.0, 0.0, 1.0))
+        fb = R.draw_instanced_spheres(
+            fb, cam, self.state.pos.T, float(self.params.radius), self.light,
+            flat_color=None, texture=self.texture)
+        return self._to_image(fb)
 
 
 class ClothScene(_SceneBase):

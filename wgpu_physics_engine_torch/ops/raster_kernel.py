@@ -1,9 +1,10 @@
-"""Tile-binned instanced-sphere raster: the binning prologue, the CUDA
-kernel, its plain torch version, and the dispatch between them.
+"""Instanced-sphere raster: the binning prologue, the two CUDA kernels,
+their plain torch versions, and the dispatch between them.
 
-The counterpart of ``wgpu_physics_engine_tpu/ops/raster_pallas.py``
-(``sphere_raster_tiled`` → ``tiled_prologue`` + ``_tiled_kernel`` (K2) or
-``_tiled_kernel_chunked`` (K3)), in its ``return_oc=True`` form:
+The counterpart of ``wgpu_physics_engine_tpu/ops/raster_pallas.py``. The
+tile-binned route (``sphere_raster_tiled`` → ``tiled_prologue`` +
+``_tiled_kernel`` (K2) or ``_tiled_kernel_chunked`` (K3)), in its
+``return_oc=True`` form:
 
 * :func:`tiled_prologue` projects the centres, bins them by (8, 128)
   screen tile, sorts them stably by tile and builds each tile's four
@@ -24,10 +25,22 @@ The counterpart of ``wgpu_physics_engine_tpu/ops/raster_pallas.py``
 * :func:`sphere_raster_binned` takes the plain version for a CPU tensor
   and the kernel for a CUDA tensor, and raises for anything else.
 
-Tiles are ceil-divided, so any framebuffer size runs the kernel: the
-ragged edge pixels are masked in the kernel. (The JAX prologue asserts
-``h % 8 == 0 and w % 128 == 0`` and sends other sizes to its untiled
-kernel K4, which the port does not need on this path.)
+Tiles are ceil-divided, so any framebuffer size runs the tiled kernel: the
+ragged edge pixels are masked in the kernel.
+
+The untiled route (``sphere_raster`` → ``_kernel``, K4): one world of at
+most :data:`MAX_INSTANCES` instances, every pixel against every instance in
+id order. The renderer takes it where the JAX renderer does, for a frame
+that is not a multiple of (16, 128) (``render.raster.draw_instanced_spheres``):
+
+* :func:`untiled_prologue` builds the eye-relative table ``[4, N]`` in
+  instance order;
+* :func:`sphere_raster_untiled_kernel` launches
+  ``csrc/sphere_raster_untiled.cu``, counted in :data:`LAUNCHES_UNTILED`;
+* :func:`sphere_raster_untiled_plain` is the tiled route's plain sweep over
+  that table (the first strict minimum in id order);
+* :func:`sphere_raster_untiled` dispatches by device as
+  :func:`sphere_raster_binned` does.
 """
 
 from __future__ import annotations
@@ -41,13 +54,23 @@ from . import _build
 
 TILE_H, TILE_W = 8, 128
 
-# Kernel launches by :func:`sphere_raster_kernel`; a run reads it to show
-# that its path went through the kernel.
+# The most instances the untiled route takes: the JAX kernel's SMEM table
+# is single-piece (raster_pallas.py:28); larger sets take the tiled route.
+MAX_INSTANCES = 16384
+
+# Kernel launches by :func:`sphere_raster_kernel` and by
+# :func:`sphere_raster_untiled_kernel`; a run reads them to show that its
+# path went through the kernels.
 LAUNCHES = 0
+LAUNCHES_UNTILED = 0
 
 _SIGNATURES = {
     "wpe_sphere_raster": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                          + [ctypes.c_void_p],
+}
+_SIGNATURES_UNTILED = {
+    "wpe_sphere_raster_untiled": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                                 + [ctypes.c_void_p],
 }
 
 # pixels × instances per chunk of the plain sweep (bounds its temporaries)
@@ -172,13 +195,26 @@ def sphere_raster_plain(ocb: torch.Tensor, dirs: torch.Tensor,
         outs = [sphere_raster_plain(o, d, z) for o, d, z in zip(ocb, dirs, zn)]
         return tuple(torch.stack(x) for x in zip(*outs))
     h, w = dirs.shape[-2:]
+    if ocb.shape[1] == 0:
+        return (torch.full((h, w), float("inf"), device=dirs.device),
+                torch.full((h, w), -1, dtype=torch.int32, device=dirs.device),
+                torch.zeros((3, h, w), device=dirs.device))
+    tmin, inst = _sweep(ocb, dirs, znear)
+    hit = inst >= 0
+    oc = torch.where(hit[None], ocb[:3, inst.clamp_min(0).reshape(-1).long()]
+                     .reshape(3, h, w), 0.0)
+    return tmin, inst, oc
+
+
+def _sweep(ocb: torch.Tensor, dirs: torch.Tensor, znear):
+    """Nearest hit of rays ``dirs`` [3, H, W] over the table ``ocb`` [4, N]
+    (N > 0) in table order, in chunks: within a chunk the first minimum,
+    across chunks only a strict improvement, so the first strict minimum
+    in table order wins. Returns ``(tmin [H, W], inst [H, W] int32)``."""
+    h, w = dirs.shape[-2:]
     p = h * w
     n = ocb.shape[1]
     d = dirs.reshape(3, p)
-    if n == 0:
-        return (torch.full((h, w), float("inf"), device=d.device),
-                torch.full((h, w), -1, dtype=torch.int32, device=d.device),
-                torch.zeros((3, h, w), device=d.device))
     dx, dy, dz = d[0][:, None], d[1][:, None], d[2][:, None]
     tmin = torch.full((p,), float("inf"), dtype=torch.float32, device=d.device)
     inst = torch.full((p,), -1, dtype=torch.int64, device=d.device)
@@ -194,10 +230,7 @@ def sphere_raster_plain(ocb: torch.Tensor, dirs: torch.Tensor,
         better = tc < tmin                                     # strict
         tmin = torch.where(better, tc, tmin)
         inst = torch.where(better, kc + k0, inst)
-    hit = inst >= 0
-    oc = torch.where(hit[None], ocb[:3, inst.clamp_min(0)], 0.0)
-    return (tmin.reshape(h, w), inst.to(torch.int32).reshape(h, w),
-            oc.reshape(3, h, w))
+    return tmin.reshape(h, w), inst.to(torch.int32).reshape(h, w)
 
 
 def sphere_raster_kernel(wins: torch.Tensor, ocb: torch.Tensor,
@@ -272,3 +305,76 @@ def sphere_raster_tiled(camera_rot: torch.Tensor, eye: torch.Tensor,
                                   tan_half, aspect, h, w)
     tmin, inst, oc = sphere_raster_binned(wins, ocb, dirs, znear)
     return tmin, inst >= 0, oc
+
+
+def untiled_prologue(eye: torch.Tensor, centers: torch.Tensor,
+                     radius) -> torch.Tensor:
+    """The untiled route's table ``ocb`` [4, N] in instance order: the
+    eye-relative centres and ``|oc|² - r²`` (JAX ``sphere_raster``
+    :76-78), computed once for the kernel and its plain version alike."""
+    oc = (centers - eye[None, :]).to(torch.float32)             # [N, 3]
+    ox, oy, oz = oc.unbind(-1)
+    r = torch.as_tensor(radius, dtype=torch.float32, device=oc.device)
+    return torch.stack([ox, oy, oz, ox * ox + oy * oy + oz * oz - r * r])
+
+
+def sphere_raster_untiled_plain(ocb: torch.Tensor, dirs: torch.Tensor,
+                                znear: torch.Tensor):
+    """Nearest hit over every instance of ``ocb`` [4, N] for rays ``dirs``
+    [3, H, W]: ``(tmin [H, W] (+inf on a miss), inst [H, W] int32 (the
+    instance id, -1 on a miss))``, ties to the lower id. The plain version
+    of :func:`sphere_raster_untiled_kernel`."""
+    return sphere_raster_plain(ocb, dirs, znear)[:2]
+
+
+def sphere_raster_untiled_kernel(ocb: torch.Tensor, dirs: torch.Tensor,
+                                 znear: torch.Tensor):
+    """``csrc/sphere_raster_untiled.cu`` on CUDA tensors; the outputs of
+    :func:`sphere_raster_untiled_plain`. One world: ``ocb`` [4, N] with N <=
+    :data:`MAX_INSTANCES`, ``dirs`` [3, H, W], ``znear`` 0-d."""
+    global LAUNCHES_UNTILED
+    dev = dirs.device
+    if dev.type != "cuda":
+        raise ValueError(f"raster kernel needs CUDA tensors, got {dev}")
+    h, w = dirs.shape[-2:]
+    n = ocb.shape[-1]
+    if (dirs.dtype != torch.float32 or tuple(dirs.shape) != (3, h, w)
+            or ocb.dtype != torch.float32 or tuple(ocb.shape) != (4, n)
+            or ocb.device != dev or n > MAX_INSTANCES):
+        raise ValueError("sphere_raster_untiled_kernel: expected dirs f32 "
+                         f"[3, H, W], ocb f32 [4, N <= {MAX_INSTANCES}] on "
+                         f"one device; got {tuple(dirs.shape)} {dirs.dtype} "
+                         f"{tuple(ocb.shape)} {ocb.dtype} on {dirs.device} "
+                         f"{ocb.device}")
+    dirs, ocb = dirs.contiguous(), ocb.contiguous()
+    zn = torch.as_tensor(znear, dtype=torch.float32, device=dev).reshape(1)
+    tmin = torch.empty((h, w), dtype=torch.float32, device=dev)
+    inst = torch.empty((h, w), dtype=torch.int32, device=dev)
+    if h * w == 0:
+        return tmin, inst
+    lib = _build.load("sphere_raster_untiled", _SIGNATURES_UNTILED)
+    with torch.cuda.device(dev):
+        err = lib.wpe_sphere_raster_untiled(
+            zn.data_ptr(), ocb.data_ptr(), dirs.data_ptr(), tmin.data_ptr(),
+            inst.data_ptr(), n, h, w, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "sphere_raster_untiled launch")
+    LAUNCHES_UNTILED += 1
+    return tmin, inst
+
+
+def sphere_raster_untiled(eye: torch.Tensor, dirs: torch.Tensor,
+                          centers: torch.Tensor, radius, znear: torch.Tensor):
+    """Untiled nearest ray-sphere hit — the JAX ``sphere_raster`` contract:
+    ``eye`` [3], ``dirs`` [3, H, W] normalized, ``centers`` [N, 3] with N <=
+    :data:`MAX_INSTANCES`; returns ``(tmin [H, W], inst [H, W] int32)``,
+    +inf and -1 on a miss. The plain version for a CPU tensor, the kernel
+    for a CUDA tensor; any other device raises."""
+    n = centers.shape[0]
+    assert n <= MAX_INSTANCES, f"{n} instances exceed {MAX_INSTANCES}"
+    ocb = untiled_prologue(eye, centers, radius)
+    dev = dirs.device.type
+    if dev == "cpu":
+        return sphere_raster_untiled_plain(ocb, dirs, znear)
+    if dev == "cuda":
+        return sphere_raster_untiled_kernel(ocb, dirs, znear)
+    raise ValueError(f"no sphere raster for device {dirs.device}")

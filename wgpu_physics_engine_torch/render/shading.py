@@ -7,6 +7,8 @@
   camera (−position), ``r = reflect(−l, n)``.
 * diffuse = tex.rgb · clamp(n·l, ambient=0.1, 1) · luminosity=2.4
 * specular (toggleable) = ks · max(r·v, 0)^shininess · white
+* diffuse only (the textured cube, cube_textured_shader.wgsl:59-76):
+  tex.rgb · clamp(n·l, 0.1, 1) · luminosity
 
 Inputs are channels-first ``[3, H, W]`` view-space tensors, or ``[B, 3, H,
 W]`` for a batch of worlds.
@@ -49,3 +51,14 @@ def phong(pos_view: torch.Tensor, normal_view: torch.Tensor,
     spec = (light.ks * torch.pow(r_dot_v, light.shininess))[..., None]
     spec_on = 1.0 if compute_specular else 0.0
     return diffuse + spec_on * spec
+
+
+def diffuse_only(pos_view: torch.Tensor, normal_view: torch.Tensor,
+                 albedo: torch.Tensor, light_pos_view: torch.Tensor,
+                 light: cfg.LightConfig) -> torch.Tensor:
+    """The textured cube's clamped-diffuse shading (no specular); the
+    arguments and result of :func:`phong`."""
+    n = _normalize(normal_view)
+    l = _normalize(light_pos_view[..., :, None, None] - pos_view)
+    shading = torch.clamp(_dot(n, l), light.ambient, 1.0)
+    return albedo * (shading * light.luminosity)[..., None]

@@ -29,10 +29,13 @@ free-particle box, 10 textured spheres in a wireframe box drawn at
 ``ops/csrc/sphere_raster_untiled.cu`` (``FreeParticleScene`` and the CLI's
 ``particles``); and the mesh scenes at 600×800 (``CubeScene``,
 ``TexturedCubeScene``, ``GlobeScene`` with and without the mesh, and the
-CLI's ``cube``, ``textured`` and ``globe``). Phases:
+CLI's ``cube``, ``textured`` and ``globe``); and the flagship cloth at
+1024² (``ClothScene`` and ``cloth --grid 1024``), one world above 100,000
+particles, which takes the temporal-blocking kernel K6 of
+``ops/csrc/cloth_tiled.cu``, with its gradient. Phases:
 
 1. the card: CUDA present, ``nvidia-smi`` name and power limit;
-2. the build of the five kernel libraries (one nvcc each, all started
+2. the build of the six kernel libraries (one nvcc each, all started
    together, timed);
 3. the cloth kernel vs its plain version at 256² with the top row pinned:
    1 substep <= 1e-6 abs, 240 substeps <= 1e-5 on pos, fast_math vs the
@@ -189,7 +192,30 @@ and idle.
    frame; ``draw_mesh`` tile-binned against brute on the 16,128-triangle
    globe (equal on >= 99.9% of pixels, nothing dropped) with both times;
    one trace each of a cube and a mesh-globe frame; the CLI's ``cube``,
-   ``textured`` and ``globe``.
+   ``textured`` and ``globe``;
+20. the large-grid path, one world above 100,000 particles on the
+   temporal-blocking kernel K6 of ``ops/csrc/cloth_tiled.cu``: K6 against
+   its plain version and against K1, bit for bit, at 512², 1024² and a
+   ragged 1000×1030, fresh and draped on the globe (the share of
+   particles in contact is reported and must be above zero), top row
+   pinned plus one pin on a tile corner, over 8 and 13 substeps, and on
+   the ragged shape also with two deeper schedules (k = 2 and 4); then,
+   with the launch counters reset just before it and read just after,
+   ``ClothScene`` at 1024², ``simulate(2.0)``, one frame of its schedule
+   (``update(1/60)``), a 256×256 render and the CLI's ``cloth --grid
+   1024``: K6 launched ⌈n/K⌉ times a call and K1 never, finite, r_min >=
+   R + r - 1e-3, globe and particle pixels, the end state equal bit for
+   bit to the same scene with the route held on K1; and
+   ``multi_step_diff`` at 1024² over one 48-substep segment, whose trace's
+   last state (K1) equals its forward (K6) bit for bit.
+
+Then phases 6 and 7 for the large-grid path: K6 and K1 a substep at 512²,
+1024² and 2048² beside the bound, K6's plain version at 512² and 1024²,
+the schedule sweep at the three sides, the ptxas report, particle-steps/s
+of 3,000 substeps at 1024², and one ``torch.profiler`` trace of 240
+substeps at 1024² (K6's time a launch, the gaps, the device's idle share;
+the profiler's schedule warms it up on the same call first, and the K6
+launches are matched to the traced call by correlation id).
 
 Any failed check raises, so the script exits non-zero; with no CUDA device
 it exits non-zero before doing anything. The next-to-last line of stdout is
@@ -198,8 +224,9 @@ it exits non-zero before doing anything. The next-to-last line of stdout is
 flagship and runs the training path's forward and traces); the raster's
 those of phases 5, 10, 14 and 18; ``granular_forces`` (K11) those of
 phases 16 and 17, ``granular_force_jvp`` (K12) phase 16's,
-``cloth_step_force`` (K1f) phase 17's and ``sphere_raster_untiled`` (K4)
-phase 18's.
+``cloth_step_force`` (K1f) phase 17's, ``sphere_raster_untiled`` (K4)
+phase 18's and ``cloth_tiled`` (K6) phase 20's (the scene and CLI, and
+the gradient segment's forward).
 Images and the full results go to ``chiprun_out/``.
 """
 
@@ -325,6 +352,27 @@ PT_MAX_RADIUS = 0.25
 PT_SEED = 0
 # the mesh scenes (phase 19): the reference's 800x600 window
 MESH_FRAME = (600, 800)
+# the large-grid path (phase 20): the grid side (1024², the largest size
+# the README gives for the banded kernel), the ragged shape and the
+# substeps of the bit-for-bit checks, the substeps that drape a fresh
+# cloth on the globe (3 s; it lands at ~2.5 s), the scene's and the CLI's
+# simulated seconds and the frame, the sides timed, the substeps of a
+# timing and of the rate, the schedules (k, tile_h, tile_w) with k > 1
+# also checked on the ragged shape, and those swept beside the default
+LG = 1024
+LG_RAGGED = (1000, 1030)
+LG_SHAPES = ((512, 512), (LG, LG), LG_RAGGED)
+LG_STEPS = (8, 13)
+LG_DRAPE = 1440
+LG_SECONDS = 2.0
+LG_CLI_SECONDS = 1.0
+LG_FRAME = (256, 256)
+LG_SIDES = (512, LG, 2048)
+LG_TIME_STEPS = 240
+LG_RATE_STEPS = 3000
+LG_DEEP = ((2, 17, 54), (4, 9, 46))
+LG_SWEEP = ((1, 12, 57), (1, 24, 57), (1, 47, 57), (1, 20, 115), (2, 8, 54),
+            (2, 17, 54))
 
 
 def _check(cond: bool, what: str) -> None:
@@ -568,15 +616,17 @@ def _dg_frame(tex, chunks, codec_k):
 
 @contextlib.contextmanager
 def _plain_kernels():
-    """Inside, the kernels' wrappers (the cloth stepper, its trace and its
-    force-plane substep, the substep adjoint's walk, both rasters, the
+    """Inside, the kernels' wrappers (the cloth stepper, its trace, its
+    force-plane substep and the large-grid stepper K6, the substep adjoint's walk, both rasters, the
     granular substep, pair forces and their directional derivative) run their
     plain versions on the card and count no launch, so a path runs its own
     code with the plain versions."""
     from wgpu_physics_engine_torch.ops import (cloth_grad_kernel, cloth_kernel,
+                                               cloth_tiled_kernel,
                                                granular_kernel, raster_kernel)
 
     saved = (cloth_kernel.multi_step_kernel_packed, cloth_kernel.trace_kernel,
+             cloth_tiled_kernel.multi_step_kernel_packed,
              cloth_kernel.substep_with_force_kernel,
              cloth_grad_kernel._walk_kernel,
              raster_kernel.sphere_raster_kernel,
@@ -586,6 +636,8 @@ def _plain_kernels():
              granular_kernel.contact_force_jvp_sorted_kernel)
     cloth_kernel.multi_step_kernel_packed = cloth_kernel.multi_step_plain_packed
     cloth_kernel.trace_kernel = cloth_kernel.trace_plain
+    cloth_tiled_kernel.multi_step_kernel_packed = (
+        cloth_tiled_kernel.multi_step_plain_packed)
     cloth_kernel.substep_with_force_kernel = (
         cloth_kernel.substep_with_force_plain)
     cloth_grad_kernel._walk_kernel = cloth_grad_kernel._walk_plain
@@ -603,6 +655,7 @@ def _plain_kernels():
         yield
     finally:
         (cloth_kernel.multi_step_kernel_packed, cloth_kernel.trace_kernel,
+         cloth_tiled_kernel.multi_step_kernel_packed,
          cloth_kernel.substep_with_force_kernel,
          cloth_grad_kernel._walk_kernel,
          raster_kernel.sphere_raster_kernel,
@@ -2600,6 +2653,412 @@ def _phase19_meshes(dev, card, cli_main) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the large-grid path (K6)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _route_on_k1():
+    """Inside, ``cloth_kernel.multi_step`` sends every grid to K1 (the
+    large-grid route is off), so a path runs as before K6."""
+    from wgpu_physics_engine_torch.ops import cloth_kernel
+
+    saved = cloth_kernel._TILED_PARTICLE_LIMIT
+    cloth_kernel._TILED_PARTICLE_LIMIT = 1 << 62
+    try:
+        yield
+    finally:
+        cloth_kernel._TILED_PARTICLE_LIMIT = saved
+
+
+def _contact_share(pos, params) -> float:
+    """Share of particles within 1e-3 of the globe's contact distance."""
+    import torch
+
+    r = torch.linalg.vector_norm(pos, dim=0)
+    md = float(params.globe_radius + params.particle_radius)
+    return float((r < md + 1e-3).float().mean())
+
+
+def _k6_states(h: int, w: int, dev):
+    """The fresh state of an ``h × w`` cloth and the same cloth draped on
+    the globe (LG_DRAPE substeps of K1), both with the top row pinned and
+    one pin on the corner of the tile (1, 1) of the default schedule."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import (ClothParams,
+                                                      init_cloth_state)
+    from wgpu_physics_engine_torch.ops import cloth_kernel, cloth_tiled_kernel
+
+    c = ClothConfig(height=h, width=w)
+    params = ClothParams.from_config(c, device=dev)
+    fresh = init_cloth_state(c, device=dev)
+    draped = cloth_kernel.multi_step_kernel(fresh, params, DT, LG_DRAPE)
+
+    tile = cloth_tiled_kernel.pick_schedule(h, w, LG_STEPS[0])[1:]
+
+    def pinned(s):
+        pin = torch.zeros((h, w), dtype=torch.bool, device=dev)
+        pin[0] = True
+        pin[min(h - 1, tile[0]), min(w - 1, tile[1])] = True
+        return s._replace(pin_mask=pin, pin_pos=s.pos)
+
+    return params, {"fresh": pinned(fresh), "draped": pinned(draped)}
+
+
+def _k6_case(state, params, n: int, label: str, card,
+             schedule=None) -> dict:
+    """K6 over ``n`` substeps (on ``schedule``, by default
+    ``pick_schedule``'s) against its plain version and against K1, bit for
+    bit, with its launch count."""
+    import torch
+
+    from wgpu_physics_engine_torch.ops import cloth_kernel, cloth_tiled_kernel
+
+    h, w = state.pos.shape[-2:]
+    sched = schedule or cloth_tiled_kernel.pick_schedule(h, w, n)
+    before = cloth_tiled_kernel.LAUNCHES
+    k6 = cloth_tiled_kernel.multi_step_kernel(state, params, DT, n,
+                                              schedule=schedule)
+    torch.cuda.synchronize()
+    launches = cloth_tiled_kernel.LAUNCHES - before
+    plain = cloth_tiled_kernel.multi_step_plain(state, params, DT, n,
+                                                schedule=schedule)
+    k1 = cloth_kernel.multi_step_kernel(state, params, DT, n)
+    torch.cuda.synchronize()
+    err = max(_maxdiff(k6.pos, plain.pos), _maxdiff(k6.vel, plain.vel))
+    err_k1 = max(_maxdiff(k6.pos, k1.pos), _maxdiff(k6.vel, k1.vel))
+    eq_plain = bool(torch.equal(k6.pos, plain.pos)
+                    and torch.equal(k6.vel, plain.vel))
+    eq_k1 = bool(torch.equal(k6.pos, k1.pos) and torch.equal(k6.vel, k1.vel))
+    contact = _contact_share(k6.pos, params)
+    print(f"phase 20 cloth_tiled (K6) {label} @{h}x{w}, {n} substeps, "
+          f"schedule {sched} [{card}]: vs plain max abs {err:.3e} bitwise "
+          f"{eq_plain}; vs K1 max abs {err_k1:.3e} bitwise {eq_k1}; "
+          f"launches {launches}; particles in contact {contact:.4f}")
+    _check(launches == -(-n // sched[0]),
+           f"K6 {label} {h}x{w}: {launches} launches for {n} substeps")
+    _check(eq_plain, f"K6 {label} {h}x{w} n={n}: differs from its plain "
+           f"version by {err}")
+    _check(eq_k1, f"K6 {label} {h}x{w} n={n}: differs from K1 by {err_k1}")
+    _check(bool(torch.isfinite(k6.pos).all()), f"K6 {label}: not finite")
+    _check(torch.equal(k6.pos[:, 0], state.pos[:, 0]),
+           f"K6 {label}: pinned row moved")
+    return {"schedule": list(sched), "launches": launches, "err_plain": err,
+            "err_k1": err_k1, "bitwise_plain": eq_plain, "bitwise_k1": eq_k1,
+            "contact_share": contact}, err
+
+
+def _k6_checks(dev, card):
+    """Phase 20, part 1: K6 against its plain version and K1 on each of
+    LG_SHAPES (512², LG² and the ragged LG_RAGGED), fresh and draped, over
+    each of LG_STEPS substeps, and on the ragged shape also with the
+    schedules of LG_DEEP (k > 1). Returns the results and the largest
+    error."""
+    res, err = {}, 0.0
+    for h, w in LG_SHAPES:
+        params, states = _k6_states(h, w, dev)
+        for label, s in states.items():
+            if label == "draped":
+                share = _contact_share(s.pos, params)
+                print(f"phase 20 draped state @{h}x{w}: particles in contact "
+                      f"{share:.4f}")
+                _check(share > 0, f"draped {h}x{w}: no particle in contact")
+            for n in LG_STEPS:
+                res[f"{h}x{w} {label} n={n}"], e = _k6_case(
+                    s, params, n, label, card)
+                err = max(err, e)
+            if (h, w) == LG_RAGGED:
+                # deeper temporal blocking than the default schedule's
+                for sched in LG_DEEP:
+                    res[f"{h}x{w} {label} n={LG_STEPS[-1]} {sched}"], e = (
+                        _k6_case(s, params, LG_STEPS[-1], label, card,
+                                 sched))
+                    err = max(err, e)
+    return res, err
+
+
+def _phase20(dev, card, cli_main) -> dict:
+    """Phase 20, parts 2 and 3: the large-grid main path, counted:
+    ``ClothScene`` at LG², ``simulate(LG_SECONDS)``, one frame of the
+    scene's schedule (``update(1/60)``), a render, and the CLI's ``cloth
+    --grid LG``; then ``multi_step_diff`` over one FIT_SEG segment, whose
+    trace's last state (K1) must equal its forward (K6)."""
+    import numpy as np
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import ClothParams
+    from wgpu_physics_engine_torch.models import cloth
+    from wgpu_physics_engine_torch.models.scenes import ClothScene
+    from wgpu_physics_engine_torch.ops import (cloth_grad_kernel, cloth_kernel,
+                                               cloth_tiled_kernel,
+                                               raster_kernel)
+    from wgpu_physics_engine_torch.utils import viewer
+
+    fh, fw = LG_FRAME
+    cfg = ClothConfig(height=LG, width=LG)
+    png = os.path.join(OUT, "cloth_1024_cli.png")
+    n_sim = int(round(LG_SECONDS * cfg.hz))
+    n_frame = cloth.frame_substeps(1.0 / 60.0, cfg.time_scale, cfg.hz,
+                                   cfg.max_substeps)[0]
+    n_cli = int(round(LG_CLI_SECONDS * cfg.hz))
+    k_of = lambda n: cloth_tiled_kernel.pick_schedule(LG, LG, n)[0]
+    expect = sum(-(-n // k_of(n)) for n in (n_sim, n_frame, n_cli))
+
+    scene = ClothScene(cfg, device=dev)
+    scene.resize(fw, fh)
+    torch.cuda.synchronize()
+    cloth_kernel.LAUNCHES = 0
+    cloth_tiled_kernel.LAUNCHES = 0
+    raster_kernel.LAUNCHES = 0
+    t0 = time.time()
+    scene.simulate(LG_SECONDS)
+    scene.update(1.0 / 60.0)
+    torch.cuda.synchronize()
+    sim_s = time.time() - t0
+    img = scene.render(fh, fw)
+    rc = cli_main(["cloth", "--grid", str(LG), "--size", str(fh), str(fw),
+                   "--seconds", str(LG_CLI_SECONDS), "--out", png,
+                   "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {"cloth_tiled": cloth_tiled_kernel.LAUNCHES,
+                "cloth_step": cloth_kernel.LAUNCHES,
+                "sphere_raster": raster_kernel.LAUNCHES}
+    print(f"phase 20 main path: ClothScene {LG}x{LG} simulate({LG_SECONDS}) "
+          f"+ update(1/60) ({n_sim} + {n_frame} substeps) {sim_s:.3f} s host "
+          f"clock + render{LG_FRAME} + CLI cloth --grid {LG} --seconds "
+          f"{LG_CLI_SECONDS} (rc {rc}); launches {launches}, K6 expected "
+          f"{expect}")
+    _check(rc == 0, f"CLI cloth --grid {LG} returned {rc}")
+    _check(launches["cloth_tiled"] == expect,
+           f"K6 launched {launches['cloth_tiled']} times, not {expect}")
+    _check(launches["cloth_step"] == 0,
+           f"K1 launched {launches['cloth_step']} times on the large grid")
+    _check(launches["sphere_raster"] > 0, "the raster never launched")
+    _check(os.path.exists(png), "the CLI wrote no PNG")
+    viewer.save_png(img, os.path.join(OUT, "cloth_1024.png"))
+
+    pos = scene.state.pos
+    finite = bool(torch.isfinite(pos).all())
+    r_min = float(torch.linalg.vector_norm(pos, dim=0).min())
+    md = cfg.globe_radius + cfg.particle_radius
+    t_img = torch.from_numpy(img)
+    red = int((t_img == torch.tensor([1.0, 0.0, 0.0])).all(-1).sum())
+    bg = torch.tensor([0.05, 0.05, 0.08])
+    n_bg = int(((t_img - bg).abs().amax(-1) < 1e-6).sum())
+    globe = fh * fw - red - n_bg
+    # the same scene with the route held on K1
+    with _route_on_k1():
+        ref = ClothScene(cfg, device=dev)
+        ref.simulate(LG_SECONDS)
+        ref.update(1.0 / 60.0)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(scene.state.pos, ref.state.pos)
+                and torch.equal(scene.state.vel, ref.state.vel))
+    print(f"phase 20 state @{LG}x{LG}: finite {finite}, r_min {r_min:.5f} "
+          f"(>= {md - 1e-3:.3f}), mean height {float(pos[1].mean()):.4f}; "
+          f"image particle px {red}, globe px {globe}; end state == the "
+          f"scene on K1 {same}")
+    _check(finite, "large-grid state not finite")
+    _check(r_min >= md - 1e-3, f"large-grid r_min {r_min} below {md - 1e-3}")
+    _check(red > 100 and globe > 100,
+           f"large-grid image lacks globe/particles: {red} {globe}")
+    _check(same, "large-grid scene on K6 differs from the scene on K1")
+    _check(bool(np.isfinite(img).all()), "large-grid image not finite")
+    del ref
+
+    # gradients: one segment at LG², the forward on K6, the trace on K1
+    params = ClothParams.from_config(cfg, device=dev)
+    s0 = scene.state
+    pin = torch.zeros((LG, LG), dtype=torch.bool, device=dev)
+    pin[0] = True
+    s0 = s0._replace(pin_mask=pin, pin_pos=s0.pos)
+    g = torch.Generator().manual_seed(LG)
+    wp, wv = (torch.randn((3, LG, LG), generator=g).to(dev) for _ in range(2))
+    cloth_kernel.LAUNCHES = 0
+    cloth_tiled_kernel.LAUNCHES = 0
+    cloth_grad_kernel.LAUNCHES = 0
+    grads, out = _diff_grads(s0, params, FIT_SEG, FIT_SEG, wp, wv)
+    torch.cuda.synchronize()
+    g_launches = {"cloth_tiled": cloth_tiled_kernel.LAUNCHES,
+                  "cloth_step": cloth_kernel.LAUNCHES,
+                  "cloth_substep_vjp": cloth_grad_kernel.LAUNCHES}
+    prm = cloth_kernel._pack_params(params, DT).to(dev)
+    traj = cloth_kernel.trace(s0, prm, FIT_SEG + 1)
+    trace_ok = bool(torch.equal(traj[FIT_SEG, :3], out.pos)
+                    and torch.equal(traj[FIT_SEG, 3:], out.vel))
+    del traj
+    finite_g = all(bool(torch.isfinite(v).all()) for v in grads.values())
+    print(f"phase 20 multi_step_diff @{LG}x{LG}, {FIT_SEG} substeps (one "
+          f"segment) [{card}]: launches {g_launches}; trace's last state "
+          f"(K1) == forward (K6) {trace_ok}; gradients finite {finite_g}, "
+          f"|d/d gravity| {float(grads['gravity'].abs()):.6e}")
+    _check(g_launches["cloth_tiled"] == -(-FIT_SEG // k_of(FIT_SEG)),
+           f"multi_step_diff forward: K6 launched {g_launches}")
+    _check(g_launches["cloth_step"] == FIT_SEG - 1,
+           f"multi_step_diff trace: K1 launched {g_launches}")
+    _check(g_launches["cloth_substep_vjp"] == FIT_SEG,
+           f"multi_step_diff adjoint launched {g_launches}")
+    _check(trace_ok, "large-grid trace's last state != the K6 forward")
+    _check(finite_g, "large-grid gradients not finite")
+    return {"launches": launches, "expected_k6": expect, "simulate_s": sim_s,
+            "finite": finite, "r_min": r_min, "particle_px": red,
+            "globe_px": globe, "equal_k1_route": same,
+            "grad_launches": g_launches, "grad_trace_equal": trace_ok}
+
+
+def _k6_sweep(dev, card) -> dict:
+    """K6's ms a substep over LG_TIME_STEPS substeps at each of LG_SIDES
+    for the schedule ``pick_schedule`` gives it and each of LG_SWEEP (CUDA
+    events, best of 3)."""
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import (ClothParams,
+                                                      init_cloth_state)
+    from wgpu_physics_engine_torch.ops import cloth_tiled_kernel
+
+    res = {}
+    n = LG_TIME_STEPS
+    for side in LG_SIDES:
+        c = ClothConfig(height=side, width=side)
+        s = init_cloth_state(c, device=dev)
+        p = ClothParams.from_config(c, device=dev)
+        row = {}
+        picked = cloth_tiled_kernel.pick_schedule(side, side, n)
+        for sched in (picked,) + tuple(x for x in LG_SWEEP if x != picked):
+            row[",".join(map(str, sched))] = _best_ms(
+                lambda: cloth_tiled_kernel.multi_step_kernel(
+                    s, p, DT, n, schedule=sched)) / n
+        best = min(row, key=row.get)
+        res[str(side)] = {"ms_per_substep": row, "best": best}
+        print(f"phase 6 K6 sweep @{side}x{side}, {n} substeps [{card}] "
+              f"(k, tile_h, tile_w: ms/substep): "
+              + ", ".join(f"({k}) {v:.5f}" for k, v in row.items())
+              + f"; best ({best})")
+    return res
+
+
+def _k6_trace(state, params, card) -> dict:
+    """Phase 7 for the large-grid path: one torch.profiler trace of
+    LG_TIME_STEPS substeps on K6 (``trace_large_grid.json``): its launches,
+    kernel time a launch, the gaps between launches and the device's idle
+    share over the call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from wgpu_physics_engine_torch.ops import cloth_tiled_kernel
+
+    # the profiler's schedule runs the call once as a warm-up step, so the
+    # tracer is up before the step that is kept; the K6 launches are the
+    # device records whose correlation id is that of a launch issued inside
+    # the kept call's annotation
+    n = LG_TIME_STEPS
+    path = os.path.join(OUT, "trace_large_grid.json")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda pr: pr.export_chrome_trace(path)
+                 ) as prof:
+        for _ in range(2):
+            with torch.profiler.record_function("k6_traced"):
+                cloth_tiled_kernel.multi_step_kernel(state, params, DT, n)
+                torch.cuda.synchronize()
+            prof.step()
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    ann = [e for e in events if e.get("cat") == "user_annotation"
+           and e["name"] == "k6_traced"]
+    _check(len(ann) == 1, f"trace: {len(ann)} k6_traced annotations")
+    t0, t1 = ann[0]["ts"], ann[0]["ts"] + ann[0]["dur"]
+    issued = {e["args"]["correlation"] for e in events
+              if e.get("cat") == "cuda_runtime" and t0 <= e["ts"] <= t1
+              and "correlation" in e.get("args", {})}
+    dev_spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                 and e.get("args", {}).get("correlation") in issued]
+    ks = sorted((a, b) for a, b, name in dev_spans if "tiled_kernel" in name)
+    k_exp = -(-n // cloth_tiled_kernel.pick_schedule(LG, LG, n)[0])
+    _check(len(ks) == k_exp,
+           f"trace shows {len(ks)} K6 launches, not {k_exp}")
+    t1 = max([t1] + [b for _, b, _ in dev_spans])
+    busy = _union_us([(a, b) for a, b, _ in dev_spans])
+    kb = _union_us(ks)
+    span = ks[-1][1] - ks[0][0]
+    res = {"launches": len(ks), "kernel_us": kb / len(ks),
+           "gap_us": (span - kb) / max(len(ks) - 1, 1),
+           "window_us": t1 - t0, "device_busy_us": busy,
+           "idle_share": 1.0 - busy / (t1 - t0)}
+    print(f"phase 7 trace {n} substeps @{LG}x{LG} on K6 [{card}]: "
+          f"{len(ks)} launches, {kb / len(ks):.3f} us of kernel time per "
+          f"launch, mean gap {res['gap_us']:.3f} us; window "
+          f"{t1 - t0:.1f} us (host, profiled), device busy {busy:.1f} us; "
+          f"device idle share {res['idle_share']:.4f}")
+    return res
+
+
+def _k6_times(dev, card) -> dict:
+    """Phases 6 and 7 for the large-grid path: K6 and K1 a substep at
+    LG_SIDES beside the bound, the schedule sweep, K6's plain version,
+    particle-steps/s of LG_RATE_STEPS substeps at LG², the ptxas report,
+    and one traced run of LG_TIME_STEPS substeps at LG²."""
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import (ClothParams,
+                                                      init_cloth_state)
+    from wgpu_physics_engine_torch.ops import (_build, cloth_kernel,
+                                               cloth_tiled_kernel)
+
+    res = {"schedule": list(cloth_tiled_kernel.pick_schedule(
+        LG, LG, LG_TIME_STEPS))}
+    with open(os.path.join(_build.lib_dir("cloth_tiled"), "build.log")) as f:
+        res["ptxas"] = [ln.strip() for ln in f
+                        if "registers" in ln or "spill" in ln]
+    print(f"phase 6 K6 schedule (k, tile_h, tile_w) {res['schedule']}, "
+          f"shared memory a CTA at {LG}x{LG} "
+          f"{cloth_tiled_kernel.smem_bytes(LG, LG, *res['schedule'])} B; "
+          f"ptxas: {' | '.join(res['ptxas'])}")
+    n = LG_TIME_STEPS
+    states = {}
+    for side in LG_SIDES:
+        c = ClothConfig(height=side, width=side)
+        s = init_cloth_state(c, device=dev)
+        p = ClothParams.from_config(c, device=dev)
+        states[side] = (s, p)
+        k6 = _best_ms(lambda: cloth_tiled_kernel.multi_step_kernel(
+            s, p, DT, n)) / n
+        k1 = _best_ms(lambda: cloth_kernel.multi_step_kernel(
+            s, p, DT, n)) / n
+        bm, bb = _cloth_bound(side, side, 1, n)
+        row = {"ms": k6, "k1_ms": k1, "bound_ms": bm / n, "bound_by": bb,
+               "psteps_per_s": side * side / (k6 / 1e3)}
+        if side <= LG:
+            n_plain = 8
+            row["plain_ms"] = _best_ms(lambda: cloth_tiled_kernel.
+                                       multi_step_plain(s, p, DT, n_plain)
+                                       ) / n_plain
+        res[str(side)] = row
+        print(f"phase 6 cloth_tiled (K6) @{side}x{side}, {n} substeps "
+              f"[{card}]: {k6:.5f} ms/substep = "
+              f"{side * side / (k6 / 1e3):.4e} particle-steps/s; K1 "
+              f"{k1:.5f} ms/substep; bound {bm / n:.5f} ms ({bb}), K6 at "
+              f"{bm / n / k6:.4f} of it"
+              + (f"; plain {row['plain_ms']:.5f} ms/substep" if "plain_ms"
+                 in row else ""))
+    res["sweep"] = _k6_sweep(dev, card)
+
+    s, p = states[LG]
+    n3 = LG_RATE_STEPS
+    ms = _best_ms(lambda: cloth_tiled_kernel.multi_step_kernel(s, p, DT, n3))
+    res["rate"] = {"substeps": n3, "ms": ms,
+                   "psteps_per_s": LG * LG * n3 / (ms / 1e3)}
+    print(f"phase 6 cloth {LG}x{LG} x {n3} substeps on K6 [{card}]: "
+          f"{ms:.3f} ms = {LG * LG * n3 / (ms / 1e3):.4e} particle-steps/s")
+
+    res["trace"] = _k6_trace(s, p, card)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2625,8 +3084,9 @@ def main() -> int:
                                                       init_cloth_state)
     from wgpu_physics_engine_torch.models.scenes import ClothScene
     from wgpu_physics_engine_torch.ops import (_build, cloth_grad_kernel,
-                                               cloth_kernel, granular_kernel,
-                                               raster_kernel)
+                                               cloth_kernel,
+                                               cloth_tiled_kernel,
+                                               granular_kernel, raster_kernel)
     from wgpu_physics_engine_torch.parallel import datagen
     from wgpu_physics_engine_torch.render import camera as cam_mod
     from wgpu_physics_engine_torch.utils import viewer
@@ -2640,7 +3100,8 @@ def main() -> int:
             "sphere_raster": raster_kernel._SIGNATURES,
             "sphere_raster_untiled": raster_kernel._SIGNATURES_UNTILED,
             "cloth_grad": cloth_grad_kernel._SIGNATURES,
-            "granular_step": granular_kernel._SIGNATURES}
+            "granular_step": granular_kernel._SIGNATURES,
+            "cloth_tiled": cloth_tiled_kernel._SIGNATURES}
     build_s = {}
 
     def build(name):
@@ -2917,6 +3378,16 @@ def main() -> int:
 
     # ---- phase 19: the mesh scenes ----
     results["meshes"] = _phase19_meshes(dev, card, cli_main)
+
+    # ---- phase 20: the large-grid path (K6) ----
+    results["cloth_tiled"], k6_err = _k6_checks(dev, card)
+    results["large_grid"] = _phase20(dev, card, cli_main)
+    lg_launches = results["large_grid"]["launches"]
+    lg_grad_launches = results["large_grid"]["grad_launches"]
+
+    # ---- phases 6 and 7 for the large-grid path ----
+    lgt = _k6_times(dev, card)
+    results["large_grid_times"] = lgt
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
 
@@ -2997,6 +3468,15 @@ def main() -> int:
          "plain_ms": pt["k4_scene"]["plain_ms"],
          "bound_ms": pt["k4_scene"]["bound_ms"],
          "bound_by": pt["k4_scene"]["bound_by"], "library_ms": None},
+        {"name": "cloth_tiled", "route": "cuda",
+         "source": "wgpu_physics_engine_torch/ops/csrc/cloth_tiled.cu",
+         "replaces": "wgpu_physics_engine_tpu/ops/cloth_pallas_tiled.py:40",
+         "launches": (lg_launches["cloth_tiled"]
+                      + lg_grad_launches["cloth_tiled"]),
+         "max_abs_err": k6_err, "ms": lgt[str(LG)]["ms"],
+         "plain_ms": lgt[str(LG)]["plain_ms"],
+         "bound_ms": lgt[str(LG)]["bound_ms"],
+         "bound_by": lgt[str(LG)]["bound_by"], "library_ms": None},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -23,7 +23,10 @@ within 1 in u8 on >= 99.9% of pixels (CPU and CUDA libm round
 pow/atan2/asin apart by ulps, which a sphere's pole or silhouette
 amplifies);
 the golden scenes to ``tests/golden/*.png`` (at most 2 in u8 on < 2% of
-pixels, ``tests/test_render.py::test_golden_frame``'s tolerance).
+pixels, ``tests/test_render.py::test_golden_frame``'s tolerance). The
+large-grid kernel (K6) is held to its plain version and to K1 bit for bit,
+and the route above ``cloth_kernel._TILED_PARTICLE_LIMIT`` to K6's launch
+count.
 """
 
 import os
@@ -36,7 +39,8 @@ from wgpu_physics_engine_torch.core import config as cfg
 from wgpu_physics_engine_torch.core import state as st
 from wgpu_physics_engine_torch.models import scenes
 from wgpu_physics_engine_torch.models import cloth
-from wgpu_physics_engine_torch.ops import cloth_grad_kernel, cloth_kernel, raster_kernel
+from wgpu_physics_engine_torch.ops import (cloth_grad_kernel, cloth_kernel,
+                                           cloth_tiled_kernel, raster_kernel)
 from wgpu_physics_engine_torch.render import camera
 
 DT = 1.0 / 480.0
@@ -664,3 +668,87 @@ def test_golden_frame_on_cuda(dev, name):
     diff = golden_frame_diff(name, dev)
     assert diff.max() <= 2, f"max pixel diff {diff.max()}"
     assert (diff > 0).mean() < 0.02, f"{(diff > 0).mean():.1%} pixels differ"
+
+
+def _k6_state(dev, h, w, draped, pins):
+    """A cloth of h × w with random velocities, or a short-fall cloth
+    draped on the globe by 300 K1 substeps; pinned at ``pins``."""
+    c = cfg.ClothConfig(height=h, width=w, center=(0.0, 12.0, 0.0),
+                        cloth_size=8.0)
+    p = st.ClothParams.from_config(c, device=dev)
+    s = st.init_cloth_state(c, device=dev)
+    if draped:
+        s = cloth_kernel.multi_step_kernel(s, p, DT, 300)
+        dist = torch.linalg.vector_norm(s.pos, dim=0)
+        assert bool((dist < 10.1 + 1e-3).any())
+    else:
+        rng = np.random.default_rng(h * w)
+        s = s._replace(vel=torch.tensor(
+            (0.5 * rng.standard_normal((3, h, w))).astype(np.float32),
+            device=dev))
+    if pins:
+        mask = torch.zeros((h, w), dtype=torch.bool, device=dev)
+        for r, c_ in pins:
+            mask[r, c_] = True
+        s = s._replace(pin_mask=mask, pin_pos=s.pos)
+    return s, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,schedule,n,draped,pins", [
+    ((64, 64), (4, 16, 16), 9, True, [(0, 0), (16, 16)]),
+    ((33, 70), (2, 8, 8), 5, False, [(8, 3), (20, 69)]),
+    ((20, 20), (4, 64, 64), 8, True, None),           # smaller than a tile
+    ((130, 100), None, 13, True, [(0, 50), (32, 32)]),  # the default
+    ((45, 61), (8, 16, 24), 13, False, [(16, 24)]),
+])
+def test_cloth_tiled_kernel_matches_plain_and_k1(dev, hw, schedule, n,
+                                                 draped, pins):
+    h, w = hw
+    s, p = _k6_state(dev, h, w, draped, pins)
+    k = (schedule or cloth_tiled_kernel.pick_schedule(h, w, n))[0]
+    before = cloth_tiled_kernel.LAUNCHES
+    got = cloth_tiled_kernel.multi_step_kernel(s, p, DT, n, schedule=schedule)
+    torch.cuda.synchronize()
+    assert cloth_tiled_kernel.LAUNCHES == before + -(-n // k)
+    plain = cloth_tiled_kernel.multi_step_plain(s, p, DT, n,
+                                                schedule=schedule)
+    k1 = cloth_kernel.multi_step_kernel(s, p, DT, n)
+    for ref in (plain, k1):
+        assert torch.equal(got.pos, ref.pos)
+        assert torch.equal(got.vel, ref.vel)
+
+
+@pytest.mark.cuda
+def test_cloth_route_on_cuda_launches_k6(dev, monkeypatch):
+    """Above the limit one CUDA world takes K6 (fast_math dropped) and K1
+    never; a batch stays on K5; the input is only read."""
+    monkeypatch.setattr(cloth_kernel, "_TILED_PARTICLE_LIMIT", 1000)
+    s, p = _k6_state(dev, 48, 40, True, [(0, 5)])
+    pos0 = s.pos.clone()
+    k1_before, k6_before = cloth_kernel.LAUNCHES, cloth_tiled_kernel.LAUNCHES
+    got = cloth_kernel.multi_step(s, p, DT, 7, fast_math=True)
+    torch.cuda.synchronize()
+    k = cloth_tiled_kernel.pick_schedule(48, 40, 7)[0]
+    assert cloth_tiled_kernel.LAUNCHES == k6_before + -(-7 // k)
+    assert cloth_kernel.LAUNCHES == k1_before
+    assert torch.equal(s.pos, pos0)
+    ref = cloth_kernel.multi_step_kernel(s, p, DT, 7)
+    assert torch.equal(got.pos, ref.pos) and torch.equal(got.vel, ref.vel)
+    batch = s._replace(pos=torch.stack([s.pos, s.pos]),
+                       vel=torch.stack([s.vel, s.vel]), pin_mask=None,
+                       pin_pos=None)
+    k6 = cloth_tiled_kernel.LAUNCHES
+    b_before = cloth_kernel.LAUNCHES_BATCHED
+    cloth_kernel.multi_step(batch, p, DT, 3)
+    torch.cuda.synchronize()
+    assert cloth_tiled_kernel.LAUNCHES == k6
+    assert cloth_kernel.LAUNCHES_BATCHED == b_before + 3
+
+
+@pytest.mark.cuda
+def test_cloth_tiled_refuses_oversized_schedule(dev):
+    s, p = _k6_state(dev, 300, 300, False, None)
+    with pytest.raises(ValueError, match="shared memory"):
+        cloth_tiled_kernel.multi_step_kernel(s, p, DT, 8,
+                                             schedule=(8, 200, 200))

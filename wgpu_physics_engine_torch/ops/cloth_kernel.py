@@ -16,8 +16,18 @@ batch of worlds ``_multi_step_lanes`` → ``_lanes_kernel``, kernel K5, and
   launch per substep for all worlds);
 * :func:`multi_step` takes the plain version for a CPU tensor and a
   kernel for a CUDA tensor, and raises for anything else. There is no
-  fallback on CUDA, and no size limit: the TPU's VMEM routing
-  (``_VMEM_PARTICLE_LIMIT``) and lane folding have no counterpart here;
+  fallback on CUDA. One world above :data:`_TILED_PARTICLE_LIMIT`
+  particles (JAX's ``_VMEM_PARTICLE_LIMIT``, ``cloth_pallas.py:293``) goes
+  to ``ops/cloth_tiled_kernel.py`` (K6, K substeps a launch by temporal
+  blocking; on the CPU its plain version), as JAX sends it to
+  ``cloth_pallas_tiled``; the route is exact and drops ``fast_math``, as
+  JAX's does (``:628-638``). JAX's branch for a grid with no banded
+  schedule (``h % 8 != 0`` or ``n_steps`` indivisible, to the XLA stencil
+  with a warning) has no counterpart: K6 takes any ``h``, ``w`` and
+  ``n_steps``, so the route depends on the size alone. A batch of worlds
+  stays on K5 at any size: JAX maps large batched worlds one at a time
+  through its single-world dispatch (``:615-626``), while K5 takes every
+  size in one launch a substep and computes the same function;
 * :func:`substep_with_force` is one substep of one world with an external
   force plane added after the springs (``cloth_pallas.substep_with_force``,
   K1f; the cloth self-collision loop feeds its pair forces in here): its
@@ -50,6 +60,11 @@ _FAMILIES = (
     (1, 1, 1), (1, -1, 1),    # shear down-right, down-left
     (0, 2, 2), (2, 0, 2),     # bend 2-right, 2-down
 )
+
+# One world above this many particles takes the tiled stepper
+# (``cloth_tiled_kernel``, K6): JAX's ``_VMEM_PARTICLE_LIMIT``. A module
+# constant, so a test can lower it.
+_TILED_PARTICLE_LIMIT = 100_000
 
 # Kernel launches by :func:`multi_step_kernel` and :func:`trace_kernel`
 # (one per substep): K1 for one world, K5 for a batch. A run reads them to
@@ -502,7 +517,10 @@ def multi_step(state: ClothState, params: ClothParams, dt, n_steps: int,
     """Run ``n_steps`` fused substeps; the drop-in counterpart of
     ``cloth_pallas.multi_step``, for one world (``[3, H, W]``) or a batch
     (``[B, 3, H, W]``). A CPU state takes the plain version, a CUDA state
-    the kernel (K1 or K5); any other device raises.
+    the kernel (K1 or K5); any other device raises. One world of more than
+    :data:`_TILED_PARTICLE_LIMIT` particles takes
+    ``cloth_tiled_kernel.multi_step`` (K6 on CUDA, its plain version on
+    the CPU), exactly, with ``fast_math`` dropped.
 
     ``fast_math=True`` computes distances with rsqrt instead of
     sqrt + divide (≈1 ulp a step off the exact path)."""
@@ -513,6 +531,11 @@ def multi_step(state: ClothState, params: ClothParams, dt, n_steps: int,
 def multi_step_packed(state: ClothState, prm: torch.Tensor, n_steps: int,
                       fast_math: bool = False) -> ClothState:
     """:func:`multi_step` on the packed vector of :func:`_pack_params`."""
+    h, w = state.pos.shape[-2:]
+    if state.pos.ndim == 3 and h * w > _TILED_PARTICLE_LIMIT:
+        from . import cloth_tiled_kernel
+
+        return cloth_tiled_kernel.multi_step_packed(state, prm, n_steps)
     step = _dispatch(state, multi_step_plain_packed, multi_step_kernel_packed)
     return step(state, prm, n_steps, fast_math)
 

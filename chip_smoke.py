@@ -32,7 +32,13 @@ free-particle box, 10 textured spheres in a wireframe box drawn at
 CLI's ``cube``, ``textured`` and ``globe``); and the flagship cloth at
 1024² (``ClothScene`` and ``cloth --grid 1024``), one world above 100,000
 particles, which takes the temporal-blocking kernel K6 of
-``ops/csrc/cloth_tiled.cu``, with its gradient. Phases:
+``ops/csrc/cloth_tiled.cu``, with its gradient; and the multi-device
+paths on four shards of the one card (``parallel.mesh``: the 1024² cloth
+cut into bands of rows with halo exchange on the row-window kernel K1w,
+a batch of row-sharded 256² worlds, worlds-sharded K5;
+``parallel.granular_mesh``: the 1M pile cut into blocks of sorted slots
+on the granular kernel with a base, K10b, and the worlds-sharded granular
+gradient; ``examples/multichip_datagen.py``). Phases:
 
 1. the card: CUDA present, ``nvidia-smi`` name and power limit;
 2. the build of the six kernel libraries (one nvcc each, all started
@@ -217,17 +223,53 @@ substeps at 1024² (K6's time a launch, the gaps, the device's idle share;
 the profiler's schedule warms it up on the same call first, and the K6
 launches are matched to the traced call by correlation id).
 
+21. the multi-device paths, each shard a tensor on the one card: K1w on
+   the four row windows of the 1024² cloth (fresh and draped, top row
+   pinned; the top window's ``row0`` < 0) over k = 1, 2 and 4 substeps
+   against its plain version and, on the centre rows, against K1 and K6
+   on the whole grid, bit for bit; then, with the launch counters reset
+   just before it and read just after (the references run first),
+   ``spatial_multi_step`` at 1024² on 4 row shards, 480 substeps at k = 1
+   and k = 2, equal bit for bit to ``cloth_kernel.multi_step`` (K6);
+   ``batched_spatial_multi_step`` on a (2, 2) worlds × rows mesh, 8
+   worlds of the 256² flagship, 480 substeps, k = 2, each world equal to
+   K1 alone; ``batched_multi_step`` of 64 worlds on 4 shards equal to K5
+   on the whole batch; ``multi_step_sharded`` on the 1M pile over 4
+   grain shards, 8 substeps equal to ``granular.multi_step`` (K10) bit
+   for bit and 64 within pos 1e-4 / vel 1e-3 with the single-device
+   path's dropped count; ``multi_step_diff_sharded`` of 2 worlds of the
+   lowered 1M lattice on 2 shards, 16 substeps, its gradients within 1e-5
+   of the per-world serial sum; ``batched_self_collide_multi_step`` of 4
+   worlds of the 256² self-collision configuration (the scene's schedule)
+   on 2 worlds shards, 240 substeps, each world equal bit for bit to
+   ``multi_step_self_collide`` alone; ``examples/multichip_datagen.py`` at its
+   defaults; every launch count as the path predicts (K1 and K6 never,
+   K10 never). Then K10b on each of the 4 slices against its plain
+   version and the same rows of K10, bit for bit.
+
+Then phases 6 and 7 for the multi-device paths: K1w a substep on a 1024²
+window and on one shard's window beside K1 and K6, its plain version and
+bound; K10b's device time a launch on each slice beside K10's (traced,
+``trace_k10b.json``), its plain version and the bound of its slice;
+particle-steps/s of the row-sharded 1024² cloth (k = 1, 2) beside K6 and
+of the grain-sharded pile beside K10; and one ``torch.profiler`` trace of
+8 row-sharded substeps at 1024² (``trace_rows_block.json``: K1w, the halo
+copies, the rest, the device's idle share).
+
 Any failed check raises, so the script exits non-zero; with no CUDA device
 it exits non-zero before doing anything. The next-to-last line of stdout is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``. The
 ``cloth_step`` launches are those of phases 5 and 12 (K1 steps the
 flagship and runs the training path's forward and traces); the raster's
-those of phases 5, 10, 14 and 18; ``granular_forces`` (K11) those of
-phases 16 and 17, ``granular_force_jvp`` (K12) phase 16's,
-``cloth_step_force`` (K1f) phase 17's, ``sphere_raster_untiled`` (K4)
-phase 18's and ``cloth_tiled`` (K6) phase 20's (the scene and CLI, and
-the gradient segment's forward).
+those of phases 5, 10, 14, 18 and 21; ``cloth_step_batched`` (K5) those
+of phases 10 and 21; ``granular_forces`` (K11) those of phases 16, 17 and
+21, ``granular_force_jvp`` (K12) phases 16's and 21's,
+``cloth_step_force`` (K1f) phases 17's and 21's, ``sphere_raster_untiled``
+(K4) phase 18's, ``cloth_tiled`` (K6) phase 20's (the scene and CLI, and
+the gradient segment's forward), and ``cloth_step_window`` (K1w) and
+``granular_step_sharded`` (K10b) phase 21's.
 Images and the full results go to ``chiprun_out/``.
+
 """
 
 from __future__ import annotations
@@ -373,6 +415,26 @@ LG_RATE_STEPS = 3000
 LG_DEEP = ((2, 17, 54), (4, 9, 46))
 LG_SWEEP = ((1, 12, 57), (1, 24, 57), (1, 47, 57), (1, 20, 115), (2, 8, 54),
             (2, 17, 54))
+# the multi-device paths (phase 21), all on shards of one card: the shards
+# of the rows, grains and worlds axes; the substeps of the row-sharded LG²
+# cloth and of the composed run; the substeps per exchange checked on
+# K1w's windows; the composed run's worlds of the GRID² flagship (8 worlds
+# on a (2, 2) worlds × rows mesh, k = 2; README's example runs 480
+# substeps on a worlds × rows mesh); the 60×60
+# worlds of the worlds-sharded K5 check; the substeps of the sharded pile's
+# bitwise check (one rebuild block) and of its contract check; the
+# gradient check's worlds and substeps; the substeps of the traced run
+MC_SHARDS = 4
+MC_STEPS = 480
+MC_KS = (1, 2, 4)
+MC_WORLDS = 8
+MC_K5_WORLDS = 64
+MC_GR_STEPS = (8, 64)
+MC_DIFF_WORLDS = 2
+MC_DIFF_STEPS = 16
+MC_SC_WORLDS = 4
+MC_SC_STEPS = 240
+MC_TRACE_STEPS = 8
 
 
 def _check(cond: bool, what: str) -> None:
@@ -3059,6 +3121,686 @@ def _k6_times(dev, card) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The multi-device paths (phase 21)
+# ---------------------------------------------------------------------------
+
+def _window_of(x, lo: int, hi: int, h: int):
+    """Rows [lo, hi) of ``x`` [..., h, W], zero where they leave the grid
+    (what a boundary shard's halo receives)."""
+    import torch
+
+    out = torch.zeros(x.shape[:-2] + (hi - lo, x.shape[-1]), dtype=x.dtype,
+                      device=x.device)
+    a, b = max(lo, 0), min(hi, h)
+    out[..., a - lo:b - lo, :] = x[..., a:b, :]
+    return out
+
+
+def _k1w_checks(dev, card):
+    """Phase 21, part 1: K1w on the MC_SHARDS row windows of the LG² grid
+    (fresh and draped, top row pinned; the top window's row0 < 0) over k
+    of MC_KS substeps, against its plain version and, on each window's
+    centre rows, against K1 and K6 on the whole grid, bit for bit."""
+    import torch
+
+    from wgpu_physics_engine_torch.ops import cloth_kernel, cloth_tiled_kernel
+
+    params, states = _k6_states(LG, LG, dev)
+    h_local = LG // MC_SHARDS
+    res, err = {}, 0.0
+    for label, s in states.items():
+        for k in MC_KS:
+            k1 = cloth_kernel.multi_step_kernel(s, params, DT, k)
+            k6 = cloth_tiled_kernel.multi_step_kernel(s, params, DT, k)
+            halo = 2 * k
+            eq_plain = eq_k1 = True
+            e = 0.0
+            for i in range(MC_SHARDS):
+                lo, hi = i * h_local - halo, (i + 1) * h_local + halo
+                args = [_window_of(a, lo, hi, LG) for a in
+                        (s.pos, s.vel, s.pin_mask, s.pin_pos)]
+                kp, kv = cloth_kernel.multi_step_window_kernel(
+                    *args, params, DT, k, lo, LG)
+                pp, pv = cloth_kernel.multi_step_window_plain(
+                    *args, params, DT, k, lo, LG)
+                torch.cuda.synchronize()
+                e = max(e, _maxdiff(kp, pp), _maxdiff(kv, pv))
+                eq_plain &= bool(torch.equal(kp, pp) and torch.equal(kv, pv))
+                rows = slice(i * h_local, (i + 1) * h_local)
+                for ref in (k1, k6):
+                    eq_k1 &= bool(torch.equal(kp[:, halo:-halo],
+                                              ref.pos[:, rows])
+                                  and torch.equal(kv[:, halo:-halo],
+                                                  ref.vel[:, rows]))
+            print(f"phase 21 cloth_step_window (K1w) {label} @{LG}x{LG}, "
+                  f"{MC_SHARDS} row windows, k = {k} [{card}]: vs plain max "
+                  f"abs {e:.3e} bitwise {eq_plain}; centre rows vs K1 and K6 "
+                  f"on the whole grid bitwise {eq_k1}")
+            _check(eq_plain, f"K1w {label} k={k} differs from its plain "
+                   f"version by {e}")
+            _check(eq_k1, f"K1w {label} k={k}: centre rows differ from K1/K6")
+            res[f"{label} k={k}"] = {"err_plain": e, "bitwise_plain": eq_plain,
+                                     "bitwise_k1_k6": eq_k1}
+            err = max(err, e)
+    return res, err
+
+
+def _mc_counters(reset: bool = False) -> dict:
+    """The launch counters of the kernels the multi-device paths run (set
+    to 0 with ``reset``)."""
+    from wgpu_physics_engine_torch.ops import (cloth_kernel,
+                                               cloth_tiled_kernel,
+                                               granular_kernel, raster_kernel)
+
+    names = {"cloth_step_window": (cloth_kernel, "LAUNCHES_WINDOW"),
+             "cloth_step": (cloth_kernel, "LAUNCHES"),
+             "cloth_step_batched": (cloth_kernel, "LAUNCHES_BATCHED"),
+             "cloth_step_force": (cloth_kernel, "LAUNCHES_FORCE"),
+             "cloth_tiled": (cloth_tiled_kernel, "LAUNCHES"),
+             "granular_step_sharded": (granular_kernel, "LAUNCHES_SHARDED"),
+             "granular_step": (granular_kernel, "LAUNCHES"),
+             "granular_forces": (granular_kernel, "LAUNCHES_FORCES"),
+             "granular_force_jvp": (granular_kernel, "LAUNCHES_JVP"),
+             "sphere_raster": (raster_kernel, "LAUNCHES")}
+    if reset:
+        for mod, attr in names.values():
+            setattr(mod, attr, 0)
+    return {k: getattr(mod, attr) for k, (mod, attr) in names.items()}
+
+
+def _mc_diff_grads(worlds, cfg, wp, wv, mesh):
+    """The value and the scalar gradients (dt, k_contact, gravity,
+    restitution) of sum(pos * wp) + sum(vel * wv) over ``worlds`` stepped
+    MC_DIFF_STEPS substeps: through ``multi_step_diff_sharded`` on
+    ``mesh``, or world by world (``mesh`` None), plus the state
+    gradients."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.state import ParticleState
+    from wgpu_physics_engine_torch.models import granular
+    from wgpu_physics_engine_torch.parallel import granular_mesh
+
+    dev = worlds[0].pos.device
+    pos = torch.stack([w.pos for w in worlds]).requires_grad_(True)
+    vel = torch.stack([w.vel for w in worlds]).requires_grad_(True)
+    sc = [torch.tensor(v, dtype=torch.float32, device=dev, requires_grad=True)
+          for v in (GR_DT, cfg.k_contact, cfg.gravity, cfg.restitution)]
+    if mesh is not None:
+        out = granular_mesh.multi_step_diff_sharded(
+            ParticleState(pos=pos, vel=vel), cfg, sc[0], MC_DIFF_STEPS, mesh,
+            k_contact=sc[1], gravity=sc[2], restitution=sc[3])
+        loss = (out.pos * wp).sum() + (out.vel * wv).sum()
+    else:
+        loss = 0.0
+        for j in range(len(worlds)):
+            out = granular.multi_step_diff(
+                ParticleState(pos=pos[j], vel=vel[j]), cfg, sc[0],
+                MC_DIFF_STEPS, k_contact=sc[1], gravity=sc[2],
+                restitution=sc[3])
+            loss = loss + (out.pos * wp[j]).sum() + (out.vel * wv[j]).sum()
+    grads = torch.autograd.grad(loss, [pos, vel] + sc)
+    return float(loss.detach()), grads
+
+
+def _phase21(dev, card):
+    """Phase 21: the multi-device paths on MC_SHARDS shards of one card.
+    The references (K6/K1 on the whole grid, K1 per world, K5 on the
+    whole batch, single-device K10, the serial gradients) run first; then,
+    with the launch counters reset just before and read just after, the
+    main path: ``spatial_multi_step`` at LG² (k = 1 and 2, MC_STEPS
+    substeps), ``batched_spatial_multi_step`` (MC_WORLDS worlds of the
+    GRID² flagship on a (2, 2) worlds × rows mesh, k = 2),
+    ``batched_multi_step`` (MC_K5_WORLDS 60×60 worlds on 4 shards),
+    ``multi_step_sharded`` on the 1M pile (8 and 64 substeps),
+    ``multi_step_diff_sharded`` (2 worlds on 2 shards),
+    ``batched_self_collide_multi_step`` (MC_SC_WORLDS worlds of the GRID²
+    self-collision configuration on 2 shards) and
+    ``examples/multichip_datagen.py`` at its defaults; then the checks."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import (ClothParams, ClothState,
+                                                      init_cloth_state)
+    from wgpu_physics_engine_torch.examples import multichip_datagen
+    from wgpu_physics_engine_torch.models import cloth, granular, scenes
+    from wgpu_physics_engine_torch.ops import cloth_kernel
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+    from wgpu_physics_engine_torch.parallel import datagen, granular_mesh
+    from wgpu_physics_engine_torch.parallel import mesh as pmesh
+
+    rows4 = pmesh.make_mesh((MC_SHARDS,), ("rows",), [dev] * MC_SHARDS)
+    grid22 = pmesh.make_mesh((2, 2), ("worlds", "rows"), [dev] * 4)
+    worlds4 = pmesh.make_mesh((MC_SHARDS,), ("worlds",), [dev] * MC_SHARDS)
+    worlds2 = pmesh.make_mesh((2,), ("worlds",), [dev] * 2)
+    grains4 = pmesh.make_mesh((MC_SHARDS,), ("grains",), [dev] * MC_SHARDS)
+
+    # ---- inputs and references, not counted ----
+    c_lg = ClothConfig(height=LG, width=LG)
+    p_lg = ClothParams.from_config(c_lg, device=dev)
+    s_lg = init_cloth_state(c_lg, device=dev)
+    pin = torch.zeros((LG, LG), dtype=torch.bool, device=dev)
+    pin[0] = True
+    s_lg = s_lg._replace(pin_mask=pin, pin_pos=s_lg.pos)
+    ref_lg = cloth_kernel.multi_step(s_lg, p_lg, DT, MC_STEPS)       # K6
+    c_fl = ClothConfig(height=GRID, width=GRID)
+    p_fl = ClothParams.from_config(c_fl, device=dev)
+    fl = datagen.randomized_worlds(c_fl, MC_WORLDS,
+                                   torch.Generator().manual_seed(21),
+                                   device=dev)
+    batch = ClothState(pos=fl.state.pos, vel=fl.state.vel)
+    ref_worlds = [cloth_kernel.multi_step(
+        ClothState(pos=batch.pos[i], vel=batch.vel[i]), p_fl, DT, MC_STEPS)
+        for i in range(MC_WORLDS)]
+    dg = datagen.randomized_worlds(ClothConfig(), MC_K5_WORLDS,
+                                   torch.Generator().manual_seed(22),
+                                   device=dev)
+    ref_k5 = cloth_kernel.multi_step(dg.state, dg.params, DT, DG_STEPS)
+    gcfg = _gr_configs()["default"]
+    pile = granular.init_state(gcfg, torch.Generator().manual_seed(0),
+                               device=dev)
+    ref_gr = {n: granular.multi_step(pile, gcfg, GR_DT, n, return_stats=True)
+              for n in MC_GR_STEPS}
+    diff_worlds = [_lowered(granular.init_state(
+        gcfg, torch.Generator().manual_seed(s), device=dev), gcfg)
+        for s in range(MC_DIFF_WORLDS)]
+    rng = np.random.default_rng(21)
+    wp, wv = (torch.tensor(rng.standard_normal((MC_DIFF_WORLDS, 3, GR_N))
+                           .astype(np.float32), device=dev)
+              for _ in range(2))
+    v_serial, g_serial = _mc_diff_grads(diff_worlds, gcfg, wp, wv, None)
+    # the self-collision configuration of phase 17's scene, MC_SC_WORLDS
+    # worlds from its fresh sheet with seeded velocities
+    sc_spec = cloth.default_self_collision_grid(
+        c_fl, skin=2.0 * c_fl.particle_radius)
+    sc_kw = dict(rebuild_every=SC_REBUILD, pallas_block=SC_BLOCK,
+                 pallas_slab=scenes.SELF_COLLIDE_SLAB)
+    s_fl = init_cloth_state(c_fl, device=dev)
+    sc_vel = torch.tensor((0.5 * rng.standard_normal(
+        (MC_SC_WORLDS, 3, GRID, GRID))).astype(np.float32), device=dev)
+    sc_batch = ClothState(pos=s_fl.pos.expand(MC_SC_WORLDS, 3, GRID, GRID)
+                          .contiguous(), vel=sc_vel)
+    ref_sc = [cloth.multi_step_self_collide(
+        ClothState(pos=s_fl.pos, vel=sc_vel[i]), p_fl, DT, MC_SC_STEPS,
+        sc_spec, return_stats=True, **sc_kw) for i in range(MC_SC_WORLDS)]
+    for f in glob.glob(os.path.join(multichip_datagen.DEFAULT_OUT, "*.npy")):
+        os.unlink(f)
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted ----
+    _mc_counters(reset=True)
+    host = {}
+    t0 = time.perf_counter()
+    rows = {k: pmesh.spatial_multi_step(s_lg, p_lg, DT, MC_STEPS, rows4,
+                                        substeps_per_exchange=k)
+            for k in (1, 2)}
+    composed = pmesh.batched_spatial_multi_step(batch, p_fl, DT, MC_STEPS,
+                                                grid22,
+                                                substeps_per_exchange=2)
+    k5 = pmesh.batched_multi_step(dg.state, dg.params, DT, DG_STEPS, worlds4)
+    torch.cuda.synchronize()
+    host["cloth_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gr = {n: granular_mesh.multi_step_sharded(pile, gcfg, GR_DT, n, grains4,
+                                              return_stats=True)
+          for n in MC_GR_STEPS}
+    torch.cuda.synchronize()
+    host["granular_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    v_sh, g_sh = _mc_diff_grads(diff_worlds, gcfg, wp, wv, worlds2)
+    torch.cuda.synchronize()
+    host["diff_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sc = pmesh.batched_self_collide_multi_step(sc_batch, p_fl, DT,
+                                               MC_SC_STEPS, sc_spec, worlds2,
+                                               **sc_kw)
+    torch.cuda.synchronize()
+    host["self_collide_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frames = multichip_datagen.main([])
+    host["example_s"] = time.perf_counter() - t0
+    launches = _mc_counters()
+    print(f"phase 21 multi-device main path on {MC_SHARDS} shards of one "
+          f"card [{card}]: host clock {host}; launches {launches}")
+
+    # ---- the checks ----
+    n_rows = MC_STEPS * MC_SHARDS
+    n_comp = MC_WORLDS * MC_STEPS * 2
+    exp = {"cloth_step_window": 2 * n_rows + n_comp,
+           "granular_step_sharded": MC_SHARDS * sum(MC_GR_STEPS),
+           "cloth_step_batched": DG_STEPS * MC_SHARDS * (1 + 4),
+           "cloth_step": 0, "cloth_tiled": 0, "granular_step": 0,
+           "cloth_step_force": MC_SC_WORLDS * MC_SC_STEPS,
+           "granular_forces": (2 * MC_DIFF_WORLDS * MC_DIFF_STEPS
+                               + MC_SC_WORLDS * MC_SC_STEPS),
+           "granular_force_jvp": MC_DIFF_WORLDS * MC_DIFF_STEPS,
+           "sphere_raster": MC_SHARDS * 4}
+    _check(launches == exp, f"multi-device launches {launches}, expected "
+           f"{exp}")
+    res = {"launches": launches, "host_s": host}
+    eq_rows = {k: bool(torch.equal(o.pos, ref_lg.pos)
+                       and torch.equal(o.vel, ref_lg.vel))
+               for k, o in rows.items()}
+    eq_comp = all(bool(torch.equal(composed.pos[i], r.pos)
+                       and torch.equal(composed.vel[i], r.vel))
+                  for i, r in enumerate(ref_worlds))
+    eq_k5 = bool(torch.equal(k5.pos, ref_k5.pos)
+                 and torch.equal(k5.vel, ref_k5.vel))
+    contact = _contact_share(ref_lg.pos, p_lg)
+    print(f"phase 21 spatial_multi_step @{LG}x{LG}, {MC_STEPS} substeps, "
+          f"{MC_SHARDS} row shards [{card}]: vs cloth_kernel.multi_step (K6) "
+          f"bitwise k=1 {eq_rows[1]}, k=2 {eq_rows[2]}; particles in contact "
+          f"{contact:.4f}; batched_spatial_multi_step {MC_WORLDS} worlds "
+          f"@{GRID}x{GRID} on (2, 2), k = 2: each world vs K1 alone bitwise "
+          f"{eq_comp}; batched_multi_step {MC_K5_WORLDS} worlds on "
+          f"{MC_SHARDS} shards vs K5 on the whole batch bitwise {eq_k5}")
+    _check(all(eq_rows.values()), f"rows path differs from K6: {eq_rows}")
+    _check(eq_comp, "composed worlds x rows path differs from K1")
+    _check(eq_k5, "worlds-sharded K5 differs from K5 on the whole batch")
+    _check(torch.equal(rows[1].pos[:, 0], s_lg.pos[:, 0]),
+           "rows path: pinned row moved")
+    res["cloth"] = {"bitwise_rows": eq_rows, "bitwise_composed": eq_comp,
+                    "bitwise_k5": eq_k5, "contact_share": contact}
+
+    n8, n64 = MC_GR_STEPS
+    (o8, d8), (r8, rd8) = gr[n8], ref_gr[n8]
+    (o64, d64), (r64, rd64) = gr[n64], ref_gr[n64]
+    eq8 = bool(torch.equal(o8.pos, r8.pos) and torch.equal(o8.vel, r8.vel))
+    ep, ev = _maxdiff(o64.pos, r64.pos), _maxdiff(o64.vel, r64.vel)
+    finite = bool(torch.isfinite(o64.pos).all() and torch.isfinite(o64.vel)
+                  .all())
+    print(f"phase 21 multi_step_sharded @{GR_N}, default configuration, "
+          f"{MC_SHARDS} grain shards [{card}]: {n8} substeps (one rebuild "
+          f"block) vs granular.multi_step (K10) bitwise {eq8}; {n64} "
+          f"substeps pos {ep:.3e} (<=1e-4) vel {ev:.3e} (<=1e-3), bitwise "
+          f"{bool(ep == 0.0 and ev == 0.0)}; dropped {int(d8)} in the first "
+          f"block, {int(d64)} over {n64} substeps (single {int(rd8)}, "
+          f"{int(rd64)}), finite {finite}")
+    _check(eq8, "sharded pile differs from K10 over one rebuild block")
+    _check(ep <= 1e-4 and ev <= 1e-3, f"sharded pile off: {ep} {ev}")
+    # the same candidate sets: the slab drops of the default configuration
+    # on this pile (none in the first block) are the single-device path's
+    _check(int(d8) == int(rd8) == 0 and int(d64) == int(rd64),
+           f"sharded pile dropped {int(d8)}, {int(d64)}; single "
+           f"{int(rd8)}, {int(rd64)}")
+    _check(finite, "sharded pile not finite")
+    res["granular"] = {"bitwise_8": eq8, "err_64_pos": ep, "err_64_vel": ev,
+                       "dropped_8": int(d8), "dropped_64": int(d64),
+                       "dropped_64_single": int(rd64)}
+
+    names = ("pos", "vel", "dt", "k_contact", "gravity", "restitution")
+    rel = {k: _max_rel(a, b) for k, a, b in zip(names, g_sh, g_serial)}
+    mags = {k: float(g.abs().max()) for k, g in zip(names, g_sh)}
+    print(f"phase 21 multi_step_diff_sharded {MC_DIFF_WORLDS} worlds @{GR_N} "
+          f"on 2 shards, {MC_DIFF_STEPS} substeps [{card}]: value "
+          f"{v_sh:.6e} vs serial {v_serial:.6e}; gradients vs the per-world "
+          f"serial sum max-relative {rel} (<=1e-5); max |g| {mags}")
+    _check(abs(v_sh - v_serial) <= 1e-6 * abs(v_serial),
+           f"sharded diff value {v_sh} vs {v_serial}")
+    _check(all(r <= 1e-5 for r in rel.values()),
+           f"sharded diff gradients vs serial: {rel}")
+    _check(all(m > 0 for m in mags.values()), f"zero gradients: {mags}")
+    res["diff"] = {"value": v_sh, "value_serial": v_serial, "rel": rel}
+
+    eq_sc = [bool(torch.equal(sc.pos[i], r.pos) and torch.equal(sc.vel[i],
+                                                               r.vel))
+             for i, (r, _) in enumerate(ref_sc)]
+    sc_drop = max(int(d) for _, d in ref_sc)
+    sc_finite = bool(torch.isfinite(sc.pos).all() and torch.isfinite(sc.vel)
+                     .all())
+    print(f"phase 21 batched_self_collide_multi_step {MC_SC_WORLDS} worlds "
+          f"@{GRID}x{GRID} on 2 worlds shards, {MC_SC_STEPS} substeps, "
+          f"rebuild every {SC_REBUILD} [{card}]: each world vs "
+          f"multi_step_self_collide alone bitwise {eq_sc}; dropped (serial "
+          f"runs) {sc_drop}; finite {sc_finite}")
+    _check(all(eq_sc), f"worlds-sharded self-collision differs: {eq_sc}")
+    _check(sc_drop == 0, f"self-collision dropped {sc_drop} window entries")
+    _check(sc_finite, "worlds-sharded self-collision not finite")
+    res["self_collide"] = {"bitwise": eq_sc, "dropped": sc_drop}
+
+    arrs = [np.load(f) for f in frames]
+    ok = (len(arrs) == 4 and all(a.shape == (64, 64, 64, 3)
+                                 and a.dtype == np.uint8 for a in arrs))
+    spread = [int(a.reshape(-1, 3).max(0).min()) -
+              int(a.reshape(-1, 3).min(0).max()) for a in arrs]
+    print(f"phase 21 examples/multichip_datagen.py (defaults: 64 worlds, "
+          f"4 frames of 64x64, 4 shards) [{card}]: {len(arrs)} frames "
+          f"{[a.shape for a in arrs[:1]]} uint8 {ok}; colour spread a frame "
+          f"{spread}; {host['example_s']:.2f} s host clock")
+    _check(ok and min(spread) > 0, "multichip datagen frames off")
+    res["example"] = {"frames": len(arrs), "spread": spread}
+    return res
+
+
+def _slice_work(p0, prm, slabs, base: int, nl: int):
+    """Candidate slots and touching pairs of the sorted slots [base, base +
+    nl): the data-dependent work of one K10b launch."""
+    import torch
+
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    (a_lo, a_hi), (b_lo, b_hi) = gk.slab_ranges(slabs, nl, base)
+    cand = int(torch.clamp_min(a_hi - a_lo, 0).sum()
+               + torch.clamp_min(b_hi - b_lo, 0).sum())
+    touch = 0
+    for lo, hi in ((a_lo, a_hi), (b_lo, b_hi)):
+        for *_, t in gk._pass_pairs(p0, lo, hi, prm[0], base):
+            touch += int(t.sum())
+    return cand, touch
+
+
+def _k10b_checks(dev, card):
+    """Phase 21, part 2: K10b on each of the MC_SHARDS grain shards' slices
+    of the 1M pile (default configuration, the sharded pad) against its
+    plain version and against the same rows of one K10 launch; its time a
+    launch beside K10's and K10's quarter, with its bound from the slice's
+    candidate slots and touching pairs."""
+    import torch
+
+    from wgpu_physics_engine_torch.models import granular
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    cfg = _gr_configs()["default"]
+    pile = granular.init_state(cfg, torch.Generator().manual_seed(0),
+                               device=dev)
+    n = GR_N
+    n_pad = granular.pad_slots(n, cfg, unit=cfg.pallas_block * 8 * MC_SHARDS)
+    nloc = n_pad // MC_SHARDS
+    grid, slabs, _ = granular.rebuild(pile.pos, pile.vel, cfg, n_pad=n_pad)
+    prm = gk.kernel_params(cfg, GR_DT, dev)
+    p0, v0 = grid.sorted_pos, grid.sorted_vel
+    fp, fv = gk.substep_sorted_kernel(p0, v0, prm, slabs)
+    err, eq_k10 = 0.0, True
+    for d in range(MC_SHARDS):
+        lo, hi = min(d * nloc, n), min((d + 1) * nloc, n)
+        kp, kv = gk.substep_sorted_kernel(p0, v0[:, lo:hi], prm, slabs,
+                                          base=lo, n_local=hi - lo)
+        pp, pv = gk.substep_sorted_plain(p0, v0[:, lo:hi], prm, slabs,
+                                         base=lo, n_local=hi - lo)
+        torch.cuda.synchronize()
+        err = max(err, _maxdiff(kp, pp), _maxdiff(kv, pv))
+        eq_k10 &= bool(torch.equal(kp, fp[:, lo:hi])
+                       and torch.equal(kv, fv[:, lo:hi]))
+    print(f"phase 21 granular_step_sharded (K10b) @{n}, {MC_SHARDS} slices "
+          f"of {nloc} slots [{card}]: vs plain max abs {err:.3e} (bitwise "
+          f"{err == 0.0}); vs the same rows of K10 bitwise {eq_k10}")
+    _check(err == 0.0, f"K10b differs from its plain version by {err}")
+    _check(eq_k10, "K10b differs from K10 on its rows")
+
+    lo, hi = nloc, 2 * nloc                           # an interior shard
+    vl = v0[:, lo:hi]
+    k_ms = _best_ms(lambda: gk.substep_sorted_kernel(p0, vl, prm, slabs,
+                                                     base=lo,
+                                                     n_local=hi - lo))
+    p_ms = _best_ms(lambda: gk.substep_sorted_plain(p0, vl, prm, slabs,
+                                                    base=lo, n_local=hi - lo))
+    k10_ms = _best_ms(lambda: gk.substep_sorted_kernel(p0, v0, prm, slabs))
+    cand, touch = _slice_work(p0, prm, slabs, lo, hi - lo)
+    b_ms, b_by = _bound(GR_BYTES * (hi - lo), OPS_SLOT * cand
+                        + OPS_TOUCH * touch + OPS_GR_PARTICLE * (hi - lo))
+
+    # device time a launch: one K10 launch and the MC_SHARDS K10b launches
+    # of one sharded substep, three times over, traced (a call's CUDA
+    # events above include the wrapper's host work, longer than a
+    # quarter's launch), each call in a range of its own; the last
+    # repetition in which every call's launch has its device record (by
+    # correlation id) is read
+    cuts = [(0, n)] + [(min(d * nloc, n), min((d + 1) * nloc, n))
+                       for d in range(MC_SHARDS)]
+    blocks = [-(-(b - a) // cfg.pallas_block) for a, b in cuts]
+    marks = [[f"k10b_r{r}_{i}" for i in range(len(cuts))] for r in range(3)]
+
+    def substeps():
+        for rep in marks:
+            for i, ((a, b), m) in enumerate(zip(cuts, rep)):
+                with torch.profiler.record_function(m):
+                    if i == 0:
+                        gk.substep_sorted_kernel(p0, v0, prm, slabs)
+                    else:
+                        gk.substep_sorted_kernel(p0, v0[:, a:b], prm, slabs,
+                                                 base=a, n_local=b - a)
+
+    _, _, by_mark = _trace_kept(substeps,
+                                os.path.join(OUT, "trace_k10b.json"),
+                                "k10b_traced", [m for r in marks for m in r])
+    found = [[[sp for sp in by_mark[m] if "granular_step" in sp[2]]
+              for m in rep] for rep in marks]
+    whole = [r for r, f in enumerate(found) if all(len(x) == 1 for x in f)]
+    _check(len(whole) > 0, "trace: no repetition holds a device record of "
+           f"each of its K10 and K10b launches: "
+           f"{[[len(x) for x in f] for f in found]}")
+    ks = [x[0] for x in found[whole[-1]]]
+    grids = [g[0] for *_, g in ks]
+    _check(grids == blocks, f"trace: the K10 and K10b launches have grids "
+           f"{grids}, not {blocks}")
+    k10_us = ks[0][1] - ks[0][0]
+    k10b_us = [b - a for a, b, _, _ in ks[1:]]
+    print(f"phase 6 granular_step_sharded (K10b) @{n} [{card}]: device time "
+          f"a launch {', '.join(f'{t:.3f}' for t in k10b_us)} us (shards "
+          f"0-{MC_SHARDS - 1}; sum {sum(k10b_us):.3f}) beside K10 on all "
+          f"{n} slots {k10_us:.3f} us (a quarter {k10_us / 4:.3f}); by CUDA "
+          f"events a call: K10b on slots [{lo}, {hi}) {k_ms:.4f} ms, K10 "
+          f"{k10_ms:.4f} ms; plain {p_ms:.4f} ms; bound of the interior "
+          f"slice {b_ms:.5f} ms ({b_by}; {cand} candidate slots, {touch} "
+          f"touching), its launch at {b_ms / (k10b_us[1] / 1e3):.4f} of it")
+    return {"err_plain": err, "bitwise_k10": eq_k10,
+            "ms": k10b_us[1] / 1e3, "device_us": k10b_us,
+            "k10_device_us": k10_us, "call_ms": k_ms, "plain_ms": p_ms,
+            "k10_call_ms": k10_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "candidates": cand, "touching": touch}, err
+
+
+def _trace_kept(fn, path, label: str, marks=()):
+    """Run ``fn`` twice under ``torch.profiler`` with a schedule that keeps
+    only the second call (the first warms the tracer up), write the Chrome
+    trace to ``path`` and return the kept call's device spans ``(start,
+    end, name, grid)``, matched to it by correlation id, its window ``(t0,
+    t1)`` in µs (the host annotation, extended to its last device span),
+    and for each name in ``marks`` (a ``record_function`` range inside
+    ``fn``) the device spans of the launches issued inside it. Each step
+    first keeps the device busy ~2 ms and waits: the tracer dropped the
+    first device records of a kept step (two of five granular launches in
+    one run), and the records it drops are then the sleep's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda pr: pr.export_chrome_trace(path)
+                 ) as prof:
+        for _ in range(2):
+            torch.cuda._sleep(2_000_000)
+            torch.cuda.synchronize()
+            with torch.profiler.record_function(label):
+                fn()
+                torch.cuda.synchronize()
+            prof.step()
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    ann = [e for e in events if e.get("cat") == "user_annotation"
+           and e["name"] == label]
+    _check(len(ann) == 1, f"trace: {len(ann)} {label} annotations")
+    t0, t1 = ann[0]["ts"], ann[0]["ts"] + ann[0]["dur"]
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime"
+               and "correlation" in e.get("args", {})]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and "correlation" in e.get("args", {})]
+
+    def issued_in(a, b):
+        corr = {e["args"]["correlation"] for e in runtime if a <= e["ts"] <= b}
+        return [(e["ts"], e["ts"] + e["dur"], e["name"],
+                 tuple(e["args"].get("grid", ()))) for e in device
+                if e["args"]["correlation"] in corr]
+
+    spans = issued_in(t0, t1)
+    by_mark = {}
+    for m in marks:
+        ms = [e for e in events if e.get("cat") == "user_annotation"
+              and e["name"] == m]
+        _check(len(ms) == 1, f"trace: {len(ms)} {m} annotations")
+        by_mark[m] = issued_in(ms[0]["ts"], ms[0]["ts"] + ms[0]["dur"])
+    return spans, (t0, max([t1] + [b for _, b, _, _ in spans])), by_mark
+
+
+def _mc_trace(state, params, mesh, card) -> dict:
+    """One torch.profiler trace of MC_TRACE_STEPS row-sharded substeps at
+    LG² (k = 2, so MC_TRACE_STEPS / 2 exchange blocks) on MC_SHARDS shards
+    of one card (``trace_rows_block.json``): K1w's launches and time, the
+    halo copies and the other device ops, and the device's idle share."""
+    from wgpu_physics_engine_torch.parallel import mesh as pmesh
+
+    spans, (t0, t1), _ = _trace_kept(
+        lambda: pmesh.spatial_multi_step(state, params, DT, MC_TRACE_STEPS,
+                                         mesh, substeps_per_exchange=2),
+        os.path.join(OUT, "trace_rows_block.json"), "rows_traced")
+    k1w = [(a, b) for a, b, name, _ in spans
+           if "substep_kernel_window" in name]
+    copies = [(a, b) for a, b, name, _ in spans
+              if "substep_kernel_window" not in name
+              and ("Cat" in name or "opy" in name or "emcpy" in name)]
+    exp = MC_TRACE_STEPS * MC_SHARDS
+    _check(len(k1w) == exp, f"trace shows {len(k1w)} K1w launches, not {exp}")
+    busy = _union_us([(a, b) for a, b, _, _ in spans])
+    kb, cb = _union_us(k1w), _union_us(copies)
+    res = {"k1w_launches": len(k1w), "k1w_us": kb / len(k1w),
+           "copies": len(copies), "copy_us": cb,
+           "other_ops": len(spans) - len(k1w) - len(copies),
+           "other_us": busy - kb - cb, "window_us": t1 - t0,
+           "device_busy_us": busy, "idle_share": 1.0 - busy / (t1 - t0)}
+    print(f"phase 7 trace {MC_TRACE_STEPS} row-sharded substeps @{LG}x{LG}, "
+          f"k = 2, {MC_SHARDS} shards of one card [{card}]: K1w "
+          f"{len(k1w)} x {kb / len(k1w):.3f} us; halo copies and gathers "
+          f"{len(copies)} ops, {cb:.1f} us; other device ops "
+          f"{res['other_ops']}, {res['other_us']:.1f} us; window "
+          f"{t1 - t0:.1f} us (host, profiled), device busy {busy:.1f} us; "
+          f"device idle share {res['idle_share']:.4f}")
+    return res
+
+
+def _mc_times(dev, card) -> dict:
+    """Phases 6 and 7 for the multi-device paths: K1w a launch on an LG²
+    window (row0 0, the whole grid) and on one shard's window beside K1
+    and K6 with its bound and its plain version; particle-steps/s of the
+    row-sharded LG² cloth (k = 1 and 2) beside the single-card path (K6),
+    and of the grain-sharded 1M pile beside ``granular.multi_step`` (64
+    substeps, default configuration, host clock, best of 3); one trace."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import (ClothParams,
+                                                      init_cloth_state)
+    from wgpu_physics_engine_torch.models import granular
+    from wgpu_physics_engine_torch.ops import cloth_kernel, cloth_tiled_kernel
+    from wgpu_physics_engine_torch.parallel import granular_mesh
+    from wgpu_physics_engine_torch.parallel import mesh as pmesh
+
+    c = ClothConfig(height=LG, width=LG)
+    s = init_cloth_state(c, device=dev)
+    p = ClothParams.from_config(c, device=dev)
+    n = LG_TIME_STEPS
+    res = {}
+    w_ms = _best_ms(lambda: cloth_kernel.multi_step_window_kernel(
+        s.pos, s.vel, None, None, p, DT, n, 0, LG)) / n
+    k1_ms = _best_ms(lambda: cloth_kernel.multi_step_kernel(s, p, DT, n)) / n
+    k6_ms = _best_ms(lambda: cloth_tiled_kernel.multi_step_kernel(
+        s, p, DT, n)) / n
+    n_plain = 8
+    pl_ms = _best_ms(lambda: cloth_kernel.multi_step_window_plain(
+        s.pos, s.vel, None, None, p, DT, n_plain, 0, LG)) / n_plain
+    bm, bb = _cloth_bound(LG, LG, 1, n)
+    h_win = LG // MC_SHARDS + 2 * 2
+    win = [_window_of(a, LG // MC_SHARDS - 2, 2 * LG // MC_SHARDS + 2, LG)
+           for a in (s.pos, s.vel)]
+    row0 = LG // MC_SHARDS - 2
+    sw_ms = _best_ms(lambda: cloth_kernel.multi_step_window_kernel(
+        *win, None, None, p, DT, n, row0, LG)) / n
+    spl_ms = _best_ms(lambda: cloth_kernel.multi_step_window_plain(
+        *win, None, None, p, DT, n_plain, row0, LG)) / n_plain
+    sbm, sbb = _cloth_bound(h_win, LG, 1, n)
+    # the kernels line takes the main path's shape, one shard's window
+    res["k1w"] = {"ms": sw_ms, "plain_ms": spl_ms, "bound_ms": sbm / n,
+                  "bound_by": sbb, "rows": h_win,
+                  "window_1024": {"ms": w_ms, "k1_ms": k1_ms, "k6_ms": k6_ms,
+                                  "plain_ms": pl_ms, "bound_ms": bm / n,
+                                  "bound_by": bb}}
+    print(f"phase 6 cloth_step_window (K1w) @{LG}x{LG} window, {n} substeps "
+          f"[{card}]: {w_ms:.5f} ms/substep; K1 {k1_ms:.5f}, K6 {k6_ms:.5f}; "
+          f"plain {pl_ms:.5f}; bound {bm / n:.5f} ms ({bb}), K1w at "
+          f"{bm / n / w_ms:.4f} of it; one shard's window {h_win}x{LG} "
+          f"(k = 1): {sw_ms:.5f} ms/substep, plain {spl_ms:.5f}, bound "
+          f"{sbm / n:.5f} ms ({sbb}), K1w at {sbm / n / sw_ms:.4f} of it")
+
+    mesh = pmesh.make_mesh((MC_SHARDS,), ("rows",), [dev] * MC_SHARDS)
+    rates = {}
+    for k in (1, 2):
+        ms = _best_ms(lambda: pmesh.spatial_multi_step(
+            s, p, DT, MC_STEPS, mesh, substeps_per_exchange=k))
+        rates[f"rows k={k}"] = LG * LG * MC_STEPS / (ms / 1e3)
+    ms = _best_ms(lambda: cloth_kernel.multi_step(s, p, DT, MC_STEPS))
+    rates["single K6"] = LG * LG * MC_STEPS / (ms / 1e3)
+    cfg = _gr_configs()["default"]
+    pile = granular.init_state(cfg, torch.Generator().manual_seed(0),
+                               device=dev)
+    grains = pmesh.make_mesh((MC_SHARDS,), ("grains",), [dev] * MC_SHARDS)
+    for label, fn in (("grains", lambda: granular_mesh.multi_step_sharded(
+            pile, cfg, GR_DT, GR_MS_STEPS, grains)),
+                      ("single K10", lambda: granular.multi_step(
+                          pile, cfg, GR_DT, GR_MS_STEPS))):
+        ts = []
+        for i in range(4):                     # a warm-up, then best of 3
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i:
+                ts.append(time.perf_counter() - t0)
+        rates[label] = GR_N * GR_MS_STEPS / min(ts)
+    res["rates"] = rates
+    print(f"phase 6 multi-device rates on {MC_SHARDS} shards of one card "
+          f"[{card}] (particle-steps/s; cloth {LG}x{LG} x {MC_STEPS} "
+          f"substeps, CUDA events; pile {GR_N} x {GR_MS_STEPS} substeps, "
+          f"host clock; best of 3): "
+          + ", ".join(f"{k} {v:.4e}" for k, v in rates.items()))
+    res["trace"] = _mc_trace(s, p, mesh, card)
+    return res
+
+
+def _multi_device(dev, card):
+    """Phase 21 and its phases 6 and 7: the checks of K1w and K10b, the
+    counted main path, the timings and the trace. Returns the results and
+    the two kernels' entries of the ``kernels`` line."""
+    res = {}
+    res["cloth_step_window"], k1w_err = _k1w_checks(dev, card)
+    res["main"] = _phase21(dev, card)
+    res["granular_step_sharded"], k10b_err = _k10b_checks(dev, card)
+    res["times"] = t = _mc_times(dev, card)
+    launches = res["main"]["launches"]
+    k10b = res["granular_step_sharded"]
+    kernels = [
+        {"name": "cloth_step_window", "route": "cuda",
+         "source": "wgpu_physics_engine_torch/ops/csrc/cloth_step.cu",
+         "replaces": "wgpu_physics_engine_tpu/ops/cloth_pallas.py:763",
+         "launches": launches["cloth_step_window"], "max_abs_err": k1w_err,
+         "ms": t["k1w"]["ms"], "plain_ms": t["k1w"]["plain_ms"],
+         "bound_ms": t["k1w"]["bound_ms"], "bound_by": t["k1w"]["bound_by"],
+         "library_ms": None},
+        {"name": "granular_step_sharded", "route": "cuda",
+         "source": "wgpu_physics_engine_torch/ops/csrc/granular_step.cu",
+         "replaces": "wgpu_physics_engine_tpu/ops/granular_pallas.py:707",
+         "launches": launches["granular_step_sharded"],
+         "max_abs_err": k10b_err, "ms": k10b["ms"],
+         "plain_ms": k10b["plain_ms"], "bound_ms": k10b["bound_ms"],
+         "bound_by": k10b["bound_by"], "library_ms": None},
+    ]
+    return res, kernels
+
+
 def main() -> int:
     import torch
 
@@ -3388,6 +4130,11 @@ def main() -> int:
     # ---- phases 6 and 7 for the large-grid path ----
     lgt = _k6_times(dev, card)
     results["large_grid_times"] = lgt
+
+    # ---- phase 21: the multi-device paths (K1w, K10b) ----
+    mc, mc_kernels = _multi_device(dev, card)
+    results["multi_device"] = mc
+    mc_launches = mc["main"]["launches"]
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
 
@@ -3402,7 +4149,8 @@ def main() -> int:
         {"name": "cloth_step_batched", "route": "cuda",
          "source": "wgpu_physics_engine_torch/ops/csrc/cloth_step.cu",
          "replaces": "wgpu_physics_engine_tpu/ops/cloth_pallas.py:345",
-         "launches": dg_launches["cloth_step_batched"],
+         "launches": (dg_launches["cloth_step_batched"]
+                      + mc_launches["cloth_step_batched"]),
          "max_abs_err": k5_err, "ms": dg["k5"]["ms"],
          "plain_ms": dg["k5"]["plain_ms"], "bound_ms": dg["k5"]["bound_ms"],
          "bound_by": dg["k5"]["bound_by"], "library_ms": None},
@@ -3411,7 +4159,8 @@ def main() -> int:
          "replaces": "wgpu_physics_engine_tpu/ops/raster_pallas.py:209",
          "launches": (launches["sphere_raster"] + dg_launches["sphere_raster"]
                       + gr_launches["sphere_raster"]
-                      + pt_launches["sphere_raster"]),
+                      + pt_launches["sphere_raster"]
+                      + mc_launches["sphere_raster"]),
          "max_abs_err": max(r_err, r9_err,
                             results["granular"]["raster"]["err_tmin"],
                             results["granular"]["raster"]["err_oc"]),
@@ -3436,7 +4185,8 @@ def main() -> int:
          "source": "wgpu_physics_engine_torch/ops/csrc/granular_step.cu",
          "replaces": "wgpu_physics_engine_tpu/ops/granular_pallas.py:750",
          "launches": (gg_launches["granular_forces"]
-                      + sc_launches["granular_forces"]),
+                      + sc_launches["granular_forces"]
+                      + mc_launches["granular_forces"]),
          "max_abs_err": ct_err, "ms": ctt["granular_forces"]["ms"],
          "plain_ms": ctt["granular_forces"]["plain_ms"],
          "bound_ms": ctt["granular_forces"]["bound_ms"],
@@ -3444,7 +4194,8 @@ def main() -> int:
         {"name": "granular_force_jvp", "route": "cuda",
          "source": "wgpu_physics_engine_torch/ops/csrc/granular_step.cu",
          "replaces": "wgpu_physics_engine_tpu/ops/granular_pallas.py:1000",
-         "launches": gg_launches["granular_force_jvp"],
+         "launches": (gg_launches["granular_force_jvp"]
+                      + mc_launches["granular_force_jvp"]),
          "max_abs_err": ct_err, "ms": ctt["granular_force_jvp"]["ms"],
          "plain_ms": ctt["granular_force_jvp"]["plain_ms"],
          "bound_ms": ctt["granular_force_jvp"]["bound_ms"],
@@ -3453,7 +4204,8 @@ def main() -> int:
         {"name": "cloth_step_force", "route": "cuda",
          "source": "wgpu_physics_engine_torch/ops/csrc/cloth_step.cu",
          "replaces": "wgpu_physics_engine_tpu/ops/cloth_pallas.py:682",
-         "launches": sc_launches["cloth_step_force"],
+         "launches": (sc_launches["cloth_step_force"]
+                      + mc_launches["cloth_step_force"]),
          "max_abs_err": k1f_err, "ms": ctt["cloth_step_force"]["ms"],
          "plain_ms": ctt["cloth_step_force"]["plain_ms"],
          "bound_ms": ctt["cloth_step_force"]["bound_ms"],
@@ -3477,7 +4229,7 @@ def main() -> int:
          "plain_ms": lgt[str(LG)]["plain_ms"],
          "bound_ms": lgt[str(LG)]["bound_ms"],
          "bound_by": lgt[str(LG)]["bound_by"], "library_ms": None},
-    ]
+    ] + mc_kernels
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,11 @@ the golden scenes to ``tests/golden/*.png`` (at most 2 in u8 on < 2% of
 pixels, ``tests/test_render.py::test_golden_frame``'s tolerance). The
 large-grid kernel (K6) is held to its plain version and to K1 bit for bit,
 and the route above ``cloth_kernel._TILED_PARTICLE_LIMIT`` to K6's launch
-count.
+count. The row-window kernel (K1w) is held to its plain version and, on a
+window's centre rows, to K1 bit for bit, and the rows path on four shards
+of one card to K1; the granular kernel with a base (K10b) to the same rows
+of K10 bit for bit and to its plain version within K10's 1e-5, and the
+grain-sharded pile to the single-device K10 path bit for bit.
 """
 
 import os
@@ -752,3 +756,137 @@ def test_cloth_tiled_refuses_oversized_schedule(dev):
     with pytest.raises(ValueError, match="shared memory"):
         cloth_tiled_kernel.multi_step_kernel(s, p, DT, 8,
                                              schedule=(8, 200, 200))
+
+
+# --- the multi-device paths (K1w, K10b) ---
+
+def _window_of(x, lo, hi, h):
+    """Rows [lo, hi) of ``x`` [..., h, W], zero beyond the grid."""
+    out = torch.zeros(x.shape[:-2] + (hi - lo, x.shape[-1]), dtype=x.dtype,
+                      device=x.device)
+    a, b = max(lo, 0), min(hi, h)
+    out[..., a - lo:b - lo, :] = x[..., a:b, :]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,pins", [(1, True), (2, False), (4, True)])
+def test_cloth_window_kernel_matches_plain_and_k1(dev, k, pins):
+    """K1w on the four row windows of a 64×48 grid (the top one with row0
+    < 0) against its plain version and, on each window's centre rows,
+    against K1 on the whole grid: bit for bit."""
+    h, w, n_shards = 64, 48, 4
+    c = cfg.ClothConfig(height=h, width=w)
+    s = st.init_cloth_state(c, device=dev)
+    rng = np.random.default_rng(12)
+    s = s._replace(vel=torch.tensor(
+        (0.5 * rng.standard_normal((3, h, w))).astype(np.float32), device=dev))
+    if pins:
+        mask = torch.zeros((h, w), dtype=torch.bool, device=dev)
+        mask[0] = True
+        s = s._replace(pin_mask=mask, pin_pos=s.pos)
+    p = st.ClothParams.from_config(c, device=dev)
+    ref = cloth_kernel.multi_step_kernel(s, p, DT, k)
+    h_local, halo = h // n_shards, 2 * k
+    before = cloth_kernel.LAUNCHES_WINDOW
+    for i in range(n_shards):
+        lo, hi = i * h_local - halo, (i + 1) * h_local + halo
+        args = [_window_of(s.pos, lo, hi, h), _window_of(s.vel, lo, hi, h),
+                None if not pins else _window_of(s.pin_mask, lo, hi, h),
+                None if not pins else _window_of(s.pin_pos, lo, hi, h)]
+        kp, kv = cloth_kernel.multi_step_window(*args, p, DT, k, lo, h)
+        pp, pv = cloth_kernel.multi_step_window_plain(*args, p, DT, k, lo, h)
+        torch.cuda.synchronize()
+        assert torch.equal(kp, pp) and torch.equal(kv, pv)
+        rows = slice(i * h_local, (i + 1) * h_local)
+        assert torch.equal(kp[:, halo:-halo], ref.pos[:, rows])
+        assert torch.equal(kv[:, halo:-halo], ref.vel[:, rows])
+    assert cloth_kernel.LAUNCHES_WINDOW == before + n_shards * k
+
+
+@pytest.mark.cuda
+def test_spatial_multi_step_cuda_matches_k1(dev):
+    """The rows path on four shards of one card (K1w a shard) ≡ K1 on the
+    whole grid bit for bit, K1 never launched by it; the composed (2, 2)
+    worlds × rows path ≡ K1 per world; the stencil shard body refuses a
+    CUDA mesh."""
+    from wgpu_physics_engine_torch.parallel import mesh as pmesh
+
+    c = cfg.ClothConfig(height=64, width=64)
+    s = st.init_cloth_state(c, device=dev)
+    mask = torch.zeros((64, 64), dtype=torch.bool, device=dev)
+    mask[0] = True
+    s = s._replace(pin_mask=mask, pin_pos=s.pos)
+    p = st.ClothParams.from_config(c, device=dev)
+    m = pmesh.make_mesh((4,), ("rows",), [dev] * 4)
+    k1, kw = cloth_kernel.LAUNCHES, cloth_kernel.LAUNCHES_WINDOW
+    got = pmesh.spatial_multi_step(s, p, DT, 24, m, substeps_per_exchange=2)
+    torch.cuda.synchronize()
+    assert cloth_kernel.LAUNCHES == k1
+    assert cloth_kernel.LAUNCHES_WINDOW == kw + 4 * 24
+    ref = cloth_kernel.multi_step(s, p, DT, 24)
+    assert torch.equal(got.pos, ref.pos) and torch.equal(got.vel, ref.vel)
+    batch = st.ClothState(pos=torch.stack([s.pos, ref.pos]),
+                          vel=torch.stack([s.vel, ref.vel]))
+    m2 = pmesh.make_mesh((2, 2), ("worlds", "rows"), [dev] * 4)
+    out = pmesh.batched_spatial_multi_step(batch, p, DT, 8, m2,
+                                           substeps_per_exchange=2)
+    for i in range(2):
+        one = cloth_kernel.multi_step(
+            st.ClothState(pos=batch.pos[i], vel=batch.vel[i]), p, DT, 8)
+        assert torch.equal(out.pos[i], one.pos)
+    with pytest.raises(ValueError, match="CPU shards only"):
+        pmesh.spatial_multi_step(s, p, DT, 2, m, use_kernel=False)
+
+
+@pytest.mark.cuda
+def test_granular_k10b_matches_plain_and_k10(dev):
+    """K10b on four slices of the sorted slots of a settled pile ≡ the same
+    rows of one K10 launch bit for bit and its plain version within K10's
+    contract (1e-5); base = 0, n_local = n ≡ K10."""
+    from wgpu_physics_engine_torch.models import granular
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    c, s = _settled_pile(dev)
+    grid, slabs, _ = granular.rebuild(s.pos, s.vel, c)
+    prm = gk.kernel_params(c, 1.0 / 240.0, dev)
+    p, v = grid.sorted_pos, grid.sorted_vel
+    n = p.shape[1]
+    full_p, full_v = gk.substep_sorted(p, v, prm, slabs)
+    before = gk.LAUNCHES_SHARDED
+    whole = gk.substep_sorted(p, v, prm, slabs, base=0, n_local=n)
+    assert torch.equal(whole[0], full_p) and torch.equal(whole[1], full_v)
+    cuts = [0, 384, 768, 1280, n]
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        kp, kv = gk.substep_sorted(p, v[:, lo:hi], prm, slabs, base=lo,
+                                   n_local=hi - lo)
+        pp, pv = gk.substep_sorted_plain(p, v[:, lo:hi], prm, slabs, base=lo,
+                                         n_local=hi - lo)
+        torch.cuda.synchronize()
+        assert torch.equal(kp, full_p[:, lo:hi])
+        assert torch.equal(kv, full_v[:, lo:hi])
+        assert float((kp - pp).abs().max()) <= 1e-5
+        assert float((kv - pv).abs().max()) <= 1e-5
+    assert gk.LAUNCHES_SHARDED == before + 1 + len(cuts) - 1
+
+
+@pytest.mark.cuda
+def test_multi_step_sharded_cuda_matches_single(dev):
+    """The grain-sharded pile on four shards of one card, N = 8192 (the
+    sharded pad equals the single one): one rebuild block ≡ the
+    single-device K10 path bit for bit, K10b launched once a shard and
+    substep."""
+    from wgpu_physics_engine_torch.models import granular
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+    from wgpu_physics_engine_torch.parallel import granular_mesh, mesh as pm
+
+    c = granular.GranularConfig(**{**GRANULAR, "num_particles": 8192})
+    s = granular.init_state(c, torch.Generator().manual_seed(5), device=dev)
+    s = granular.multi_step(s, c, 1.0 / 240.0, 120)
+    m = pm.make_mesh((4,), ("grains",), [dev] * 4)
+    before = gk.LAUNCHES_SHARDED
+    got = granular_mesh.multi_step_sharded(s, c, 1.0 / 240.0, 4, m)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES_SHARDED == before + 4 * 4
+    ref = granular.multi_step(s, c, 1.0 / 240.0, 4)
+    assert torch.equal(got.pos, ref.pos) and torch.equal(got.vel, ref.vel)

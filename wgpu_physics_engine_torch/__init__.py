@@ -14,7 +14,10 @@ free-particle box (``FreeParticleScene``), the flagship cloth
 (``ClothScene``) and the granular pile (``GranularScene``), all in
 ``models.scenes`` and behind ``python -m wgpu_physics_engine_torch
 {cube,textured,globe,particles,cloth,granular}``; batched cloth datagen;
-gradients through the cloth and through granular contact.
+gradients through the cloth and through granular contact; and the
+multi-device paths over a mesh of torch devices held by one process
+(``parallel.mesh``: worlds- and rows-sharded cloth with halo exchange;
+``parallel.granular_mesh``: the grain-sharded granular pile).
 """
 
 __version__ = "0.1.0"

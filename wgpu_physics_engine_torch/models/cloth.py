@@ -82,10 +82,15 @@ def _edge_force(p0, p1, v0, v1, k, c, rest):
     return torch.where(safe[None], hooke + damp, 0.0)
 
 
-def spring_forces(pos: torch.Tensor, vel: torch.Tensor,
-                  p: ClothParams) -> torch.Tensor:
+def spring_forces(pos: torch.Tensor, vel: torch.Tensor, p: ClothParams,
+                  row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Accumulated spring force per particle, ``[3, H, W]``
-    (compute_springs + accumulate_forces, forces.wgsl:143-313)."""
+    (compute_springs + accumulate_forces, forces.wgsl:143-313).
+
+    ``row_valid`` (optional ``[H]`` bool) marks the rows that exist in the
+    global grid: the rows-sharded path (``parallel/mesh.py``) steps a
+    shard's rows with halo rows around them, and an edge touching a row
+    beyond the grid contributes nothing. None means every row is real."""
     h, w = pos.shape[-2:]
     force = torch.zeros_like(pos)
     families = (
@@ -98,6 +103,9 @@ def spring_forces(pos: torch.Tensor, vel: torch.Tensor,
             (r0, c0), (r1, c1) = _edge_slices(h, w, dr, dc)
             e = _edge_force(pos[:, r0, c0], pos[:, r1, c1],
                             vel[:, r0, c0], vel[:, r1, c1], k, c, rest)
+            if row_valid is not None:
+                edge_ok = row_valid[r0] & row_valid[r1]
+                e = torch.where(edge_ok[None, :, None], e, 0.0)
             force[:, r0, c0] += e
             force[:, r1, c1] += -e
     return force

@@ -197,22 +197,38 @@ def _run_block(state: ParticleState, config: GranularConfig, dt, length: int,
     return ParticleState(pos=pos[:, inv], vel=vel[:, inv]), dropped
 
 
+def pad_slots(n: int, config: GranularConfig, unit: Optional[int] = None
+              ) -> int:
+    """The padded slot count of a rebuild: the least multiple of ``unit``
+    (default the block) that holds ``n`` particles and one slab. The slab
+    offsets are clipped to ``[0, n_pad - slab]``, which binds the candidate
+    set; the sharded path pads to ``block·8·D``
+    (``parallel/granular_mesh.py``), as JAX's does."""
+    unit = config.pallas_block if unit is None else unit
+    return -(-max(n, config.pallas_slab) // unit) * unit
+
+
 def rebuild(pos: torch.Tensor, vel: torch.Tensor, config: GranularConfig,
-            stats: bool = False):
+            stats: bool = False, n_pad: Optional[int] = None):
     """The kernel route's rebuild: the sorted grid and the frozen candidate
     set of one block (CIV offsets, or the window table where ``civ`` is
     off or a grid dimension is below 3). Returns ``(grid, slabs,
     dropped)``; ``stats`` selects the exact dropped count (CIV) over the
-    sound fast indicator. A profiler trace shows it as the range
+    sound fast indicator; ``n_pad`` the padded slot count (default
+    :func:`pad_slots`; a multiple of the block that holds the particles and
+    one slab). A profiler trace shows it as the range
     ``granular.rebuild``."""
     with torch.profiler.record_function("granular.rebuild"):
         spec = config.grid_spec()
         grid = broadphase.build_sorted_grid(pos, vel, spec)
         n = pos.shape[-1]
         block, slab = config.pallas_block, config.pallas_slab
-        # a multiple of block that also fits one slab: the offsets are
-        # clipped to [0, n_pad - slab], which binds the candidate set
-        n_pad = -(-max(n, slab) // block) * block
+        if n_pad is None:
+            n_pad = pad_slots(n, config)
+        elif n_pad % block or n_pad < max(n, slab):
+            raise ValueError(f"n_pad {n_pad} must be a multiple of the block "
+                             f"{block} holding {n} particles and a slab of "
+                             f"{slab}")
         civ_ok = config.civ and min(spec.dims) >= 3
         if config.thin and not civ_ok:
             raise ValueError(

@@ -33,6 +33,14 @@ batch of worlds ``_multi_step_lanes`` → ``_lanes_kernel``, kernel K5, and
   K1f; the cloth self-collision loop feeds its pair forces in here): its
   plain version, and on CUDA the same device body as K1 with one more
   force plane read;
+* :func:`multi_step_window` steps a halo-extended band of rows of a larger
+  grid, the shard body of the rows-sharded path (``parallel/mesh.py``):
+  ``cloth_pallas.multi_step_window``, kernel K1w. Its plain version is
+  ``_substep_planes`` with the spring masks taken from global rows
+  (:func:`_window_masks`); on CUDA it is K1's device body with the same
+  masks. Any window size takes K1w: JAX's switch to the XLA stencil above
+  its VMEM budget (``parallel/mesh.py`` ``_kernel_fits``) has no
+  counterpart;
 * :func:`trace` re-runs substeps of one world with the same stepper and
   keeps each substep's input state, ``[K, 6, H, W]``: the trajectory the
   backward pass of ``ops/cloth_grad_kernel.py`` walks (the counterpart of
@@ -73,6 +81,8 @@ LAUNCHES = 0
 LAUNCHES_BATCHED = 0
 # Launches of K1f by :func:`substep_with_force_kernel` (one per substep).
 LAUNCHES_FORCE = 0
+# Launches of K1w by :func:`multi_step_window_kernel` (one per substep).
+LAUNCHES_WINDOW = 0
 
 _SIGNATURES = {
     "wpe_cloth_multi_step": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
@@ -83,6 +93,8 @@ _SIGNATURES = {
                        + [ctypes.c_void_p],
     "wpe_cloth_substep_with_force": [ctypes.c_void_p] * 8
                                     + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "wpe_cloth_multi_step_window": [ctypes.c_void_p] * 9
+                                   + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 
 
@@ -136,6 +148,20 @@ def _family_masks(h, w, device):
         ok = rows < (h - dr)
         ok = ok & ((cols < (w - dc)) if dc >= 0 else (cols >= -dc))
         masks.append(ok.expand(h, w))
+    return masks
+
+
+def _window_masks(h, w, row0: int, h_global: int, device):
+    """The masks of :func:`_family_masks` for an ``[h, w]`` band of rows
+    of a grid ``h_global`` rows high whose local row 0 is global row
+    ``row0`` (negative on the top shard): an edge also needs both ends
+    inside the global grid (``cloth_pallas._kernel(window=True)``
+    :234-245), so halo rows beyond the grid join no edge."""
+    lrow = torch.arange(h, device=device)[:, None]
+    grow = lrow + row0
+    masks = []
+    for ok, (dr, _, _) in zip(_family_masks(h, w, device), _FAMILIES):
+        masks.append(ok & (grow >= 0) & (grow < h_global - dr))
     return masks
 
 
@@ -352,6 +378,23 @@ def substep_with_force_plain(state: ClothState, params: ClothParams, dt,
                           vel=torch.stack(carry[3:], dim=-3))
 
 
+def multi_step_window_plain(pos, vel, pin_mask, pin_pos, params, dt,
+                            n_steps: int, row0: int, h_global: int):
+    """The plain version of K1w: ``n_steps`` exact substeps of the row
+    window ``pos``/``vel`` ``[3, h, W]`` (halo rows included; ``row0`` the
+    global row of local row 0, ``h_global`` the grid's height), on any
+    device. Returns ``(pos, vel)`` with the halo rows, stale ones too."""
+    h, w = pos.shape[-2:]
+    state = ClothState(pos=pos, vel=vel, pin_mask=pin_mask, pin_pos=pin_pos)
+    prm = _plane_params(_pack_params(params, dt), state)
+    masks = _window_masks(h, w, row0, h_global, pos.device)
+    pins = _plain_pins(state)
+    carry = (*pos.unbind(-3), *vel.unbind(-3))
+    for _ in range(n_steps):
+        carry = _substep_planes(carry, masks, prm, _exact_dist_inv, pins)
+    return torch.stack(carry[:3], dim=-3), torch.stack(carry[3:], dim=-3)
+
+
 # ---------------------------------------------------------------------------
 # Kernel
 # ---------------------------------------------------------------------------
@@ -503,6 +546,39 @@ def substep_with_force_kernel(state: ClothState, params: ClothParams, dt,
     return state._replace(pos=out[0], vel=out[1])
 
 
+def multi_step_window_kernel(pos, vel, pin_mask, pin_pos, params, dt,
+                             n_steps: int, row0: int, h_global: int):
+    """K1w on a CUDA window: ``n_steps`` launches of ``csrc/
+    cloth_step.cu``'s ``wpe_cloth_multi_step_window`` on the current
+    stream, ping-ponging between two new buffers (the inputs are only
+    read). Returns ``(pos, vel)`` ``[3, h, W]``."""
+    global LAUNCHES_WINDOW
+    state = ClothState(pos=pos, vel=vel, pin_mask=pin_mask, pin_pos=pin_pos)
+    pos, vel, prm, pins, lead, h, w = _kernel_inputs(
+        state, _pack_params(params, dt))
+    if lead:
+        raise ValueError(f"multi_step_window takes one window, got "
+                         f"{tuple(pos.shape)}")
+    if h_global < 1:
+        raise ValueError(f"h_global must be positive, got {h_global}")
+    if n_steps <= 0 or pos.numel() == 0:
+        return pos, vel
+    pin_ptrs = ((pins[0].data_ptr(), pins[1].data_ptr()) if pins
+                else (None, None))
+    bufs = torch.empty((4, 3, h, w), dtype=torch.float32, device=pos.device)
+    lib = _build.load("cloth_step", _SIGNATURES)
+    with torch.cuda.device(pos.device):
+        err = lib.wpe_cloth_multi_step_window(
+            prm.data_ptr(), pos.data_ptr(), vel.data_ptr(), *pin_ptrs,
+            bufs[0].data_ptr(), bufs[1].data_ptr(), bufs[2].data_ptr(),
+            bufs[3].data_ptr(), h, w, n_steps, int(row0), int(h_global),
+            int(pins is not None), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "cloth_step window launch")
+    LAUNCHES_WINDOW += n_steps
+    out = bufs[0:2] if n_steps % 2 else bufs[2:4]
+    return out[0], out[1]
+
+
 def _dispatch(state: ClothState, plain, kernel):
     dev = state.pos.device.type
     if dev == "cpu":
@@ -554,3 +630,25 @@ def substep_with_force(state: ClothState, params: ClothParams, dt,
     any other device raises."""
     step = _dispatch(state, substep_with_force_plain, substep_with_force_kernel)
     return step(state, params, dt, fext)
+
+
+def multi_step_window(pos, vel, pin_mask, pin_pos, params, dt, n_steps: int,
+                      row0: int, h_global: int):
+    """``n_steps`` fused exact substeps on a halo-extended window of rows of
+    a larger grid: the counterpart of ``cloth_pallas.multi_step_window``,
+    the shard body of ``parallel/mesh.py``'s rows-sharded path.
+
+    ``pos``/``vel``: the local ``[3, h_ext, W]`` including the halo rows
+    the caller exchanged; ``pin_mask`` ``[h_ext, W]`` and ``pin_pos``
+    ``[3, h_ext, W]`` or both None; ``row0``: the global row of local row 0
+    (negative on the top shard, whose leading halo rows are dead);
+    ``h_global``: the grid's height. The spring masks use global rows, so
+    the grid's edges are where the unsharded kernel has them; the halo's
+    staleness (2 rows a substep) is the caller's to slice off. Returns
+    ``(pos, vel)`` with the halo rows. CPU → the plain version, CUDA →
+    K1w, any other device raises. JAX's ``fast_math`` has no caller here
+    and no counterpart."""
+    state = ClothState(pos=pos, vel=vel)
+    step = _dispatch(state, multi_step_window_plain, multi_step_window_kernel)
+    return step(pos, vel, pin_mask, pin_pos, params, dt, n_steps, row0,
+                h_global)

@@ -1,7 +1,7 @@
 // Fused cloth substeps for Hopper (sm_90a): one world (K1), one world with
-// an external force plane (K1f) and a batch of independent worlds (K5).
-// All run the per-particle body of cloth_substep.cuh, one thread per
-// particle, one launch per substep.
+// an external force plane (K1f), a batch of independent worlds (K5) and a
+// row window of a larger grid (K1w). All run the per-particle body of
+// cloth_substep.cuh, one thread per particle, one launch per substep.
 //
 // Replaces: wgpu_physics_engine_tpu/ops/cloth_pallas.py
 //   * `_kernel` (K1), the single-world fused substeps, with
@@ -16,7 +16,15 @@
 //     `wpe_cloth_multi_step_batched`. K5 folds several padded worlds into
 //     the 128-wide lane axis and K5b runs one program per world; both are
 //     Mosaic layouts of one function, which here is one thread per
-//     (world, particle) with the world index taken from the grid.
+//     (world, particle) with the world index taken from the grid;
+//   * `_kernel(window=True)` (K1w, reached through `multi_step_window`
+//     :731 -> `pl.pallas_call` :763), K1 on a halo-extended band of rows
+//     of a larger grid, the shard body of the rows-sharded multi-device path
+//     (parallel/mesh.py), with `wpe_cloth_multi_step_window`: the same body
+//     with the spring masks taken from global rows (cloth_substep.cuh
+//     `edge_ok`). It is K1 with two more ints and a few integer compares a
+//     spring; what bounds K1 bounds it. JAX sends a window above its VMEM
+//     budget to the XLA stencil; any window size launches K1w here.
 //
 // What bounds them on the H100. Per particle and call the function reads
 // 6 floats and writes 6 (48 B); per particle and substep it does ~280 fp32
@@ -69,6 +77,26 @@ __global__ void __launch_bounds__(kBlockW * kBlockH)
   cloth::substep_particle<FAST, PINS, EXT>(prm, pos, vel, pin_mask, pin_pos,
                                            fext, pos_out, vel_out, r, c, h,
                                            w);
+}
+
+// K1w: one substep of a row window whose local row 0 is global row `row0`
+// of a grid `h_global` rows high (see cloth_substep.cuh `edge_ok`).
+template <bool PINS>
+__global__ void __launch_bounds__(kBlockW * kBlockH)
+    substep_kernel_window(const float* __restrict__ prm,
+                          const float* __restrict__ pos,
+                          const float* __restrict__ vel,
+                          const float* __restrict__ pin_mask,
+                          const float* __restrict__ pin_pos,
+                          float* __restrict__ pos_out,
+                          float* __restrict__ vel_out, int h, int w,
+                          int row0, int h_global) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y * blockDim.y + threadIdx.y;
+  if (r >= h || c >= w) return;
+  cloth::substep_particle<false, PINS, false, true>(
+      prm, pos, vel, pin_mask, pin_pos, nullptr, pos_out, vel_out, r, c, h, w,
+      row0, h_global);
 }
 
 // The trajectory of one world for the backward pass (ops/cloth_grad_kernel.py):
@@ -183,6 +211,23 @@ cudaError_t run_batched(const float* params, const float* pos_in,
                    });
 }
 
+template <bool PINS>
+cudaError_t run_window(const float* params, const float* pos_in,
+                       const float* vel_in, const float* pin_mask,
+                       const float* pin_pos, float* pos_a, float* vel_a,
+                       float* pos_b, float* vel_b, int h, int w, int n_steps,
+                       int row0, int h_global, cudaStream_t stream) {
+  const dim3 block(kBlockW, kBlockH);
+  const dim3 grid((w + kBlockW - 1) / kBlockW, (h + kBlockH - 1) / kBlockH);
+  return ping_pong(pos_in, vel_in, pos_a, vel_a, pos_b, vel_b, n_steps,
+                   [&](const float* sp, const float* sv, float* dp,
+                       float* dv) {
+                     substep_kernel_window<PINS><<<grid, block, 0, stream>>>(
+                         params, sp, sv, pin_mask, pin_pos, dp, dv, h, w,
+                         row0, h_global);
+                   });
+}
+
 }  // namespace
 
 // n_steps fused substeps of one world. Substep s writes buffer a when s is
@@ -274,4 +319,24 @@ extern "C" int wpe_cloth_substep_with_force(
   kernel<<<grid, block, 0, s>>>(params, pos_in, vel_in, pin_mask, pin_pos,
                                 fext, pos_out, vel_out, h, w);
   return static_cast<int>(cudaGetLastError());
+}
+
+// n_steps exact substeps of the row window (K1w) pos_in/vel_in f32 [3, h, w]
+// of a grid h_global rows high whose local row 0 is global row row0 (< 0 on
+// the top shard); buffers, pins and the result's place as for
+// wpe_cloth_multi_step. Every row is stepped, the halo rows too: the caller
+// slices off the rows the halo's staleness has reached.
+extern "C" int wpe_cloth_multi_step_window(
+    const float* params, const float* pos_in, const float* vel_in,
+    const float* pin_mask, const float* pin_pos, float* pos_a, float* vel_a,
+    float* pos_b, float* vel_b, int h, int w, int n_steps, int row0,
+    int h_global, int use_pins, void* stream) {
+  if (h_global < 1) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  return use_pins ? run_window<true>(params, pos_in, vel_in, pin_mask,
+                                     pin_pos, pos_a, vel_a, pos_b, vel_b, h,
+                                     w, n_steps, row0, h_global, s)
+                  : run_window<false>(params, pos_in, vel_in, pin_mask,
+                                      pin_pos, pos_a, vel_a, pos_b, vel_b, h,
+                                      w, n_steps, row0, h_global, s);
 }

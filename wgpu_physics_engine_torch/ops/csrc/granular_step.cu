@@ -13,7 +13,12 @@
 //     md^2 & d2 > 1e-12, w = k * (md / sqrt(d2) - 1), sums of w * d),
 //     gravity on y, semi-implicit Euler, then the wall clamp and reflect
 //     with restitution per axis: the op order of
-//     models/granular._frozen_substep;
+//     models/granular._frozen_substep. The same entry point with a
+//     `base` and a local count `n_local` is K10b, the slot offset that
+//     `_pair_force_phase_civ` (:593-599) reads from params[6] (`_kernel`
+//     :707-715): one launch steps the sorted slots [base, base + n_local)
+//     of the full array, the shard body of parallel/granular_mesh.py. JAX
+//     carries `base` in an f32 slot (n_pad < 2^24); here it is an int;
 //   * `_forces_kernel` (K11, :750, through `contact_forces_sorted` :796 ->
 //     :844) with `wpe_granular_forces`: the same pair force, written out
 //     (the differentiable granular path and cloth self-collision integrate
@@ -28,7 +33,9 @@
 //     w du - g d with g = k md inv^3 (d . du); the tests and `valid` are
 //     constants, as in JAX. The pair force is the negative gradient of a
 //     pair potential and the candidate relation is symmetric, so J is
-//     symmetric and the backward passes apply this with u = fbar.
+//     symmetric and the backward passes apply this with u = fbar. Its
+//     pair phase also reads a `base` (:864, :922) that no caller passes,
+//     so K12 (and K11) keep none.
 // Outputs are out of place, so neighbours read the old positions.
 //
 // The candidate set binds, slab truncation included. The TPU kernel sees
@@ -252,44 +259,52 @@ __device__ __forceinline__ void load3(const float* __restrict__ a, int64_t n,
   v[2] = a[2 * n + i];
 }
 
+// Thread t of the launch steps global sorted slot i = base + t (base a
+// multiple of the block, so CTA blockIdx.x is global block base / block +
+// blockIdx.x): its own position and the slabs come from the full array pos
+// [3, n], its velocity from the local vel [3, n_local] and its outputs go
+// to the local pos_out, vel_out [3, n_local]; self-exclusion compares
+// global slots. base = 0, n_local = n is K10 as it always was.
 __global__ void granular_step_kernel(
     const float* __restrict__ prm, const float* __restrict__ pos,
     const float* __restrict__ vel, const int* __restrict__ cid,
     const int* __restrict__ cell_start, const int* __restrict__ wins,
     const int* __restrict__ off, float* __restrict__ pos_out,
     float* __restrict__ vel_out, Groups grp, int n_, int ng, int slab,
-    int ncells) {
+    int ncells, int base, int n_local_) {
   extern __shared__ float s_slab[];
   const int64_t n = n_;
-  const int b = blockIdx.x;
-  const int i = b * blockDim.x + threadIdx.x;
-  const bool live = i < n;
+  const int64_t nl = n_local_;
+  const int b = base / static_cast<int>(blockDim.x) + blockIdx.x;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = base + t;
+  const bool live = t < nl;
   const float md = prm[0], kc = prm[1], grav = prm[2], dt = prm[3];
   const float e = prm[4], lim = prm[5];
 
   float p[3] = {0.0f, 0.0f, 0.0f};
   if (live) load3(pos, n, i, p);
-  float f[3], t[3];
+  float f[3], u[3];
   contact_force<false>(pos, nullptr, cid, cell_start, wins, off, grp, n, ng,
-                       slab, ncells, b, i, live, p, p, md, kc, s_slab, f, t);
+                       slab, ncells, b, i, live, p, p, md, kc, s_slab, f, u);
   if (!live) return;
 
   const float fy = f[1] + grav;                      // unit mass
-  float vx = vel[i] + f[0] * dt;
-  float vy = vel[n + i] + fy * dt;
-  float vz = vel[2 * n + i] + f[2] * dt;
+  float vx = vel[t] + f[0] * dt;
+  float vy = vel[nl + t] + fy * dt;
+  float vz = vel[2 * nl + t] + f[2] * dt;
   float nx = p[0] + vx * dt;
   float ny = p[1] + vy * dt;
   float nz = p[2] + vz * dt;
   wall(nx, vx, lim, e);
   wall(ny, vy, lim, e);
   wall(nz, vz, lim, e);
-  pos_out[i] = nx;
-  pos_out[n + i] = ny;
-  pos_out[2 * n + i] = nz;
-  vel_out[i] = vx;
-  vel_out[n + i] = vy;
-  vel_out[2 * n + i] = vz;
+  pos_out[t] = nx;
+  pos_out[nl + t] = ny;
+  pos_out[2 * nl + t] = nz;
+  vel_out[t] = vx;
+  vel_out[nl + t] = vy;
+  vel_out[2 * nl + t] = vz;
 }
 
 // K11 (JVP false): out f32 [3, n]. K12 (JVP true): out f32 [6, n], f in
@@ -355,29 +370,36 @@ int prepare(Kernel kernel, const int* cid, const int* cell_start,
 
 }  // namespace
 
-// One substep (K10). prm f32[6] on the device (min_dist, k_contact,
-// gravity, dt, restitution, wall limit); pos, vel f32 [3, n] sorted; off i32
-// [nb, ng, 2] slab offsets (offa, offb) per block of `block` slots,
+// One substep (K10) of the sorted slots [base, base + n_local) (K10b; K10
+// is base 0, n_local n). prm f32[6] on the device (min_dist, k_contact,
+// gravity, dt, restitution, wall limit); pos f32 [3, n] sorted, the full
+// array; vel f32 [3, n_local], the slots' velocities; off i32 [nb, ng, 2]
+// slab offsets (offa, offb) per block of `block` slots of the full array,
 // nb * block >= n. Window mode: wins i32 [2, n, ng] (starts, ends), cid and
 // cell_start null. CIV mode: wins null, cid i32 [n] sorted cell ids,
 // cell_start i32 [ncells + 3], bounds (host) i32 [2 * ng] (lo_g...,
-// hi_g...). Outputs pos_out, vel_out f32 [3, n].
+// hi_g...). base must be a multiple of block and base + n_local <= n.
+// Outputs pos_out, vel_out f32 [3, n_local].
 extern "C" int wpe_granular_step(const float* prm, const float* pos,
                                  const float* vel, const int* cid,
                                  const int* cell_start, const int* wins,
                                  const int* off, float* pos_out,
                                  float* vel_out, const int* bounds, int n,
                                  int ng, int block, int slab, int ncells,
-                                 void* stream) {
+                                 int base, int n_local, void* stream) {
   Groups grp;
   size_t smem;
   const int err = prepare(granular_step_kernel, cid, cell_start, wins,
                           bounds, n, ng, block, slab, 3, &grp, &smem);
-  if (err != cudaSuccess || n == 0) return err;
-  granular_step_kernel<<<(n + block - 1) / block, block, smem,
+  if (err != cudaSuccess) return err;
+  if (base < 0 || n_local < 0 || base % block != 0 ||
+      static_cast<int64_t>(base) + n_local > n)
+    return cudaErrorInvalidValue;
+  if (n_local == 0) return cudaSuccess;
+  granular_step_kernel<<<(n_local + block - 1) / block, block, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       prm, pos, vel, cid, cell_start, wins, off, pos_out, vel_out, grp, n, ng,
-      slab, ncells);
+      slab, ncells, base, n_local);
   return static_cast<int>(cudaGetLastError());
 }
 

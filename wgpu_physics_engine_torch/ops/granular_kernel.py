@@ -16,8 +16,10 @@ K11; ``contact_force_jvp_sorted`` → ``_jvp_kernel``, K12):
   dropped count or the sound fast indicator). Both return a
   :class:`SlabSet`, the frozen candidate set of one rebuild block;
 * :func:`substep_sorted_plain` computes one substep over that set in eager
-  torch: per group, the candidates of each particle's window that lie in
-  its block's slab A ``[offa, offa + slab)`` or, when ``offb > offa``, in
+  torch (of all sorted slots, or with ``base`` and ``n_local`` of the
+  slots ``[base, base + n_local)`` only, the shard body of
+  ``parallel/granular_mesh.py``, kernel K10b): per group, the candidates
+  of each particle's window that lie in its block's slab A ``[offa, offa + slab)`` or, when ``offb > offa``, in
   slab B from ``max(offb, offa + slab)`` to ``offb + slab`` — the two
   interval tests of the TPU kernel, so the candidate set (and ``dropped``)
   is the JAX package's even when slabs truncate windows. It gathers each
@@ -64,9 +66,11 @@ from . import _build
 
 _I32 = torch.int32
 
-# Kernel launches by :func:`substep_sorted_kernel` (one per substep). A run
-# reads it to show that its path went through the kernel.
+# Kernel launches by :func:`substep_sorted_kernel` (one per substep): K10
+# over all sorted slots, and K10b (``n_local`` given, a slice of the slots)
+# apart. A run reads them to show that its path went through the kernel.
 LAUNCHES = 0
+LAUNCHES_SHARDED = 0
 
 # Kernel launches by :func:`contact_forces_sorted_kernel` (K11) and
 # :func:`contact_force_jvp_sorted_kernel` (K12), one per call.
@@ -74,7 +78,7 @@ LAUNCHES_FORCES = 0
 LAUNCHES_JVP = 0
 
 _SIGNATURES = {
-    "wpe_granular_step": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+    "wpe_granular_step": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                          + [ctypes.c_void_p],
     "wpe_granular_forces": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                            + [ctypes.c_void_p],
@@ -281,15 +285,17 @@ def build_offsets_civ(grid: broadphase.SortedGrid, spec: broadphase.GridSpec,
     return slabs, torch.clamp_max(dropped, 2 ** 31 - 128).to(_I32)
 
 
-def group_windows(slabs: SlabSet) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-particle window ``(starts, ends)`` ``[n, ng]`` int64: read from
-    the window table, or in CIV mode ``cell_start[clip(cid + lo_g)]`` ..
+def group_windows(slabs: SlabSet, rows: slice = slice(None)
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-particle window ``(starts, ends)`` ``[n, ng]`` int64 of the
+    sorted slots ``rows`` (all by default): read from the window table, or
+    in CIV mode ``cell_start[clip(cid + lo_g)]`` ..
     ``cell_start[clip(cid + hi_g + 1)]``, the slots whose cid difference
     lies in the group's interval."""
     if slabs.windows is not None:
-        return slabs.windows[0].long(), slabs.windows[1].long()
+        return slabs.windows[0, rows].long(), slabs.windows[1, rows].long()
     ncells = slabs.cell_start.shape[0] - 3
-    cid = slabs.cid.long()
+    cid = slabs.cid[rows].long()
     cs = slabs.cell_start
     s = torch.stack([cs[torch.clamp(cid + lo, 0, ncells)]
                      for lo, _ in slabs.bounds], dim=-1)
@@ -298,12 +304,14 @@ def group_windows(slabs: SlabSet) -> Tuple[torch.Tensor, torch.Tensor]:
     return s.long(), e.long()
 
 
-def slab_ranges(slabs: SlabSet, n: int):
-    """Each particle's candidate ranges ``(a_lo, a_hi), (b_lo, b_hi)``
-    ``[n, ng]``: its window inside its block's slab A, and inside slab B
-    past slab A (empty where ``hi <= lo``)."""
-    s, e = group_windows(slabs)
-    blk = _floordiv(torch.arange(n, device=s.device), slabs.block)
+def slab_ranges(slabs: SlabSet, n: int, base: int = 0):
+    """The candidate ranges ``(a_lo, a_hi), (b_lo, b_hi)`` ``[n, ng]`` of
+    the ``n`` sorted slots from ``base``: each one's window inside its
+    block's slab A, and inside slab B past slab A (empty where ``hi <=
+    lo``)."""
+    s, e = group_windows(slabs, slice(base, base + n))
+    blk = _floordiv(torch.arange(base, base + n, device=s.device),
+                    slabs.block)
     oa = slabs.off[blk, :, 0].long()
     ob = slabs.off[blk, :, 1].long()
     a_lo = torch.maximum(s, oa)
@@ -368,11 +376,13 @@ def _chunks(tile_max, n: int):
     return out
 
 
-def _pass_pairs(pos: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, md):
+def _pass_pairs(pos: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, md,
+                base: int = 0):
     """The candidates ``[lo, hi)`` of each particle and group, gathered
     group by group in row chunks: yields ``(r0, r1, idx, (dx, dy, dz), d2,
     touching)``, each ``[r1 - r0, width]`` at the chunk's widest window
-    (``idx`` the candidates' slots)."""
+    (``idx`` the candidates' slots). Row r of ``lo``/``hi`` is sorted slot
+    ``base + r`` of ``pos``."""
     n, ng = lo.shape
     if n == 0:
         return
@@ -382,23 +392,25 @@ def _pass_pairs(pos: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor, md):
         width, (0, 0, 0, n_tiles * _TILE_ROWS - n)).reshape(
             n_tiles, _TILE_ROWS, ng).amax(1).T.tolist()       # one sync
     md2 = md * md
-    rows_all = torch.arange(n, device=pos.device)
+    rows_all = torch.arange(base, base + n, device=pos.device)
     for g in range(ng):
         for r0, r1, w in _chunks(tile_max[g], n):
             rows = rows_all[r0:r1, None]
             idx = lo[r0:r1, g, None] + torch.arange(w, device=pos.device)
             valid = (idx < hi[r0:r1, g, None]) & (idx != rows)
-            idx = torch.clamp_max(idx, n - 1)
-            dx = pos[0, r0:r1, None] - pos[0][idx]
-            dy = pos[1, r0:r1, None] - pos[1][idx]
-            dz = pos[2, r0:r1, None] - pos[2][idx]
+            idx = torch.clamp_max(idx, pos.shape[1] - 1)
+            s0, s1 = base + r0, base + r1
+            dx = pos[0, s0:s1, None] - pos[0][idx]
+            dy = pos[1, s0:s1, None] - pos[1][idx]
+            dz = pos[2, s0:s1, None] - pos[2][idx]
             d2 = dx * dx + dy * dy + dz * dz
             touching = valid & (d2 < md2) & (d2 > 1e-12)
             yield r0, r1, idx, (dx, dy, dz), d2, touching
 
 
 def _pass_sums(pos: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-               md, kc, u: Optional[torch.Tensor] = None) -> torch.Tensor:
+               md, kc, u: Optional[torch.Tensor] = None,
+               base: int = 0) -> torch.Tensor:
     """Pair-force sums ``[3, n]`` over the candidates ``[lo, hi)`` of each
     particle and group, group by group (each group's sum added to the
     running total, K10's order). Each term ``w·d`` is a float; a group's
@@ -409,10 +421,11 @@ def _pass_sums(pos: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     With a tangent field ``u`` ``[3, n]`` also the sums of the directional
     derivative, ``[6, n]`` (f, then J·u), K12's terms written by hand:
     ``w·du − g·d`` with ``du = u_i − u_j`` and ``g = k·md·inv³·(d·du)``
-    (the comparisons are constants)."""
-    out = torch.zeros((3 if u is None else 6, pos.shape[1]), dtype=pos.dtype,
+    (the comparisons are constants). Row r of ``lo``/``hi`` and of the
+    result is sorted slot ``base + r``."""
+    out = torch.zeros((3 if u is None else 6, lo.shape[0]), dtype=pos.dtype,
                       device=pos.device)
-    for r0, r1, idx, ds, d2, touching in _pass_pairs(pos, lo, hi, md):
+    for r0, r1, idx, ds, d2, touching in _pass_pairs(pos, lo, hi, md, base):
         inv = 1.0 / torch.sqrt(torch.where(touching, d2, 1.0))
         wgt = torch.where(touching, kc * (md * inv - 1.0), 0.0)
         for a, d in enumerate(ds):
@@ -420,7 +433,8 @@ def _pass_sums(pos: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
             out[a, r0:r1] += s.float()
         if u is None:
             continue
-        dus = [u[a, r0:r1, None] - u[a][idx] for a in range(3)]
+        dus = [u[a, base + r0:base + r1, None] - u[a][idx]
+               for a in range(3)]
         dot = ds[0] * dus[0] + ds[1] * dus[1] + ds[2] * dus[2]
         g = torch.where(touching, kc * md * inv * inv * inv * dot, 0.0)
         for a, (d, du) in enumerate(zip(ds, dus)):
@@ -466,13 +480,16 @@ def _md_kc(md, kc, device):
             torch.as_tensor(kc, dtype=torch.float32).detach().to(device))
 
 
-def _slab_sums(pos, md, kc, slabs: SlabSet, u=None) -> torch.Tensor:
+def _slab_sums(pos, md, kc, slabs: SlabSet, u=None, base: int = 0,
+               n_local: Optional[int] = None) -> torch.Tensor:
     """Slab A's sums, then slab B's, then their sum: K10's force (and
-    with ``u`` K12's J·u beside it)."""
+    with ``u`` K12's J·u beside it) on the sorted slots ``[base, base +
+    n_local)`` (all by default)."""
     md, kc = _md_kc(md, kc, pos.device)
-    (a_lo, a_hi), (b_lo, b_hi) = slab_ranges(slabs, pos.shape[1])
-    return (_pass_sums(pos, a_lo, a_hi, md, kc, u)
-            + _pass_sums(pos, b_lo, b_hi, md, kc, u))
+    n = pos.shape[1] - base if n_local is None else n_local
+    (a_lo, a_hi), (b_lo, b_hi) = slab_ranges(slabs, n, base)
+    return (_pass_sums(pos, a_lo, a_hi, md, kc, u, base)
+            + _pass_sums(pos, b_lo, b_hi, md, kc, u, base))
 
 
 def contact_forces_sorted_plain(pos: torch.Tensor, md, kc,
@@ -492,13 +509,35 @@ def contact_force_jvp_sorted_plain(pos: torch.Tensor, u: torch.Tensor, md,
     return _slab_sums(pos, md, kc, slabs, u)
 
 
+def _slice_args(pos: torch.Tensor, slabs: SlabSet, base: int,
+                n_local: Optional[int]) -> int:
+    """Checks the slice ``[base, base + n_local)`` of the sorted slots
+    (``n_local`` None: all of them, from base 0) and returns its length."""
+    n = pos.shape[-1]
+    if n_local is None:
+        if base:
+            raise ValueError("a base needs its local count n_local")
+        return n
+    if base < 0 or n_local < 0 or base + n_local > n or base % slabs.block:
+        raise ValueError(f"slots [{base}, {base} + {n_local}) must lie in the "
+                         f"{n} sorted slots and start on a block of "
+                         f"{slabs.block}")
+    return n_local
+
+
 def substep_sorted_plain(pos: torch.Tensor, vel: torch.Tensor,
-                         params: torch.Tensor, slabs: SlabSet):
-    """One substep on sorted state ``pos``/``vel`` ``[3, n]`` over the
-    candidate set ``slabs``, on any device; returns new ``(pos, vel)``."""
+                         params: torch.Tensor, slabs: SlabSet, base: int = 0,
+                         n_local: Optional[int] = None):
+    """One substep on sorted state over the candidate set ``slabs``, on any
+    device: of all slots (``pos``/``vel`` ``[3, n]``), or of the slots
+    ``[base, base + n_local)`` only (K10b: ``pos`` the full ``[3, n]``,
+    ``vel`` the slots' own ``[3, n_local]``, ``base`` a multiple of the
+    block). Returns the slots' new ``(pos, vel)``."""
+    n_local = _slice_args(pos, slabs, base, n_local)
     params = params.to(pos.device)
-    f = contact_forces_sorted_plain(pos, params[0], params[1], slabs)
-    return _integrate(pos, vel, f, params)
+    f = _slab_sums(pos, params[0], params[1], slabs, base=base,
+                   n_local=n_local)
+    return _integrate(pos[:, base:base + n_local], vel, f, params)
 
 
 # ---------------------------------------------------------------------------
@@ -553,30 +592,38 @@ def _cuda_pos(pos: torch.Tensor, what: str) -> torch.Tensor:
 
 
 def substep_sorted_kernel(pos: torch.Tensor, vel: torch.Tensor,
-                          params: torch.Tensor, slabs: SlabSet):
+                          params: torch.Tensor, slabs: SlabSet, base: int = 0,
+                          n_local: Optional[int] = None):
     """One substep of ``csrc/granular_step.cu`` on CUDA tensors: one launch
     on the current stream, one CTA per block of ``slabs.block`` sorted
-    slots (at most 1024), new output buffers (the inputs are only read)."""
-    global LAUNCHES
+    slots (at most 1024), new output buffers (the inputs are only read).
+    With ``n_local`` it steps the slots ``[base, base + n_local)`` (K10b,
+    counted in ``LAUNCHES_SHARDED``), as :func:`substep_sorted_plain`."""
+    global LAUNCHES, LAUNCHES_SHARDED
     pos = _cuda_pos(pos, "granular kernel")
     dev, n = pos.device, pos.shape[-1]
-    _check(vel, torch.float32, (3, n), dev, "vel")
+    sharded = n_local is not None
+    n_local = _slice_args(pos, slabs, base, n_local)
+    _check(vel, torch.float32, (3, n_local), dev, "vel")
     ptrs, bounds, dims, _keep = _cand_args(slabs, n, dev)
     prm = params.detach().to(device=dev, dtype=torch.float32).contiguous()
     _check(prm, torch.float32, (6,), dev, "params")
     vel = vel.contiguous()
-    pos_out = torch.empty_like(pos)
+    pos_out = torch.empty_like(vel)
     vel_out = torch.empty_like(vel)
-    if n == 0:
+    if n_local == 0:
         return pos_out, vel_out
     lib = _build.load("granular_step", _SIGNATURES)
     with torch.cuda.device(dev):
         err = lib.wpe_granular_step(
             prm.data_ptr(), pos.data_ptr(), vel.data_ptr(), *ptrs,
             pos_out.data_ptr(), vel_out.data_ptr(), ctypes.addressof(bounds),
-            n, *dims, torch.cuda.current_stream().cuda_stream)
+            n, *dims, base, n_local, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "granular_step launch")
-    LAUNCHES += 1
+    if sharded:
+        LAUNCHES_SHARDED += 1
+    else:
+        LAUNCHES += 1
     return pos_out, vel_out
 
 
@@ -645,12 +692,16 @@ def _dispatch(pos: torch.Tensor, plain, kernel):
 
 
 def substep_sorted(pos: torch.Tensor, vel: torch.Tensor, params: torch.Tensor,
-                   slabs: SlabSet):
+                   slabs: SlabSet, base: int = 0,
+                   n_local: Optional[int] = None):
     """One substep on sorted state; the drop-in counterpart of
-    ``granular_pallas.substep_sorted``. A CPU tensor takes the plain
-    version, a CUDA tensor the kernel; any other device raises."""
+    ``granular_pallas.substep_sorted``, its ``base`` included: with
+    ``n_local`` only the slots ``[base, base + n_local)`` are stepped
+    (``vel`` theirs, ``pos`` the full array). A CPU tensor takes the plain
+    version, a CUDA tensor the kernel (K10, or K10b for a slice); any other
+    device raises."""
     step = _dispatch(pos, substep_sorted_plain, substep_sorted_kernel)
-    return step(pos, vel, params, slabs)
+    return step(pos, vel, params, slabs, base, n_local)
 
 
 def contact_forces_sorted(pos: torch.Tensor, md, kc,

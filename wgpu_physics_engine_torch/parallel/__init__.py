@@ -1,2 +1,8 @@
-"""Batched datagen over many independent worlds (``datagen``) and its
-on-device frame codec (``codec``)."""
+"""Batched datagen over many independent worlds (``datagen``), its
+on-device frame codec (``codec``), and the multi-device paths over a mesh
+of torch devices held by one process: the rows- and worlds-sharded cloth
+(``mesh``) and the grain-sharded granular pile (``granular_mesh``)."""
+
+from . import codec, datagen, granular_mesh, mesh
+
+__all__ = ["codec", "datagen", "granular_mesh", "mesh"]

@@ -47,18 +47,26 @@ gradient; ``examples/multichip_datagen.py``). Phases:
    1 substep <= 1e-6 abs, 240 substeps <= 1e-5 on pos, fast_math vs the
    exact path <= 1e-4 after 330 substeps, and the fast_math kernel within
    1e-6 of its fast plain version;
-4. the sphere-raster kernel vs its plain version on the 65,536 instances
-   of phase 3's 240-substep state, at 256×256 and at a ragged 800×1200:
+4. the sphere-raster kernel vs its plain version (the full sweep over
+   every instance, which ignores the bins) on the 65,536 instances of
+   phase 3's 240-substep state, at 256×256 and at a ragged 800×1200:
    ``hit`` identical on >= 99.99% of pixels, the same winner on >= 99.99%
    of hit pixels, ``tmin`` <= 1e-6 wherever both hit and ``oc`` <= 1e-6
-   where the winner agrees, misses exactly (+inf, 0);
+   where the winner agrees, misses exactly (+inf, 0), and all three
+   outputs equal bit for bit (as in phases 9 and 14 and on the K4
+   comparison frames of phase 18);
 5. the main path, with the kernel launch counters reset just before it and
    read just after: finite state resting on the globe (r_min within 1e-3
    of R + r), the ensemble contract against the plain version's run of the
    same scene (mean/min radius 1e-3 relative, mean height 2e-3 relative),
    and an image with both globe and particle pixels;
 6. times on the card (CUDA events, best of 3 after a warm-up) of each
-   kernel and its plain version, and of one whole frame;
+   kernel and its plain version, and of one whole frame; each kernel is
+   timed a launch at each main-path site the run can shape (K5 one
+   substep on one chunk of worlds; K11 on the self-collision set and at
+   1M; the raster on the flagship frame, a datagen chunk, the granular
+   frame and a multi-device shard), and the script prints the kernels
+   ranked by launches × (ms − bound) summed over their sites;
 7. where the time goes (PERF.md section 5): the raster's candidates per
    tile, the spread of repeated timings, and one ``torch.profiler`` trace
    each of 240 substeps and of one frame, read for the kernel time per
@@ -84,8 +92,10 @@ gradient; ``examples/multichip_datagen.py``). Phases:
    frames equal to the same path's with the plain stepper and sweep, and
    within uint8 1 of ``use_kernel=False`` on >= 99.9% of the pixels.
 
-Then phases 6 and 7 for the datagen path: K5 per call beside its plain
-version and bound, phase 9's raster launch, one steady frame of
+Then phases 6 and 7 for the datagen path: K5 a launch (one substep on a
+chunk of 1,024 worlds, and on a multi-device shard of 16) beside its plain
+version and bound, phase 9's raster launch and one on a multi-device shard
+(16 worlds at 64×64), one steady frame of
 4,096 worlds with and without the codec, the copy into pinned memory, and
 one ``torch.profiler`` trace of a frame split into K5, raster, composite,
 codec and copy with the device's idle share.
@@ -168,9 +178,11 @@ K10 and idle.
    state: the gradients of pos, vel, dt and every ``ClothParams`` leaf
    within 1e-4 max-relative of its plain versions.
 
-Then phases 6 and 7 for these paths: K11 and K12 a launch at 1M and K1f at
-256² beside their plain versions and bounds (K12's operations from its
-own body), granular value_and_grad particle-steps/s at 1M (16 substeps),
+Then phases 6 and 7 for these paths: K11 and K12 a launch at 1M, K11 on
+the self-collision set of phase 17's cloth (the scene's slab; its bound
+from that set's candidate slots and touching pairs) and K1f at 256² beside
+their plain versions and bounds (K12's operations from its own body),
+granular value_and_grad particle-steps/s at 1M (16 substeps),
 the counterpart of ``bench.py``'s ``self_collide_256`` (256², 512
 substeps, rebuild every 32, slab 640, skin 0.5·r), and one
 ``torch.profiler`` trace each of a granular gradient segment and of a
@@ -186,8 +198,9 @@ and idle.
    never); all finite, |pos| <= bounds - radius + 1e-5 in the correct
    mode, sphere and wireframe pixels, each frame within 1 in u8 of the CPU
    frame of the same state on >= 99.9% of pixels; then K4 against its
-   plain version and against the tiled kernel, bit for bit, on the
-   scene's frame (10 instances) and on 16,384 (K4's ceiling: radius 0.25,
+   plain version and against the tiled kernel, and the tiled kernel
+   against the full sweep, bit for bit, on the scene's frame (10
+   instances) and on 16,384 (K4's ceiling: radius 0.25,
    uniform in the box), with K4's, the plain version's and the tiled
    kernel's times, K4's bound, one scene frame's time and one
    ``torch.profiler`` trace of a frame (K4's device time a launch, the
@@ -258,10 +271,12 @@ copies, the rest, the device's idle share).
 
 Any failed check raises, so the script exits non-zero; with no CUDA device
 it exits non-zero before doing anything. The next-to-last line of stdout is
-``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``. The
-``cloth_step`` launches are those of phases 5 and 12 (K1 steps the
+``{"kernels": [...]}`` (each kernel with its ``sites``: launches, ms a
+launch, bound and ``lost_ms`` at each main-path site, None where this run
+does not time that shape); the last is ``{"ok": true, "device": {...}}``.
+The ``cloth_step`` launches are those of phases 5 and 12 (K1 steps the
 flagship and runs the training path's forward and traces); the raster's
-those of phases 5, 10, 14, 18 and 21; ``cloth_step_batched`` (K5) those
+those of phases 5, 10, 14, 17, 18, 20 and 21; ``cloth_step_batched`` (K5) those
 of phases 10 and 21; ``granular_forces`` (K11) those of phases 16, 17 and
 21, ``granular_force_jvp`` (K12) phases 16's and 21's,
 ``cloth_step_force`` (K1f) phases 17's and 21's, ``sphere_raster_untiled``
@@ -567,17 +582,21 @@ def _profile(scene, params, wins, card) -> dict:
     return res
 
 
-def _raster_vs_plain(wins, ocb, dirs, znear, label: str, min_hits: float):
-    """The raster kernel against its plain version on one world's bins:
-    hit agreement and the winner on >= 0.9999 of the pixels and hits, tmin
-    (where both hit) and the winner's centre (where the winners agree)
-    <= 1e-6, a miss exactly (+inf, 0), and more than ``min_hits`` hits."""
+def _raster_vs_plain(wins, ocb, rect, dirs, znear, label: str,
+                     min_hits: float):
+    """The raster kernel against its plain version (the full sweep over
+    every instance) on one world's bins: hit agreement and the winner on
+    >= 0.9999 of the pixels and hits, tmin (where both hit) and the
+    winner's centre (where the winners agree) <= 1e-6, a miss exactly
+    (+inf, 0), more than ``min_hits`` hits, and all three outputs equal
+    bit for bit."""
     import torch
 
     from wgpu_physics_engine_torch.ops import raster_kernel
 
     h, w = dirs.shape[-2:]
-    kt, ki, ko = raster_kernel.sphere_raster_kernel(wins, ocb, dirs, znear)
+    kt, ki, ko = raster_kernel.sphere_raster_kernel(wins, ocb, rect, dirs,
+                                                    znear)
     pt, pi, po = raster_kernel.sphere_raster_plain(ocb, dirs, znear)
     torch.cuda.synchronize()
     hit_k, hit_p = ki >= 0, pi >= 0
@@ -604,6 +623,8 @@ def _raster_vs_plain(wins, ocb, dirs, znear, label: str, min_hits: float):
            f"raster {h}x{w}: winner agrees on {n_same} of {n_hit} hits")
     _check(et <= 1e-6 and eo <= 1e-6, f"raster {h}x{w} diff {et} {eo}")
     _check(miss_ok, f"raster {h}x{w}: a miss is not (+inf, 0)")
+    _check(bitwise, f"raster {h}x{w}: not equal to the full sweep bit for "
+           f"bit")
     return {"hit_agree": agree, "hits": n_hit, "same_winner": n_same,
             "err_tmin": et, "err_oc": eo, "bitwise": bitwise}
 
@@ -629,26 +650,37 @@ def _cloth_bound(h: int, w: int, n_worlds: int, n_steps: int,
     return _bound((48.0 + extra_bytes) * n_worlds * h * w, ops)
 
 
-def _raster_bound(wins, n: int, h: int, w: int):
-    """Bound of one raster call over ``wins`` ([T, 8] or [B, T, 8]): rays in
-    (12 B a pixel), the sorted table and the ranges in, tmin, winner and
-    centre out (20 B a pixel); the sweep of every pixel of a tile over the
-    candidates in that tile's four ranges, as this run's data bins them."""
-    from wgpu_physics_engine_torch.ops.raster_kernel import TILE_H, TILE_W
-
-    w8 = wins.reshape(-1, wins.shape[-2], 8).long()
-    ty, tx = -(-h // TILE_H), -(-w // TILE_W)
-    rows = [min(TILE_H, h - TILE_H * i) for i in range(ty)]
-    cols = [min(TILE_W, w - TILE_W * j) for j in range(tx)]
-    px = [r * c for r in rows for c in cols]                 # pixels a tile
-    cand = sum(w8[..., 2 * g + 1] - w8[..., 2 * g] for g in range(4))
+def _raster_bound(wins, rect, h: int, w: int):
+    """Bound of one raster call over ``wins`` ([T, 8] or [B, T, 8]) and
+    ``rect`` ([4, N] or [B, 4, N]): rays in (12 B a pixel), the sorted
+    table and the rectangles in (32 B an instance), tmin, winner and
+    centre out (20 B a pixel); the ray test of every (pixel, instance)
+    pair whose pixel lies in the instance's conservative rectangle, the
+    pairs no correct use of the prologue's screen bound can skip (the
+    whole frame for an instance the binning does not take). Returns
+    ``(ms, by, ring_ms)``, ``ring_ms`` the operations bound of the first
+    port's work: every pixel of a tile against its four ranges."""
     import torch
 
-    sweeps = float((cand.double() * torch.tensor(px, dtype=torch.float64,
-                                                 device=cand.device)).sum())
-    b = w8.shape[0]
-    nbytes = b * (32.0 * h * w + 16.0 * n + 32.0 * ty * tx + 4.0)
-    return _bound(nbytes, OPS_RAY_SPHERE * sweeps)
+    from wgpu_physics_engine_torch.ops.raster_kernel import TILE_H, TILE_W
+
+    r = rect.reshape(-1, 4, rect.shape[-1]).long()
+    b, n = r.shape[0], r.shape[-1]
+    cols = (torch.clamp(r[:, 1], -1, w - 1) - torch.clamp(r[:, 0], 0, w)
+            + 1).clamp_min(0)
+    rows = (torch.clamp(r[:, 3], -1, h - 1) - torch.clamp(r[:, 2], 0, h)
+            + 1).clamp_min(0)
+    pairs = float((cols * rows).double().sum())
+    w8 = wins.reshape(-1, wins.shape[-2], 8).long()
+    ty, tx = -(-h // TILE_H), -(-w // TILE_W)
+    px = torch.tensor([min(TILE_H, h - TILE_H * i)
+                       * min(TILE_W, w - TILE_W * j)
+                       for i in range(ty) for j in range(tx)],
+                      dtype=torch.float64, device=w8.device)
+    cand = sum(w8[..., 2 * g + 1] - w8[..., 2 * g] for g in range(4))
+    ring = float((cand.double() * px).sum())
+    ms, by = _bound(b * (32.0 * h * w + 32.0 * n), OPS_RAY_SPHERE * pairs)
+    return ms, by, OPS_RAY_SPHERE * ring / F32_FLOPS * 1e3
 
 
 def _dg_setup(settled, seed: int, dev):
@@ -704,7 +736,7 @@ def _plain_kernels():
         cloth_kernel.substep_with_force_plain)
     cloth_grad_kernel._walk_kernel = cloth_grad_kernel._walk_plain
     raster_kernel.sphere_raster_kernel = (
-        lambda wins, ocb, dirs, znear:
+        lambda wins, ocb, rect, dirs, znear:
         raster_kernel.sphere_raster_plain(ocb, dirs, znear))
     raster_kernel.sphere_raster_untiled_kernel = (
         raster_kernel.sphere_raster_untiled_plain)
@@ -828,11 +860,11 @@ def _phase9_raster(settled, dev, card):
         n, torch.Generator().manual_seed(DG_SEED + 2), device=dev)
     eye, dirs = cam_mod.pixel_rays(cams, h, w)
     centers = settled.state.pos[:n].reshape(n, 3, -1).transpose(1, 2)
-    wins, ocb, _ = raster_kernel.tiled_prologue_batched(
+    wins, ocb, _, rect = raster_kernel.tiled_prologue_batched(
         cams.view[:, :3, :3], eye, centers, settled.params.particle_radius[:n],
         cams.znear, torch.tan(cams.fovy_rad / 2.0), cams.aspect, h, w)
     raster_kernel.LAUNCHES = 0
-    kt, ki, ko = raster_kernel.sphere_raster_kernel(wins, ocb, dirs,
+    kt, ki, ko = raster_kernel.sphere_raster_kernel(wins, ocb, rect, dirs,
                                                     cams.znear)
     torch.cuda.synchronize()
     _check(raster_kernel.LAUNCHES == 1,
@@ -865,11 +897,13 @@ def _phase9_raster(settled, dev, card):
         _check(et <= 1e-6 and eo <= 1e-6,
                f"batched raster world {i} diff {et} {eo}")
         _check(miss_ok, f"batched raster world {i}: a miss is not (+inf, 0)")
+        _check(bitwise, f"batched raster world {i}: not equal to the full "
+               f"sweep bit for bit")
         res[str(i)] = {"hit_agree": agree, "hits": n_hit,
                        "same_winner": n_same, "err_tmin": et, "err_oc": eo,
                        "bitwise": bitwise}
         err = max(err, et, eo)
-    return res, err, (wins, ocb, dirs, cams.znear)
+    return res, err, (wins, ocb, rect, dirs, cams.znear)
 
 
 def _phase10_datagen(settled, dev, card, cli_main):
@@ -905,6 +939,8 @@ def _phase10_datagen(settled, dev, card, cli_main):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    gen_launches = {"cloth_step_batched": cloth_kernel.LAUNCHES_BATCHED,
+                    "sphere_raster": raster_kernel.LAUNCHES}
     rc = cli_main(["datagen", "--worlds", "64", "--frames", "2", "--codec-k",
                    str(DG_K), "--outdir", dg_out, "--device", "cuda"])
     torch.cuda.synchronize()
@@ -1005,7 +1041,8 @@ def _phase10_datagen(settled, dev, card, cli_main):
           f"by {e_pos:.3e}")
     _check(exact, "kernel datagen frames differ from the plain versions'")
     _check(within >= 0.999, f"kernel vs stencil twin datagen frames: {within}")
-    return {"launches": launches, "generate_s": gen_s, "yields_s": yields,
+    return {"launches": launches, "generate_launches": gen_launches,
+            "generate_s": gen_s, "yields_s": yields,
             "peak_bytes": peak, "cli_rc": [rc, rc_dec],
             "cloth_and_globe_share": share, "psnr_mean": mean_psnr,
             "psnr_min": min(psnrs), "psnr_globes": g_psnr,
@@ -1016,36 +1053,66 @@ def _phase10_datagen(settled, dev, card, cli_main):
 
 
 def _dg_times(settled, raster_in, dev, card) -> dict:
-    """Phase 6 for the datagen path: K5 per call beside its plain version
-    and bound, phase 9's raster launch on 1024 worlds, one steady frame of
-    all worlds with and without the codec, and the copy into pinned
-    memory."""
+    """Phase 6 for the datagen path: K5 a launch (one substep on one chunk
+    of worlds: DG_CHUNK, the datagen path's, and the multi-device path's
+    shard of MC_K5_WORLDS / MC_SHARDS) beside its plain version and bound,
+    the raster a call at its two sites (phase 9's launch on DG_CHUNK worlds
+    at DG_FB, and a shard of the multi-device example: 16 of the worlds at
+    64×64), one steady frame of all worlds with and without the codec, and
+    the copy into pinned memory."""
     import torch
 
+    from wgpu_physics_engine_torch.core.state import ClothParams, ClothState
     from wgpu_physics_engine_torch.ops import cloth_kernel, raster_kernel
+    from wgpu_physics_engine_torch.parallel import datagen
+    from wgpu_physics_engine_torch.render import camera as cam_mod
 
     res = {}
-    k_ms = _best_ms(lambda: cloth_kernel.multi_step_kernel(
-        settled.state, settled.params, DT, DG_STEPS))
-    p_ms = _best_ms(lambda: cloth_kernel.multi_step_plain(
-        settled.state, settled.params, DT, DG_STEPS))
-    b_ms, b_by = _cloth_bound(60, 60, DG_WORLDS, DG_STEPS)
-    res["k5"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                 "bound_by": b_by}
-    print(f"phase 6 cloth_step_batched (K5) {DG_WORLDS} x 60x60 x {DG_STEPS} "
-          f"substeps [{card}]: kernel {k_ms:.4f} ms/call, plain {p_ms:.4f} "
-          f"ms/call, bound {b_ms:.4f} ms ({b_by}), kernel at "
-          f"{b_ms / k_ms:.4f} of the bound")
+    for key, n_w in (("k5", DG_CHUNK),
+                     ("k5_shard", MC_K5_WORLDS // MC_SHARDS)):
+        st = ClothState(*(None if a is None else a[:n_w]
+                          for a in settled.state))
+        pr = ClothParams(*(a[:n_w] for a in settled.params))
+        k_ms = _best_ms(lambda: cloth_kernel.multi_step_kernel(
+            st, pr, DT, DG_STEPS)) / DG_STEPS
+        p_ms = _best_ms(lambda: cloth_kernel.multi_step_plain(
+            st, pr, DT, DG_STEPS)) / DG_STEPS
+        b_ms, b_by = _cloth_bound(60, 60, n_w, 1)
+        res[key] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "worlds": n_w}
+        print(f"phase 6 cloth_step_batched (K5) {n_w} x 60x60, a launch (one "
+              f"substep; {DG_STEPS} a call) [{card}]: kernel {k_ms:.5f} ms, "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), kernel at "
+              f"{b_ms / k_ms:.4f} of the bound")
 
-    wins, ocb, dirs, znear = raster_in
+    wins, ocb, rect, dirs, znear = raster_in
     n, (h, w) = dirs.shape[0], DG_FB
     r_ms = _best_ms(lambda: raster_kernel.sphere_raster_kernel(
-        wins, ocb, dirs, znear))
-    rb_ms, rb_by = _raster_bound(wins, ocb.shape[-1], h, w)
+        wins, ocb, rect, dirs, znear))
+    rb_ms, rb_by, rb_ring = _raster_bound(wins, rect, h, w)
     res["raster_1024"] = {"ms": r_ms, "bound_ms": rb_ms, "bound_by": rb_by,
-                          "worlds": n}
+                          "ring_bound_ms": rb_ring, "worlds": n}
     print(f"phase 6 batched sphere_raster {n} worlds @{h}x{w} [{card}]: "
-          f"{r_ms:.4f} ms/launch, bound {rb_ms:.4f} ms ({rb_by})")
+          f"{r_ms:.4f} ms/launch, bound {rb_ms:.4f} ms ({rb_by}; the first "
+          f"port's ring sweep {rb_ring:.4f} ms), kernel at "
+          f"{rb_ms / r_ms:.4f} of the bound")
+    n_s, fb_s = MC_K5_WORLDS // MC_SHARDS, 64
+    cams = datagen.randomized_cameras(
+        n_s, torch.Generator().manual_seed(DG_SEED + 6), device=dev)
+    _, sdirs = cam_mod.pixel_rays(cams, fb_s, fb_s)
+    centers = settled.state.pos[:n_s].reshape(n_s, 3, -1).transpose(1, 2)
+    sw, so, _, sr = raster_kernel.tiled_prologue_batched(
+        cams.view[:, :3, :3], cams.eye, centers,
+        settled.params.particle_radius[:n_s], cams.znear,
+        torch.tan(cams.fovy_rad / 2.0), cams.aspect, fb_s, fb_s)
+    s_ms = _best_ms(lambda: raster_kernel.sphere_raster_kernel(
+        sw, so, sr, sdirs, cams.znear))
+    sb_ms, sb_by, _ = _raster_bound(sw, sr, fb_s, fb_s)
+    res["raster_shard"] = {"ms": s_ms, "bound_ms": sb_ms, "bound_by": sb_by,
+                           "worlds": n_s}
+    print(f"phase 6 batched sphere_raster {n_s} worlds @{fb_s}x{fb_s} (a "
+          f"shard of the multi-device example) [{card}]: {s_ms:.4f} "
+          f"ms/launch, bound {sb_ms:.5f} ms ({sb_by})")
 
     tex, chunks = _dg_setup(settled, DG_SEED + 4, dev)
     out = {}
@@ -1659,13 +1726,21 @@ def _phase14_granular(dev, card, cli_main):
     # are already read)
     cam = scene.camera()
     eye, dirs = cam_mod.pixel_rays(cam, fh, fw)
-    wins, ocb, _ = raster_kernel.tiled_prologue(
+    wins, ocb, _, rect = raster_kernel.tiled_prologue(
         cam.view[:3, :3], eye, scene.state.pos.T, float(cfg.radius),
         cam.znear, torch.tan(cam.fovy_rad / 2.0), cam.aspect, fh, fw)
     raster = _raster_vs_plain(
-        wins, ocb, dirs, cam.znear, f"phase 14 sphere_raster vs plain "
+        wins, ocb, rect, dirs, cam.znear, f"phase 14 sphere_raster vs plain "
         f"@{fh}x{fw}, {GR_N} instances (the granular frame)", 100)
-    del wins, ocb, dirs
+    raster["ms"] = _best_ms(lambda: raster_kernel.sphere_raster_kernel(
+        wins, ocb, rect, dirs, cam.znear))
+    raster["bound_ms"], raster["bound_by"], raster["ring_bound_ms"] = (
+        _raster_bound(wins, rect, fh, fw))
+    print(f"phase 6 sphere_raster @{fh}x{fw}, {GR_N} instances (the "
+          f"granular frame) [{card}]: {raster['ms']:.4f} ms, bound "
+          f"{raster['bound_ms']:.5f} ms ({raster['bound_by']}; the first "
+          f"port's ring sweep {raster['ring_bound_ms']:.4f} ms)")
+    del wins, ocb, rect, dirs
 
     pos = scene.state.pos
     limit = torch.tensor(cfg.bounds - cfg.radius, dtype=torch.float32)
@@ -2310,14 +2385,34 @@ def _contact_times(fresh, sc_state, params, dev, card) -> dict:
     b_ms, b_by = _cloth_bound(h, w, 1, 1, extra_bytes=12.0, extra_ops=3.0)
     res["cloth_step_force"] = {"host_bound_ms": k_ms, "plain_ms": p_ms,
                                "bound_ms": b_ms, "bound_by": b_by}
-    sc_ms = per_launch(lambda: gk.contact_forces_sorted_kernel(sp, md, kc,
-                                                               sslabs))
     print(f"phase 6 cloth_step_force (K1f) @{h}x{w} [{card}]: {k_ms:.5f} ms a "
           f"launch over {REPS} back to back (host bound: the device time "
           f"is the trace's, below), plain {p_ms:.4f} ms, bound {b_ms:.6f} ms "
-          f"({b_by}); K11 on this cloth's self-collision set (slab "
-          f"{scenes.SELF_COLLIDE_SLAB}) {sc_ms:.5f} ms a launch")
-    res["granular_forces_self_collide_ms"] = sc_ms
+          f"({b_by})")
+    n_sc = h * w
+    sc_ms = per_launch(lambda: gk.contact_forces_sorted_kernel(sp, md, kc,
+                                                               sslabs))
+    sc_plain = _best_ms(lambda: gk.contact_forces_sorted_plain(sp, md, kc,
+                                                               sslabs))
+    sc_prm = torch.stack([torch.as_tensor(md, dtype=torch.float32),
+                          torch.as_tensor(kc, dtype=torch.float32)]).to(dev)
+    sc_cand = gk.candidate_count(sslabs, n_sc)
+    sc_touch = gk.touching_count(sp, sc_prm, sslabs)
+    sb_ms, sb_by = _bound(K11_BYTES * n_sc,
+                          OPS_SLOT * sc_cand + OPS_TOUCH * sc_touch)
+    n_lanes, cta = gk.walk_geometry(sslabs, n_sc, gk.resident_threads(dev))
+    res["granular_forces_self_collide"] = {
+        "ms": sc_ms, "plain_ms": sc_plain, "bound_ms": sb_ms,
+        "bound_by": sb_by, "candidates": sc_cand, "touching": sc_touch,
+        "lanes": n_lanes, "cta": cta}
+    print(f"phase 6 granular_forces (K11) on the self-collision set of phase "
+          f"17's cloth (thin, block {SC_BLOCK}, slab "
+          f"{scenes.SELF_COLLIDE_SLAB}) @{n_sc} [{card}]: kernel "
+          f"{sc_ms:.5f} ms a launch ({REPS} back to back; {n_lanes} lanes "
+          f"a slot, {cta} slots a CTA), plain {sc_plain:.4f} "
+          f"ms, bound {sb_ms:.5f} ms ({sb_by}; {sc_cand} candidate slots, "
+          f"{sc_touch} touching), kernel at {sb_ms / sc_ms:.4f} of the "
+          f"bound")
 
     st = _lowered(fresh, cfg)
     rng = np.random.default_rng(16)
@@ -2451,9 +2546,11 @@ def _k4_case(cam, centers, radius, label: str, card) -> dict:
     ocb = rk.untiled_prologue(eye, centers, radius)
     kt, ki = rk.sphere_raster_untiled_kernel(ocb, dirs, zn)
     pt, pi = rk.sphere_raster_untiled_plain(ocb, dirs, zn)
-    wins, tocb, order = rk.tiled_prologue(rot, eye, centers, radius, zn,
-                                          tan_half, cam.aspect, h, w)
-    tt, ti, _ = rk.sphere_raster_kernel(wins, tocb, dirs, zn)
+    wins, tocb, order, rect = rk.tiled_prologue(rot, eye, centers, radius,
+                                                zn, tan_half, cam.aspect, h, w)
+    tt, ti, to = rk.sphere_raster_kernel(wins, tocb, rect, dirs, zn)
+    sweep_eq = all(torch.equal(a, b) for a, b in zip(
+        (tt, ti, to), rk.sphere_raster_plain(tocb, dirs, zn)))
     torch.cuda.synchronize()
     ids = torch.where(ti >= 0, order[ti.clamp_min(0).long()], -1)
     hits = int((ki >= 0).sum())
@@ -2464,16 +2561,19 @@ def _k4_case(cam, centers, radius, label: str, card) -> dict:
     print(f"{label}: hits {hits}, K4 vs plain bitwise {plain_eq} (tmin "
           f"{err:.3e}, winners differ on {int((ki != pi).sum())} px), K4 vs "
           f"the tiled kernel bitwise {tiled_eq} (winners differ on "
-          f"{int((ids != ki).sum())} px)")
+          f"{int((ids != ki).sum())} px), the tiled kernel vs the full "
+          f"sweep bitwise {sweep_eq}")
     _check(hits > 0, f"{label}: no hit")
     _check(plain_eq, f"{label}: K4 differs from its plain version")
     _check(tiled_eq, f"{label}: K4 differs from the tiled kernel")
+    _check(sweep_eq, f"{label}: the tiled kernel differs from the sweep")
 
     ms = _best_ms(lambda: rk.sphere_raster_untiled_kernel(ocb, dirs, zn))
     ms_pro = _best_ms(lambda: rk.sphere_raster_untiled(eye, dirs, centers,
                                                        radius, zn))
     plain_ms = _best_ms(lambda: rk.sphere_raster_untiled_plain(ocb, dirs, zn))
-    tiled_ms = _best_ms(lambda: rk.sphere_raster_kernel(wins, tocb, dirs, zn))
+    tiled_ms = _best_ms(lambda: rk.sphere_raster_kernel(wins, tocb, rect,
+                                                        dirs, zn))
     tiled_pro = _best_ms(lambda: rk.sphere_raster_tiled(
         rot, eye, dirs, centers, radius, zn, tan_half, cam.aspect))
     p = h * w
@@ -2486,7 +2586,8 @@ def _k4_case(cam, centers, radius, label: str, card) -> dict:
           f"same frame {tiled_ms:.5f} ms ({tiled_pro:.5f} with its "
           f"prologue)")
     return {"n": n, "hits": hits, "bitwise_plain": plain_eq,
-            "bitwise_tiled": tiled_eq, "err_tmin": err, "ms": ms,
+            "bitwise_tiled": tiled_eq, "bitwise_tiled_sweep": sweep_eq,
+            "err_tmin": err, "ms": ms,
             "ms_with_prologue": ms_pro, "plain_ms": plain_ms,
             "tiled_ms": tiled_ms, "tiled_ms_with_prologue": tiled_pro,
             "bound_ms": bound, "bound_by": by}
@@ -3782,23 +3883,63 @@ def _multi_device(dev, card):
     res["times"] = t = _mc_times(dev, card)
     launches = res["main"]["launches"]
     k10b = res["granular_step_sharded"]
+    n_rows = 2 * MC_STEPS * MC_SHARDS           # phase 21's split, checked
     kernels = [
-        {"name": "cloth_step_window", "route": "cuda",
-         "source": "wgpu_physics_engine_torch/ops/csrc/cloth_step.cu",
-         "replaces": "wgpu_physics_engine_tpu/ops/cloth_pallas.py:763",
-         "launches": launches["cloth_step_window"], "max_abs_err": k1w_err,
-         "ms": t["k1w"]["ms"], "plain_ms": t["k1w"]["plain_ms"],
-         "bound_ms": t["k1w"]["bound_ms"], "bound_by": t["k1w"]["bound_by"],
-         "library_ms": None},
-        {"name": "granular_step_sharded", "route": "cuda",
-         "source": "wgpu_physics_engine_torch/ops/csrc/granular_step.cu",
-         "replaces": "wgpu_physics_engine_tpu/ops/granular_pallas.py:707",
-         "launches": launches["granular_step_sharded"],
-         "max_abs_err": k10b_err, "ms": k10b["ms"],
-         "plain_ms": k10b["plain_ms"], "bound_ms": k10b["bound_ms"],
-         "bound_by": k10b["bound_by"], "library_ms": None},
+        _kernel("cloth_step_window", "cloth_step.cu", "cloth_pallas.py:763",
+                k1w_err, t["k1w"]["ms"], t["k1w"]["plain_ms"],
+                t["k1w"]["bound_ms"], t["k1w"]["bound_by"], [
+                    _site(f"rows, a shard's window of {LG}²", n_rows,
+                          t["k1w"]["ms"], t["k1w"]["bound_ms"]),
+                    _site(f"composed worlds x rows, {GRID}² worlds",
+                          launches["cloth_step_window"] - n_rows)]),
+        _kernel("granular_step_sharded", "granular_step.cu",
+                "granular_pallas.py:707", k10b_err, k10b["ms"],
+                k10b["plain_ms"], k10b["bound_ms"], k10b["bound_by"], [
+                    _site(f"grains, a quarter of {GR_N}",
+                          launches["granular_step_sharded"], k10b["ms"],
+                          k10b["bound_ms"])]),
     ]
     return res, kernels
+
+
+def _site(name: str, launches: int, ms=None, bound_ms=None) -> dict:
+    """One main-path site of a kernel: its launches in this run, its ms a
+    launch and bound there (None where this run does not time the shape),
+    and the time it loses, launches × (ms − bound)."""
+    lost = (None if ms is None or bound_ms is None
+            else launches * (ms - bound_ms))
+    return {"site": name, "launches": launches, "ms": ms,
+            "bound_ms": bound_ms, "lost_ms": lost}
+
+
+def _kernel(name: str, source: str, replaces: str, err: float, ms: float,
+            plain_ms: float, bound_ms: float, bound_by: str,
+            sites: list) -> dict:
+    """A kernel's entry of the ``kernels`` line: its launches over its
+    sites, and its time, plain version's time and bound at its first."""
+    return {"name": name, "route": "cuda",
+            "source": f"wgpu_physics_engine_torch/ops/csrc/{source}",
+            "replaces": f"wgpu_physics_engine_tpu/ops/{replaces}",
+            "launches": sum(x["launches"] for x in sites),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "sites": sites}
+
+
+def _ranking(kernels, card) -> None:
+    """Prints the kernels by the time they lose on the main paths, the sum
+    of launches × (ms − bound) over their timed sites."""
+    lost = sorted(((sum(x["lost_ms"] for x in k["sites"]
+                        if x["lost_ms"] is not None), k) for k in kernels),
+                  key=lambda e: -e[0])
+    print(f"phase 6 ranking by launches x (ms - bound) [{card}]:")
+    for total, k in lost:
+        parts = "; ".join(
+            f"{x['site']}: {x['launches']} x "
+            + ("(not timed)" if x["ms"] is None else
+               f"({x['ms']:.5f} - {x['bound_ms']:.5f}) = "
+               f"{x['lost_ms']:.1f} ms") for x in k["sites"])
+        print(f"  {k['name']}: {total:.1f} ms lost ({parts})")
 
 
 def main() -> int:
@@ -3913,11 +4054,11 @@ def main() -> int:
     for h, w in (FRAME, RAGGED):
         cam = cam_mod.make_camera(look, aspect=w / h, device=dev)
         eye, dirs = cam_mod.pixel_rays(cam, h, w)
-        wins, ocb, _ = raster_kernel.tiled_prologue(
+        wins, ocb, _, rect = raster_kernel.tiled_prologue(
             cam.view[:3, :3], eye, centers, cfg.particle_radius, cam.znear,
             torch.tan(cam.fovy_rad / 2.0), cam.aspect, h, w)
         r_cases[f"{h}x{w}"] = _raster_vs_plain(
-            wins, ocb, dirs, cam.znear,
+            wins, ocb, rect, dirs, cam.znear,
             f"phase 4 sphere_raster vs plain @{h}x{w}, {GRID * GRID} "
             f"instances", 0.05 * h * w)
         r_err = max(r_err, r_cases[f"{h}x{w}"]["err_tmin"],
@@ -4000,11 +4141,11 @@ def main() -> int:
     cam = scene.camera()
     eye, dirs = cam_mod.pixel_rays(cam, fh, fw)
     c_main = scene.state.pos.reshape(3, -1).T
-    wins, ocb, _ = raster_kernel.tiled_prologue(
+    wins, ocb, _, rect = raster_kernel.tiled_prologue(
         cam.view[:3, :3], eye, c_main, cfg.particle_radius, cam.znear,
         torch.tan(cam.fovy_rad / 2.0), cam.aspect, fh, fw)
     rk_ms = _best_ms(lambda: raster_kernel.sphere_raster_kernel(
-        wins, ocb, dirs, cam.znear))
+        wins, ocb, rect, dirs, cam.znear))
     rp_ms = _best_ms(lambda: raster_kernel.sphere_raster_plain(
         ocb, dirs, cam.znear))
     frame_ms = _best_ms(lambda: scene.render(fh, fw))
@@ -4022,7 +4163,10 @@ def main() -> int:
     # ---- phase 7: where the time goes ----
     results["profile"] = _profile(scene, params, wins, card)
     k1_bound, k1_by = _cloth_bound(GRID, GRID, 1, n)
-    r_bound, r_by = _raster_bound(wins, ocb.shape[-1], fh, fw)
+    r_bound, r_by, r_ring = _raster_bound(wins, rect, fh, fw)
+    print(f"phase 6 sphere_raster bound @{fh}x{fw}, {GRID * GRID} instances "
+          f"[{card}]: {r_bound:.5f} ms ({r_by}; the first port's ring sweep "
+          f"{r_ring:.4f} ms), kernel at {r_bound / rk_ms:.4f} of the bound")
 
     # ---- phase 8: K5 on the card, on fresh and on settled worlds ----
     fresh = datagen.randomized_worlds(
@@ -4138,98 +4282,126 @@ def main() -> int:
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
 
+    gen = results["datagen"]["generate_launches"]
+    g_r = results["granular"]["raster"]
+    ct_sc = ctt["granular_forces_self_collide"]
+    ct_1m = ctt["granular_forces"]
+    mc_sc = MC_SC_WORLDS * MC_SC_STEPS          # phase 21's split, checked
+    mc_gr = 2 * MC_DIFF_WORLDS * MC_DIFF_STEPS
+    fr = f"{fh}x{fw}"
     kernels = [
-        {"name": "cloth_step", "route": "cuda",
-         "source": "wgpu_physics_engine_torch/ops/csrc/cloth_step.cu",
-         "replaces": "wgpu_physics_engine_tpu/ops/cloth_pallas.py:195",
-         "launches": launches["cloth_step"] + tr_launches["cloth_step"],
-         "max_abs_err": max(e1, e240, efp), "ms": k_ms / n,
-         "plain_ms": p_ms / n, "bound_ms": k1_bound / n, "bound_by": k1_by,
-         "library_ms": None},
-        {"name": "cloth_step_batched", "route": "cuda",
-         "source": "wgpu_physics_engine_torch/ops/csrc/cloth_step.cu",
-         "replaces": "wgpu_physics_engine_tpu/ops/cloth_pallas.py:345",
-         "launches": (dg_launches["cloth_step_batched"]
-                      + mc_launches["cloth_step_batched"]),
-         "max_abs_err": k5_err, "ms": dg["k5"]["ms"],
-         "plain_ms": dg["k5"]["plain_ms"], "bound_ms": dg["k5"]["bound_ms"],
-         "bound_by": dg["k5"]["bound_by"], "library_ms": None},
-        {"name": "sphere_raster", "route": "cuda",
-         "source": "wgpu_physics_engine_torch/ops/csrc/sphere_raster.cu",
-         "replaces": "wgpu_physics_engine_tpu/ops/raster_pallas.py:209",
-         "launches": (launches["sphere_raster"] + dg_launches["sphere_raster"]
-                      + gr_launches["sphere_raster"]
-                      + pt_launches["sphere_raster"]
-                      + mc_launches["sphere_raster"]),
-         "max_abs_err": max(r_err, r9_err,
-                            results["granular"]["raster"]["err_tmin"],
-                            results["granular"]["raster"]["err_oc"]),
-         "ms": rk_ms, "plain_ms": rp_ms,
-         "bound_ms": r_bound, "bound_by": r_by, "library_ms": None},
-        {"name": "cloth_substep_vjp", "route": "cuda",
-         "source": "wgpu_physics_engine_torch/ops/csrc/cloth_grad.cu",
-         "replaces": "wgpu_physics_engine_tpu/ops/cloth_pallas_grad.py:269",
-         "launches": tr_launches["cloth_substep_vjp"],
-         "max_abs_err": vjp_err, "ms": gt["vjp"]["ms"],
-         "plain_ms": gt["vjp"]["plain_ms"], "bound_ms": gt["vjp"]["bound_ms"],
-         "bound_by": gt["vjp"]["bound_by"], "library_ms": None},
-        {"name": "granular_step", "route": "cuda",
-         "source": "wgpu_physics_engine_torch/ops/csrc/granular_step.cu",
-         "replaces": "wgpu_physics_engine_tpu/ops/granular_pallas.py:684",
-         "launches": gr_launches["granular_step"], "max_abs_err": k10_err,
-         "ms": grt["default fresh"]["ms"],
-         "plain_ms": grt["default fresh"]["plain_ms"],
-         "bound_ms": grt["default fresh"]["bound_ms"],
-         "bound_by": grt["default fresh"]["bound_by"], "library_ms": None},
-        {"name": "granular_forces", "route": "cuda",
-         "source": "wgpu_physics_engine_torch/ops/csrc/granular_step.cu",
-         "replaces": "wgpu_physics_engine_tpu/ops/granular_pallas.py:750",
-         "launches": (gg_launches["granular_forces"]
-                      + sc_launches["granular_forces"]
-                      + mc_launches["granular_forces"]),
-         "max_abs_err": ct_err, "ms": ctt["granular_forces"]["ms"],
-         "plain_ms": ctt["granular_forces"]["plain_ms"],
-         "bound_ms": ctt["granular_forces"]["bound_ms"],
-         "bound_by": ctt["granular_forces"]["bound_by"], "library_ms": None},
-        {"name": "granular_force_jvp", "route": "cuda",
-         "source": "wgpu_physics_engine_torch/ops/csrc/granular_step.cu",
-         "replaces": "wgpu_physics_engine_tpu/ops/granular_pallas.py:1000",
-         "launches": (gg_launches["granular_force_jvp"]
-                      + mc_launches["granular_force_jvp"]),
-         "max_abs_err": ct_err, "ms": ctt["granular_force_jvp"]["ms"],
-         "plain_ms": ctt["granular_force_jvp"]["plain_ms"],
-         "bound_ms": ctt["granular_force_jvp"]["bound_ms"],
-         "bound_by": ctt["granular_force_jvp"]["bound_by"],
-         "library_ms": None},
-        {"name": "cloth_step_force", "route": "cuda",
-         "source": "wgpu_physics_engine_torch/ops/csrc/cloth_step.cu",
-         "replaces": "wgpu_physics_engine_tpu/ops/cloth_pallas.py:682",
-         "launches": (sc_launches["cloth_step_force"]
-                      + mc_launches["cloth_step_force"]),
-         "max_abs_err": k1f_err, "ms": ctt["cloth_step_force"]["ms"],
-         "plain_ms": ctt["cloth_step_force"]["plain_ms"],
-         "bound_ms": ctt["cloth_step_force"]["bound_ms"],
-         "bound_by": ctt["cloth_step_force"]["bound_by"], "library_ms": None},
-        {"name": "sphere_raster_untiled", "route": "cuda",
-         "source": "wgpu_physics_engine_torch/ops/csrc/sphere_raster_untiled.cu",
-         "replaces": "wgpu_physics_engine_tpu/ops/raster_pallas.py:35",
-         "launches": pt_launches["sphere_raster_untiled"],
-         "max_abs_err": max(pt["k4_scene"]["err_tmin"],
-                            pt["k4_max"]["err_tmin"]),
-         "ms": pt["k4_scene"]["device_ms"],
-         "plain_ms": pt["k4_scene"]["plain_ms"],
-         "bound_ms": pt["k4_scene"]["bound_ms"],
-         "bound_by": pt["k4_scene"]["bound_by"], "library_ms": None},
-        {"name": "cloth_tiled", "route": "cuda",
-         "source": "wgpu_physics_engine_torch/ops/csrc/cloth_tiled.cu",
-         "replaces": "wgpu_physics_engine_tpu/ops/cloth_pallas_tiled.py:40",
-         "launches": (lg_launches["cloth_tiled"]
-                      + lg_grad_launches["cloth_tiled"]),
-         "max_abs_err": k6_err, "ms": lgt[str(LG)]["ms"],
-         "plain_ms": lgt[str(LG)]["plain_ms"],
-         "bound_ms": lgt[str(LG)]["bound_ms"],
-         "bound_by": lgt[str(LG)]["bound_by"], "library_ms": None},
+        _kernel("cloth_step", "cloth_step.cu", "cloth_pallas.py:195",
+                max(e1, e240, efp), k_ms / n, p_ms / n, k1_bound / n, k1_by, [
+                    _site(f"flagship {GRID}²", launches["cloth_step"],
+                          k_ms / n, k1_bound / n),
+                    _site(f"training {GRID}²", tr_launches["cloth_step"],
+                          k_ms / n, k1_bound / n)]),
+        _kernel("cloth_step_batched", "cloth_step.cu", "cloth_pallas.py:345",
+                k5_err, dg["k5"]["ms"], dg["k5"]["plain_ms"],
+                dg["k5"]["bound_ms"], dg["k5"]["bound_by"], [
+                    _site(f"datagen, a substep on {DG_CHUNK} worlds",
+                          gen["cloth_step_batched"], dg["k5"]["ms"],
+                          dg["k5"]["bound_ms"]),
+                    _site("datagen CLI, 64 worlds",
+                          dg_launches["cloth_step_batched"]
+                          - gen["cloth_step_batched"]),
+                    _site(f"multi-device, a substep on "
+                          f"{MC_K5_WORLDS // MC_SHARDS} worlds",
+                          mc_launches["cloth_step_batched"],
+                          dg["k5_shard"]["ms"], dg["k5_shard"]["bound_ms"])]),
+        _kernel("sphere_raster", "sphere_raster.cu", "raster_pallas.py:209",
+                max(r_err, r9_err, g_r["err_tmin"], g_r["err_oc"]), rk_ms,
+                rp_ms, r_bound, r_by, [
+                    _site(f"flagship frame {fr}, {GRID * GRID} instances",
+                          launches["sphere_raster"], rk_ms, r_bound),
+                    _site(f"datagen, {DG_CHUNK} worlds at {DG_FB[0]}x"
+                          f"{DG_FB[1]}", gen["sphere_raster"],
+                          dg["raster_1024"]["ms"],
+                          dg["raster_1024"]["bound_ms"]),
+                    _site("datagen CLI, 64 worlds",
+                          dg_launches["sphere_raster"]
+                          - gen["sphere_raster"]),
+                    _site(f"granular frame, {GR_N} instances",
+                          gr_launches["sphere_raster"], g_r["ms"],
+                          g_r["bound_ms"]),
+                    _site("self-collision frames",
+                          sc_launches["sphere_raster"]),
+                    _site("free-particle CLI at 256x256",
+                          pt_launches["sphere_raster"]),
+                    _site(f"large-grid frames, {LG * LG} instances",
+                          lg_launches["sphere_raster"]),
+                    _site(f"multi-device, {MC_K5_WORLDS // MC_SHARDS} worlds "
+                          f"at 64x64", mc_launches["sphere_raster"],
+                          dg["raster_shard"]["ms"],
+                          dg["raster_shard"]["bound_ms"])]),
+        _kernel("cloth_substep_vjp", "cloth_grad.cu",
+                "cloth_pallas_grad.py:269", vjp_err, gt["vjp"]["ms"],
+                gt["vjp"]["plain_ms"], gt["vjp"]["bound_ms"],
+                gt["vjp"]["bound_by"], [
+                    _site(f"training {GRID}²",
+                          tr_launches["cloth_substep_vjp"], gt["vjp"]["ms"],
+                          gt["vjp"]["bound_ms"])]),
+        _kernel("granular_step", "granular_step.cu", "granular_pallas.py:684",
+                k10_err, grt["default fresh"]["ms"],
+                grt["default fresh"]["plain_ms"],
+                grt["default fresh"]["bound_ms"],
+                grt["default fresh"]["bound_by"], [
+                    _site(f"granular {GR_N}", gr_launches["granular_step"],
+                          grt["default fresh"]["ms"],
+                          grt["default fresh"]["bound_ms"])]),
+        _kernel("granular_forces", "granular_step.cu",
+                "granular_pallas.py:750", ct_err, ct_sc["ms"],
+                ct_sc["plain_ms"], ct_sc["bound_ms"], ct_sc["bound_by"], [
+                    _site(f"self-collision {GRID}²",
+                          sc_launches["granular_forces"], ct_sc["ms"],
+                          ct_sc["bound_ms"]),
+                    _site(f"multi-device self-collision {GRID}², a world",
+                          mc_sc, ct_sc["ms"], ct_sc["bound_ms"]),
+                    _site(f"gradients {GR_N}",
+                          gg_launches["granular_forces"], ct_1m["ms"],
+                          ct_1m["bound_ms"]),
+                    _site(f"multi-device gradients {GR_N}, a world",
+                          mc_launches["granular_forces"] - mc_sc,
+                          ct_1m["ms"], ct_1m["bound_ms"])]),
+        _kernel("granular_force_jvp", "granular_step.cu",
+                "granular_pallas.py:1000", ct_err,
+                ctt["granular_force_jvp"]["ms"],
+                ctt["granular_force_jvp"]["plain_ms"],
+                ctt["granular_force_jvp"]["bound_ms"],
+                ctt["granular_force_jvp"]["bound_by"], [
+                    _site(f"gradients {GR_N}",
+                          gg_launches["granular_force_jvp"]
+                          + mc_launches["granular_force_jvp"],
+                          ctt["granular_force_jvp"]["ms"],
+                          ctt["granular_force_jvp"]["bound_ms"])]),
+        _kernel("cloth_step_force", "cloth_step.cu", "cloth_pallas.py:682",
+                k1f_err, ctt["cloth_step_force"]["ms"],
+                ctt["cloth_step_force"]["plain_ms"],
+                ctt["cloth_step_force"]["bound_ms"],
+                ctt["cloth_step_force"]["bound_by"], [
+                    _site(f"self-collision {GRID}², single and multi-device",
+                          sc_launches["cloth_step_force"]
+                          + mc_launches["cloth_step_force"],
+                          ctt["cloth_step_force"]["ms"],
+                          ctt["cloth_step_force"]["bound_ms"])]),
+        _kernel("sphere_raster_untiled", "sphere_raster_untiled.cu",
+                "raster_pallas.py:35",
+                max(pt["k4_scene"]["err_tmin"], pt["k4_max"]["err_tmin"]),
+                pt["k4_scene"]["device_ms"], pt["k4_scene"]["plain_ms"],
+                pt["k4_scene"]["bound_ms"], pt["k4_scene"]["bound_by"], [
+                    _site("free particles 600x800, 10 instances",
+                          pt_launches["sphere_raster_untiled"],
+                          pt["k4_scene"]["device_ms"],
+                          pt["k4_scene"]["bound_ms"])]),
+        _kernel("cloth_tiled", "cloth_tiled.cu", "cloth_pallas_tiled.py:40",
+                k6_err, lgt[str(LG)]["ms"], lgt[str(LG)]["plain_ms"],
+                lgt[str(LG)]["bound_ms"], lgt[str(LG)]["bound_by"], [
+                    _site(f"large grid {LG}²",
+                          lg_launches["cloth_tiled"]
+                          + lg_grad_launches["cloth_tiled"],
+                          lgt[str(LG)]["ms"], lgt[str(LG)]["bound_ms"])]),
     ] + mc_kernels
+    _ranking(kernels, card)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

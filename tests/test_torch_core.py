@@ -147,8 +147,9 @@ def test_wrappers_refuse_other_devices():
     dirs = torch.empty((3, 8, 128), device="meta")
     ocb = torch.empty((4, 5), device="meta")
     wins = torch.empty((1, 8), dtype=torch.int32, device="meta")
+    rect = torch.empty((4, 5), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
-        raster_kernel.sphere_raster_binned(wins, ocb, dirs,
+        raster_kernel.sphere_raster_binned(wins, ocb, rect, dirs,
                                            torch.tensor(0.1, device="meta"))
     with pytest.raises(ValueError):
         cloth_kernel.multi_step_kernel(tstate.init_cloth_state(c), p, 0.01, 1)

@@ -30,7 +30,12 @@ count. The row-window kernel (K1w) is held to its plain version and, on a
 window's centre rows, to K1 bit for bit, and the rows path on four shards
 of one card to K1; the granular kernel with a base (K10b) to the same rows
 of K10 bit for bit and to its plain version within K10's 1e-5, and the
-grain-sharded pile to the single-device K10 path bit for bit.
+grain-sharded pile to the single-device K10 path bit for bit. K11 and K12
+on the long windows of a thin self-collision set (several lanes a slot)
+are held to their plain versions as at 1M, an undersized slab included;
+the tiled raster to the full plain sweep bit for bit on an overloaded
+tile, on exact-t ties across chunks and on several worlds in one call,
+and its device-built work list to ``raster_kernel.work_list``.
 """
 
 import os
@@ -113,11 +118,12 @@ def test_raster_kernel_matches_plain(dev, hw):
     h, w = hw
     tc = camera.make_camera(cfg.CameraConfig(), aspect=w / h, device=dev)
     _, dirs = camera.pixel_rays(tc, h, w)
-    wins, ocb, _ = raster_kernel.tiled_prologue(
+    wins, ocb, _, rect = raster_kernel.tiled_prologue(
         tc.view[:3, :3], tc.eye, _centers(dev, 4), 0.3, tc.znear,
         torch.tan(tc.fovy_rad / 2.0), tc.aspect, h, w)
     before = raster_kernel.LAUNCHES
-    kt, ki, ko = raster_kernel.sphere_raster_binned(wins, ocb, dirs, tc.znear)
+    kt, ki, ko = raster_kernel.sphere_raster_binned(wins, ocb, rect, dirs,
+                                                    tc.znear)
     torch.cuda.synchronize()
     assert raster_kernel.LAUNCHES == before + 1
     pt, pi, po = raster_kernel.sphere_raster_plain(ocb, dirs, tc.znear)
@@ -217,11 +223,11 @@ def test_batched_raster_kernel_matches_plain(dev):
     h, w = 48, 200
     eye, dirs = camera.pixel_rays(cams, h, w)
     centers = b.state.pos.reshape(4, 3, -1).transpose(1, 2)
-    wins, ocb, _ = raster_kernel.tiled_prologue_batched(
+    wins, ocb, _, rect = raster_kernel.tiled_prologue_batched(
         cams.view[:, :3, :3], eye, centers, b.params.particle_radius,
         cams.znear, torch.tan(cams.fovy_rad / 2.0), cams.aspect, h, w)
     before = raster_kernel.LAUNCHES
-    kt, ki, ko = raster_kernel.sphere_raster_binned(wins, ocb, dirs,
+    kt, ki, ko = raster_kernel.sphere_raster_binned(wins, ocb, rect, dirs,
                                                     cams.znear)
     torch.cuda.synchronize()
     assert raster_kernel.LAUNCHES == before + 1
@@ -229,8 +235,8 @@ def test_batched_raster_kernel_matches_plain(dev):
     assert int((ki >= 0).sum()) > 20
     assert torch.equal(ki, pi) and torch.equal(kt, pt) and torch.equal(ko, po)
     for i in range(4):               # the batch equals four one-world launches
-        t1, i1, _ = raster_kernel.sphere_raster_kernel(wins[i], ocb[i],
-                                                       dirs[i], cams.znear[i])
+        t1, i1, _ = raster_kernel.sphere_raster_kernel(
+            wins[i], ocb[i], rect[i], dirs[i], cams.znear[i])
         assert torch.equal(ki[i], i1) and torch.equal(kt[i], t1)
 
 
@@ -588,10 +594,11 @@ def test_untiled_raster_kernel_matches_plain_and_tiled(dev, n, radius):
     pt, pi = raster_kernel.sphere_raster_untiled_plain(ocb, dirs, tc.znear)
     assert int((ki >= 0).sum()) > 50
     assert torch.equal(ki, pi) and torch.equal(kt, pt)
-    wins, tocb, order = raster_kernel.tiled_prologue(
+    wins, tocb, order, rect = raster_kernel.tiled_prologue(
         tc.view[:3, :3], eye, centers, radius, tc.znear,
         torch.tan(tc.fovy_rad / 2.0), tc.aspect, h, w)
-    tt, ti, _ = raster_kernel.sphere_raster_kernel(wins, tocb, dirs, tc.znear)
+    tt, ti, _ = raster_kernel.sphere_raster_kernel(wins, tocb, rect, dirs,
+                                                   tc.znear)
     ids = torch.where(ti >= 0, order[ti.clamp_min(0).long()], -1)
     assert torch.equal(ids, ki) and torch.equal(tt, kt)
 
@@ -890,3 +897,198 @@ def test_multi_step_sharded_cuda_matches_single(dev):
     assert gk.LAUNCHES_SHARDED == before + 4 * 4
     ref = granular.multi_step(s, c, 1.0 / 240.0, 4)
     assert torch.equal(got.pos, ref.pos) and torch.equal(got.vel, ref.vel)
+
+
+def _sheet_set(dev, side, slab, draped=False):
+    """The self-collision candidate set (thin CIV, block 256, skin 2·r) of
+    a sheet of the flagship's spacing: fresh and flat (every window runs
+    over a whole z-row of cells, ~870 candidates at 256²), or draped on
+    the globe (folds). Returns (sorted pos, slabs, md, kc, dropped)."""
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    c = cfg.ClothConfig(height=side, width=side,
+                        cloth_size=30.0 * side / 256)
+    p = st.ClothParams.from_config(c, device=dev)
+    s = st.init_cloth_state(c, device=dev)
+    if draped:
+        s = cloth_kernel.multi_step(s, p, DT, 1440)
+    n = side * side
+    spec = cloth.default_self_collision_grid(c, skin=2.0 * c.particle_radius)
+    grid, slabs, dropped = cloth._frozen_structs(
+        s.pos.reshape(3, n), s.vel.reshape(3, n), spec, 256, slab,
+        stats=True)
+    assert gk.lanes(slabs, n, gk.resident_threads(dev)) > 1
+    return (grid.sorted_pos, grid.sorted_vel, slabs,
+            2.0 * c.particle_radius, c.k_contact, int(dropped))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draped,slab", [(False, 1024), (True, 1024),
+                                         (False, 384)],
+                         ids=["flat", "draped", "undersized"])
+def test_granular_forces_long_thin_windows_match_plain(dev, draped, slab):
+    """K11 and K12 on the thin self-collision set of a 256² sheet, windows
+    of ~10³ candidates (several lanes a slot), against their plain
+    versions within 1e-5 relative; an undersized slab drops entries and
+    the kernels drop the same ones. K12's force is K11's, and K11 with the
+    plain integrate is one K10 substep bit for bit."""
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    p, v, slabs, md, kc, dropped = _sheet_set(dev, 256, slab, draped)
+    n = p.shape[1]
+    assert (dropped > 0) == (slab == 384)
+    (a_lo, a_hi), _ = gk.slab_ranges(slabs, n)
+    assert float(torch.clamp_min(a_hi - a_lo, 0).float().mean()) > 300
+    u = torch.tensor(np.random.default_rng(7).standard_normal(
+        (3, n)).astype(np.float32), device=dev)
+    before = (gk.LAUNCHES_FORCES, gk.LAUNCHES_JVP)
+    f = gk.contact_forces_sorted(p, md, kc, slabs)
+    ft = gk.contact_force_jvp_sorted(p, u, md, kc, slabs)
+    torch.cuda.synchronize()
+    assert (gk.LAUNCHES_FORCES, gk.LAUNCHES_JVP) == (before[0] + 1,
+                                                     before[1] + 1)
+    f_ref = gk.contact_forces_sorted_plain(p, md, kc, slabs)
+    ft_ref = gk.contact_force_jvp_sorted_plain(p, u, md, kc, slabs)
+    assert float(f_ref.abs().max()) > 0
+    assert float((f - f_ref).abs().max()) <= 1e-5 * float(f_ref.abs().max())
+    assert float((ft - ft_ref).abs().max()) <= 1e-5 * float(
+        ft_ref.abs().max())
+    assert torch.equal(ft[:3], f)
+    prm = torch.stack([torch.tensor(md), torch.tensor(kc),
+                       torch.tensor(-9.8), torch.tensor(DT),
+                       torch.tensor(0.5), torch.tensor(100.0)]).to(dev)
+    kp, kv = gk.substep_sorted_kernel(p, v, prm, slabs)
+    ip, iv = gk._integrate(p, v, f, prm)
+    assert torch.equal(kp, ip) and torch.equal(kv, iv)
+
+
+def _raster_case(dev, centers, h, w, radius=0.3):
+    tc = camera.make_camera(cfg.CameraConfig(), aspect=w / h, device=dev)
+    _, dirs = camera.pixel_rays(tc, h, w)
+    bins = raster_kernel.tiled_prologue(
+        tc.view[:3, :3], tc.eye, centers, radius, tc.znear,
+        torch.tan(tc.fovy_rad / 2.0), tc.aspect, h, w)
+    return bins, dirs, tc.znear
+
+
+def _raster_equal(bins, dirs, znear, min_hits):
+    wins, ocb, _, rect = bins
+    before = raster_kernel.LAUNCHES
+    got = raster_kernel.sphere_raster_kernel(wins, ocb, rect, dirs, znear)
+    torch.cuda.synchronize()
+    assert raster_kernel.LAUNCHES == before + 1
+    ref = raster_kernel.sphere_raster_plain(ocb, dirs, znear)
+    assert int((ref[1] >= 0).sum()) > min_hits
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.cuda
+def test_raster_overloaded_tile_matches_plain(dev):
+    """20,000 spheres clustered in a band in front of a row of tiles (each
+    tile's ring holds ~20,000 candidates: its chunks spread over many work
+    items and merge through the 64-bit key) beside a sparse frame: equal
+    to the full plain sweep bit for bit."""
+    rng = np.random.default_rng(21)
+    cluster = rng.normal(0, 1, (20000, 3)) * [6.0, 0.8, 0.3] + [0.0, 0.0, 2.0]
+    sparse = rng.uniform(-8, 8, (500, 3))
+    centers = torch.tensor(np.concatenate([cluster, sparse]).astype(
+        np.float32), device=dev)
+    bins, dirs, znear = _raster_case(dev, centers, 64, 256, radius=0.15)
+    wins = bins[0]
+    count = sum(wins[:, 2 * g + 1] - wins[:, 2 * g] for g in range(4))
+    assert int(count.max()) > 8 * raster_kernel.CHUNK
+    _raster_equal(bins, dirs, znear, 200)
+
+
+@pytest.mark.cuda
+def test_raster_exact_ties_across_chunks_match_plain(dev):
+    """Copies of spheres later in the instance order sort later in their
+    tile, past runs of other spheres into later chunks, and give exactly
+    the same t: the first strict minimum in sorted order (the original)
+    wins, as in the plain sweep, on a frame whose tiles hold several
+    chunks."""
+    base = _centers(dev, 8)
+    rng = np.random.default_rng(22)
+    fill = torch.tensor(rng.normal(0, 1.5, (6000, 3)).astype(np.float32),
+                        device=dev)
+    centers = torch.cat([base, fill, base])
+    bins, dirs, znear = _raster_case(dev, centers, 64, 256)
+    wins = bins[0]
+    count = sum(wins[:, 2 * g + 1] - wins[:, 2 * g] for g in range(4))
+    assert int(count.max()) > raster_kernel.CHUNK
+    got = _raster_equal(bins, dirs, znear, 200)
+    order = bins[2]
+    ids = order[got[1][got[1] >= 0].long()]
+    assert bool((ids < len(base)).any())
+    assert not bool((ids >= len(base) + len(fill)).any())
+
+
+@pytest.mark.cuda
+def test_raster_several_worlds_one_call_matches_plain(dev):
+    """Six worlds of different sizes of load (a cluster, a sheet, nothing,
+    a few spheres) in one call: each world equal to the plain sweep bit
+    for bit and to the call on that world alone."""
+    from wgpu_physics_engine_torch.parallel import datagen
+
+    rng = np.random.default_rng(23)
+    n = 3000
+    worlds = []
+    for kind in range(6):
+        if kind == 0:
+            pts = rng.normal(0, 0.2, (n, 3))
+        elif kind == 1:
+            pts = rng.uniform(-6, 6, (n, 3)) * [1.0, 1.0, 0.01]
+        elif kind == 2:
+            pts = rng.uniform(-6, 6, (n, 3)) + [0.0, 0.0, 500.0]
+        else:
+            pts = rng.uniform(-10, 10, (n, 3))
+        worlds.append(pts)
+    centers = torch.tensor(np.stack(worlds).astype(np.float32), device=dev)
+    cams = datagen.randomized_cameras(6, torch.Generator().manual_seed(24),
+                                      radius_range=(15.0, 30.0), device=dev)
+    h, w = 48, 200
+    eye, dirs = camera.pixel_rays(cams, h, w)
+    wins, ocb, _, rect = raster_kernel.tiled_prologue_batched(
+        cams.view[:, :3, :3], eye, centers, torch.full((6,), 0.15,
+                                                       device=dev),
+        cams.znear, torch.tan(cams.fovy_rad / 2.0), cams.aspect, h, w)
+    before = raster_kernel.LAUNCHES
+    got = raster_kernel.sphere_raster_kernel(wins, ocb, rect, dirs,
+                                             cams.znear)
+    torch.cuda.synchronize()
+    assert raster_kernel.LAUNCHES == before + 1
+    ref = raster_kernel.sphere_raster_plain(ocb, dirs, cams.znear)
+    assert int((ref[1] >= 0).sum()) > 500
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    for i in range(6):
+        one = raster_kernel.sphere_raster_kernel(wins[i], ocb[i], rect[i],
+                                                 dirs[i], cams.znear[i])
+        for a, b in zip(one, got):
+            assert torch.equal(a, b[i])
+
+
+@pytest.mark.cuda
+def test_raster_work_list_kernel_equals_its_mirror(dev):
+    """The raster's first launch builds the work list of
+    ``raster_kernel.work_list`` exactly, on light tiles, heavy tiles and
+    empty ones, in one world and several, and with a chunk grown past its
+    floor."""
+    rng = np.random.default_rng(25)
+    for n_worlds, n_tiles, n in ((1, 64, 65536), (7, 33, 3000), (2, 5, 5000)):
+        w = np.zeros((n_worlds, n_tiles, 8), np.int32)
+        for b in range(n_worlds):
+            for t in range(n_tiles):
+                cuts = np.sort(rng.integers(0, n, 6))
+                w[b, t, :6] = cuts
+                w[b, t, 6:8] = (n - rng.integers(0, 50), n)
+        w[0, 0] = 0
+        wins = torch.tensor(w, device=dev)
+        got = raster_kernel.work_list_kernel(wins)
+        ref = raster_kernel.work_list(wins)
+        torch.cuda.synchronize()
+        total = int(ref[0][-1])
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[2], ref[2])
+        assert torch.equal(got[1][:total], ref[1][:total])

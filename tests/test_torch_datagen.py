@@ -187,13 +187,13 @@ def test_batched_prologue_matches_per_world_and_jax():
     h, w = FB
     centers = tb.state.pos.reshape(3, 3, -1).transpose(1, 2)
     tan = torch.tan(tcams.fovy_rad / 2.0)
-    wins, ocb, order = raster_kernel.tiled_prologue_batched(
+    wins, ocb, order, rect = raster_kernel.tiled_prologue_batched(
         tcams.view[:, :3, :3], tcams.eye, centers, tb.params.particle_radius,
         tcams.znear, tan, tcams.aspect, h, w)
     n_tiles = (h // 8) * (w // 128)
     assert wins.shape == (3, n_tiles, 8) and ocb.shape == (3, 4, 64)
     for i in range(3):
-        w1, o1, r1 = raster_kernel.tiled_prologue(
+        w1, o1, r1, _ = raster_kernel.tiled_prologue(
             tcams.view[i, :3, :3], tcams.eye[i], centers[i],
             tb.params.particle_radius[i], tcams.znear[i], tan[i],
             tcams.aspect[i], h, w)
@@ -210,11 +210,11 @@ def test_batched_prologue_matches_per_world_and_jax():
                                    rtol=0)
     # the three per-world sweeps equal one batched sweep
     _, dirs = TR.pixel_rays(tcams, h, w)
-    bt, bi, bo = raster_kernel.sphere_raster_binned(wins, ocb, dirs,
+    bt, bi, bo = raster_kernel.sphere_raster_binned(wins, ocb, rect, dirs,
                                                     tcams.znear)
     for i in range(3):
         t1, i1, o1 = raster_kernel.sphere_raster_binned(
-            wins[i], ocb[i], dirs[i], tcams.znear[i])
+            wins[i], ocb[i], rect[i], dirs[i], tcams.znear[i])
         np.testing.assert_array_equal(_np(bi[i]), _np(i1))
         np.testing.assert_array_equal(_np(bt[i]), _np(t1))
     assert (_np(bi) >= 0).sum() > 200

@@ -244,10 +244,11 @@ def test_untiled_route_limits():
     centers = torch.tensor(_centers(300, 300))
     ut, ui = raster_kernel.sphere_raster_untiled(tc.eye, td, centers, 0.6,
                                                  tc.znear)
-    wins, ocb, order = raster_kernel.tiled_prologue(
+    wins, ocb, order, rect = raster_kernel.tiled_prologue(
         tc.view[:3, :3], tc.eye, centers, 0.6, tc.znear,
         torch.tan(tc.fovy_rad / 2.0), tc.aspect, h, w)
-    bt, bi, _ = raster_kernel.sphere_raster_binned(wins, ocb, td, tc.znear)
+    bt, bi, _ = raster_kernel.sphere_raster_binned(wins, ocb, rect, td,
+                                                   tc.znear)
     ids = torch.where(bi >= 0, order[bi.clamp_min(0).long()], -1)
     assert torch.equal(ids, ui)
     assert torch.equal(bt, ut)

@@ -199,7 +199,7 @@ def test_tiled_prologue_matches(hw):
     tc = _same_camera(jc)      # so that only the prologue is compared
     jargs, targs = _prologues(jc, tc, centers, 0.4, h, w)
     jw, jo, jord = raster_pallas.tiled_prologue(*jargs, h, w)
-    tw_, to, tord = raster_kernel.tiled_prologue(*targs, h, w)
+    tw_, to, tord, _ = raster_kernel.tiled_prologue(*targs, h, w)
     n_tiles = (h // 8) * (w // 128)
     np.testing.assert_array_equal(_np(tw_), np.asarray(jw)[:n_tiles])
     assert not np.asarray(jw)[n_tiles:].any()        # JAX's row padding
@@ -245,8 +245,9 @@ def test_raster_plain_matches_pallas_tiled(hw):
         jargs[0], je, jd, *jargs[2:], interpret=True, return_oc=True)
     _, rinst = raster_pallas.sphere_raster_tiled(
         jargs[0], je, jd, *jargs[2:], interpret=True)
-    wins, ocb, order = raster_kernel.tiled_prologue(*targs, h, w)
-    gt, ginst, goc = raster_kernel.sphere_raster_binned(wins, ocb, td, tc.znear)
+    wins, ocb, order, rect = raster_kernel.tiled_prologue(*targs, h, w)
+    gt, ginst, goc = raster_kernel.sphere_raster_binned(wins, ocb, rect, td,
+                                                        tc.znear)
     ghit = _np(ginst) >= 0
     assert ghit.sum() > 200                           # the scene hits
     assert (ghit == np.asarray(rhit)).mean() >= 0.999
@@ -294,7 +295,7 @@ def test_tile_sweep_equals_brute_force_on_ragged_sizes(hw, radius):
     centers = _scene_centers(2)
     _, tc = _cams(h, w, aspect=w / h)
     _, td = TR.pixel_rays(tc, h, w)
-    wins, ocb, _ = raster_kernel.tiled_prologue(
+    wins, ocb, _, _ = raster_kernel.tiled_prologue(
         tc.view[:3, :3], tc.eye, torch.tensor(centers), radius, tc.znear,
         torch.tan(tc.fovy_rad / 2.0), tc.aspect, h, w)
     assert tuple(wins.shape) == (raster_kernel.tile_grid(h, w)[0]
@@ -318,10 +319,11 @@ def test_raster_plain_matches_untiled_kernel_on_ragged_size():
     td = torch.tensor(np.asarray(jd))
     rt, rinst = raster_pallas.sphere_raster(je, jd, jnp.asarray(centers), 0.4,
                                             jc.znear, interpret=True)
-    wins, ocb, order = raster_kernel.tiled_prologue(
+    wins, ocb, order, rect = raster_kernel.tiled_prologue(
         tc.view[:3, :3], tc.eye, torch.tensor(centers), 0.4, tc.znear,
         torch.tan(tc.fovy_rad / 2.0), tc.aspect, h, w)
-    gt, ginst, _ = raster_kernel.sphere_raster_binned(wins, ocb, td, tc.znear)
+    gt, ginst, _ = raster_kernel.sphere_raster_binned(wins, ocb, rect, td,
+                                                      tc.znear)
     ids = _winner_ids(order, ginst)
     hit = ids >= 0
     assert hit.sum() > 20
@@ -358,10 +360,11 @@ def test_raster_plain_matches_pallas_chunked_table():
     jargs, targs = _prologues(jc, tc, centers, 0.4, h, w)
     rt, rhit, roc = (np.asarray(a) for a in raster_pallas.sphere_raster_tiled(
         jargs[0], je, jd, *jargs[2:], interpret=True, return_oc=True))
-    wins, ocb, _ = raster_kernel.tiled_prologue(*targs, h, w)
+    wins, ocb, _, rect = raster_kernel.tiled_prologue(*targs, h, w)
     glob = _np(wins)[0, 6:8]
     assert 0 < glob[0] < raster_pallas.MAX_INSTANCES < glob[1]   # both kinds
-    gt, ginst, goc = raster_kernel.sphere_raster_binned(wins, ocb, td, tc.znear)
+    gt, ginst, goc = raster_kernel.sphere_raster_binned(wins, ocb, rect, td,
+                                                        tc.znear)
     ghit = _np(ginst) >= 0
     assert ghit.sum() > 0.9 * h * w
     assert (ghit == rhit).mean() >= 0.999

@@ -1,0 +1,393 @@
+#!/usr/bin/env python3
+"""Times of the contact pair-force walk (K10, K11, K12) and the tile-binned
+sphere raster (K2/K3) at their main-path shapes on one CUDA card, for
+comparing two checkouts of the repo on one machine.
+
+    python3 tools/kernel_ab.py [--root DIR] [--sweep] [--check]
+
+Imports ``wgpu_physics_engine_torch`` from ``DIR`` (default: this
+checkout), builds its kernels from that checkout's sources, and prints one
+JSON line with the card's name and power limit and, in ms a launch (CUDA
+events over back-to-back launches, best of 5):
+
+* ``k11_sc``: K11 on the self-collision candidate set of the 256² cloth
+  of ``ClothScene(self_collide=True)`` after ``simulate(2.0)`` (thin CIV,
+  block 256, the scene's slab 1024), ``k11_sc_flat`` on the fresh flat
+  sheet's set; ``k11_1m``, ``k12_1m``, ``k10_1m``: at 1M on the fresh
+  lattice in the default configuration; ``k10_thin_1m``: the bench
+  configuration (thin CIV, slab 640);
+* ``raster_flagship``: the 256×256 frame of the 256² flagship after
+  ``simulate(5.0)``, 65,536 instances; ``raster_datagen``: one call on a
+  chunk of 1,024 worlds of the 60×60 cloth settled 3 s, randomized
+  cameras, 256×256; ``raster_granular``: the 256×256 frame of the 1M
+  ``GranularScene`` after ``simulate(1.0)``;
+* with ``--sweep`` (a checkout whose walk has ``walk_geometry``), K11 and
+  K10-thin over lanes and CTA sizes, and (a checkout whose raster has a
+  work list) the raster over chunk sizes;
+* with ``--check``, each kernel against its plain version: the largest
+  difference and whether they are equal bit for bit;
+* with ``--only walk`` or ``--only raster``, only that half; with
+  ``--only e2e``, instead, the host-bound loops the walk runs in
+  (``self_collide_256`` and the granular value_and_grad at 1M, host
+  clock, best of 5).
+
+Compare two checkouts in turns (A, B, B, A) in one call on one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def _best_ms(fn, reps: int = 5, inner: int = 1) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / inner)
+    return best
+
+
+def _device_us(fn) -> dict:
+    """Device time (µs) of one call of ``fn`` by kernel name, from a
+    torch.profiler trace."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.split("(")[0][-48:]
+            us[name] = us.get(name, 0.0) + e.device_time
+    return us
+
+
+def _best_s(fn, reps: int = 5) -> float:
+    """Host clock (s) of ``fn`` ending in a synchronize: the best of
+    ``reps`` after a warm-up call."""
+    import torch
+
+    best = float("inf")
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i:
+            best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _e2e(out, dev, c256, configs):
+    """The host-bound loops the walk runs in, particle-steps/s by host
+    clock: ``self_collide_256`` (bench.py:185-220: 256², 512 substeps,
+    rebuild every 32, slab 640, skin 0.5 r) and the granular
+    value_and_grad at 1M (16 substeps of ``granular.multi_step_diff`` on
+    the lattice lowered to the floor, a linear loss of pos and vel)."""
+    import numpy as np
+    import torch
+
+    from wgpu_physics_engine_torch.core.state import (ClothParams,
+                                                      ParticleState,
+                                                      init_cloth_state)
+    from wgpu_physics_engine_torch.models import cloth, granular
+
+    params = ClothParams.from_config(c256, device=dev)
+    spec = cloth.default_self_collision_grid(
+        c256, skin=0.5 * c256.particle_radius)
+    s0 = init_cloth_state(c256, device=dev)
+    s = _best_s(lambda: cloth.multi_step_self_collide(
+        s0, params, 1.0 / 480.0, 512, spec, rebuild_every=32,
+        pallas_slab=640))
+    out["self_collide_256_psteps"] = 256 * 256 * 512 / s
+
+    cfg = configs["default"]
+    st = granular.init_state(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+    pos = st.pos.clone()
+    pos[1] += (0.02 - (cfg.bounds - cfg.radius)) - float(pos[1].min())
+    vel = torch.zeros_like(st.vel)
+    vel[1] = -1.0
+    n = pos.shape[1]
+    rng = np.random.default_rng(16)
+    wp, wv = (torch.tensor(rng.standard_normal((3, n)).astype(np.float32),
+                           device=dev) for _ in range(2))
+
+    def value_and_grad():
+        leaves = [pos.clone(), vel.clone()] + [
+            torch.tensor(v, dtype=torch.float32, device=dev)
+            for v in (1.0 / 240.0, cfg.k_contact, cfg.gravity,
+                      cfg.restitution)]
+        for t in leaves:
+            t.requires_grad_(True)
+        o = granular.multi_step_diff(
+            ParticleState(pos=leaves[0], vel=leaves[1]), cfg, leaves[2], 16,
+            k_contact=leaves[3], gravity=leaves[4], restitution=leaves[5])
+        loss = (o.pos * wp).sum() + (o.vel * wv).sum()
+        torch.autograd.grad(loss, leaves)
+
+    out["granular_value_and_grad_psteps"] = n * 16 / _best_s(value_and_grad)
+
+
+def _equal(a, b):
+    import torch
+
+    a, b = (a,) if torch.is_tensor(a) else a, (b,) if torch.is_tensor(b) else b
+    diff = max(float((x.float() - y.float()).abs().nan_to_num(0.0).max())
+               if x.numel() else 0.0 for x, y in zip(a, b))
+    return {"max_abs": diff, "bitwise": all(torch.equal(x, y)
+                                            for x, y in zip(a, b))}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--only", choices=("walk", "raster", "e2e"))
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.models import cloth, granular
+    from wgpu_physics_engine_torch.ops import _build
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    for name in ("granular_step", "sphere_raster", "cloth_step"):
+        _build.build(name)
+    out = {"root": root, "card": card}
+    checks = {}
+    inner = 20
+
+    # ---- the pair-force walk ----
+    def sc_set(state, slab):
+        h, w = state.pos.shape[-2:]
+        c = ClothConfig(height=h, width=w)
+        spec = cloth.default_self_collision_grid(
+            c, skin=2.0 * c.particle_radius)
+        n = h * w
+        grid, slabs, dropped = cloth._frozen_structs(
+            state.pos.reshape(3, n), state.vel.reshape(3, n), spec, 256, slab,
+            stats=True)
+        return grid.sorted_pos, slabs, 2.0 * c.particle_radius, c.k_contact
+
+    c256 = ClothConfig(height=256, width=256)
+    configs = {"default": granular.GranularConfig(num_particles=1_000_000),
+               "thin": granular.GranularConfig(
+                   num_particles=1_000_000, rebuild_every=16,
+                   pallas_slab=640, thin=True)}
+    if args.only in (None, "walk"):
+        _walk(args, out, checks, inner, dev, c256, configs, sc_set)
+    if args.only in (None, "raster"):
+        _raster(args, out, checks, dev, c256, configs)
+    if args.only == "e2e":
+        _e2e(out, dev, c256, configs)
+    if args.check:
+        out["checks"] = checks
+    print(json.dumps(out))
+    return 0
+
+
+def _walk(args, out, checks, inner, dev, c256, configs, sc_set):
+    """The pair-force walk's timings (and checks and sweep)."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.state import init_cloth_state
+    from wgpu_physics_engine_torch.models import granular, scenes
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    scene = scenes.ClothScene(c256, self_collide=True, device=dev)
+    scene.simulate(2.0)
+    sets = {"k11_sc": sc_set(scene.state, scenes.SELF_COLLIDE_SLAB),
+            "k11_sc_flat": sc_set(init_cloth_state(c256, device=dev),
+                                  scenes.SELF_COLLIDE_SLAB)}
+    for key, (p, slabs, md, kc) in sets.items():
+        out[key] = _best_ms(lambda: gk.contact_forces_sorted_kernel(
+            p, md, kc, slabs), inner=inner)
+        out[key + "_candidates"] = gk.candidate_count(slabs, p.shape[1])
+        if args.check:
+            checks[key] = _equal(
+                gk.contact_forces_sorted_kernel(p, md, kc, slabs),
+                gk.contact_forces_sorted_plain(p, md, kc, slabs))
+            u = torch.randn(p.shape,
+                            generator=torch.Generator().manual_seed(7)).to(dev)
+            checks[key + "_jvp"] = _equal(
+                gk.contact_force_jvp_sorted_kernel(p, u, md, kc, slabs),
+                gk.contact_force_jvp_sorted_plain(p, u, md, kc, slabs))
+
+    gsets = {}
+    for name, cfg in configs.items():
+        st = granular.init_state(cfg, torch.Generator().manual_seed(0),
+                                 device=dev)
+        grid, slabs, _ = granular.rebuild(st.pos, st.vel, cfg)
+        prm = gk.kernel_params(cfg, 1.0 / 240.0, dev)
+        gsets[name] = (grid.sorted_pos, grid.sorted_vel, slabs, prm)
+    p, v, slabs, prm = gsets["default"]
+    u = torch.randn(p.shape,
+                    generator=torch.Generator().manual_seed(6)).to(dev)
+    out["k11_1m"] = _best_ms(lambda: gk.contact_forces_sorted_kernel(
+        p, prm[0], prm[1], slabs), inner=inner)
+    out["k12_1m"] = _best_ms(lambda: gk.contact_force_jvp_sorted_kernel(
+        p, u, prm[0], prm[1], slabs), inner=inner)
+    out["k10_1m"] = _best_ms(lambda: gk.substep_sorted_kernel(
+        p, v, prm, slabs), inner=inner)
+    pt, vt, slabs_t, prm_t = gsets["thin"]
+    out["k10_thin_1m"] = _best_ms(lambda: gk.substep_sorted_kernel(
+        pt, vt, prm_t, slabs_t), inner=inner)
+    if args.check:
+        checks["k11_1m"] = _equal(
+            gk.contact_forces_sorted_kernel(p, prm[0], prm[1], slabs),
+            gk.contact_forces_sorted_plain(p, prm[0], prm[1], slabs))
+        checks["k10_1m"] = _equal(
+            gk.substep_sorted_kernel(p, v, prm, slabs),
+            gk.substep_sorted_plain(p, v, prm, slabs))
+        checks["k10_thin_1m"] = _equal(
+            gk.substep_sorted_kernel(pt, vt, prm_t, slabs_t),
+            gk.substep_sorted_plain(pt, vt, prm_t, slabs_t))
+    if args.sweep and hasattr(gk, "walk_geometry"):
+        saved = (gk.lanes, gk.CTA_THREADS)
+        sweep = {}
+        p_sc, s_sc, md, kc = sets["k11_sc"]
+        ref = gk.contact_forces_sorted_plain(p_sc, md, kc, s_sc)
+        ref_t = gk.substep_sorted_plain(pt, vt, prm_t, slabs_t)
+        for n_lanes, threads in ((1, 256), (2, 256), (4, 256), (4, 512),
+                                 (8, 256), (8, 512)):
+            gk.lanes = (lambda slabs, n, resident, n_lanes=n_lanes:
+                        n_lanes if slabs.ng <= 3 else 1)
+            gk.CTA_THREADS = threads
+            k = f"L{n_lanes}_T{threads}"
+            if args.check:
+                checks["k11_sc_" + k] = _equal(
+                    gk.contact_forces_sorted_kernel(p_sc, md, kc, s_sc), ref)
+                checks["k10_thin_1m_" + k] = _equal(
+                    gk.substep_sorted_kernel(pt, vt, prm_t, slabs_t), ref_t)
+            sweep["k11_sc_" + k] = _best_ms(
+                lambda: gk.contact_forces_sorted_kernel(p_sc, md, kc, s_sc),
+                inner=inner)
+            sweep["k10_thin_1m_" + k] = _best_ms(
+                lambda: gk.substep_sorted_kernel(pt, vt, prm_t, slabs_t),
+                inner=inner)
+        gk.lanes, gk.CTA_THREADS = saved
+        out["walk_sweep"] = sweep
+    del gsets, sets
+
+
+def _raster(args, out, checks, dev, c256, configs):
+    """The raster's timings (and checks and sweep)."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.models import scenes
+    from wgpu_physics_engine_torch.ops import cloth_kernel
+    from wgpu_physics_engine_torch.ops import raster_kernel as rk
+    from wgpu_physics_engine_torch.parallel import datagen
+    from wgpu_physics_engine_torch.render import camera as cam_mod
+
+    def bins(cam, centers, radius, h, w, batched=False):
+        fn = rk.tiled_prologue_batched if batched else rk.tiled_prologue
+        b = fn(cam.view[..., :3, :3], cam.eye, centers, radius, cam.znear,
+               torch.tan(cam.fovy_rad / 2.0), cam.aspect, h, w)
+        return b
+
+    def raster(b, dirs, znear):
+        if len(b) == 4:
+            return rk.sphere_raster_kernel(b[0], b[1], b[3], dirs, znear)
+        return rk.sphere_raster_kernel(b[0], b[1], dirs, znear)
+
+    cases = {}
+    flag = scenes.ClothScene(c256, device=dev)
+    flag.simulate(5.0)
+    cam = flag.camera()
+    _, dirs = cam_mod.pixel_rays(cam, 256, 256)
+    cases["raster_flagship"] = (
+        bins(cam, flag.state.pos.reshape(3, -1).T, c256.particle_radius, 256,
+             256), dirs, cam.znear)
+
+    n_dg = 1024
+    worlds = datagen.randomized_worlds(
+        ClothConfig(), n_dg, torch.Generator().manual_seed(0), device=dev)
+    settled = cloth_kernel.multi_step_kernel(worlds.state, worlds.params,
+                                             1.0 / 480.0, 1440)
+    cams = datagen.randomized_cameras(
+        n_dg, torch.Generator().manual_seed(2), device=dev)
+    _, ddirs = cam_mod.pixel_rays(cams, 256, 256)
+    centers = settled.pos.reshape(n_dg, 3, -1).transpose(1, 2)
+    cases["raster_datagen"] = (
+        bins(cams, centers, worlds.params.particle_radius, 256, 256, True),
+        ddirs, cams.znear)
+    del settled, worlds
+
+    gscene = scenes.GranularScene(configs["default"], device=dev)
+    gscene.simulate(1.0)
+    gcam = gscene.camera()
+    _, gdirs = cam_mod.pixel_rays(gcam, 256, 256)
+    cases["raster_granular"] = (
+        bins(gcam, gscene.state.pos.T, float(configs["default"].radius), 256,
+             256), gdirs, gcam.znear)
+    del gscene
+
+    for key, (b, d, zn) in cases.items():
+        out[key] = _best_ms(lambda: raster(b, d, zn))
+        if args.check:
+            got = raster(b, d, zn)
+            if d.ndim == 4:
+                checks[key] = [_equal(tuple(x[i] for x in got),
+                                      rk.sphere_raster_plain(b[1][i], d[i],
+                                                             zn[i]))
+                               for i in (0, n_dg // 2 - 1, n_dg - 1)]
+            else:
+                checks[key] = _equal(got, rk.sphere_raster_plain(b[1], d, zn))
+    if args.sweep and hasattr(rk, "work_list"):
+        saved = rk.CHUNK
+        sweep = {}
+        refs = {key: rk.sphere_raster_plain(b[1], d, zn)
+                for key, (b, d, zn) in cases.items()
+                if args.check and d.ndim == 3}
+        for chunk in (512, 1024, 2048):
+            rk.CHUNK = chunk
+            for key, (b, d, zn) in cases.items():
+                k = f"{key}_C{chunk}"
+                sweep[k] = _best_ms(lambda: raster(b, d, zn))
+                if key in refs:
+                    checks[k] = _equal(raster(b, d, zn), refs[key])
+        rk.CHUNK = saved
+        out["raster_sweep"] = sweep
+    if hasattr(rk, "work_list_kernel"):
+        out["raster_datagen_plan"] = _best_ms(
+            lambda: rk.work_list_kernel(cases["raster_datagen"][0][0]))
+    for key in ("raster_flagship", "raster_datagen"):
+        b, d, zn = cases[key]
+        out[key + "_device_us"] = _device_us(lambda: raster(b, d, zn))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

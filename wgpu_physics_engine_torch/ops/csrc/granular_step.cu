@@ -56,22 +56,37 @@
 // candidates a particle) the bounds are tens of microseconds; the loop over
 // candidates, not HBM, sets the time.
 //
-// Design: one CTA per block of `block` sorted slots (the rebuild's block),
-// one thread per slot. Sorted order keeps a block's windows inside its two
-// slabs, so for each group the CTA stages slab A (and slab B when the
-// block needs it, a CTA-uniform test) in shared memory with coalesced
-// loads (positions, and for K12 the tangents beside them), and each thread
-// walks its own window's part of it. Sums follow K10's order: each group's
-// A sum added to the A total, each group's B sum to the B total, then
-// A + B. A group's sum is accumulated in double and rounded once (in a
-// dense pile the float sums of kernel and plain version, taken in
-// different orders, drift apart by 1e-4 in velocity over a 16-substep
-// block); built with -fmad=false and IEEE sqrt and divide, so each kernel
-// equals its plain version but for rounding ties.
+// Design: a CTA takes `cta` consecutive sorted slots of one rebuild block
+// (cta divides the block) with L lanes a slot. Sorted order keeps a
+// block's windows inside its two slabs. Group by group, the CTA stages in
+// shared memory, with coalesced loads, the part of slab A (and of slab B
+// when the block needs it, a CTA-uniform test) that its windows reach
+// (positions, and for K12 the tangents beside them): in CIV mode a
+// window's ends grow with the sorted cid, so the CTA's first and last
+// slots bound that part without a reduction. The L lanes of a slot walk
+// its window in stride (lane l takes candidates l, l + L, ...), each with
+// its own double sums; a fixed butterfly of shuffles merges the L partial
+// sums (every lane ends with the same bits), and the group's sum is
+// rounded once. L comes from the candidate set (`ops/granular_kernel.py`
+// `lanes`): a thin set, whose windows run over whole z-rows of cells
+// (~10^3 candidates on the self-colliding 256^2 cloth), takes as many
+// lanes as fill the card's resident threads with its slots (4 for the
+// cloth's 65,536 slots, 1 for a pile of 1M); the full CIV set (9 short
+// windows, ~6 candidates each) keeps one lane, a thread a slot. Sums follow
+// K10's order: each group's A sum added to the A total, each group's B sum
+// to the B total, then A + B. A group's sum is accumulated in double and
+// rounded once (in a dense pile the float sums of kernel and plain
+// version, taken in different orders, drift apart by 1e-4 in velocity
+// over a 16-substep block), so it does not depend on the order of its
+// terms but for a rounding tie; built with -fmad=false and IEEE sqrt and
+// divide, so each kernel equals its plain version but for such ties.
+// The slot itself is a candidate of its own window and is not skipped:
+// its d2 is 0, which fails the touching test.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -84,20 +99,33 @@ struct Groups {
   int hi[kMaxGroups];
 };
 
+// Per group, the part of slab A and of slab B that a CTA stages: [lo, hi)
+// each (empty where lo >= hi).
+struct Spans {
+  int v[kMaxGroups][4];
+};
+
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// Cooperative copy of slots [o, o + slab) of the three planes of `src`
+// The lanes of a partial last warp (a CTA of cta * L threads need not fill
+// its last warp): the mask of the warp-wide shuffles.
+__device__ __forceinline__ unsigned warp_lanes() {
+  const unsigned left = blockDim.x - (threadIdx.x & ~31u);
+  return left >= 32 ? 0xffffffffu : (1u << left) - 1u;
+}
+
+// Cooperative copy of slots [o, o + len) of the three planes of `src`
 // into the shared planes sx, sy, sz (slots past n are left unset: no window
 // reaches them); with JVP also the tangent planes of `tan` into tx, ty, tz.
 template <bool JVP>
 __device__ __forceinline__ void stage(const float* __restrict__ src,
                                       const float* __restrict__ tan,
-                                      int64_t n, int o, int slab, float* sx,
+                                      int64_t n, int o, int len, float* sx,
                                       float* sy, float* sz, float* tx,
                                       float* ty, float* tz) {
-  for (int k = threadIdx.x; k < slab; k += blockDim.x) {
+  for (int k = threadIdx.x; k < len; k += blockDim.x) {
     const int64_t j = static_cast<int64_t>(o) + k;
     if (j < n) {
       sx[k] = src[j];
@@ -113,24 +141,24 @@ __device__ __forceinline__ void stage(const float* __restrict__ src,
 }
 
 // Pair-force sums f (and with JVP the tangent sums t) of slots [lo, hi)
-// (inside the staged slab starting at o) on particle i at p with tangent u.
-// Each term is rounded to float as in the plain version; the group's sum is
-// taken in double and rounded once, so it does not depend on the order of
-// the terms (the plain version sums a gathered row in another order) except
-// at a rounding tie.
-template <bool JVP>
+// (inside the staged span starting at o) on a particle at p with tangent
+// u, lane `lane` of L taking every L-th slot. Each term is rounded to float
+// as in the plain version; each lane sums its terms in double, the L
+// partial sums merge in a fixed butterfly (every lane of `mask` calls
+// this, an empty range where it owns no particle) and the result is
+// rounded once.
+template <bool JVP, int L>
 __device__ __forceinline__ void pair_sums(
-    int i, float px, float py, float pz, float ux, float uy, float uz, int lo,
+    unsigned mask, int lane, const float p[3], const float u[3], int lo,
     int hi, int o, const float* sx, const float* sy, const float* sz,
     const float* tx, const float* ty, const float* tz, float md, float md2,
     float kc, float f[3], float t[3]) {
   double g0 = 0.0, g1 = 0.0, g2 = 0.0;
   double h0 = 0.0, h1 = 0.0, h2 = 0.0;
-  for (int j = lo; j < hi; ++j) {
-    if (j == i) continue;
-    const float dx = px - sx[j - o];
-    const float dy = py - sy[j - o];
-    const float dz = pz - sz[j - o];
+  for (int j = lo + lane; j < hi; j += L) {
+    const float dx = p[0] - sx[j - o];
+    const float dy = p[1] - sy[j - o];
+    const float dz = p[2] - sz[j - o];
     const float d2 = dx * dx + dy * dy + dz * dz;
     if (d2 < md2 && d2 > 1e-12f) {
       const float inv = 1.0f / sqrtf(d2);
@@ -139,15 +167,26 @@ __device__ __forceinline__ void pair_sums(
       g1 += static_cast<double>(w * dy);
       g2 += static_cast<double>(w * dz);
       if (JVP) {
-        const float dux = ux - tx[j - o];
-        const float duy = uy - ty[j - o];
-        const float duz = uz - tz[j - o];
+        const float dux = u[0] - tx[j - o];
+        const float duy = u[1] - ty[j - o];
+        const float duz = u[2] - tz[j - o];
         const float dot = dx * dux + dy * duy + dz * duz;
         const float g = kc * md * inv * inv * inv * dot;
         h0 += static_cast<double>(w * dux - g * dx);
         h1 += static_cast<double>(w * duy - g * dy);
         h2 += static_cast<double>(w * duz - g * dz);
       }
+    }
+  }
+#pragma unroll
+  for (int m = L / 2; m >= 1; m /= 2) {
+    g0 += __shfl_xor_sync(mask, g0, m);
+    g1 += __shfl_xor_sync(mask, g1, m);
+    g2 += __shfl_xor_sync(mask, g2, m);
+    if (JVP) {
+      h0 += __shfl_xor_sync(mask, h0, m);
+      h1 += __shfl_xor_sync(mask, h1, m);
+      h2 += __shfl_xor_sync(mask, h2, m);
     }
   }
   f[0] = static_cast<float>(g0);
@@ -160,22 +199,57 @@ __device__ __forceinline__ void pair_sums(
   }
 }
 
-// The pair force on sorted particle i of CTA b (and with JVP its
-// directional derivative along its tangent u): the walk over the CTA's
-// slabs, group by group. Every thread of the CTA calls it (it stages and
-// synchronizes); `live` marks the threads that own a particle. The
-// candidate set: windows from the table `wins` or, when it is null, from
-// `cid`, `cell_start` and the groups' cid intervals `grp`; `off` the
-// per-block slab offsets (offa, offb). `s` is the dynamic shared memory,
-// 3 (JVP: 6) planes of `slab` floats.
-template <bool JVP>
+// The window [ws, we) of sorted particle i in group g: from the table
+// `wins` or, when it is null, from the cid `ci`, `cell_start` and the
+// group's cid interval.
+__device__ __forceinline__ void window(const int* __restrict__ cell_start,
+                                       const int* __restrict__ wins,
+                                       const Groups& grp, int64_t n, int ng,
+                                       int ncells, int g, int i, int ci,
+                                       int& ws, int& we) {
+  if (wins != nullptr) {
+    ws = wins[static_cast<int64_t>(i) * ng + g];
+    we = wins[(n + i) * ng + g];
+  } else {
+    ws = cell_start[clampi(ci + grp.lo[g], 0, ncells)];
+    we = cell_start[clampi(ci + grp.hi[g] + 1, 0, ncells)];
+  }
+}
+
+// The candidates [a_lo, a_hi) of window [ws, we) in slab A at oa and
+// [b_lo, b_hi) in slab B at ob (the two interval tests of the TPU kernel).
+__device__ __forceinline__ void slab_ranges(int ws, int we, int oa, int ob,
+                                            int slab, int r[4]) {
+  r[0] = max(ws, oa);
+  r[1] = min(we, oa + slab);
+  r[2] = max(ws, max(ob, oa + slab));
+  r[3] = ob > oa ? min(we, ob + slab) : r[2];
+}
+
+// The pair force on sorted particle i of slab block b (and with JVP its
+// directional derivative along its tangent u), lane `lane` of its L. Every
+// thread of the CTA calls it (it stages and synchronizes); `live` marks
+// the threads that own a particle, `first` and `last` are the CTA's first
+// and last live slots. The candidate set: windows from the table `wins`
+// or, when it is null, from `cid`, `cell_start` and the groups' cid
+// intervals `grp`; `off` the per-block slab offsets (offa, offb). `s` is
+// the dynamic shared memory, 3 (JVP: 6) planes of `slab` floats, `sp` the
+// CTA's spans.
+//
+// What the CTA stages of a slab: in CIV mode a window's ends grow with the
+// sorted cid, so the first slot's window start and the last slot's window
+// end bound every window of the CTA, and only that span of each slab is
+// read; in window mode the whole slab. The first ng threads work out the
+// spans of all groups at once, before the walk, so their loads overlap.
+template <bool JVP, int L>
 __device__ __forceinline__ void contact_force(
     const float* __restrict__ pos, const float* __restrict__ tan,
     const int* __restrict__ cid, const int* __restrict__ cell_start,
     const int* __restrict__ wins, const int* __restrict__ off,
     const Groups& grp, int64_t n, int ng, int slab, int ncells, int b, int i,
-    bool live, const float p[3], const float u[3], float md, float kc,
-    float* s, float f[3], float t[3]) {
+    bool live, int lane, int first, int last, const float p[3],
+    const float u[3], float md, float kc, float* s, Spans& sp, float f[3],
+    float t[3]) {
   float* sx = s;
   float* sy = s + slab;
   float* sz = s + 2 * slab;
@@ -183,55 +257,46 @@ __device__ __forceinline__ void contact_force(
   float* ty = s + 4 * slab;
   float* tz = s + 5 * slab;
   const float md2 = md * md;
-  int ci = 0;
-  if (live && wins == nullptr) ci = cid[i];
+  const int* ob_off = off + static_cast<int64_t>(b) * ng * 2;
+  const unsigned mask = warp_lanes();
+  const int g0 = threadIdx.x;
+  if (g0 < ng) {
+    const int oa = ob_off[2 * g0], ob = ob_off[2 * g0 + 1];
+    if (wins == nullptr) {
+      slab_ranges(cell_start[clampi(cid[first] + grp.lo[g0], 0, ncells)],
+                  cell_start[clampi(cid[last] + grp.hi[g0] + 1, 0, ncells)],
+                  oa, ob, slab, sp.v[g0]);
+    } else {
+      slab_ranges(0, static_cast<int>(n), oa, ob, slab, sp.v[g0]);
+    }
+  }
+  const int ci = live && wins == nullptr ? cid[i] : 0;
+  __syncthreads();
   float a[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};   // slab A sums (f, t)
   float bb[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // slab B sums
   float gf[3], gt[3];
   for (int g = 0; g < ng; ++g) {
-    int ws = 0, we = 0;
+    int r[4] = {0, 0, 0, 0};
     if (live) {
-      if (wins != nullptr) {
-        ws = wins[static_cast<int64_t>(i) * ng + g];
-        we = wins[(n + i) * ng + g];
-      } else {
-        ws = cell_start[clampi(ci + grp.lo[g], 0, ncells)];
-        we = cell_start[clampi(ci + grp.hi[g] + 1, 0, ncells)];
-      }
+      int ws, we;
+      window(cell_start, wins, grp, n, ng, ncells, g, i, ci, ws, we);
+      slab_ranges(ws, we, ob_off[2 * g], ob_off[2 * g + 1], slab, r);
     }
-    const int oa = off[(static_cast<int64_t>(b) * ng + g) * 2];
-    const int ob = off[(static_cast<int64_t>(b) * ng + g) * 2 + 1];
-    stage<JVP>(pos, tan, n, oa, slab, sx, sy, sz, tx, ty, tz);
-    __syncthreads();
-    if (live) {
-      pair_sums<JVP>(i, p[0], p[1], p[2], u[0], u[1], u[2], max(ws, oa),
-                     min(we, oa + slab), oa, sx, sy, sz, tx, ty, tz, md, md2,
-                     kc, gf, gt);
-      a[0] += gf[0];
-      a[1] += gf[1];
-      a[2] += gf[2];
-      if (JVP) {
-        a[3] += gt[0];
-        a[4] += gt[1];
-        a[5] += gt[2];
-      }
-    }
-    __syncthreads();
-    if (ob > oa) {                 // the same for every thread of the CTA
-      stage<JVP>(pos, tan, n, ob, slab, sx, sy, sz, tx, ty, tz);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int lo = sp.v[g][2 * half], hi = sp.v[g][2 * half + 1];
+      if (lo >= hi) continue;       // no window of the CTA reaches it
+      stage<JVP>(pos, tan, n, lo, hi - lo, sx, sy, sz, tx, ty, tz);
       __syncthreads();
-      if (live) {
-        pair_sums<JVP>(i, p[0], p[1], p[2], u[0], u[1], u[2],
-                       max(ws, max(ob, oa + slab)), min(we, ob + slab), ob,
-                       sx, sy, sz, tx, ty, tz, md, md2, kc, gf, gt);
-        bb[0] += gf[0];
-        bb[1] += gf[1];
-        bb[2] += gf[2];
-        if (JVP) {
-          bb[3] += gt[0];
-          bb[4] += gt[1];
-          bb[5] += gt[2];
-        }
+      pair_sums<JVP, L>(mask, lane, p, u, r[2 * half], r[2 * half + 1], lo,
+                        sx, sy, sz, tx, ty, tz, md, md2, kc, gf, gt);
+#pragma unroll
+      for (int e = 0; e < (JVP ? 6 : 3); ++e) {
+        const float v = e < 3 ? gf[e] : gt[e - 3];
+        if (half == 0)
+          a[e] += v;
+        else
+          bb[e] += v;
       }
       __syncthreads();
     }
@@ -259,24 +324,30 @@ __device__ __forceinline__ void load3(const float* __restrict__ a, int64_t n,
   v[2] = a[2 * n + i];
 }
 
-// Thread t of the launch steps global sorted slot i = base + t (base a
-// multiple of the block, so CTA blockIdx.x is global block base / block +
-// blockIdx.x): its own position and the slabs come from the full array pos
-// [3, n], its velocity from the local vel [3, n_local] and its outputs go
-// to the local pos_out, vel_out [3, n_local]; self-exclusion compares
-// global slots. base = 0, n_local = n is K10 as it always was.
+// Local slot t = blockIdx.x * cta + threadIdx.x / L of the launch, lane
+// threadIdx.x % L, steps global sorted slot i = base + t (base and cta both
+// divide into the block, so the CTA lies in global block (base + blockIdx.x
+// * cta) / block): its own position and the slabs come from the full array
+// pos [3, n], its velocity from the local vel [3, n_local] and lane 0
+// writes its outputs to the local pos_out, vel_out [3, n_local]. base = 0,
+// n_local = n is K10 as it always was.
+template <int L>
 __global__ void granular_step_kernel(
     const float* __restrict__ prm, const float* __restrict__ pos,
     const float* __restrict__ vel, const int* __restrict__ cid,
     const int* __restrict__ cell_start, const int* __restrict__ wins,
     const int* __restrict__ off, float* __restrict__ pos_out,
     float* __restrict__ vel_out, Groups grp, int n_, int ng, int slab,
-    int ncells, int base, int n_local_) {
+    int ncells, int block, int base, int n_local_) {
   extern __shared__ float s_slab[];
+  __shared__ Spans s_spans;
   const int64_t n = n_;
   const int64_t nl = n_local_;
-  const int b = base / static_cast<int>(blockDim.x) + blockIdx.x;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int cta = blockDim.x / L;
+  const int t0 = blockIdx.x * cta;
+  const int b = (base + t0) / block;
+  const int t = t0 + threadIdx.x / L;
+  const int lane = threadIdx.x % L;
   const int i = base + t;
   const bool live = t < nl;
   const float md = prm[0], kc = prm[1], grav = prm[2], dt = prm[3];
@@ -285,9 +356,11 @@ __global__ void granular_step_kernel(
   float p[3] = {0.0f, 0.0f, 0.0f};
   if (live) load3(pos, n, i, p);
   float f[3], u[3];
-  contact_force<false>(pos, nullptr, cid, cell_start, wins, off, grp, n, ng,
-                       slab, ncells, b, i, live, p, p, md, kc, s_slab, f, u);
-  if (!live) return;
+  contact_force<false, L>(
+      pos, nullptr, cid, cell_start, wins, off, grp, n, ng, slab, ncells, b,
+      i, live, lane, base + t0, base + min(t0 + cta, n_local_) - 1, p, p, md,
+      kc, s_slab, s_spans, f, u);
+  if (!live || lane != 0) return;
 
   const float fy = f[1] + grav;                      // unit mass
   float vx = vel[t] + f[0] * dt;
@@ -308,18 +381,23 @@ __global__ void granular_step_kernel(
 }
 
 // K11 (JVP false): out f32 [3, n]. K12 (JVP true): out f32 [6, n], f in
-// rows 0-2 and J.u in rows 3-5.
-template <bool JVP>
+// rows 0-2 and J.u in rows 3-5. Slot i = blockIdx.x * cta + threadIdx.x /
+// L, lane threadIdx.x % L; lane 0 writes.
+template <bool JVP, int L>
 __global__ void granular_forces_kernel(
     const float* __restrict__ prm, const float* __restrict__ pos,
     const float* __restrict__ tan, const int* __restrict__ cid,
     const int* __restrict__ cell_start, const int* __restrict__ wins,
     const int* __restrict__ off, float* __restrict__ out, Groups grp, int n_,
-    int ng, int slab, int ncells) {
+    int ng, int slab, int ncells, int block) {
   extern __shared__ float s_slab[];
+  __shared__ Spans s_spans;
   const int64_t n = n_;
-  const int b = blockIdx.x;
-  const int i = b * blockDim.x + threadIdx.x;
+  const int cta = blockDim.x / L;
+  const int first = blockIdx.x * cta;
+  const int b = first / block;
+  const int i = first + threadIdx.x / L;
+  const int lane = threadIdx.x % L;
   const bool live = i < n;
   const float md = prm[0], kc = prm[1];
   float p[3] = {0.0f, 0.0f, 0.0f};
@@ -329,9 +407,11 @@ __global__ void granular_forces_kernel(
     if (JVP) load3(tan, n, i, u);
   }
   float f[3], t[3];
-  contact_force<JVP>(pos, tan, cid, cell_start, wins, off, grp, n, ng, slab,
-                     ncells, b, i, live, p, u, md, kc, s_slab, f, t);
-  if (!live) return;
+  contact_force<JVP, L>(pos, tan, cid, cell_start, wins, off, grp, n, ng,
+                        slab, ncells, b, i, live, lane, first,
+                        min(first + cta, n_) - 1, p, u, md, kc, s_slab,
+                        s_spans, f, t);
+  if (!live || lane != 0) return;
   out[i] = f[0];
   out[n + i] = f[1];
   out[2 * n + i] = f[2];
@@ -342,15 +422,34 @@ __global__ void granular_forces_kernel(
   }
 }
 
-// Checks the launch geometry, fills the groups' cid intervals from the host
-// table `bounds` (CIV mode) and raises the dynamic shared memory limit of
-// `kernel` to `planes` planes of `slab` floats; returns 0 or a cudaError_t.
+// Calls f with std::integral_constant<int, L> for lanes L in {1, 2, 4, 8}.
+template <typename F>
+int with_lanes(int lanes, F&& f) {
+  switch (lanes) {
+    case 1:
+      return f(std::integral_constant<int, 1>{});
+    case 2:
+      return f(std::integral_constant<int, 2>{});
+    case 4:
+      return f(std::integral_constant<int, 4>{});
+    case 8:
+      return f(std::integral_constant<int, 8>{});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Checks the launch geometry (cta slots of `lanes` lanes a CTA, cta dividing
+// the block, at least ng threads), fills the groups' cid intervals from
+// the host table `bounds` (CIV mode) and raises the dynamic shared memory
+// limit of `kernel` to `bytes`; returns 0 or a cudaError_t.
 template <typename Kernel>
 int prepare(Kernel kernel, const int* cid, const int* cell_start,
             const int* wins, const int* bounds, int n, int ng, int block,
-            int slab, int planes, Groups* grp, size_t* smem) {
+            int slab, int lanes, int cta, size_t bytes, Groups* grp) {
   if (ng < 1 || ng > kMaxGroups || block < 1 || block > 1024 || slab < 1 ||
-      n < 0)
+      n < 0 || cta < 1 || block % cta != 0 ||
+      static_cast<int64_t>(cta) * lanes > 1024 || cta * lanes < ng)
     return cudaErrorInvalidValue;
   if (wins == nullptr && (cid == nullptr || cell_start == nullptr))
     return cudaErrorInvalidValue;
@@ -361,11 +460,15 @@ int prepare(Kernel kernel, const int* cid, const int* cell_start,
       grp->hi[g] = bounds[ng + g];
     }
   }
-  *smem = planes * static_cast<size_t>(slab) * sizeof(float);
-  if (*smem <= 48 * 1024) return cudaSuccess;
+  if (bytes <= 48 * 1024 - sizeof(Spans)) return cudaSuccess;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(*smem)));
+      static_cast<int>(bytes)));
+}
+
+// Dynamic shared memory of one staged span: 3 (JVP: 6) planes of floats.
+size_t span_bytes(int slab, bool jvp) {
+  return static_cast<size_t>(slab) * (jvp ? 24 : 12);
 }
 
 }  // namespace
@@ -379,49 +482,72 @@ int prepare(Kernel kernel, const int* cid, const int* cell_start,
 // cell_start null. CIV mode: wins null, cid i32 [n] sorted cell ids,
 // cell_start i32 [ncells + 3], bounds (host) i32 [2 * ng] (lo_g...,
 // hi_g...). base must be a multiple of block and base + n_local <= n.
-// Outputs pos_out, vel_out f32 [3, n_local].
+// The walk: `cta` slots a CTA (dividing the block), `lanes` (1, 2, 4 or 8)
+// lanes a slot. Outputs pos_out, vel_out f32 [3, n_local].
 extern "C" int wpe_granular_step(const float* prm, const float* pos,
                                  const float* vel, const int* cid,
                                  const int* cell_start, const int* wins,
                                  const int* off, float* pos_out,
                                  float* vel_out, const int* bounds, int n,
                                  int ng, int block, int slab, int ncells,
-                                 int base, int n_local, void* stream) {
-  Groups grp;
-  size_t smem;
-  const int err = prepare(granular_step_kernel, cid, cell_start, wins,
-                          bounds, n, ng, block, slab, 3, &grp, &smem);
-  if (err != cudaSuccess) return err;
-  if (base < 0 || n_local < 0 || base % block != 0 ||
-      static_cast<int64_t>(base) + n_local > n)
-    return cudaErrorInvalidValue;
-  if (n_local == 0) return cudaSuccess;
-  granular_step_kernel<<<(n_local + block - 1) / block, block, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      prm, pos, vel, cid, cell_start, wins, off, pos_out, vel_out, grp, n, ng,
-      slab, ncells, base, n_local);
-  return static_cast<int>(cudaGetLastError());
+                                 int lanes, int cta, int base, int n_local,
+                                 void* stream) {
+  return with_lanes(lanes, [&](auto lc) {
+    constexpr int L = decltype(lc)::value;
+    Groups grp;
+    const size_t smem = span_bytes(slab, false);
+    const int err = prepare(granular_step_kernel<L>, cid, cell_start, wins,
+                            bounds, n, ng, block, slab, L, cta, smem, &grp);
+    if (err != cudaSuccess) return err;
+    if (base < 0 || n_local < 0 || base % block != 0 ||
+        static_cast<int64_t>(base) + n_local > n)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (n_local == 0) return static_cast<int>(cudaSuccess);
+    granular_step_kernel<L><<<(n_local + cta - 1) / cta, cta * L, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+        prm, pos, vel, cid, cell_start, wins, off, pos_out, vel_out, grp, n,
+        ng, slab, ncells, block, base, n_local);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// The pair forces alone (K11) and with their directional derivative along
+// a tangent field u (K12).
+template <bool JVP>
+int launch_forces(const float* prm, const float* pos, const float* u,
+                  const int* cid, const int* cell_start, const int* wins,
+                  const int* off, float* out, const int* bounds, int n, int ng,
+                  int block, int slab, int ncells, int lanes, int cta,
+                  void* stream) {
+  return with_lanes(lanes, [&](auto lc) {
+    constexpr int L = decltype(lc)::value;
+    Groups grp;
+    const size_t smem = span_bytes(slab, JVP);
+    const int err = prepare(granular_forces_kernel<JVP, L>, cid, cell_start,
+                            wins, bounds, n, ng, block, slab, L, cta, smem,
+                            &grp);
+    if (err != cudaSuccess || n == 0) return err;
+    granular_forces_kernel<JVP, L>
+        <<<(n + cta - 1) / cta, cta * L, smem,
+           static_cast<cudaStream_t>(stream)>>>(prm, pos, u, cid, cell_start,
+                                                wins, off, out, grp, n, ng,
+                                                slab, ncells, block);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // The pair forces alone (K11): prm f32[2] on the device (min_dist,
-// k_contact); pos f32 [3, n] sorted; the candidate set as for
+// k_contact); pos f32 [3, n] sorted; the candidate set and the walk as for
 // wpe_granular_step. Output f_out f32 [3, n].
 extern "C" int wpe_granular_forces(const float* prm, const float* pos,
                                    const int* cid, const int* cell_start,
                                    const int* wins, const int* off,
                                    float* f_out, const int* bounds, int n,
                                    int ng, int block, int slab, int ncells,
-                                   void* stream) {
-  Groups grp;
-  size_t smem;
-  const int err = prepare(granular_forces_kernel<false>, cid, cell_start,
-                          wins, bounds, n, ng, block, slab, 3, &grp, &smem);
-  if (err != cudaSuccess || n == 0) return err;
-  granular_forces_kernel<false><<<(n + block - 1) / block, block, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      prm, pos, nullptr, cid, cell_start, wins, off, f_out, grp, n, ng, slab,
-      ncells);
-  return static_cast<int>(cudaGetLastError());
+                                   int lanes, int cta, void* stream) {
+  return launch_forces<false>(prm, pos, nullptr, cid, cell_start, wins, off,
+                              f_out, bounds, n, ng, block, slab, ncells,
+                              lanes, cta, stream);
 }
 
 // The pair forces and their directional derivative (K12): as
@@ -433,15 +559,8 @@ extern "C" int wpe_granular_force_jvp(const float* prm, const float* pos,
                                       const int* off, float* ft_out,
                                       const int* bounds, int n, int ng,
                                       int block, int slab, int ncells,
-                                      void* stream) {
-  Groups grp;
-  size_t smem;
-  const int err = prepare(granular_forces_kernel<true>, cid, cell_start,
-                          wins, bounds, n, ng, block, slab, 6, &grp, &smem);
-  if (err != cudaSuccess || n == 0) return err;
-  granular_forces_kernel<true><<<(n + block - 1) / block, block, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      prm, pos, u, cid, cell_start, wins, off, ft_out, grp, n, ng, slab,
-      ncells);
-  return static_cast<int>(cudaGetLastError());
+                                      int lanes, int cta, void* stream) {
+  return launch_forces<true>(prm, pos, u, cid, cell_start, wins, off, ft_out,
+                             bounds, n, ng, block, slab, ncells, lanes, cta,
+                             stream);
 }

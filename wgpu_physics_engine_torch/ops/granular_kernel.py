@@ -31,8 +31,9 @@ K11; ``contact_force_jvp_sorted`` → ``_jvp_kernel``, K12):
   hand (K12's terms; the tests hold it against ``torch.autograd``);
 * :func:`substep_sorted_kernel`, :func:`contact_forces_sorted_kernel` and
   :func:`contact_force_jvp_sorted_kernel` launch the three entry points of
-  ``csrc/granular_step.cu`` once per call on the current stream (one
-  thread per sorted particle, one slab walk);
+  ``csrc/granular_step.cu`` once per call on the current stream (one slab
+  walk, with :func:`lanes` lanes a sorted particle: one on the full
+  candidate set, several on a thin one, whose windows are long);
 * :func:`substep_sorted`, :func:`contact_forces_sorted` and
   :func:`contact_force_jvp_sorted` take the plain version for a CPU tensor
   and the kernel for a CUDA tensor, and raise for anything else. There is
@@ -57,6 +58,7 @@ TPU kernel's rsqrt is one rounding away) and write out of place.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -78,13 +80,18 @@ LAUNCHES_FORCES = 0
 LAUNCHES_JVP = 0
 
 _SIGNATURES = {
-    "wpe_granular_step": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    "wpe_granular_step": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                          + [ctypes.c_void_p],
-    "wpe_granular_forces": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    "wpe_granular_forces": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                            + [ctypes.c_void_p],
-    "wpe_granular_force_jvp": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+    "wpe_granular_force_jvp": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                               + [ctypes.c_void_p],
 }
+
+# The kernels' walk: the most lanes a sorted slot takes (see :func:`lanes`)
+# and the threads of a CTA when it takes several.
+MAX_LANES = 8
+CTA_THREADS = 512
 
 # elements (rows × window) a gather of the plain version may hold, and the
 # rows over which it takes the widest window
@@ -550,11 +557,62 @@ def _check(a: torch.Tensor, dtype, shape, device, what: str) -> None:
                          f"got {a.dtype} {tuple(a.shape)} on {a.device}")
 
 
-def _cand_args(slabs: SlabSet, n: int, dev):
+def lanes(slabs: SlabSet, n: int, resident: int) -> int:
+    """Lanes a sorted slot in the kernels' walk over ``slabs`` (``n``
+    slots, a card that holds ``resident`` threads at once), the same for
+    K10, K11 and K12: the lanes split a slot's window in stride and merge
+    their double sums in a fixed butterfly. The full candidate set (9
+    groups: the z-triple windows of a cell's 3×3 neighbours, ~6 candidates
+    each in a pile) keeps one lane, a thread a slot: more lanes would idle.
+    A thin set (3 groups: each window runs over whole z-rows of cells, ~10³
+    candidates on the self-colliding cloth) takes the most lanes, a power
+    of two up to :data:`MAX_LANES`, with which its slots still fit the
+    card's resident threads: 4 for the 65,536 slots of a 256² cloth on an
+    H100 (270,336 threads), 1 for a pile of 1M, whose slots fill the card
+    alone."""
+    n_lanes = 1
+    if slabs.ng <= 3:
+        while n_lanes < MAX_LANES and 2 * n_lanes * n <= resident:
+            n_lanes *= 2
+    return n_lanes
+
+
+def walk_geometry(slabs: SlabSet, n: int, resident: int) -> Tuple[int, int]:
+    """``(lanes, cta)``: lanes a slot (:func:`lanes`) and slots a CTA of
+    the kernels' walk. One lane: a CTA a rebuild block, as the slab
+    offsets are cut. Several: the largest divisor of the block that keeps
+    the CTA within :data:`CTA_THREADS` threads (every CTA then lies in one
+    block)."""
+    n_lanes = lanes(slabs, n, resident)
+    if n_lanes == 1:
+        return 1, slabs.block
+    cap = max(1, min(slabs.block, CTA_THREADS // n_lanes))
+    return n_lanes, _largest_divisor(slabs.block, cap)
+
+
+@functools.lru_cache(maxsize=None)
+def _largest_divisor(block: int, cap: int) -> int:
+    return max(d for d in range(1, cap + 1) if block % d == 0)
+
+
+def resident_threads(dev: torch.device) -> int:
+    """Threads the card of ``dev`` holds at once (SMs × threads an SM)."""
+    return _resident(torch.cuda.current_device() if dev.index is None
+                     else dev.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(index: int) -> int:
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count * props.max_threads_per_multi_processor
+
+
+def _cand_args(slabs: SlabSet, n: int, dev, slots: Optional[int] = None):
     """The candidate set as the C entry points take it: ``(cid, cell_start,
     windows, off)`` pointers (None where unused), the host bounds table, and
-    ``(ng, block, slab, ncells)``; plus the tensors the pointers read, which
-    the caller keeps alive over the launch."""
+    ``(ng, block, slab, ncells, lanes, cta)`` for a launch over ``slots``
+    of the ``n`` sorted slots (all by default); plus the tensors the
+    pointers read, which the caller keeps alive over the launch."""
     block, slab, ng = slabs.block, slabs.slab, slabs.ng
     if not 1 <= block <= 1024 or slab < 1 or not 1 <= ng <= 9:
         raise ValueError(f"granular kernel takes 1 <= block <= 1024, slab >= 1 "
@@ -581,7 +639,10 @@ def _cand_args(slabs: SlabSet, n: int, dev):
         ncells = cs.shape[0] - 3
         for g, (lo, hi) in enumerate(slabs.bounds):
             bounds[g], bounds[ng + g] = lo, hi
-    return ptrs, bounds, (ng, block, slab, ncells), keep
+    dims = (ng, block, slab, ncells,
+            *walk_geometry(slabs, n if slots is None else slots,
+                           resident_threads(dev)))
+    return ptrs, bounds, dims, keep
 
 
 def _cuda_pos(pos: torch.Tensor, what: str) -> torch.Tensor:
@@ -595,8 +656,9 @@ def substep_sorted_kernel(pos: torch.Tensor, vel: torch.Tensor,
                           params: torch.Tensor, slabs: SlabSet, base: int = 0,
                           n_local: Optional[int] = None):
     """One substep of ``csrc/granular_step.cu`` on CUDA tensors: one launch
-    on the current stream, one CTA per block of ``slabs.block`` sorted
-    slots (at most 1024), new output buffers (the inputs are only read).
+    on the current stream, the walk of :func:`walk_geometry` (one lane a
+    slot and a CTA a block of ``slabs.block`` <= 1024 sorted slots on the
+    full candidate set), new output buffers (the inputs are only read).
     With ``n_local`` it steps the slots ``[base, base + n_local)`` (K10b,
     counted in ``LAUNCHES_SHARDED``), as :func:`substep_sorted_plain`."""
     global LAUNCHES, LAUNCHES_SHARDED
@@ -605,7 +667,7 @@ def substep_sorted_kernel(pos: torch.Tensor, vel: torch.Tensor,
     sharded = n_local is not None
     n_local = _slice_args(pos, slabs, base, n_local)
     _check(vel, torch.float32, (3, n_local), dev, "vel")
-    ptrs, bounds, dims, _keep = _cand_args(slabs, n, dev)
+    ptrs, bounds, dims, _keep = _cand_args(slabs, n, dev, n_local)
     prm = params.detach().to(device=dev, dtype=torch.float32).contiguous()
     _check(prm, torch.float32, (6,), dev, "params")
     vel = vel.contiguous()

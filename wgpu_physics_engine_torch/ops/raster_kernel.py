@@ -9,12 +9,18 @@ tile-binned route (``sphere_raster_tiled`` → ``tiled_prologue`` +
 * :func:`tiled_prologue` projects the centres, bins them by (8, 128)
   screen tile, sorts them stably by tile and builds each tile's four
   candidate ranges — the same (8, 128) bins, sorted order and candidate
-  sets as the JAX prologue, so the winners agree bit for bit;
-  :func:`tiled_prologue_batched` does so for B worlds in one pass (the
-  counterpart of the JAX datagen's ``vmap`` of the prologue);
-* :func:`sphere_raster_kernel` launches ``csrc/sphere_raster.cu`` (one CTA
-  per (world, tile); one kernel for any instance count, where the TPU
-  needed K3's chunked SMEM table beyond 16,384 instances, and one launch
+  sets as the JAX prologue, so the winners agree bit for bit — and, beside
+  them, each sphere's conservative pixel rectangle from the prologue's own
+  screen bound (the kernel's cull); :func:`tiled_prologue_batched` does so
+  for B worlds in one pass (the counterpart of the JAX datagen's ``vmap``
+  of the prologue);
+* :func:`work_list` cuts each tile's candidates into chunks and each chunk
+  into :data:`SUBS` sub-tiles, the kernel's work items;
+* :func:`sphere_raster_kernel` launches ``csrc/sphere_raster.cu``
+  (persistent CTAs over the work list, each warp culling the staged
+  candidates to its 4×8 pixels, chunks of one tile merged through a
+  64-bit (t, index) key; one kernel for any instance count, where the TPU
+  needed K3's chunked SMEM table beyond 16,384 instances, and one call
   for a batch of worlds, where the TPU launched per world because Mosaic
   rejects batched SMEM scalars);
 * :func:`sphere_raster_plain` sweeps ALL instances in the sorted order, in
@@ -65,8 +71,10 @@ LAUNCHES = 0
 LAUNCHES_UNTILED = 0
 
 _SIGNATURES = {
-    "wpe_sphere_raster": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+    "wpe_sphere_raster": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
                          + [ctypes.c_void_p],
+    "wpe_sphere_raster_plan": [ctypes.c_void_p] + [ctypes.c_int] * 3
+                              + [ctypes.c_void_p] * 5,
 }
 _SIGNATURES_UNTILED = {
     "wpe_sphere_raster_untiled": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
@@ -75,6 +83,14 @@ _SIGNATURES_UNTILED = {
 
 # pixels × instances per chunk of the plain sweep (bounds its temporaries)
 _PLAIN_CHUNK_ELEMS = 1 << 22
+
+# The kernel's work items: SUBS sub-tiles of 8×32 pixels a tile, and the
+# fewest candidates of a chunk; the chunk grows with the frame's candidates
+# so that the items of a call stay under SUBS · (tiles + max(tiles,
+# _EXTRA_ITEMS)), a size the wrapper allocates without reading the device.
+SUBS = 4
+CHUNK = 1024
+_EXTRA_ITEMS = 8192
 
 
 def tile_grid(h: int, w: int) -> Tuple[int, int]:
@@ -91,9 +107,18 @@ def tiled_prologue_batched(
     [B, 3, 3], ``eye`` [B, 3], ``centers`` [B, N, 3], ``radius`` a number
     or [B], ``znear``/``tan_half``/``aspect`` [B] (or 0-d, shared).
     Returns ``(wins [B, T, 8] int32, ocb [B, 4, N] f32, order [B, N]
-    int32)``. Each world is binned on its own: a stable argsort along the
-    instance axis, one histogram of tile ids per world, and every float op
-    elementwise, so world i's tables equal the single-world prologue's."""
+    int32, rect [B, 4, N] int32)``. Each world is binned on its own: a
+    stable argsort along the instance axis, one histogram of tile ids per
+    world, and every float op elementwise, so world i's tables equal the
+    single-world prologue's.
+
+    ``rect`` (sorted order) is each sphere's conservative footprint in
+    pixel indices, inclusive: columns ``floor(col - R)`` .. ``ceil(col +
+    R)`` and rows ``floor(row - R)`` .. ``ceil(row + R)`` with ``R = 1.5 ·
+    r_px + 2``, the reach the binning itself relies on (``fits``: a binned
+    sphere's pixels lie within R < 8 of its projected centre, so within
+    its tile's ring); the whole frame for a sphere that is not binned.
+    The kernel culls with it; the plain sweep ignores it."""
     dev = centers.device
     th, tw = TILE_H, TILE_W
     ty_t, tx_t = tile_grid(h, w)
@@ -163,7 +188,19 @@ def tiled_prologue_batched(
     oc_sorted = torch.gather(oc, 1, order[..., None].expand(b, n, 3))
     ocb = torch.cat([oc_sorted.transpose(1, 2),
                      torch.gather(cc, 1, order)[:, None]], dim=1).contiguous()
-    return wins, ocb, order.to(torch.int32)
+
+    reach = 1.5 * r_px + 2.0
+
+    def span(c, size):
+        """Inclusive pixel range floor(c - R) .. ceil(c + R), clipped to -1
+        .. size; the whole frame where the sphere is not binned."""
+        lo = torch.clamp(torch.floor(c - reach), -1.0, size).to(torch.int32)
+        hi = torch.clamp(torch.ceil(c + reach), -1.0, size).to(torch.int32)
+        return torch.where(fits, lo, 0), torch.where(fits, hi, size - 1)
+
+    rect = torch.stack([*span(col, w), *span(row, h)], dim=1)  # [B, 4, N]
+    rect = torch.gather(rect, 2, order[:, None].expand(b, 4, n)).contiguous()
+    return wins, ocb, order.to(torch.int32), rect
 
 
 def tiled_prologue(camera_rot: torch.Tensor, eye: torch.Tensor,
@@ -172,14 +209,15 @@ def tiled_prologue(camera_rot: torch.Tensor, eye: torch.Tensor,
                    w: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Project centres, bin by screen tile, sort, and build each tile's
     candidate ranges. Returns ``(wins [T, 8] int32, ocb [4, N] f32,
-    order [N] int32)``: per tile the [start, end) ranges of the three
-    row-ring tiles and of the global range, the sorted eye-relative
-    centres with ``|oc|² - r²``, and the sort permutation. The batched
-    prologue at one world."""
-    wins, ocb, order = tiled_prologue_batched(
+    order [N] int32, rect [4, N] int32)``: per tile the [start, end)
+    ranges of the three row-ring tiles and of the global range, the sorted
+    eye-relative centres with ``|oc|² - r²``, the sort permutation, and
+    each sorted sphere's conservative pixel rectangle. The first three are
+    the JAX prologue's. The batched prologue at one world."""
+    wins, ocb, order, rect = tiled_prologue_batched(
         camera_rot[None], eye[None], centers[None], radius, znear, tan_half,
         aspect, h, w)
-    return wins[0], ocb[0], order[0]
+    return wins[0], ocb[0], order[0], rect[0]
 
 
 def sphere_raster_plain(ocb: torch.Tensor, dirs: torch.Tensor,
@@ -233,12 +271,78 @@ def _sweep(ocb: torch.Tensor, dirs: torch.Tensor, znear):
     return tmin.reshape(h, w), inst.to(torch.int32).reshape(h, w)
 
 
+def work_list(wins: torch.Tensor, chunk: int = CHUNK):
+    """The kernel's work items over ``wins`` ([T, 8] or [B, T, 8]), as its
+    first launch (``sphere_raster_plan``) builds them on the device: each
+    tile's candidates (its four ranges, in order) cut into chunks of ``c``
+    positions, at least one chunk a tile, and each chunk into :data:`SUBS`
+    sub-tiles, one item each. ``c`` is ``chunk`` or more, so that the
+    items fit ``SUBS · (Q + max(Q, _EXTRA_ITEMS))`` for Q tiles (a chunk
+    count ceil(count / c) is at most 1 + count / c). Returns
+    ``(item_start [Q + 1] int32, item_tile [SUBS · (Q + max(Q,
+    _EXTRA_ITEMS))] int32, c [1] int32)``: the prefix of items a tile
+    (world-major), the tile of each item (past the end of the list,
+    the last tile) and the chunk. Item k of tile q is sub-tile ``(k -
+    item_start[q]) % SUBS`` of chunk ``(k - item_start[q]) // SUBS``."""
+    w8 = wins.reshape(-1, 8).long()
+    nq = w8.shape[0]
+    count = torch.clamp_min(w8[:, 1::2] - w8[:, 0::2], 0).sum(1)     # [Q]
+    extra = max(nq, _EXTRA_ITEMS)
+    c = torch.clamp_min(_ceil_div(count.sum(), extra), chunk)
+    n_chunks = torch.clamp_min(_ceil_div(count, c), 1)
+    item_start = torch.nn.functional.pad(torch.cumsum(n_chunks * SUBS, 0),
+                                         (1, 0))
+    bound = SUBS * (nq + extra)
+    ks = torch.arange(bound, device=wins.device)
+    item_tile = torch.clamp_max(
+        torch.searchsorted(item_start, ks, right=True) - 1, max(nq - 1, 0))
+    return (item_start.to(torch.int32), item_tile.to(torch.int32),
+            c.reshape(1).to(torch.int32))
+
+
+def _plan_buffers(nq: int, dev):
+    """``(item_start, item_tile, chunk, scratch)`` for the work list of nq
+    tiles (see ``csrc/sphere_raster.cu``), and ``extra``."""
+    extra = max(nq, _EXTRA_ITEMS)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (torch.empty(nq + 1, **i32),
+            torch.empty(SUBS * (nq + extra), **i32), torch.empty(1, **i32),
+            torch.empty(4 + nq + -(-nq // 1024), **i32), extra)
+
+
+def work_list_kernel(wins: torch.Tensor):
+    """:func:`work_list` built on the card by the raster's first launches;
+    ``item_tile`` is written only up to ``item_start[-1]``."""
+    if wins.device.type != "cuda" or wins.dtype != torch.int32:
+        raise ValueError(f"work_list_kernel needs int32 CUDA bins, got "
+                         f"{wins.dtype} on {wins.device}")
+    w8 = wins.reshape(-1, 8).contiguous()
+    nq = w8.shape[0]
+    item_start, item_tile, chunk, scratch, extra = _plan_buffers(
+        nq, wins.device)
+    lib = _build.load("sphere_raster", _SIGNATURES)
+    with torch.cuda.device(wins.device):
+        err = lib.wpe_sphere_raster_plan(
+            w8.data_ptr(), nq, CHUNK, extra, item_start.data_ptr(),
+            item_tile.data_ptr(), chunk.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "sphere_raster_plan launch")
+    return item_start, item_tile, chunk
+
+
+def _ceil_div(a: torch.Tensor, b) -> torch.Tensor:
+    return torch.div(a + b - 1, b, rounding_mode="floor")
+
+
 def sphere_raster_kernel(wins: torch.Tensor, ocb: torch.Tensor,
-                         dirs: torch.Tensor, znear: torch.Tensor):
+                         rect: torch.Tensor, dirs: torch.Tensor,
+                         znear: torch.Tensor):
     """``csrc/sphere_raster.cu`` on CUDA tensors; same outputs as
-    :func:`sphere_raster_plain`. One world (``wins`` [T, 8], ``ocb`` [4, N],
-    ``dirs`` [3, H, W], ``znear`` 0-d) or a batch (a leading [B] on each,
-    ``znear`` [B] or shared) in one launch over (world, tile)."""
+    :func:`sphere_raster_plain`. One world (``wins`` [T, 8], ``ocb`` and
+    ``rect`` [4, N], ``dirs`` [3, H, W], ``znear`` 0-d) or a batch (a
+    leading [B] on each, ``znear`` [B] or shared) in one call over the
+    :func:`work_list` of the batch (launches on the current stream: four
+    for the work list, the merge keys, the persistent sweep, the merge)."""
     global LAUNCHES
     dev = dirs.device
     if dev.type != "cuda":
@@ -250,29 +354,38 @@ def sphere_raster_kernel(wins: torch.Tensor, ocb: torch.Tensor,
     n = ocb.shape[-1]
     if (dirs.dtype != torch.float32 or tuple(dirs.shape) != lead + (3, h, w)
             or ocb.dtype != torch.float32 or tuple(ocb.shape) != lead + (4, n)
+            or rect.dtype != torch.int32 or tuple(rect.shape) != lead + (4, n)
             or wins.dtype != torch.int32
             or tuple(wins.shape) != lead + (ty_t * tx_t, 8)
-            or ocb.device != dev or wins.device != dev):
+            or ocb.device != dev or wins.device != dev
+            or rect.device != dev):
         raise ValueError("sphere_raster_kernel: expected dirs f32 [B?, 3, H, "
-                         "W], ocb f32 [B?, 4, N], wins i32 [B?, tiles, 8] on "
-                         f"one device; got {tuple(dirs.shape)} "
-                         f"{tuple(ocb.shape)} {tuple(wins.shape)} {wins.dtype} "
-                         f"on {dirs.device} {ocb.device} {wins.device}")
+                         "W], ocb f32 and rect i32 [B?, 4, N], wins i32 [B?, "
+                         f"tiles, 8] on one device; got {tuple(dirs.shape)} "
+                         f"{tuple(ocb.shape)} {tuple(rect.shape)} {rect.dtype} "
+                         f"{tuple(wins.shape)} {wins.dtype} on {dirs.device} "
+                         f"{ocb.device} {rect.device} {wins.device}")
     n_worlds = lead[0] if batched else 1
     dirs, ocb, wins = dirs.contiguous(), ocb.contiguous(), wins.contiguous()
+    rect = rect.contiguous()
     zn = torch.as_tensor(znear, dtype=torch.float32, device=dev)
     zn = zn.expand(lead).reshape(n_worlds).contiguous()
     tmin = torch.empty(lead + (h, w), dtype=torch.float32, device=dev)
     inst = torch.empty(lead + (h, w), dtype=torch.int32, device=dev)
     oc = torch.empty(lead + (3, h, w), dtype=torch.float32, device=dev)
-    if n_worlds == 0:
+    if n_worlds == 0 or h * w == 0:
         return tmin, inst, oc
+    item_start, item_tile, chunk, scratch, extra = _plan_buffers(
+        n_worlds * ty_t * tx_t, dev)
+    keys = torch.empty(lead + (h, w), dtype=torch.int64, device=dev)
     lib = _build.load("sphere_raster", _SIGNATURES)
     with torch.cuda.device(dev):
         err = lib.wpe_sphere_raster(
-            zn.data_ptr(), wins.data_ptr(), ocb.data_ptr(), dirs.data_ptr(),
-            tmin.data_ptr(), inst.data_ptr(), oc.data_ptr(),
-            n_worlds, n, h, w, ty_t, tx_t,
+            zn.data_ptr(), wins.data_ptr(), ocb.data_ptr(), rect.data_ptr(),
+            dirs.data_ptr(), item_start.data_ptr(), item_tile.data_ptr(),
+            chunk.data_ptr(), scratch.data_ptr(), keys.data_ptr(),
+            tmin.data_ptr(), inst.data_ptr(), oc.data_ptr(), n_worlds, n, h,
+            w, ty_t, tx_t, CHUNK, extra,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "sphere_raster launch")
     LAUNCHES += 1
@@ -280,7 +393,8 @@ def sphere_raster_kernel(wins: torch.Tensor, ocb: torch.Tensor,
 
 
 def sphere_raster_binned(wins: torch.Tensor, ocb: torch.Tensor,
-                         dirs: torch.Tensor, znear: torch.Tensor):
+                         rect: torch.Tensor, dirs: torch.Tensor,
+                         znear: torch.Tensor):
     """``(tmin, inst, oc)`` from prebuilt bins, for one world or a batch:
     the plain version for a CPU tensor, the kernel for a CUDA tensor; any
     other device raises."""
@@ -288,7 +402,7 @@ def sphere_raster_binned(wins: torch.Tensor, ocb: torch.Tensor,
     if dev == "cpu":
         return sphere_raster_plain(ocb, dirs, znear)
     if dev == "cuda":
-        return sphere_raster_kernel(wins, ocb, dirs, znear)
+        return sphere_raster_kernel(wins, ocb, rect, dirs, znear)
     raise ValueError(f"no sphere raster for device {dirs.device}")
 
 
@@ -301,9 +415,9 @@ def sphere_raster_tiled(camera_rot: torch.Tensor, eye: torch.Tensor,
     return_oc=True)`` contract. ``camera_rot`` [3, 3] world→view,
     ``dirs`` [3, H, W] normalized world rays, ``centers`` [N, 3]."""
     h, w = dirs.shape[-2:]
-    wins, ocb, _ = tiled_prologue(camera_rot, eye, centers, radius, znear,
-                                  tan_half, aspect, h, w)
-    tmin, inst, oc = sphere_raster_binned(wins, ocb, dirs, znear)
+    wins, ocb, _, rect = tiled_prologue(camera_rot, eye, centers, radius,
+                                        znear, tan_half, aspect, h, w)
+    tmin, inst, oc = sphere_raster_binned(wins, ocb, rect, dirs, znear)
     return tmin, inst >= 0, oc
 
 

@@ -173,12 +173,12 @@ def draw_instanced_spheres(
     else:
         prologue = (raster_kernel.tiled_prologue_batched if eye.ndim == 2
                     else raster_kernel.tiled_prologue)
-        wins, ocb, _ = prologue(camera.view[..., :3, :3], eye, centers,
-                                radius, camera.znear,
-                                torch.tan(camera.fovy_rad / 2.0),
-                                camera.aspect, h, w)
-        tmin, inst, oc = raster_kernel.sphere_raster_binned(wins, ocb, dirs,
-                                                            camera.znear)
+        wins, ocb, _, rect = prologue(camera.view[..., :3, :3], eye,
+                                      centers, radius, camera.znear,
+                                      torch.tan(camera.fovy_rad / 2.0),
+                                      camera.aspect, h, w)
+        tmin, inst, oc = raster_kernel.sphere_raster_binned(
+            wins, ocb, rect, dirs, camera.znear)
         hit = inst >= 0
         cen = eye[..., :, None, None] + oc if shaded else None
 

@@ -41,8 +41,9 @@ def _pair(h, w, seed=None, vel_scale=0.5, pins=False, **kw):
         js = js._replace(pin_mask=jnp.asarray(pin), pin_pos=js.pos)
     jp = jstate.ClothParams.from_config(jc)
     ts = tstate.state_from_numpy(jstate.ClothState(
-        *(None if a is None else np.asarray(a) for a in js)))
-    tp = tstate.ClothParams.from_config(tcfg.ClothConfig(height=h, width=w, **kw))
+        *(None if a is None else np.asarray(a) for a in js)), device="cpu")
+    tp = tstate.ClothParams.from_config(
+        tcfg.ClothConfig(height=h, width=w, **kw), device="cpu")
     return js, jp, ts, tp
 
 

@@ -56,9 +56,9 @@ def _pair(h, w, seed=None, pins=None, **kw):
         js = js._replace(pin_mask=jnp.asarray(pin), pin_pos=js.pos)
     jp = jstate.ClothParams.from_config(jc)
     ts = tstate.state_from_numpy(jstate.ClothState(
-        *(None if a is None else np.asarray(a) for a in js)))
+        *(None if a is None else np.asarray(a) for a in js)), device="cpu")
     tp = tstate.ClothParams.from_config(tcfg.ClothConfig(height=h, width=w,
-                                                         **kw))
+                                                         **kw), device="cpu")
     return js, jp, ts, tp
 
 
@@ -312,7 +312,7 @@ def test_scene_routes_large_grid(low_limit, tiled_calls):
     scene.simulate(0.05)
     scene.update(1.0 / 60.0)
     assert tiled_calls == [(3, 36, 36)] * 2
-    ref = tstate.init_cloth_state(c)
+    ref = tstate.init_cloth_state(c, device="cpu")
     ref = cloth_kernel.multi_step_plain(ref, scene.params, 1.0 / 480.0, 24)
     n, sub_dt = tcloth.frame_substeps(1.0 / 60.0, c.time_scale, c.hz,
                                       c.max_substeps)

@@ -1,8 +1,11 @@
 """Port parity, core layer: the torch package's config, topology and state
 against the JAX package's (CPU), plus the port's dispatch rules: it never
-imports jax, and a CUDA request on a host without CUDA fails loudly."""
+imports jax, a CUDA request on a host without CUDA fails loudly, and the
+exported constructors put their tensors on the card unless the caller names
+another device."""
 
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -19,6 +22,7 @@ from wgpu_physics_engine_torch.core import config as tcfg
 from wgpu_physics_engine_torch.core import state as tstate
 from wgpu_physics_engine_torch.core import topology as ttopo
 from wgpu_physics_engine_torch.ops import cloth_kernel, raster_kernel
+from wgpu_physics_engine_torch.parallel import datagen as tdatagen
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -56,7 +60,7 @@ def test_topology_copy_matches(hw):
 def test_params_from_config_bitwise():
     c = tcfg.ClothConfig(height=24, width=32, gravity=-3.7, mu=0.35)
     jc = jcfg.ClothConfig(height=24, width=32, gravity=-3.7, mu=0.35)
-    got = tstate.ClothParams.from_config(c)
+    got = tstate.ClothParams.from_config(c, device="cpu")
     ref = jstate.ClothParams.from_config(jc)
     assert got._fields == ref._fields
     for f in got._fields:
@@ -69,7 +73,7 @@ def test_params_from_config_bitwise():
 def test_init_cloth_state_bitwise(hw):
     c = tcfg.ClothConfig(height=hw[0], width=hw[1], center=(0.3, 12.0, -1.7))
     jc = jcfg.ClothConfig(height=hw[0], width=hw[1], center=(0.3, 12.0, -1.7))
-    got = tstate.init_cloth_state(c)
+    got = tstate.init_cloth_state(c, device="cpu")
     ref = jstate.init_cloth_state(jc)
     assert got.pos.dtype == torch.float32 and tuple(got.pos.shape) == (3, *hw)
     np.testing.assert_array_equal(got.pos.numpy(), np.asarray(ref.pos))
@@ -87,16 +91,17 @@ def test_numpy_round_trip_bitwise():
     s = s._replace(vel=jnp.asarray(rng.normal(size=(3, 16, 16)), jnp.float32),
                    pin_mask=jnp.asarray(pin), pin_pos=s.pos)
     p = tstate.params_from_numpy(ref_p._replace(
-        **{f: np.asarray(getattr(ref_p, f)) for f in ref_p._fields}))
+        **{f: np.asarray(getattr(ref_p, f)) for f in ref_p._fields}),
+        device="cpu")
     st = tstate.state_from_numpy(jstate.ClothState(
-        *(None if a is None else np.asarray(a) for a in s)))
+        *(None if a is None else np.asarray(a) for a in s)), device="cpu")
     for f in ref_p._fields:
         assert getattr(p, f).numpy().tobytes() == \
             np.asarray(getattr(ref_p, f)).tobytes()
     for a, b in zip(st, s):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     assert st.pin_mask.dtype == torch.bool
-    bare = tstate.state_from_numpy(jstate.init_cloth_state(jc))
+    bare = tstate.state_from_numpy(jstate.init_cloth_state(jc), device="cpu")
     assert bare.pin_mask is None and bare.pin_pos is None
 
 
@@ -152,5 +157,18 @@ def test_wrappers_refuse_other_devices():
         raster_kernel.sphere_raster_binned(wins, ocb, rect, dirs,
                                            torch.tensor(0.1, device="meta"))
     with pytest.raises(ValueError):
-        cloth_kernel.multi_step_kernel(tstate.init_cloth_state(c), p, 0.01, 1)
+        cloth_kernel.multi_step_kernel(
+            tstate.init_cloth_state(c, device="cpu"), p, 0.01, 1)
     assert cloth_kernel.LAUNCHES == 0 and raster_kernel.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("fn", [
+    tstate.init_cloth_state, tstate.ClothParams.from_config,
+    tstate.ParticleParams.from_config, tstate.params_from_numpy,
+    tstate.state_from_numpy, tstate.particle_state_from_numpy,
+    tstate.particle_params_from_numpy, tdatagen.world_batch_from_numpy],
+    ids=lambda fn: fn.__qualname__)
+def test_constructors_default_to_the_card(fn):
+    """Every exported constructor defaults to ``device="cuda"``, as the
+    scenes and the CLI do; the tests pass ``device="cpu"``."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -36,6 +36,12 @@ are held to their plain versions as at 1M, an undersized slab included;
 the tiled raster to the full plain sweep bit for bit on an overloaded
 tile, on exact-t ties across chunks and on several worlds in one call,
 and its device-built work list to ``raster_kernel.work_list``.
+K1 is held to its plain version bit for bit (exact) and to K5 on one world
+bit for bit (exact and fast_math) on the flagship's 256², the reference
+60×60, a ragged 255×257 and 1000×1030, and its trace to ``trace_plain`` at
+256². K10's direct walk (the full set) and its staged walk (the thin set)
+are held to their plain versions bit for bit at 1M, in window mode and as
+K10b, and K11 with the plain integrate to K10.
 """
 
 import os
@@ -1092,3 +1098,109 @@ def test_raster_work_list_kernel_equals_its_mirror(dev):
         total = int(ref[0][-1])
         assert torch.equal(got[0], ref[0]) and torch.equal(got[2], ref[2])
         assert torch.equal(got[1][:total], ref[1][:total])
+
+
+
+# --- K1 and the direct K10 walk at the main paths' sizes ---
+
+def _k1_state(dev, h, w, pins, seed):
+    """A sheet at the flagship's spacing spawned just above the globe and
+    stepped 150 substeps by the plain version (contact and friction run),
+    with random velocities; the top row pinned where ``pins``."""
+    c = cfg.ClothConfig(height=h, width=w, center=(0.0, 10.15, 0.0))
+    p = st.ClothParams.from_config(c, device=dev)
+    s = cloth_kernel.multi_step_plain(st.init_cloth_state(c, device=dev), p,
+                                      DT, 150)
+    rng = np.random.default_rng(seed)
+    s = s._replace(vel=s.vel + torch.tensor(
+        (0.2 * rng.standard_normal((3, h, w))).astype(np.float32),
+        device=dev))
+    if pins:
+        mask = torch.zeros((h, w), dtype=torch.bool, device=dev)
+        mask[0] = True
+        s = s._replace(pin_mask=mask, pin_pos=s.pos)
+    return s, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(256, 256), (60, 60), (255, 257),
+                                (1000, 1030)])
+@pytest.mark.parametrize("pins", [False, True])
+def test_k1_matches_plain_and_k5_at_main_path_shapes(dev, hw, pins):
+    h, w = hw
+    s, p = _k1_state(dev, h, w, pins, seed=h + w)
+    one = lambda a: None if a is None else a[None]
+    batch = s._replace(pos=s.pos[None], vel=s.vel[None],
+                       pin_mask=one(s.pin_mask), pin_pos=one(s.pin_pos))
+    for n in (1, 2, 7, 48):
+        for fast in (False, True):
+            before = cloth_kernel.LAUNCHES
+            got = cloth_kernel.multi_step_kernel(s, p, DT, n, fast_math=fast)
+            torch.cuda.synchronize()
+            assert cloth_kernel.LAUNCHES == before + n
+            k5 = cloth_kernel.multi_step_kernel(batch, p, DT, n,
+                                                fast_math=fast)
+            assert torch.equal(got.pos, k5.pos[0])
+            assert torch.equal(got.vel, k5.vel[0])
+            if not fast:
+                ref = cloth_kernel.multi_step_plain(s, p, DT, n)
+                assert torch.equal(got.pos, ref.pos)
+                assert torch.equal(got.vel, ref.vel)
+    assert bool((torch.linalg.norm(s.pos, dim=0) < 10.11).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pins", [False, True])
+def test_k1_trace_matches_trace_plain_at_256(dev, pins):
+    s, p = _k1_state(dev, 256, 256, pins, seed=3)
+    prm = cloth_kernel._pack_params(p, DT)
+    before = cloth_kernel.LAUNCHES
+    traj = cloth_kernel.trace(s, prm, 49)
+    torch.cuda.synchronize()
+    assert cloth_kernel.LAUNCHES == before + 48
+    assert torch.equal(traj, cloth_kernel.trace_plain(s, prm, 49))
+
+
+def _pile_1m(dev, **kw):
+    from wgpu_physics_engine_torch.models import granular
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    c = granular.GranularConfig(num_particles=1_000_000, **kw)
+    s = granular.init_state(c, torch.Generator().manual_seed(0), device=dev)
+    grid, slabs, dropped = granular.rebuild(s.pos, s.vel, c, stats=True)
+    return grid.sorted_pos, grid.sorted_vel, slabs, gk.kernel_params(
+        c, 1.0 / 240.0, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(), dict(thin=True, pallas_slab=640,
+                                             rebuild_every=16),
+                                dict(civ=False)],
+                         ids=["default", "thin", "windows"])
+def test_granular_walks_match_plain_at_1m(dev, kw):
+    """K10 (the direct walk on the full set, the staged one on the thin
+    set) equals its plain version bit for bit on the 1M lattice; so do
+    K10b on a quarter of the slots and K11 with the plain integrate."""
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+
+    p, v, slabs, prm = _pile_1m(dev, **kw)
+    n = p.shape[1]
+    stage = gk.walk_geometry(slabs, n, gk.resident_threads(dev))[2]
+    assert stage == (slabs.ng <= 3)
+    before = gk.LAUNCHES
+    got = gk.substep_sorted(p, v, prm, slabs)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES == before + 1
+    ref = gk.substep_sorted_plain(p, v, prm, slabs)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    q = n // 4 // slabs.block * slabs.block
+    for base in (0, q):
+        b = gk.substep_sorted(p, v[:, base:base + q].contiguous(), prm, slabs,
+                              base, q)
+        assert torch.equal(b[0], got[0][:, base:base + q])
+        assert torch.equal(b[1], got[1][:, base:base + q])
+    f = gk.contact_forces_sorted(p, prm[0], prm[1], slabs)
+    ip, iv = gk._integrate(p, v, f, prm)
+    assert torch.equal(ip, got[0]) and torch.equal(iv, got[1])
+    assert torch.equal(f, gk.contact_forces_sorted_plain(p, prm[0], prm[1],
+                                                         slabs))

@@ -119,8 +119,8 @@ def test_batched_plain_matches_pallas_lanes_kernel(pins):
     ref = cloth_pallas.multi_step(
         jax.tree.map(jnp.asarray, js), jax.tree.map(jnp.asarray, jp),
         jnp.float32(DT), 25, interpret=True)
-    ts = tstate.state_from_numpy(js)
-    tp = tstate.params_from_numpy(jp)
+    ts = tstate.state_from_numpy(js, device="cpu")
+    tp = tstate.params_from_numpy(jp, device="cpu")
     got = cloth_kernel.multi_step(ts, tp, DT, 25)
     assert got.pos.shape == (5, 3, 12, 20)
     np.testing.assert_allclose(_np(got.pos), np.asarray(ref.pos), atol=1e-5,
@@ -134,8 +134,8 @@ def test_batched_plain_matches_pallas_lanes_kernel(pins):
 @pytest.mark.parametrize("pins", [False, True])
 def test_batched_plain_world_equals_single_world(pins):
     js, jp = _batched_state(5, 12, 20, seed=5, pins=pins)
-    ts = tstate.state_from_numpy(js)
-    tp = tstate.params_from_numpy(jp)
+    ts = tstate.state_from_numpy(js, device="cpu")
+    tp = tstate.params_from_numpy(jp, device="cpu")
     got = cloth_kernel.multi_step_plain(ts, tp, DT, 25)
     for i in range(5):
         one = tstate.ClothState(
@@ -152,8 +152,8 @@ def test_batched_shared_params_and_packing():
     """A 4-D state with shared 0-d params broadcasts them; ``[B]`` params
     pack to one row per world, equal to each world's 0-d vector."""
     js, jp = _batched_state(3, 8, 10, seed=6, pins=False)
-    ts = tstate.state_from_numpy(js)
-    tp = tstate.params_from_numpy(jp)
+    ts = tstate.state_from_numpy(js, device="cpu")
+    tp = tstate.params_from_numpy(jp, device="cpu")
     rows = cloth_kernel._pack_params(tp, DT)
     assert rows.shape == (3, 16)
     for i in range(3):
@@ -357,7 +357,8 @@ def test_generate_matches_jax_frame_by_frame():
                          *jcs)
     got = list(TD.generate_trajectory_dataset(
         tcfg.ClothConfig(**CLOTH), use_kernel=False,
-        worlds=TD.world_batch_from_numpy(jb), camera=_camera(jcams),
+        worlds=TD.world_batch_from_numpy(jb, device="cpu"),
+        camera=_camera(jcams),
         device="cpu", **kw))
     assert [f for f, _, _ in got] == [0, 1, 2] == [f for f, _, _ in ref]
     for (_, g, gb), (_, r, rb) in zip(got, ref):

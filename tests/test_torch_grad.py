@@ -58,7 +58,7 @@ def _np(t):
 
 def _to_torch(js):
     return tstate.state_from_numpy(jstate.ClothState(
-        *(None if a is None else np.asarray(a) for a in js)))
+        *(None if a is None else np.asarray(a) for a in js)), device="cpu")
 
 
 def _jax_scene(h, w, seed=0):
@@ -131,7 +131,8 @@ def test_grad_through_steppers_is_finite_and_matches_jax(hw, stepper):
         return jnp.mean(jcloth.multi_step(js, pms, JDT, 4).pos[1])
 
     ref = jax.grad(jloss)(jp)
-    leaves = [a.requires_grad_(True) for a in tstate.params_from_numpy(jp)]
+    leaves = [a.requires_grad_(True)
+              for a in tstate.params_from_numpy(jp, device="cpu")]
     step = tcloth.multi_step if stepper == "model" else cloth_kernel.multi_step
     out = step(_to_torch(js), tstate.ClothParams(*leaves), DT, 4)
     grads = torch.autograd.grad(out.pos[1].mean(), leaves)
@@ -174,7 +175,8 @@ def test_substep_vjp_plain_matches_autograd_with_contact(scene, pinned):
     jp, contact, _, wp, wv = scene
     js = _pinned(contact) if pinned else contact
     ts = _to_torch(js)
-    prm = cloth_kernel._pack_params(tstate.params_from_numpy(jp), DT)
+    prm = cloth_kernel._pack_params(
+        tstate.params_from_numpy(jp, device="cpu"), DT)
     dist = torch.linalg.vector_norm(ts.pos, dim=0)
     assert int((dist < prm[14]).sum()) > 0        # contact branches run
     planes = torch.cat([ts.pos, ts.vel]).requires_grad_(True)
@@ -291,7 +293,8 @@ def test_multi_step_diff_matches_jax_xla_smooth(scene):
     ref = jax.grad(jloss, argnums=(0, 1, 2, 3))(jp, smooth.pos, smooth.vel,
                                                JDT)
     ts = _to_torch(smooth)
-    leaves = [a.requires_grad_(True) for a in tstate.params_from_numpy(jp)]
+    leaves = [a.requires_grad_(True)
+              for a in tstate.params_from_numpy(jp, device="cpu")]
     pos = ts.pos.clone().requires_grad_(True)
     vel = ts.vel.clone().requires_grad_(True)
     dt = torch.tensor(DT, requires_grad=True)
@@ -331,7 +334,8 @@ def test_multi_step_diff_matches_pallas_backward(hw, kw, n, segment):
 
     ref = jax.grad(jloss, argnums=(0, 1, 2, 3))(js.pos, js.vel, js.pin_pos, jp)
     ts = _to_torch(js)
-    leaves = [a.requires_grad_(True) for a in tstate.params_from_numpy(jp)]
+    leaves = [a.requires_grad_(True)
+              for a in tstate.params_from_numpy(jp, device="cpu")]
     pos, vel, pp = (a.clone().requires_grad_(True)
                     for a in (ts.pos, ts.vel, ts.pin_pos))
     out = tcloth.multi_step_diff(ts._replace(pos=pos, vel=vel, pin_pos=pp),
@@ -355,7 +359,7 @@ def test_multi_step_diff_matches_pallas_backward(hw, kw, n, segment):
 def test_primal_bitwise_and_trace(scene, segment, pinned):
     jp, contact, _, _, _ = scene
     ts = _to_torch(_pinned(contact) if pinned else contact)
-    tp = tstate.params_from_numpy(jp)
+    tp = tstate.params_from_numpy(jp, device="cpu")
     ref = cloth_kernel.multi_step(ts, tp, DT, 24)
     got = tcloth.multi_step_diff(ts, tp, DT, 24, segment=segment)
     assert torch.equal(got.pos, ref.pos) and torch.equal(got.vel, ref.vel)
@@ -375,7 +379,7 @@ def test_newton_step_recovers_gravity(scene):
     jp, _, _, _, _ = scene
     c = jcfg.ClothConfig(height=H, width=W)
     s0 = _to_torch(jstate.init_cloth_state(c))
-    base = tstate.params_from_numpy(jp)
+    base = tstate.params_from_numpy(jp, device="cpu")
 
     def rollout(g):
         out = tcloth.multi_step_diff(s0, base._replace(gravity=g), DT, 240,
@@ -407,7 +411,7 @@ def test_example_fit_kernel_path_matches_checkpointed():
 def test_dispatch_cpu_plain_and_other_devices_raise(scene):
     jp, contact, _, wp, wv = scene
     ts = _to_torch(contact)
-    tp = tstate.params_from_numpy(jp)
+    tp = tstate.params_from_numpy(jp, device="cpu")
     prm = cloth_kernel._pack_params(tp, DT)
     planes = torch.cat([ts.pos, ts.vel])
     cp, cv = torch.tensor(wp), torch.tensor(wv)

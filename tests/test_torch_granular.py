@@ -57,7 +57,7 @@ def _cfgs(**kw):
 
 def _start(jc, seed=7):
     js = jgr.init_state(jc, jax.random.PRNGKey(seed))
-    return js, particle_state_from_numpy(js)
+    return js, particle_state_from_numpy(js, device="cpu")
 
 
 def _close(t, j, pos_tol, vel_tol):
@@ -280,7 +280,7 @@ def scenes_pair():
     j = jscenes.GranularScene(config=jgr.GranularConfig(**SCENE_CFG))
     t = tscenes.GranularScene(config=tgr.GranularConfig(**SCENE_CFG),
                               device="cpu")
-    t.state = particle_state_from_numpy(j.state)
+    t.state = particle_state_from_numpy(j.state, device="cpu")
     for s in (j, t):
         s.set_gravity(-6.0)
         s.set_k_contact(1500.0)
@@ -373,7 +373,7 @@ def test_granular_scene_on_cuda_without_cuda_raises():
 def test_particle_state_from_numpy():
     js = JParticleState(pos=jnp.arange(6.0).reshape(3, 2),
                         vel=jnp.ones((3, 2)))
-    ts = particle_state_from_numpy(js)
+    ts = particle_state_from_numpy(js, device="cpu")
     assert ts.pos.dtype == torch.float32 and ts.pos.device.type == "cpu"
     assert np.array_equal(ts.pos.numpy(), np.asarray(js.pos))
     assert np.array_equal(ts.vel.numpy(), np.asarray(js.vel))

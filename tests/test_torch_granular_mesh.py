@@ -62,7 +62,8 @@ def test_sharded_matches_single_one_rebuild():
     jc, tc = _cfgs(2048)
     assert tgr.pad_slots(2048, tc, unit=128 * 8 * 2) == tgr.pad_slots(2048,
                                                                       tc)
-    state = particle_state_from_numpy(jgr.init_state(jc, jax.random.key(0)))
+    state = particle_state_from_numpy(jgr.init_state(jc, jax.random.key(0)),
+                                      device="cpu")
     out_s = granular_mesh.multi_step_sharded(state, tc, DT, 4, _mesh(2))
     out_1 = tgr.multi_step(state, tc, DT, 4)
     assert torch.equal(out_s.pos, out_1.pos)
@@ -75,7 +76,7 @@ def test_sharded_matches_xla_multi_rebuild():
     jc, tc = _cfgs(2048)
     js = jgr.init_state(jc, jax.random.key(1))
     out_s, dmax = granular_mesh.multi_step_sharded(
-        particle_state_from_numpy(js), tc, DT, 10, _mesh(4),
+        particle_state_from_numpy(js, device="cpu"), tc, DT, 10, _mesh(4),
         return_stats=True)
     out_x = jgr.multi_step(js, jc, jnp.float32(DT), 10, backend="xla")
     assert int(dmax) == 0
@@ -96,7 +97,7 @@ def test_diff_sharded_gradients_match_serial():
     worlds = []
     for i in range(n_worlds):
         s = tgr.multi_step(particle_state_from_numpy(
-            jgr.init_state(jc, jax.random.key(i))), tc, DT, 30)
+            jgr.init_state(jc, jax.random.key(i)), device="cpu"), tc, DT, 30)
         worlds.append((s.pos.numpy(), (8.0 * s.vel).numpy()))   # hot
     pos = np.stack([w[0] for w in worlds])
     vel = np.stack([w[1] for w in worlds])
@@ -146,7 +147,8 @@ def test_diff_sharded_gradients_match_serial():
 
 def test_sharded_rejects_bad_shapes():
     jc, tc = _cfgs(1026)                           # not divisible by 4
-    state = particle_state_from_numpy(jgr.init_state(jc, jax.random.key(2)))
+    state = particle_state_from_numpy(jgr.init_state(jc, jax.random.key(2)),
+                                      device="cpu")
     with pytest.raises(ValueError, match="divisible"):
         granular_mesh.multi_step_sharded(state, tc, 1e-3, 4, _mesh(4))
     tc2 = tgr.GranularConfig(num_particles=2048, bounds=2.0, radius=0.08,

@@ -54,8 +54,9 @@ def _np(x):
 def draped():
     """The flagship cloth at 32², dropped 2.75 s onto the globe."""
     c = tcfg.ClothConfig(height=GRID, width=GRID)
-    p = tstate.ClothParams.from_config(c)
-    s = cloth_kernel.multi_step_plain(tstate.init_cloth_state(c), p, DT, 1320)
+    p = tstate.ClothParams.from_config(c, device="cpu")
+    s = cloth_kernel.multi_step_plain(
+        tstate.init_cloth_state(c, device="cpu"), p, DT, 1320)
     centers = s.pos.reshape(3, -1).T.contiguous()
     assert float(torch.linalg.norm(centers, dim=1).min()) < 10.2
     return centers, RADIUS
@@ -327,7 +328,7 @@ def thin_set():
     candidates, every neighbour in contact."""
     side = 64
     c = tcfg.ClothConfig(height=side, width=side, cloth_size=30.0 * side / 256)
-    s = tstate.init_cloth_state(c)
+    s = tstate.init_cloth_state(c, device="cpu")
     rng = np.random.default_rng(5)
     pos = s.pos + torch.tensor(rng.normal(0, 0.004, tuple(s.pos.shape))
                                .astype(np.float32))
@@ -389,24 +390,25 @@ def test_lane_split_sum_equals_plain(thin_set, n_lanes):
 
 
 def test_walk_geometry_follows_the_candidate_set(thin_set):
-    """One lane and a CTA a block on the full set, at any size; on a thin
-    set the most lanes (a power of two up to MAX_LANES) whose slots still
-    fit the card's resident threads, in CTAs of at most CTA_THREADS
-    threads inside one block."""
+    """One lane and a CTA a block on the full set, at any size, read
+    directly; on a thin set, staged, the most lanes (a power of two up to
+    MAX_LANES) whose slots still fit the card's resident threads, in CTAs
+    of at most CTA_THREADS threads inside one block."""
     _, slabs, _, _ = thin_set
     h100 = 132 * 2048
     assert slabs.ng == 3
     assert gk.lanes(slabs, 65536, h100) == 4        # the 256² cloth
     assert gk.lanes(slabs, 1_000_000, h100) == 1    # the 1M pile
     assert gk.lanes(slabs, 4096, h100) == gk.MAX_LANES
-    n_lanes, cta = gk.walk_geometry(slabs, 65536, h100)
-    assert n_lanes == 4 and slabs.block % cta == 0
+    n_lanes, cta, stage = gk.walk_geometry(slabs, 65536, h100)
+    assert n_lanes == 4 and slabs.block % cta == 0 and stage
     assert cta * n_lanes <= gk.CTA_THREADS
-    assert gk.walk_geometry(slabs, 1_000_000, h100) == (1, slabs.block)
+    assert gk.walk_geometry(slabs, 1_000_000, h100) == (1, slabs.block,
+                                                         True)
     full = slabs._replace(off=torch.zeros((1, 9, 2), dtype=torch.int32),
                           bounds=((0, 0),) * 9, block=128)
-    assert gk.walk_geometry(full, 4096, h100) == (1, 128)
+    assert gk.walk_geometry(full, 4096, h100) == (1, 128, False)
     for block in (96, 100, 7):
-        n_lanes, cta = gk.walk_geometry(slabs._replace(block=block), 65536,
-                                        h100)
+        n_lanes, cta, _ = gk.walk_geometry(slabs._replace(block=block),
+                                           65536, h100)
         assert block % cta == 0 and cta * n_lanes <= gk.CTA_THREADS

@@ -86,8 +86,8 @@ def _tstate(pos, vel, pin):
 
 def _params(h, w):
     return (jstate.ClothParams.from_config(jcfg.ClothConfig(height=h, width=w)),
-            tstate.ClothParams.from_config(tcfg.ClothConfig(height=h,
-                                                            width=w)))
+            tstate.ClothParams.from_config(
+                tcfg.ClothConfig(height=h, width=w), device="cpu"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -327,11 +327,11 @@ def test_batched_self_collide_matches_serial():
     cloth_cfg = dict(height=12, width=12, cloth_size=2.0,
                      center=(0.0, 40.0, 0.0), particle_radius=0.12)
     tc = tcfg.ClothConfig(**cloth_cfg)
-    tp = tstate.ClothParams.from_config(tc)
+    tp = tstate.ClothParams.from_config(tc, device="cpu")
     spec = dataclasses.replace(
         tcloth.default_self_collision_grid(tc, skin=2 * tc.particle_radius),
         capacity=32)
-    base = tstate.init_cloth_state(tc)
+    base = tstate.init_cloth_state(tc, device="cpu")
     rng = np.random.default_rng(4)
     vel = torch.tensor((0.5 * rng.standard_normal((4, 3, 12, 12))).astype(
         np.float32))

@@ -133,7 +133,7 @@ def test_init_state_and_params_match():
     assert v.std() > 0.4 * c.initial_speed
     p = ParticleParams.from_config(c, device="cpu")
     jp = JParams.from_config(jc)
-    q = tstate.particle_params_from_numpy(jp)
+    q = tstate.particle_params_from_numpy(jp, device="cpu")
     for f in ParticleParams._fields:
         np.testing.assert_array_equal(_np(getattr(p, f)),
                                       np.asarray(getattr(jp, f)))
@@ -144,8 +144,8 @@ def _carried(n, seed, bug_compat):
     jc = jcfg.FreeParticleConfig(num_particles=n, bug_compat=bug_compat)
     js = jparticles.init_state(jc, jax.random.key(seed))
     jp = JParams.from_config(jc)
-    return (js, jp, tstate.particle_state_from_numpy(js),
-            tstate.particle_params_from_numpy(jp))
+    return (js, jp, tstate.particle_state_from_numpy(js, device="cpu"),
+            tstate.particle_params_from_numpy(jp, device="cpu"))
 
 
 @pytest.mark.parametrize("bug_compat", [False, True])
@@ -368,7 +368,8 @@ def _scenes(n=10, bug_compat=False, seed=4):
     tc = tcfg.FreeParticleConfig(num_particles=n, bug_compat=bug_compat)
     j = jscenes.FreeParticleScene(config=jc, seed=seed)
     t = tscenes.FreeParticleScene(config=tc, seed=seed, device="cpu")
-    t.state = tstate.particle_state_from_numpy(j.state)   # JAX's draw
+    # JAX's draw
+    t.state = tstate.particle_state_from_numpy(j.state, device="cpu")
     return j, t
 
 
@@ -383,7 +384,7 @@ def _frames_close(got, ref, sens):
 
 def _render_close(j, t, h, w, monkeypatch):
     """The port scene's frame against the JAX scene's, from JAX's state."""
-    t.state = tstate.particle_state_from_numpy(j.state)
+    t.state = tstate.particle_state_from_numpy(j.state, device="cpu")
     ref = j.render(h, w)
     got = t.render(h, w)
     assert (np.abs(got - np.asarray([0.05, 0.05, 0.08])).max(-1) > 0.01).sum() > 30

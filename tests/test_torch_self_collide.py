@@ -69,8 +69,10 @@ def setup():
     rng = np.random.default_rng(3)
     wp, wv = (rng.standard_normal((3, 12, 12)).astype(np.float32)
               for _ in range(2))
-    return dict(js=js, jp=jp, jgrid=jgrid, ts=state_from_numpy(js),
-                tp=params_from_numpy(jp), tgrid=tgrid, wp=wp, wv=wv)
+    return dict(js=js, jp=jp, jgrid=jgrid,
+                ts=state_from_numpy(js, device="cpu"),
+                tp=params_from_numpy(jp, device="cpu"), tgrid=tgrid, wp=wp,
+                wv=wv)
 
 
 def _close(t, j, pos_tol, vel_tol):
@@ -90,7 +92,7 @@ def test_substep_with_force_plain_matches_jax(setup, pins):
         mask = np.zeros((12, 12), bool)
         mask[0] = True
         js = js._replace(pin_mask=jnp.asarray(mask), pin_pos=js.pos)
-        ts = state_from_numpy(js)
+        ts = state_from_numpy(js, device="cpu")
     fext = (50.0 * np.random.default_rng(9).standard_normal(
         (3, 12, 12))).astype(np.float32)
     ref = cloth_pallas.substep_with_force(js, jp, jnp.float32(DT),

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Times of the contact pair-force walk (K10, K11, K12) and the tile-binned
-sphere raster (K2/K3) at their main-path shapes on one CUDA card, for
-comparing two checkouts of the repo on one machine.
+"""Times of the contact pair-force walk (K10, K11, K12, K10b), the cloth
+kernels (K1, its trace, K5, K1w, K1f, K6) and the tile-binned sphere
+raster (K2/K3) at their main-path shapes on one CUDA card, for comparing
+two checkouts of the repo on one machine.
 
     python3 tools/kernel_ab.py [--root DIR] [--sweep] [--check]
+           [--only PART [PART ...]]
 
 Imports ``wgpu_physics_engine_torch`` from ``DIR`` (default: this
 checkout), builds its kernels from that checkout's sources, and prints one
@@ -15,21 +17,36 @@ events over back-to-back launches, best of 5):
   block 256, the scene's slab 1024), ``k11_sc_flat`` on the fresh flat
   sheet's set; ``k11_1m``, ``k12_1m``, ``k10_1m``: at 1M on the fresh
   lattice in the default configuration; ``k10_thin_1m``: the bench
-  configuration (thin CIV, slab 640);
+  configuration (thin CIV, slab 640); ``k10b_1m``: K10b on the second
+  quarter of the default pile's slots (the grain-sharded shard body);
+* ``k1_flagship_8`` and ``k1_flagship_240``: K1 at 256² on the flagship's
+  draped state (``ClothScene.simulate(5.0)``), ms a substep, calls of 8
+  substeps (the scene's frame) and of 240; ``k1_trace``: the training
+  segment's trace, 48 substeps at 256², ms a substep; ``k1_60_8`` and
+  ``k1_60_240``: the reference 60×60 cloth draped 3 s; ``k6_1000x1030``:
+  ``cloth_kernel.multi_step`` at 1000×1030 (above 100,000 particles: K6),
+  48 substeps, ms a substep; ``k5_1024``: K5, one substep on 1,024 worlds
+  of the 60×60 cloth (the datagen chunk); ``k1w_rows``: K1w a substep on
+  one shard's 260×1024 window of the 1024² cloth, ``k1w_composed`` on a
+  composed shard's 136×256 window (240 substeps a call, as the kernel's
+  launch time; the paths call it 1 or 2 at a time); ``k1f_256``: K1f at
+  256², a call of one launch;
 * ``raster_flagship``: the 256×256 frame of the 256² flagship after
   ``simulate(5.0)``, 65,536 instances; ``raster_datagen``: one call on a
   chunk of 1,024 worlds of the 60×60 cloth settled 3 s, randomized
   cameras, 256×256; ``raster_granular``: the 256×256 frame of the 1M
   ``GranularScene`` after ``simulate(1.0)``;
 * with ``--sweep`` (a checkout whose walk has ``walk_geometry``), K11 and
-  K10-thin over lanes and CTA sizes, and (a checkout whose raster has a
-  work list) the raster over chunk sizes;
+  K10-thin over lanes and CTA sizes; (a checkout whose walk has
+  ``staged``) K10, K11 and K12 at 1M, K10-thin and K11 on the
+  self-collision set over the staged and the direct walk; and (a checkout
+  whose raster has a work list) the raster over chunk sizes;
 * with ``--check``, each kernel against its plain version: the largest
   difference and whether they are equal bit for bit;
-* with ``--only walk`` or ``--only raster``, only that half; with
-  ``--only e2e``, instead, the host-bound loops the walk runs in
-  (``self_collide_256`` and the granular value_and_grad at 1M, host
-  clock, best of 5).
+* with ``--only`` and one or more of ``walk``, ``cloth`` and ``raster``,
+  only those parts; with ``e2e`` among them, also the host-bound loops the
+  walk runs in (``self_collide_256`` and the granular value_and_grad at
+  1M, host clock, best of 5).
 
 Compare two checkouts in turns (A, B, B, A) in one call on one card.
 """
@@ -165,7 +182,8 @@ def main() -> int:
         os.path.abspath(__file__))))
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--check", action="store_true")
-    ap.add_argument("--only", choices=("walk", "raster", "e2e"))
+    ap.add_argument("--only", nargs="+",
+                    choices=("walk", "cloth", "raster", "e2e"))
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -182,7 +200,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
-    for name in ("granular_step", "sphere_raster", "cloth_step"):
+    for name in ("granular_step", "sphere_raster", "cloth_step",
+                 "cloth_tiled"):
         _build.build(name)
     out = {"root": root, "card": card}
     checks = {}
@@ -205,11 +224,14 @@ def main() -> int:
                "thin": granular.GranularConfig(
                    num_particles=1_000_000, rebuild_every=16,
                    pallas_slab=640, thin=True)}
-    if args.only in (None, "walk"):
+    parts = ("walk", "cloth", "raster") if args.only is None else args.only
+    if "walk" in parts:
         _walk(args, out, checks, inner, dev, c256, configs, sc_set)
-    if args.only in (None, "raster"):
+    if "cloth" in parts:
+        _cloth(args, out, checks, inner, dev, c256)
+    if "raster" in parts:
         _raster(args, out, checks, dev, c256, configs)
-    if args.only == "e2e":
+    if "e2e" in parts:
         _e2e(out, dev, c256, configs)
     if args.check:
         out["checks"] = checks
@@ -263,6 +285,10 @@ def _walk(args, out, checks, inner, dev, c256, configs, sc_set):
     pt, vt, slabs_t, prm_t = gsets["thin"]
     out["k10_thin_1m"] = _best_ms(lambda: gk.substep_sorted_kernel(
         pt, vt, prm_t, slabs_t), inner=inner)
+    q = p.shape[1] // 4 // slabs.block * slabs.block
+    vq = v[:, q:2 * q].contiguous()
+    out["k10b_1m"] = _best_ms(lambda: gk.substep_sorted_kernel(
+        p, vq, prm, slabs, q, q), inner=inner)
     if args.check:
         checks["k11_1m"] = _equal(
             gk.contact_forces_sorted_kernel(p, prm[0], prm[1], slabs),
@@ -273,6 +299,9 @@ def _walk(args, out, checks, inner, dev, c256, configs, sc_set):
         checks["k10_thin_1m"] = _equal(
             gk.substep_sorted_kernel(pt, vt, prm_t, slabs_t),
             gk.substep_sorted_plain(pt, vt, prm_t, slabs_t))
+        checks["k10b_1m"] = _equal(
+            gk.substep_sorted_kernel(p, vq, prm, slabs, q, q),
+            gk.substep_sorted_plain(p, vq, prm, slabs, q, q))
     if args.sweep and hasattr(gk, "walk_geometry"):
         saved = (gk.lanes, gk.CTA_THREADS)
         sweep = {}
@@ -298,7 +327,136 @@ def _walk(args, out, checks, inner, dev, c256, configs, sc_set):
                 inner=inner)
         gk.lanes, gk.CTA_THREADS = saved
         out["walk_sweep"] = sweep
+    if args.sweep and hasattr(gk, "staged"):
+        saved = gk.staged
+        sweep = {}
+        p_sc, s_sc, md, kc = sets["k11_sc"]
+        for stage in (True, False):
+            gk.staged = lambda slabs, stage=stage: stage
+            k = "staged" if stage else "direct"
+            sweep["k10_1m_" + k] = _best_ms(lambda: gk.substep_sorted_kernel(
+                p, v, prm, slabs), inner=inner)
+            sweep["k11_1m_" + k] = _best_ms(
+                lambda: gk.contact_forces_sorted_kernel(p, prm[0], prm[1],
+                                                        slabs), inner=inner)
+            sweep["k12_1m_" + k] = _best_ms(
+                lambda: gk.contact_force_jvp_sorted_kernel(
+                    p, u, prm[0], prm[1], slabs), inner=inner)
+            sweep["k10_thin_1m_" + k] = _best_ms(
+                lambda: gk.substep_sorted_kernel(pt, vt, prm_t, slabs_t),
+                inner=inner)
+            sweep["k11_sc_" + k] = _best_ms(
+                lambda: gk.contact_forces_sorted_kernel(p_sc, md, kc, s_sc),
+                inner=inner)
+            if args.check:
+                checks["k10_1m_" + k] = _equal(
+                    gk.substep_sorted_kernel(p, v, prm, slabs),
+                    gk.substep_sorted_plain(p, v, prm, slabs))
+                checks["k11_sc_" + k] = _equal(
+                    gk.contact_forces_sorted_kernel(p_sc, md, kc, s_sc),
+                    gk.contact_forces_sorted_plain(p_sc, md, kc, s_sc))
+        gk.staged = saved
+        out["walk_stage_sweep"] = sweep
     del gsets, sets
+
+
+def _cloth(args, out, checks, inner, dev, c256):
+    """The cloth kernels' timings, ms a substep (and checks)."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import (ClothParams,
+                                                      init_cloth_state)
+    from wgpu_physics_engine_torch.ops import cloth_kernel as ck
+    from wgpu_physics_engine_torch.ops import cloth_tiled_kernel as ctk
+    from wgpu_physics_engine_torch.parallel import datagen
+
+    dt = 1.0 / 480.0
+
+    def draped(c, n):
+        p = ClothParams.from_config(c, device=dev)
+        return ck.multi_step_kernel(init_cloth_state(c, device=dev), p, dt,
+                                    n), p
+
+    def window(x, lo, hi, h):
+        o = torch.zeros(x.shape[:-2] + (hi - lo, x.shape[-1]),
+                        dtype=x.dtype, device=x.device)
+        a, b = max(lo, 0), min(hi, h)
+        o[..., a - lo:b - lo, :] = x[..., a:b, :]
+        return o
+
+    s256, p256 = draped(c256, 2400)
+    c60 = ClothConfig()
+    s60, p60 = draped(c60, 1440)
+    prm256 = ck._pack_params(p256, dt)
+    k1 = {"k1_flagship_8": (s256, p256, 8), "k1_flagship_240": (s256, p256,
+                                                                 240),
+          "k1_60_8": (s60, p60, 8), "k1_60_240": (s60, p60, 240)}
+    for key, (s, p, n) in k1.items():
+        out[key] = _best_ms(lambda: ck.multi_step_kernel(s, p, dt, n),
+                            inner=max(1, inner * 8 // n)) / n
+        if args.check:
+            checks[key] = _equal(
+                tuple(ck.multi_step_kernel(s, p, dt, n)[:2]),
+                tuple(ck.multi_step_plain(s, p, dt, n)[:2]))
+    out["k1_trace"] = _best_ms(lambda: ck.trace(s256, prm256, 49),
+                               inner=4) / 48
+    if args.check:
+        checks["k1_trace"] = _equal(ck.trace(s256, prm256, 49),
+                                    ck.trace_plain(s256, prm256, 49))
+
+    cbig = ClothConfig(height=1000, width=1030)
+    pbig = ClothParams.from_config(cbig, device=dev)
+    sbig = init_cloth_state(cbig, device=dev)
+    out["k6_1000x1030"] = _best_ms(lambda: ck.multi_step(sbig, pbig, dt, 48)
+                                   ) / 48
+    if args.check:
+        checks["k6_1000x1030"] = _equal(
+            tuple(ck.multi_step(sbig, pbig, dt, 48)[:2]),
+            tuple(ctk.multi_step_plain(sbig, pbig, dt, 48)[:2]))
+    del sbig
+
+    worlds = datagen.randomized_worlds(
+        c60, 1024, torch.Generator().manual_seed(0), device=dev)
+    ws, wp = worlds.state, worlds.params
+    out["k5_1024"] = _best_ms(lambda: ck.multi_step_kernel(ws, wp, dt, 1),
+                              inner=inner)
+    if args.check:
+        checks["k5_1024"] = _equal(
+            tuple(ck.multi_step_kernel(ws, wp, dt, 24)[:2]),
+            tuple(ck.multi_step_plain(ws, wp, dt, 24)[:2]))
+    del worlds, ws
+
+    c1024 = ClothConfig(height=1024, width=1024)
+    p1024 = ClothParams.from_config(c1024, device=dev)
+    s1024 = init_cloth_state(c1024, device=dev)
+    wins = {"k1w_rows": ([window(a, 254, 514, 1024)
+                          for a in (s1024.pos, s1024.vel)], 254, 1024),
+            "k1w_composed": ([window(a, 124, 260, 256)
+                              for a in (s256.pos, s256.vel)], 124, 256)}
+    for key, (win, row0, hg) in wins.items():
+        pw = p1024 if hg == 1024 else p256
+        out[key] = _best_ms(lambda: ck.multi_step_window_kernel(
+            *win, None, None, pw, dt, 240, row0, hg)) / 240
+        if args.check:
+            checks[key] = _equal(
+                ck.multi_step_window_kernel(*win, None, None, pw, dt, 8, row0,
+                                            hg),
+                ck.multi_step_window_plain(*win, None, None, pw, dt, 8, row0,
+                                           hg))
+    del s1024
+
+    fext = torch.randn(s256.pos.shape,
+                       generator=torch.Generator().manual_seed(9)).to(dev)
+    out["k1f_256"] = _best_ms(lambda: ck.substep_with_force_kernel(
+        s256, p256, dt, fext), inner=inner)
+    if args.check:
+        checks["k1f_256"] = _equal(
+            tuple(ck.substep_with_force_kernel(s256, p256, dt, fext)[:2]),
+            tuple(ck.substep_with_force_plain(s256, p256, dt, fext)[:2]))
+
+    out["k1_flagship_8_device_us"] = _device_us(
+        lambda: ck.multi_step_kernel(s256, p256, dt, 8))
 
 
 def _raster(args, out, checks, dev, c256, configs):

@@ -2,9 +2,11 @@
 
 The counterpart of ``wgpu_physics_engine_tpu/core/state.py``: the same
 fields, the same channels-first ``[3, H, W]`` layout, the same fp32 values
-bit for bit. Every tensor lives on the device the caller names; params are
-0-d fp32 tensors, so the egui-slider equivalents (gravity, damping, radii —
-``cloth.rs:1383-1451``) rewrite a tensor and rebuild no kernel.
+bit for bit. Every tensor lives on the device the caller names: the card
+(``"cuda"``) by default, as in the scenes and the CLI (the tests pass
+``device="cpu"``). Params are 0-d fp32 tensors, so the egui-slider
+equivalents (gravity, damping, radii — ``cloth.rs:1383-1451``) rewrite a
+tensor and rebuild no kernel.
 
 ``params_from_numpy`` / ``state_from_numpy`` carry the JAX package's
 NamedTuples across (after ``np.asarray`` on each leaf), so a state stepped
@@ -53,7 +55,7 @@ class ClothParams(NamedTuple):
     particle_radius: torch.Tensor
 
     @classmethod
-    def from_config(cls, c: cfg.ClothConfig, device=None) -> "ClothParams":
+    def from_config(cls, c: cfg.ClothConfig, device="cuda") -> "ClothParams":
         return cls(**{f: _f32(getattr(c, f), device) for f in cls._fields})
 
 
@@ -83,7 +85,7 @@ class ParticleParams(NamedTuple):
 
     @classmethod
     def from_config(cls, c: cfg.FreeParticleConfig,
-                    device=None) -> "ParticleParams":
+                    device="cuda") -> "ParticleParams":
         return cls(bounds=_f32(c.bounds, device), radius=_f32(c.radius, device),
                    gravity=_f32(c.gravity, device),
                    damping=_f32(c.damping, device))
@@ -102,7 +104,7 @@ def _f32(v, device) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=device)
 
 
-def init_cloth_state(c: cfg.ClothConfig, device=None) -> ClothState:
+def init_cloth_state(c: cfg.ClothConfig, device="cuda") -> ClothState:
     """Initial grid: row r → x, col c → z, y = spawn height.
 
     Mirrors ``generate_instances`` (cloth.rs:848-893):
@@ -126,7 +128,7 @@ def init_cloth_state(c: cfg.ClothConfig, device=None) -> ClothState:
     return ClothState(pos=pos, vel=vel)
 
 
-def params_from_numpy(p, device=None) -> ClothParams:
+def params_from_numpy(p, device="cuda") -> ClothParams:
     """The JAX package's ``ClothParams`` (leaves as numpy or anything
     ``np.asarray`` takes) → the port's, on ``device``."""
     return ClothParams(**{
@@ -135,7 +137,7 @@ def params_from_numpy(p, device=None) -> ClothParams:
         for f in ClothParams._fields})
 
 
-def state_from_numpy(s, device=None) -> ClothState:
+def state_from_numpy(s, device="cuda") -> ClothState:
     """The JAX package's ``ClothState`` → the port's, on ``device``."""
     def conv(a, dtype):
         if a is None:
@@ -147,7 +149,7 @@ def state_from_numpy(s, device=None) -> ClothState:
                       pin_pos=conv(s.pin_pos, np.float32))
 
 
-def particle_state_from_numpy(s, device=None) -> ParticleState:
+def particle_state_from_numpy(s, device="cuda") -> ParticleState:
     """The JAX package's ``ParticleState`` (``pos``/``vel`` ``[3, N]``, as
     numpy or anything ``np.asarray`` takes) → the port's, on ``device``."""
     return ParticleState(
@@ -156,7 +158,7 @@ def particle_state_from_numpy(s, device=None) -> ParticleState:
 
 
 
-def particle_params_from_numpy(p, device=None) -> ParticleParams:
+def particle_params_from_numpy(p, device="cuda") -> ParticleParams:
     """The JAX package's ``ParticleParams`` → the port's, on ``device``."""
     return ParticleParams(**{
         f: torch.tensor(np.asarray(getattr(p, f), np.float32), device=device)

@@ -42,7 +42,14 @@
 // bound by device memory.
 // The faster design keeps each 60x60 world's six planes (86 KB) in shared
 // memory across all substeps of a call, one CTA per world; it is a later
-// step, as is fusing substeps for K1.
+// step. Running all of K1's substeps in one cooperative launch (bands of
+// rows kept in shared memory, their boundary rows exchanged through L2
+// behind a grid barrier, neighbour flags or tagged words) measured level
+// with a launch a substep at 256^2 (H100 SXM, 700 W): 8 substeps took
+// 53.5 us of device time in one launch against 45.8 us in 8, whose ~1.1
+// us gaps it removes; the body is latency bound at 16 warps an SM either
+// way, and the exchange inside the launch costs what the gaps did
+// (PERF.md).
 //
 // Neighbours must read the old state, so every substep writes the other
 // of two buffers (never in place); the host loop launches n_steps substeps

@@ -58,12 +58,26 @@
 //
 // Design: a CTA takes `cta` consecutive sorted slots of one rebuild block
 // (cta divides the block) with L lanes a slot. Sorted order keeps a
-// block's windows inside its two slabs. Group by group, the CTA stages in
-// shared memory, with coalesced loads, the part of slab A (and of slab B
-// when the block needs it, a CTA-uniform test) that its windows reach
-// (positions, and for K12 the tangents beside them): in CIV mode a
-// window's ends grow with the sorted cid, so the CTA's first and last
-// slots bound that part without a reduction. The L lanes of a slot walk
+// block's windows inside its two slabs. Two walks, picked by the candidate
+// set (`ops/granular_kernel.py` `walk_geometry`):
+//   * staged (a thin set, 3 groups of long windows): group by group, the
+//     CTA stages in shared memory, with coalesced loads, the part of slab A
+//     (and of slab B when the block needs it, a CTA-uniform test) that its
+//     windows reach (positions, and for K12 the tangents beside them): in
+//     CIV mode a window's ends grow with the sorted cid, so the CTA's first
+//     and last slots bound that part without a reduction. A window of
+//     ~10^3 candidates reads each staged slot many times;
+//   * direct (the full set, 9 groups of ~6 candidates each): nothing is
+//     staged and nothing synchronizes; each slot reads its candidates from
+//     global memory. Staging cost the full set up to 18 dependent round
+//     trips to L2 a CTA, each between two barriers, around ~6 candidates of
+//     walk; read directly, the sorted positions (12 MB at 1M) stay in L2,
+//     neighbouring slots' windows overlap in L1 and the warps of a CTA
+//     never wait on each other. What a slot still waits on is latency, so
+//     it reads kDirectBatch candidates before it computes any and reads
+//     the next group's window while it walks this one. The CTA may be any
+//     divisor of the block (the CTA size measured the same from 32 to 128).
+// The L lanes of a slot walk
 // its window in stride (lane l takes candidates l, l + L, ...), each with
 // its own double sums; a fixed butterfly of shuffles merges the L partial
 // sums (every lane ends with the same bits), and the group's sum is
@@ -199,6 +213,80 @@ __device__ __forceinline__ void pair_sums(
   }
 }
 
+// The same sums for the direct walk, which reads the candidates from global
+// memory: a lane reads kDirectBatch of its candidates before it computes
+// any, so that their loads are in flight together, and sums them in slot
+// order, the terms as in pair_sums (the tangent read only where the pair
+// touches, from the planes tx, ty, tz).
+constexpr int kDirectBatch = 4;
+
+template <bool JVP, int L>
+__device__ __forceinline__ void pair_sums_direct(
+    unsigned mask, int lane, const float p[3], const float u[3], int lo,
+    int hi, const float* sx, const float* sy, const float* sz,
+    const float* tx, const float* ty, const float* tz, float md, float md2,
+    float kc, float f[3], float t[3]) {
+  double g0 = 0.0, g1 = 0.0, g2 = 0.0;
+  double h0 = 0.0, h1 = 0.0, h2 = 0.0;
+  for (int j0 = lo + lane; j0 < hi; j0 += kDirectBatch * L) {
+    float qx[kDirectBatch], qy[kDirectBatch], qz[kDirectBatch];
+#pragma unroll
+    for (int k = 0; k < kDirectBatch; ++k) {
+      const int j = j0 + k * L;
+      if (j < hi) {
+        qx[k] = sx[j];
+        qy[k] = sy[j];
+        qz[k] = sz[j];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kDirectBatch; ++k) {
+      const int j = j0 + k * L;
+      if (j >= hi) break;
+      const float dx = p[0] - qx[k];
+      const float dy = p[1] - qy[k];
+      const float dz = p[2] - qz[k];
+      const float d2 = dx * dx + dy * dy + dz * dz;
+      if (d2 < md2 && d2 > 1e-12f) {
+        const float inv = 1.0f / sqrtf(d2);
+        const float w = kc * (md * inv - 1.0f);
+        g0 += static_cast<double>(w * dx);
+        g1 += static_cast<double>(w * dy);
+        g2 += static_cast<double>(w * dz);
+        if (JVP) {
+          const float dux = u[0] - tx[j];
+          const float duy = u[1] - ty[j];
+          const float duz = u[2] - tz[j];
+          const float dot = dx * dux + dy * duy + dz * duz;
+          const float g = kc * md * inv * inv * inv * dot;
+          h0 += static_cast<double>(w * dux - g * dx);
+          h1 += static_cast<double>(w * duy - g * dy);
+          h2 += static_cast<double>(w * duz - g * dz);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = L / 2; m >= 1; m /= 2) {
+    g0 += __shfl_xor_sync(mask, g0, m);
+    g1 += __shfl_xor_sync(mask, g1, m);
+    g2 += __shfl_xor_sync(mask, g2, m);
+    if (JVP) {
+      h0 += __shfl_xor_sync(mask, h0, m);
+      h1 += __shfl_xor_sync(mask, h1, m);
+      h2 += __shfl_xor_sync(mask, h2, m);
+    }
+  }
+  f[0] = static_cast<float>(g0);
+  f[1] = static_cast<float>(g1);
+  f[2] = static_cast<float>(g2);
+  if (JVP) {
+    t[0] = static_cast<float>(h0);
+    t[1] = static_cast<float>(h1);
+    t[2] = static_cast<float>(h2);
+  }
+}
+
 // The window [ws, we) of sorted particle i in group g: from the table
 // `wins` or, when it is null, from the cid `ci`, `cell_start` and the
 // group's cid interval.
@@ -227,8 +315,9 @@ __device__ __forceinline__ void slab_ranges(int ws, int we, int oa, int ob,
 }
 
 // The pair force on sorted particle i of slab block b (and with JVP its
-// directional derivative along its tangent u), lane `lane` of its L. Every
-// thread of the CTA calls it (it stages and synchronizes); `live` marks
+// directional derivative along its tangent u), lane `lane` of its L: the
+// staged walk. Every thread of the CTA calls it (it stages and
+// synchronizes); `live` marks
 // the threads that own a particle, `first` and `last` are the CTA's first
 // and last live slots. The candidate set: windows from the table `wins`
 // or, when it is null, from `cid`, `cell_start` and the groups' cid
@@ -311,6 +400,65 @@ __device__ __forceinline__ void contact_force(
   }
 }
 
+// The same pair force by the direct walk: nothing staged, no barrier, so
+// a thread may own no particle (`live` false: empty ranges) and the CTA
+// may be any divisor of the block. Group by group the window's part in
+// slab A and in slab B is walked reading each candidate from `pos` (and
+// `tan`), kDirectBatch candidates a load, and the sums are added in the
+// staged walk's order. The next group's window is read before the walk of
+// this one, so its dependent round trip to L2 overlaps the walk.
+template <bool JVP, int L>
+__device__ __forceinline__ void contact_force_direct(
+    const float* __restrict__ pos, const float* __restrict__ tan,
+    const int* __restrict__ cid, const int* __restrict__ cell_start,
+    const int* __restrict__ wins, const int* __restrict__ off,
+    const Groups& grp, int64_t n, int ng, int slab, int ncells, int b, int i,
+    bool live, int lane, const float p[3], const float u[3], float md,
+    float kc, float f[3], float t[3]) {
+  const float md2 = md * md;
+  const int* ob_off = off + static_cast<int64_t>(b) * ng * 2;
+  const unsigned mask = warp_lanes();
+  const int ci = live && wins == nullptr ? cid[i] : 0;
+  int ws_next = 0, we_next = 0;
+  if (live) window(cell_start, wins, grp, n, ng, ncells, 0, i, ci, ws_next,
+                   we_next);
+  float a[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};   // slab A sums (f, t)
+  float bb[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // slab B sums
+  float gf[3], gt[3];
+  for (int g = 0; g < ng; ++g) {
+    const int ws = ws_next, we = we_next;
+    if (live && g + 1 < ng)
+      window(cell_start, wins, grp, n, ng, ncells, g + 1, i, ci, ws_next,
+             we_next);
+    int r[4] = {0, 0, 0, 0};
+    if (live) slab_ranges(ws, we, ob_off[2 * g], ob_off[2 * g + 1], slab, r);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // every lane of `mask` takes part, its range empty or not
+      pair_sums_direct<JVP, L>(mask, lane, p, u, r[2 * half],
+                               r[2 * half + 1], pos, pos + n, pos + 2 * n,
+                               tan, tan + n, tan + 2 * n, md, md2, kc, gf,
+                               gt);
+#pragma unroll
+      for (int e = 0; e < (JVP ? 6 : 3); ++e) {
+        const float v = e < 3 ? gf[e] : gt[e - 3];
+        if (half == 0)
+          a[e] += v;
+        else
+          bb[e] += v;
+      }
+    }
+  }
+  f[0] = a[0] + bb[0];
+  f[1] = a[1] + bb[1];
+  f[2] = a[2] + bb[2];
+  if (JVP) {
+    t[0] = a[3] + bb[3];
+    t[1] = a[4] + bb[4];
+    t[2] = a[5] + bb[5];
+  }
+}
+
 __device__ __forceinline__ void wall(float& p, float& v, float lim, float e) {
   const bool hit = (p < -lim && v < 0.0f) || (p > lim && v > 0.0f);
   p = fminf(fmaxf(p, -lim), lim);
@@ -330,8 +478,8 @@ __device__ __forceinline__ void load3(const float* __restrict__ a, int64_t n,
 // * cta) / block): its own position and the slabs come from the full array
 // pos [3, n], its velocity from the local vel [3, n_local] and lane 0
 // writes its outputs to the local pos_out, vel_out [3, n_local]. base = 0,
-// n_local = n is K10 as it always was.
-template <int L>
+// n_local = n is K10 as it always was. STAGE picks the staged walk.
+template <int L, bool STAGE>
 __global__ void granular_step_kernel(
     const float* __restrict__ prm, const float* __restrict__ pos,
     const float* __restrict__ vel, const int* __restrict__ cid,
@@ -356,10 +504,16 @@ __global__ void granular_step_kernel(
   float p[3] = {0.0f, 0.0f, 0.0f};
   if (live) load3(pos, n, i, p);
   float f[3], u[3];
-  contact_force<false, L>(
-      pos, nullptr, cid, cell_start, wins, off, grp, n, ng, slab, ncells, b,
-      i, live, lane, base + t0, base + min(t0 + cta, n_local_) - 1, p, p, md,
-      kc, s_slab, s_spans, f, u);
+  if (STAGE) {
+    contact_force<false, L>(
+        pos, nullptr, cid, cell_start, wins, off, grp, n, ng, slab, ncells, b,
+        i, live, lane, base + t0, base + min(t0 + cta, n_local_) - 1, p, p,
+        md, kc, s_slab, s_spans, f, u);
+  } else {
+    contact_force_direct<false, L>(pos, nullptr, cid, cell_start, wins, off,
+                                   grp, n, ng, slab, ncells, b, i, live, lane,
+                                   p, p, md, kc, f, u);
+  }
   if (!live || lane != 0) return;
 
   const float fy = f[1] + grav;                      // unit mass
@@ -382,8 +536,8 @@ __global__ void granular_step_kernel(
 
 // K11 (JVP false): out f32 [3, n]. K12 (JVP true): out f32 [6, n], f in
 // rows 0-2 and J.u in rows 3-5. Slot i = blockIdx.x * cta + threadIdx.x /
-// L, lane threadIdx.x % L; lane 0 writes.
-template <bool JVP, int L>
+// L, lane threadIdx.x % L; lane 0 writes. STAGE picks the staged walk.
+template <bool JVP, int L, bool STAGE>
 __global__ void granular_forces_kernel(
     const float* __restrict__ prm, const float* __restrict__ pos,
     const float* __restrict__ tan, const int* __restrict__ cid,
@@ -407,10 +561,16 @@ __global__ void granular_forces_kernel(
     if (JVP) load3(tan, n, i, u);
   }
   float f[3], t[3];
-  contact_force<JVP, L>(pos, tan, cid, cell_start, wins, off, grp, n, ng,
-                        slab, ncells, b, i, live, lane, first,
-                        min(first + cta, n_) - 1, p, u, md, kc, s_slab,
-                        s_spans, f, t);
+  if (STAGE) {
+    contact_force<JVP, L>(pos, tan, cid, cell_start, wins, off, grp, n, ng,
+                          slab, ncells, b, i, live, lane, first,
+                          min(first + cta, n_) - 1, p, u, md, kc, s_slab,
+                          s_spans, f, t);
+  } else {
+    contact_force_direct<JVP, L>(pos, tan, cid, cell_start, wins, off, grp, n,
+                                 ng, slab, ncells, b, i, live, lane, p, u, md,
+                                 kc, f, t);
+  }
   if (!live || lane != 0) return;
   out[i] = f[0];
   out[n + i] = f[1];
@@ -422,34 +582,44 @@ __global__ void granular_forces_kernel(
   }
 }
 
-// Calls f with std::integral_constant<int, L> for lanes L in {1, 2, 4, 8}.
-template <typename F>
+// Calls f with std::integral_constant<int, L> for lanes L in {1, 2, 4, 8}
+// and std::integral_constant<bool, S>.
+template <bool S, typename F>
 int with_lanes(int lanes, F&& f) {
+  using St = std::integral_constant<bool, S>;
   switch (lanes) {
     case 1:
-      return f(std::integral_constant<int, 1>{});
+      return f(std::integral_constant<int, 1>{}, St{});
     case 2:
-      return f(std::integral_constant<int, 2>{});
+      return f(std::integral_constant<int, 2>{}, St{});
     case 4:
-      return f(std::integral_constant<int, 4>{});
+      return f(std::integral_constant<int, 4>{}, St{});
     case 8:
-      return f(std::integral_constant<int, 8>{});
+      return f(std::integral_constant<int, 8>{}, St{});
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// with_lanes for the staged walk (stage != 0) or the direct one.
+template <typename F>
+int with_walk(int lanes, int stage, F&& f) {
+  return stage != 0 ? with_lanes<true>(lanes, f) : with_lanes<false>(lanes, f);
+}
+
 // Checks the launch geometry (cta slots of `lanes` lanes a CTA, cta dividing
-// the block, at least ng threads), fills the groups' cid intervals from
-// the host table `bounds` (CIV mode) and raises the dynamic shared memory
-// limit of `kernel` to `bytes`; returns 0 or a cudaError_t.
+// the block, and when it stages at least ng threads), fills the groups' cid
+// intervals from the host table `bounds` (CIV mode) and raises the dynamic
+// shared memory limit of `kernel` to `bytes` (0: the direct walk); returns
+// 0 or a cudaError_t.
 template <typename Kernel>
 int prepare(Kernel kernel, const int* cid, const int* cell_start,
             const int* wins, const int* bounds, int n, int ng, int block,
             int slab, int lanes, int cta, size_t bytes, Groups* grp) {
   if (ng < 1 || ng > kMaxGroups || block < 1 || block > 1024 || slab < 1 ||
       n < 0 || cta < 1 || block % cta != 0 ||
-      static_cast<int64_t>(cta) * lanes > 1024 || cta * lanes < ng)
+      static_cast<int64_t>(cta) * lanes > 1024 ||
+      (bytes > 0 && cta * lanes < ng))
     return cudaErrorInvalidValue;
   if (wins == nullptr && (cid == nullptr || cell_start == nullptr))
     return cudaErrorInvalidValue;
@@ -466,9 +636,10 @@ int prepare(Kernel kernel, const int* cid, const int* cell_start,
       static_cast<int>(bytes)));
 }
 
-// Dynamic shared memory of one staged span: 3 (JVP: 6) planes of floats.
-size_t span_bytes(int slab, bool jvp) {
-  return static_cast<size_t>(slab) * (jvp ? 24 : 12);
+// Dynamic shared memory of one staged span: 3 (JVP: 6) planes of floats;
+// none for the direct walk.
+size_t span_bytes(int slab, bool jvp, bool stage) {
+  return stage ? static_cast<size_t>(slab) * (jvp ? 24 : 12) : 0;
 }
 
 }  // namespace
@@ -483,28 +654,31 @@ size_t span_bytes(int slab, bool jvp) {
 // cell_start i32 [ncells + 3], bounds (host) i32 [2 * ng] (lo_g...,
 // hi_g...). base must be a multiple of block and base + n_local <= n.
 // The walk: `cta` slots a CTA (dividing the block), `lanes` (1, 2, 4 or 8)
-// lanes a slot. Outputs pos_out, vel_out f32 [3, n_local].
+// lanes a slot, `stage` 1 for the staged walk and 0 for the direct one.
+// Outputs pos_out, vel_out f32 [3, n_local].
 extern "C" int wpe_granular_step(const float* prm, const float* pos,
                                  const float* vel, const int* cid,
                                  const int* cell_start, const int* wins,
                                  const int* off, float* pos_out,
                                  float* vel_out, const int* bounds, int n,
                                  int ng, int block, int slab, int ncells,
-                                 int lanes, int cta, int base, int n_local,
-                                 void* stream) {
-  return with_lanes(lanes, [&](auto lc) {
+                                 int lanes, int cta, int stage, int base,
+                                 int n_local, void* stream) {
+  return with_walk(lanes, stage, [&](auto lc, auto sc) {
     constexpr int L = decltype(lc)::value;
+    constexpr bool S = decltype(sc)::value;
     Groups grp;
-    const size_t smem = span_bytes(slab, false);
-    const int err = prepare(granular_step_kernel<L>, cid, cell_start, wins,
-                            bounds, n, ng, block, slab, L, cta, smem, &grp);
+    const size_t smem = span_bytes(slab, false, S);
+    const int err = prepare(granular_step_kernel<L, S>, cid, cell_start,
+                            wins, bounds, n, ng, block, slab, L, cta, smem,
+                            &grp);
     if (err != cudaSuccess) return err;
     if (base < 0 || n_local < 0 || base % block != 0 ||
         static_cast<int64_t>(base) + n_local > n)
       return static_cast<int>(cudaErrorInvalidValue);
     if (n_local == 0) return static_cast<int>(cudaSuccess);
-    granular_step_kernel<L><<<(n_local + cta - 1) / cta, cta * L, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
+    granular_step_kernel<L, S><<<(n_local + cta - 1) / cta, cta * L, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
         prm, pos, vel, cid, cell_start, wins, off, pos_out, vel_out, grp, n,
         ng, slab, ncells, block, base, n_local);
     return static_cast<int>(cudaGetLastError());
@@ -518,16 +692,17 @@ int launch_forces(const float* prm, const float* pos, const float* u,
                   const int* cid, const int* cell_start, const int* wins,
                   const int* off, float* out, const int* bounds, int n, int ng,
                   int block, int slab, int ncells, int lanes, int cta,
-                  void* stream) {
-  return with_lanes(lanes, [&](auto lc) {
+                  int stage, void* stream) {
+  return with_walk(lanes, stage, [&](auto lc, auto sc) {
     constexpr int L = decltype(lc)::value;
+    constexpr bool S = decltype(sc)::value;
     Groups grp;
-    const size_t smem = span_bytes(slab, JVP);
-    const int err = prepare(granular_forces_kernel<JVP, L>, cid, cell_start,
-                            wins, bounds, n, ng, block, slab, L, cta, smem,
-                            &grp);
+    const size_t smem = span_bytes(slab, JVP, S);
+    const int err = prepare(granular_forces_kernel<JVP, L, S>, cid,
+                            cell_start, wins, bounds, n, ng, block, slab, L,
+                            cta, smem, &grp);
     if (err != cudaSuccess || n == 0) return err;
-    granular_forces_kernel<JVP, L>
+    granular_forces_kernel<JVP, L, S>
         <<<(n + cta - 1) / cta, cta * L, smem,
            static_cast<cudaStream_t>(stream)>>>(prm, pos, u, cid, cell_start,
                                                 wins, off, out, grp, n, ng,
@@ -544,10 +719,11 @@ extern "C" int wpe_granular_forces(const float* prm, const float* pos,
                                    const int* wins, const int* off,
                                    float* f_out, const int* bounds, int n,
                                    int ng, int block, int slab, int ncells,
-                                   int lanes, int cta, void* stream) {
+                                   int lanes, int cta, int stage,
+                                   void* stream) {
   return launch_forces<false>(prm, pos, nullptr, cid, cell_start, wins, off,
                               f_out, bounds, n, ng, block, slab, ncells,
-                              lanes, cta, stream);
+                              lanes, cta, stage, stream);
 }
 
 // The pair forces and their directional derivative (K12): as
@@ -559,8 +735,9 @@ extern "C" int wpe_granular_force_jvp(const float* prm, const float* pos,
                                       const int* off, float* ft_out,
                                       const int* bounds, int n, int ng,
                                       int block, int slab, int ncells,
-                                      int lanes, int cta, void* stream) {
+                                      int lanes, int cta, int stage,
+                                      void* stream) {
   return launch_forces<true>(prm, pos, u, cid, cell_start, wins, off, ft_out,
                              bounds, n, ng, block, slab, ncells, lanes, cta,
-                             stream);
+                             stage, stream);
 }

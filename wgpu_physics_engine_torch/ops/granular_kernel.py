@@ -33,7 +33,9 @@ K11; ``contact_force_jvp_sorted`` → ``_jvp_kernel``, K12):
   :func:`contact_force_jvp_sorted_kernel` launch the three entry points of
   ``csrc/granular_step.cu`` once per call on the current stream (one slab
   walk, with :func:`lanes` lanes a sorted particle: one on the full
-  candidate set, several on a thin one, whose windows are long);
+  candidate set, several on a thin one, whose windows are long; the thin
+  set staged in shared memory, the full set read directly, see
+  :func:`walk_geometry`);
 * :func:`substep_sorted`, :func:`contact_forces_sorted` and
   :func:`contact_force_jvp_sorted` take the plain version for a CPU tensor
   and the kernel for a CUDA tensor, and raise for anything else. There is
@@ -80,11 +82,11 @@ LAUNCHES_FORCES = 0
 LAUNCHES_JVP = 0
 
 _SIGNATURES = {
-    "wpe_granular_step": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+    "wpe_granular_step": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
                          + [ctypes.c_void_p],
-    "wpe_granular_forces": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    "wpe_granular_forces": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                            + [ctypes.c_void_p],
-    "wpe_granular_force_jvp": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+    "wpe_granular_force_jvp": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                               + [ctypes.c_void_p],
 }
 
@@ -577,17 +579,30 @@ def lanes(slabs: SlabSet, n: int, resident: int) -> int:
     return n_lanes
 
 
-def walk_geometry(slabs: SlabSet, n: int, resident: int) -> Tuple[int, int]:
-    """``(lanes, cta)``: lanes a slot (:func:`lanes`) and slots a CTA of
-    the kernels' walk. One lane: a CTA a rebuild block, as the slab
-    offsets are cut. Several: the largest divisor of the block that keeps
-    the CTA within :data:`CTA_THREADS` threads (every CTA then lies in one
-    block)."""
+def staged(slabs: SlabSet) -> bool:
+    """Whether the kernels' walk stages its slabs in shared memory: on a
+    thin set (3 groups of long windows, each staged slot read by many of
+    them), not on the full set (9 groups of ~6 candidates each), where
+    staging group by group, two barriers a group and slab, cost more than
+    the walk; the direct walk reads each candidate from global memory (L2,
+    and L1 for the overlapping windows of neighbouring slots)."""
+    return slabs.ng <= 3
+
+
+def walk_geometry(slabs: SlabSet, n: int, resident: int
+                  ) -> Tuple[int, int, bool]:
+    """``(lanes, cta, stage)``: lanes a slot (:func:`lanes`), slots a CTA
+    of the kernels' walk and whether it stages (:func:`staged`). One lane:
+    a CTA a rebuild block, as the slab offsets are cut (the direct walk
+    measured the same with CTAs of 32 to 128 slots). Several: the largest
+    divisor of the block that keeps the CTA within :data:`CTA_THREADS`
+    threads (every CTA then lies in one block)."""
     n_lanes = lanes(slabs, n, resident)
+    stage = staged(slabs)
     if n_lanes == 1:
-        return 1, slabs.block
+        return 1, slabs.block, stage
     cap = max(1, min(slabs.block, CTA_THREADS // n_lanes))
-    return n_lanes, _largest_divisor(slabs.block, cap)
+    return n_lanes, _largest_divisor(slabs.block, cap), stage
 
 
 @functools.lru_cache(maxsize=None)
@@ -610,9 +625,9 @@ def _resident(index: int) -> int:
 def _cand_args(slabs: SlabSet, n: int, dev, slots: Optional[int] = None):
     """The candidate set as the C entry points take it: ``(cid, cell_start,
     windows, off)`` pointers (None where unused), the host bounds table, and
-    ``(ng, block, slab, ncells, lanes, cta)`` for a launch over ``slots``
-    of the ``n`` sorted slots (all by default); plus the tensors the
-    pointers read, which the caller keeps alive over the launch."""
+    ``(ng, block, slab, ncells, lanes, cta, stage)`` for a launch over
+    ``slots`` of the ``n`` sorted slots (all by default); plus the tensors
+    the pointers read, which the caller keeps alive over the launch."""
     block, slab, ng = slabs.block, slabs.slab, slabs.ng
     if not 1 <= block <= 1024 or slab < 1 or not 1 <= ng <= 9:
         raise ValueError(f"granular kernel takes 1 <= block <= 1024, slab >= 1 "
@@ -639,9 +654,9 @@ def _cand_args(slabs: SlabSet, n: int, dev, slots: Optional[int] = None):
         ncells = cs.shape[0] - 3
         for g, (lo, hi) in enumerate(slabs.bounds):
             bounds[g], bounds[ng + g] = lo, hi
-    dims = (ng, block, slab, ncells,
-            *walk_geometry(slabs, n if slots is None else slots,
-                           resident_threads(dev)))
+    n_lanes, cta, stage = walk_geometry(slabs, n if slots is None else slots,
+                                        resident_threads(dev))
+    dims = (ng, block, slab, ncells, n_lanes, cta, int(stage))
     return ptrs, bounds, dims, keep
 
 

@@ -57,7 +57,7 @@ class WorldBatch(NamedTuple):
     params: ClothParams        # each leaf [B]
 
 
-def world_batch_from_numpy(batch, device=None) -> WorldBatch:
+def world_batch_from_numpy(batch, device="cuda") -> WorldBatch:
     """The JAX package's ``datagen.WorldBatch`` (leaves as numpy or
     anything ``np.asarray`` takes: state ``[B, ...]``, params ``[B]``) →
     the port's, on ``device``."""

@@ -34,8 +34,9 @@ CLI's ``cube``, ``textured`` and ``globe``); and the flagship cloth at
 particles, which takes the temporal-blocking kernel K6 of
 ``ops/csrc/cloth_tiled.cu``, with its gradient; and the multi-device
 paths on four shards of the one card (``parallel.mesh``: the 1024² cloth
-cut into bands of rows with halo exchange on the row-window kernel K1w,
-a batch of row-sharded 256² worlds, worlds-sharded K5;
+cut into bands of rows with halo exchange on the row-window kernel K6w of
+``ops/csrc/cloth_tiled.cu`` (each shard's window lies above 100,000
+particles), a batch of row-sharded 256² worlds on K1w, worlds-sharded K5;
 ``parallel.granular_mesh``: the 1M pile cut into blocks of sorted slots
 on the granular kernel with a base, K10b, and the worlds-sharded granular
 gradient; ``examples/multichip_datagen.py``). Phases:
@@ -66,8 +67,9 @@ gradient; ``examples/multichip_datagen.py``). Phases:
    worlds and on the datagen CLI's 64; K11 on the self-collision set and
    at 1M; the raster on the flagship frame, a datagen chunk, the datagen
    CLI's call, the granular, self-collision, free-particle CLI and
-   large-grid frames and a multi-device shard; K1w on a rows shard's and
-   a composed shard's window), and the script prints the kernels ranked
+   large-grid frames and a multi-device shard; K6w on a rows shard's
+   window, K1w on a composed shard's), and the script prints the kernels
+   ranked
    by launches × (ms − bound) summed over their sites;
 7. where the time goes (PERF.md section 5): the raster's candidates per
    tile, the spread of repeated timings, and one ``torch.profiler`` trace
@@ -105,8 +107,11 @@ codec and copy with the device's idle share.
 11. the substep adjoint vs its plain version at 256² with the top row
    pinned, on phase 5's draped state (the share of particles in contact is
    reported and must be above zero) and on a free-fall state: one substep
-   (state, parameter and pin cotangents <= 1e-5 max-relative, bitwise
-   reported), ``multi_step_diff`` over a 48-substep segment (gradients of a
+   (state, parameter and pin cotangents <= 1e-5 max-relative, the state
+   and pin cotangents bit for bit) and a walk over the segment's trace
+   (one launch a substep; state and pin cotangents bit for bit, the
+   parameter cotangent <= 1e-5), ``multi_step_diff`` over a 48-substep
+   segment (gradients of a
    fixed random linear loss <= 1e-4 max-relative against the same path
    with the plain stepper, trace and adjoint), the trace's last state equal
    to the forward's output bit for bit; and the same at 1024² over 4
@@ -118,8 +123,9 @@ codec and copy with the device's idle share.
    step from the kernel gradient (240 substeps) lands the COM height within
    1e-3 of its target.
 
-Then phases 6 and 7 for the training path: the adjoint per substep beside
-its plain version and bound at 256² and at 1024², value_and_grad of 480
+Then phases 6 and 7 for the training path: the adjoint (one launch a
+substep) per substep beside its plain version and bound at 256² and at
+1024², value_and_grad of 480
 substeps at 256² (particle-steps/s; the plain path on 48), K1 per substep
 at 512² and 1024², and one ``torch.profiler`` trace of a 48-substep
 value_and_grad with the kernel time per launch, the gaps and the device's
@@ -238,11 +244,12 @@ substeps at 1024² (K6's time a launch, the gaps, the device's idle share;
 the profiler's schedule warms it up on the same call first, and the K6
 launches are matched to the traced call by correlation id).
 
-21. the multi-device paths, each shard a tensor on the one card: K1w on
-   the four row windows of the 1024² cloth (fresh and draped, top row
-   pinned; the top window's ``row0`` < 0) over k = 1, 2 and 4 substeps
-   against its plain version and, on the centre rows, against K1 and K6
-   on the whole grid, bit for bit; then, with the launch counters reset
+21. the multi-device paths, each shard a tensor on the one card: K1w and
+   K6w on the four row windows of the 1024² cloth (fresh and draped, top
+   row pinned; the top window's ``row0`` < 0, its leading rows dead) over
+   k = 1, 2 and 4 substeps against their plain versions and each other on
+   the whole windows and, on the centre rows, against K1 and K6 on the
+   whole grid, bit for bit; then, with the launch counters reset
    just before it and read just after (the references run first),
    ``spatial_multi_step`` at 1024² on 4 row shards, 480 substeps at k = 1
    and k = 2, equal bit for bit to ``cloth_kernel.multi_step`` (K6);
@@ -258,17 +265,23 @@ launches are matched to the traced call by correlation id).
    worlds of the 256² self-collision configuration (the scene's schedule)
    on 2 worlds shards, 240 substeps, each world equal bit for bit to
    ``multi_step_self_collide`` alone; ``examples/multichip_datagen.py`` at its
-   defaults; every launch count as the path predicts (K1 and K6 never,
-   K10 never). Then K10b on each of the 4 slices against its plain
+   defaults; every launch count as the path predicts (K6w on the rows
+   path, K1w on the composed one; K1 and K6 never, K10 never). Then K10b on each of the 4 slices against its plain
    version and the same rows of K10, bit for bit.
 
 Then phases 6 and 7 for the multi-device paths: K1w a substep on a 1024²
-window and on one shard's window beside K1 and K6, its plain version and
-bound; K10b's device time a launch on each slice beside K10's (traced,
+window beside K1 and K6; K6w on one rows shard's window (the raw kernel,
+the routed call over 240 substeps and in the path's calls of 2) beside K1w
+there, with its plain version and bound; K1w on a composed shard's window
+(raw and routed), its plain version and bound, and K1w against its plain
+version bit for bit on the whole of the composed path's 136×256 windows
+(the timed one, and top and bottom of the fresh and the draped cloth,
+pinned, at 1 and 2 substeps; the kernels line's ``max_abs_err`` for K1w);
+K10b's device time a launch on each slice beside K10's (traced,
 ``trace_k10b.json``), its plain version and the bound of its slice;
 particle-steps/s of the row-sharded 1024² cloth (k = 1, 2) beside K6 and
 of the grain-sharded pile beside K10; and one ``torch.profiler`` trace of
-8 row-sharded substeps at 1024² (``trace_rows_block.json``: K1w, the halo
+8 row-sharded substeps at 1024² (``trace_rows_block.json``: K6w, the halo
 copies, the rest, the device's idle share).
 
 Any failed check raises, so the script exits non-zero; with no CUDA device
@@ -283,8 +296,9 @@ of phases 10 and 21; ``granular_forces`` (K11) those of phases 16, 17 and
 21, ``granular_force_jvp`` (K12) phases 16's and 21's,
 ``cloth_step_force`` (K1f) phases 17's and 21's, ``sphere_raster_untiled``
 (K4) phase 18's, ``cloth_tiled`` (K6) phase 20's (the scene and CLI, and
-the gradient segment's forward), and ``cloth_step_window`` (K1w) and
-``granular_step_sharded`` (K10b) phase 21's.
+the gradient segment's forward), and ``cloth_tiled_window`` (K6w),
+``cloth_step_window`` (K1w) and ``granular_step_sharded`` (K10b) phase
+21's.
 Images and the full results go to ``chiprun_out/``.
 
 """
@@ -436,7 +450,7 @@ LG_SWEEP = ((1, 12, 57), (1, 24, 57), (1, 47, 57), (1, 20, 115), (2, 8, 54),
 # the multi-device paths (phase 21), all on shards of one card: the shards
 # of the rows, grains and worlds axes; the substeps of the row-sharded LG²
 # cloth and of the composed run; the substeps per exchange checked on
-# K1w's windows; the composed run's worlds of the GRID² flagship (8 worlds
+# K1w's and K6w's windows; the composed run's worlds of the GRID² flagship (8 worlds
 # on a (2, 2) worlds × rows mesh, k = 2; README's example runs 480
 # substeps on a worlds × rows mesh); the 60×60
 # worlds of the worlds-sharded K5 check; the substeps of the sharded pile's
@@ -1329,12 +1343,31 @@ def _adjoint_case(label, state, params, n_diff, card) -> dict:
     err = max(_maxdiff(a, b) for a, b in zip(k, pl))
     bitwise = bool(torch.equal(k[0], pl[0]) and torch.equal(k[1], pl[1]))
     pin_bitwise = bool(torch.equal(k[3], pl[3]))
+    # a walk of the segment's trace, the kernel against its plain version
+    traj = cloth_kernel.trace(state, prm, n_diff)
+    before = cloth_grad_kernel.LAUNCHES
+    kw = cloth_grad_kernel.walk(traj, cp, cv, prm, pins)
+    torch.cuda.synchronize()
+    n_walk = cloth_grad_kernel.LAUNCHES - before
+    pw = cloth_grad_kernel._walk_plain(traj, cp, cv, prm, pins)
+    del traj
+    walk_bitwise = bool(torch.equal(kw[0], pw[0]) and torch.equal(kw[1], pw[1])
+                        and torch.equal(kw[3], pw[3]))
+    walk_rel = _max_rel(kw[2], pw[2])
     print(f"phase 11 cloth_substep_vjp {label} @{h}x{w} pinned, 1 substep "
           f"[{card}]: max-relative {', '.join(f'{a} {b:.3e}' for a, b in rel.items())} "
           f"(<=1e-5); state cotangents bitwise {bitwise}, pin bitwise "
           f"{pin_bitwise}; max abs {err:.3e}; launches {n_launch}; particles "
-          f"in contact {contact:.4f}")
+          f"in contact {contact:.4f}; walk of {n_diff} substeps: state and "
+          f"pin cotangents bitwise {walk_bitwise}, ct_prm max-relative "
+          f"{walk_rel:.3e}, launches {n_walk}")
     _check(n_launch == 1, f"adjoint {label} launched {n_launch} times")
+    _check(n_walk == n_diff, f"adjoint walk {label} launched {n_walk} times")
+    _check(bitwise and pin_bitwise and walk_bitwise,
+           f"adjoint {label}: state or pin cotangents differ from the plain "
+           f"version (one substep {bitwise}, {pin_bitwise}; walk "
+           f"{walk_bitwise})")
+    _check(walk_rel <= 1e-5, f"adjoint walk {label}: ct_prm {walk_rel}")
     _check(all(v <= 1e-5 for v in rel.values()), f"adjoint {label}: {rel}")
     _check(float(k[3].abs().max()) > 0, f"adjoint {label}: no pin cotangent")
 
@@ -1374,6 +1407,7 @@ def _adjoint_case(label, state, params, n_diff, card) -> dict:
     _check(drel[worst] <= 1e-4, f"multi_step_diff {label}: {drel}")
     return {"contact_share": contact, "substep_rel": rel,
             "substep_bitwise": bitwise, "pin_bitwise": pin_bitwise,
+            "walk_bitwise": walk_bitwise, "walk_prm_rel": walk_rel,
             "substep_max_abs": err, "diff_rel": drel, "trace_equal": trace_ok,
             "primal_equal": primal}, err
 
@@ -1591,7 +1625,7 @@ def _grad_times(params, dev, card) -> dict:
     dev_spans, host = _trace(lambda: value_and_grad(dc.SEGMENT),
                              os.path.join(OUT, "trace_value_and_grad.json"))
     kinds = {"K1 substep_kernel": "substep_kernel",
-             "vjp_integrate": "vjp_integrate", "vjp_springs": "vjp_springs",
+             "vjp_substep": "vjp_substep",
              "reduce_partials": "reduce_partials"}
     per = {}
     for label, key in kinds.items():
@@ -1624,8 +1658,8 @@ def _grad_times(params, dev, card) -> dict:
           + ", ".join(f"{k} {v['launches']} x {v['us_per_launch']:.3f} us"
                       for k, v in per.items())
           + f"; device idle share {1.0 - busy / (t1 - t0):.4f}")
-    _check(per["vjp_integrate"]["launches"] == dc.SEGMENT
-           and per["vjp_springs"]["launches"] == dc.SEGMENT,
+    _check(per["vjp_substep"]["launches"] == dc.SEGMENT
+           and per["reduce_partials"]["launches"] == 1,
            f"value_and_grad trace: adjoint launches {per}")
     return res
 
@@ -3289,51 +3323,67 @@ def _window_of(x, lo: int, hi: int, h: int):
 
 
 def _k1w_checks(dev, card):
-    """Phase 21, part 1: K1w on the MC_SHARDS row windows of the LG² grid
-    (fresh and draped, top row pinned; the top window's row0 < 0) over k
-    of MC_KS substeps, against its plain version and, on each window's
-    centre rows, against K1 and K6 on the whole grid, bit for bit."""
+    """Phase 21, part 1: the row-window kernels on the MC_SHARDS row
+    windows of the LG² grid (fresh and draped, top row pinned; the top
+    window's row0 < 0, its leading rows dead) over k of MC_KS substeps:
+    K1w (``cloth_kernel.multi_step_window_kernel``) and K6w
+    (``cloth_tiled_kernel.multi_step_window_kernel``, which the route
+    takes for these windows) against their plain versions and each other
+    on the whole window, and on each window's centre rows against K1 and
+    K6 on the whole grid, bit for bit. Returns the results and each
+    kernel's largest difference from its plain version."""
     import torch
 
     from wgpu_physics_engine_torch.ops import cloth_kernel, cloth_tiled_kernel
 
     params, states = _k6_states(LG, LG, dev)
     h_local = LG // MC_SHARDS
-    res, err = {}, 0.0
+    res, err = {}, {"k1w": 0.0, "k6w": 0.0}
     for label, s in states.items():
         for k in MC_KS:
             k1 = cloth_kernel.multi_step_kernel(s, params, DT, k)
             k6 = cloth_tiled_kernel.multi_step_kernel(s, params, DT, k)
             halo = 2 * k
             eq_plain = eq_k1 = True
-            e = 0.0
+            e = {"k1w": 0.0, "k6w": 0.0}
             for i in range(MC_SHARDS):
                 lo, hi = i * h_local - halo, (i + 1) * h_local + halo
                 args = [_window_of(a, lo, hi, LG) for a in
                         (s.pos, s.vel, s.pin_mask, s.pin_pos)]
-                kp, kv = cloth_kernel.multi_step_window_kernel(
-                    *args, params, DT, k, lo, LG)
+                got = {"k1w": cloth_kernel.multi_step_window_kernel(
+                           *args, params, DT, k, lo, LG),
+                       "k6w": cloth_tiled_kernel.multi_step_window_kernel(
+                           *args, params, DT, k, lo, LG)}
                 pp, pv = cloth_kernel.multi_step_window_plain(
                     *args, params, DT, k, lo, LG)
+                tp, tv = cloth_tiled_kernel.multi_step_window_plain(
+                    *args, params, DT, k, lo, LG)
                 torch.cuda.synchronize()
-                e = max(e, _maxdiff(kp, pp), _maxdiff(kv, pv))
-                eq_plain &= bool(torch.equal(kp, pp) and torch.equal(kv, pv))
+                eq_plain &= bool(torch.equal(tp, pp) and torch.equal(tv, pv))
                 rows = slice(i * h_local, (i + 1) * h_local)
-                for ref in (k1, k6):
-                    eq_k1 &= bool(torch.equal(kp[:, halo:-halo],
-                                              ref.pos[:, rows])
-                                  and torch.equal(kv[:, halo:-halo],
-                                                  ref.vel[:, rows]))
-            print(f"phase 21 cloth_step_window (K1w) {label} @{LG}x{LG}, "
-                  f"{MC_SHARDS} row windows, k = {k} [{card}]: vs plain max "
-                  f"abs {e:.3e} bitwise {eq_plain}; centre rows vs K1 and K6 "
-                  f"on the whole grid bitwise {eq_k1}")
-            _check(eq_plain, f"K1w {label} k={k} differs from its plain "
-                   f"version by {e}")
-            _check(eq_k1, f"K1w {label} k={k}: centre rows differ from K1/K6")
+                for name, (kp, kv) in got.items():
+                    e[name] = max(e[name], _maxdiff(kp, pp), _maxdiff(kv, pv))
+                    eq_plain &= bool(torch.equal(kp, pp)
+                                     and torch.equal(kv, pv))
+                    for ref in (k1, k6):
+                        eq_k1 &= bool(torch.equal(kp[:, halo:-halo],
+                                                  ref.pos[:, rows])
+                                      and torch.equal(kv[:, halo:-halo],
+                                                      ref.vel[:, rows]))
+            print(f"phase 21 cloth_step_window (K1w) and cloth_tiled_window "
+                  f"(K6w) {label} @{LG}x{LG}, {MC_SHARDS} row windows, k = "
+                  f"{k} [{card}]: vs their plain versions (K1w's and the "
+                  f"tiled one) max abs K1w {e['k1w']:.3e}, K6w "
+                  f"{e['k6w']:.3e}, all four equal bitwise on the whole "
+                  f"windows {eq_plain}; centre rows vs K1 and K6 on the "
+                  f"whole grid bitwise {eq_k1}")
+            _check(eq_plain, f"K1w/K6w {label} k={k} differ from their plain "
+                   f"versions or each other by {e}")
+            _check(eq_k1, f"K1w/K6w {label} k={k}: centre rows differ from "
+                   f"K1/K6")
             res[f"{label} k={k}"] = {"err_plain": e, "bitwise_plain": eq_plain,
                                      "bitwise_k1_k6": eq_k1}
-            err = max(err, e)
+            err = {n: max(err[n], e[n]) for n in err}
     return res, err
 
 
@@ -3345,6 +3395,7 @@ def _mc_counters(reset: bool = False) -> dict:
                                                granular_kernel, raster_kernel)
 
     names = {"cloth_step_window": (cloth_kernel, "LAUNCHES_WINDOW"),
+             "cloth_tiled_window": (cloth_tiled_kernel, "LAUNCHES_WINDOW"),
              "cloth_step": (cloth_kernel, "LAUNCHES"),
              "cloth_step_batched": (cloth_kernel, "LAUNCHES_BATCHED"),
              "cloth_step_force": (cloth_kernel, "LAUNCHES_FORCE"),
@@ -3520,7 +3571,7 @@ def _phase21(dev, card):
     # ---- the checks ----
     n_rows = MC_STEPS * MC_SHARDS
     n_comp = MC_WORLDS * MC_STEPS * 2
-    exp = {"cloth_step_window": 2 * n_rows + n_comp,
+    exp = {"cloth_tiled_window": 2 * n_rows, "cloth_step_window": n_comp,
            "granular_step_sharded": MC_SHARDS * sum(MC_GR_STEPS),
            "cloth_step_batched": DG_STEPS * MC_SHARDS * (1 + 4),
            "cloth_step": 0, "cloth_tiled": 0, "granular_step": 0,
@@ -3845,7 +3896,8 @@ def _unrecorded(events, t0: float, t1: float):
 def _mc_trace(state, params, mesh, card) -> dict:
     """One torch.profiler trace of MC_TRACE_STEPS row-sharded substeps at
     LG² (k = 2, so MC_TRACE_STEPS / 2 exchange blocks) on MC_SHARDS shards
-    of one card (``trace_rows_block.json``): K1w's launches and time, the
+    of one card (``trace_rows_block.json``): the window kernel's launches
+    and time (K6w: each shard's window lies above the tiled limit), the
     halo copies and the other device ops, and the device's idle share."""
     from wgpu_physics_engine_torch.parallel import mesh as pmesh
 
@@ -3853,23 +3905,22 @@ def _mc_trace(state, params, mesh, card) -> dict:
         lambda: pmesh.spatial_multi_step(state, params, DT, MC_TRACE_STEPS,
                                          mesh, substeps_per_exchange=2),
         os.path.join(OUT, "trace_rows_block.json"), "rows_traced")
-    k1w = [(a, b) for a, b, name, _ in spans
-           if "substep_kernel_window" in name]
+    k6w = [(a, b) for a, b, name, _ in spans if "tiled_kernel" in name]
     copies = [(a, b) for a, b, name, _ in spans
-              if "substep_kernel_window" not in name
+              if "tiled_kernel" not in name
               and ("Cat" in name or "opy" in name or "emcpy" in name)]
     exp = MC_TRACE_STEPS * MC_SHARDS
-    _check(len(k1w) == exp, f"trace shows {len(k1w)} K1w launches, not {exp}")
+    _check(len(k6w) == exp, f"trace shows {len(k6w)} K6w launches, not {exp}")
     busy = _union_us([(a, b) for a, b, _, _ in spans])
-    kb, cb = _union_us(k1w), _union_us(copies)
-    res = {"k1w_launches": len(k1w), "k1w_us": kb / len(k1w),
+    kb, cb = _union_us(k6w), _union_us(copies)
+    res = {"k6w_launches": len(k6w), "k6w_us": kb / len(k6w),
            "copies": len(copies), "copy_us": cb,
-           "other_ops": len(spans) - len(k1w) - len(copies),
+           "other_ops": len(spans) - len(k6w) - len(copies),
            "other_us": busy - kb - cb, "window_us": t1 - t0,
            "device_busy_us": busy, "idle_share": 1.0 - busy / (t1 - t0)}
     print(f"phase 7 trace {MC_TRACE_STEPS} row-sharded substeps @{LG}x{LG}, "
-          f"k = 2, {MC_SHARDS} shards of one card [{card}]: K1w "
-          f"{len(k1w)} x {kb / len(k1w):.3f} us; halo copies and gathers "
+          f"k = 2, {MC_SHARDS} shards of one card [{card}]: K6w "
+          f"{len(k6w)} x {kb / len(k6w):.3f} us; halo copies and gathers "
           f"{len(copies)} ops, {cb:.1f} us; other device ops "
           f"{res['other_ops']}, {res['other_us']:.1f} us; window "
           f"{t1 - t0:.1f} us (host, profiled), device busy {busy:.1f} us; "
@@ -3877,10 +3928,54 @@ def _mc_trace(state, params, mesh, card) -> dict:
     return res
 
 
+def _k1w_composed_check(c_win, params, k: int, row0: int, dev, card):
+    """K1w on the composed path's windows against its plain version
+    (``multi_step_window_plain``) on the same inputs, bit for bit on the
+    whole window, halo and dead rows included: the timed window
+    ``c_win`` (rows ``row0`` to ``row0 + 136`` of the fresh GRID² cloth),
+    and the top and bottom windows of the fresh and the draped cloth with
+    the top row pinned (``_k6_states``; the top window's row0 < 0, its
+    leading rows dead), at 1 and ``k`` substeps. Returns the largest
+    difference and whether all are equal."""
+    import torch
+
+    from wgpu_physics_engine_torch.ops import cloth_kernel
+
+    half, halo = GRID // 2, 2 * k
+    params_s, states = _k6_states(GRID, GRID, dev)
+    cases = [("fresh, timed window", c_win + [None, None], params, row0)]
+    for label, st in states.items():
+        for lo in (-halo, half - halo):
+            cases.append((f"{label}, rows from {lo}", [
+                _window_of(a, lo, lo + half + 2 * halo, GRID)
+                for a in (st.pos, st.vel, st.pin_mask, st.pin_pos)],
+                params_s, lo))
+    err, eq = 0.0, True
+    for _, args, prm, r0 in cases:
+        for n in sorted({1, k}):
+            kp, kv = cloth_kernel.multi_step_window_kernel(
+                *args, prm, DT, n, r0, GRID)
+            pp, pv = cloth_kernel.multi_step_window_plain(
+                *args, prm, DT, n, r0, GRID)
+            torch.cuda.synchronize()
+            err = max(err, _maxdiff(kp, pp), _maxdiff(kv, pv))
+            eq &= bool(torch.equal(kp, pp) and torch.equal(kv, pv))
+    print(f"phase 6 cloth_step_window (K1w) on the composed path's "
+          f"{half + 2 * halo}x{GRID} windows ({len(cases)} windows, top and "
+          f"bottom, fresh and draped, k = 1 and {k}) [{card}]: vs its plain "
+          f"version on the whole window max abs {err:.3e}, bitwise {eq}")
+    _check(eq, f"K1w differs from its plain version on the composed "
+           f"windows by {err}")
+    return err, eq
+
+
 def _mc_times(dev, card) -> dict:
     """Phases 6 and 7 for the multi-device paths: K1w a launch on an LG²
-    window (row0 0, the whole grid) and on one shard's window beside K1
-    and K6 with its bound and its plain version; particle-steps/s of the
+    window (row0 0, the whole grid) beside K1 and K6; on one rows shard's
+    window K6w (the raw kernel, the routed ``multi_step_window`` over many
+    substeps and in the path's calls of 2) beside K1w, with its bound and
+    its plain version; on a composed shard's window K1w (raw and routed)
+    with its plain version and bound; particle-steps/s of the
     row-sharded LG² cloth (k = 1 and 2) beside the single-card path (K6),
     and of the grain-sharded 1M pile beside ``granular.multi_step`` (64
     substeps, default configuration, host clock, best of 3); one trace."""
@@ -3917,12 +4012,33 @@ def _mc_times(dev, card) -> dict:
     spl_ms = _best_ms(lambda: cloth_kernel.multi_step_window_plain(
         *win, None, None, p, DT, n_plain, row0, LG)) / n_plain
     sbm, sbb = _cloth_bound(h_win, LG, 1, n)
-    # the kernels line takes the main path's shape, one shard's window
+    tw_ms = _best_ms(lambda: cloth_tiled_kernel.multi_step_window_kernel(
+        *win, None, None, p, DT, n, row0, LG)) / n
+    tr_ms = _best_ms(lambda: cloth_kernel.multi_step_window(
+        *win, None, None, p, DT, n, row0, LG)) / n
+    tr2_ms = _best_ms(lambda: cloth_kernel.multi_step_window(
+        *win, None, None, p, DT, 2, row0, LG)) / 2
+    tpl_ms = _best_ms(lambda: cloth_tiled_kernel.multi_step_window_plain(
+        *win, None, None, p, DT, n_plain, row0, LG)) / n_plain
+    # K1w on the rows window, beside K6w
     res["k1w"] = {"ms": sw_ms, "plain_ms": spl_ms, "bound_ms": sbm / n,
                   "bound_by": sbb, "rows": h_win,
                   "window_1024": {"ms": w_ms, "k1_ms": k1_ms, "k6_ms": k6_ms,
                                   "plain_ms": pl_ms, "bound_ms": bm / n,
                                   "bound_by": bb}}
+    # the kernels line takes the main path's kernel and shape: K6w on one
+    # rows shard's window
+    res["k6w"] = {"ms": tw_ms, "routed_ms": tr_ms, "routed_2_ms": tr2_ms,
+                  "plain_ms": tpl_ms, "bound_ms": sbm / n, "bound_by": sbb,
+                  "rows": h_win, "k1w_ms": sw_ms,
+                  "schedule": cloth_tiled_kernel.pick_schedule(h_win, LG, n)}
+    print(f"phase 6 cloth_tiled_window (K6w) on a rows shard's window "
+          f"{h_win}x{LG}, schedule {res['k6w']['schedule']} [{card}]: "
+          f"{tw_ms:.5f} ms a launch (a substep, {n} back to back); the "
+          f"routed multi_step_window {tr_ms:.5f} ms a substep over {n}, "
+          f"{tr2_ms:.5f} in the path's calls of 2; K1w there {sw_ms:.5f} "
+          f"(K6w {sw_ms / tw_ms:.3f}x it); plain {tpl_ms:.5f}; bound "
+          f"{sbm / n:.5f} ms ({sbb}), K6w at {sbm / n / tw_ms:.4f} of it")
     # the composed run's shard: a (2, 2) worlds x rows mesh cuts each GRID²
     # world into 2 bands of rows, a window with the 2·k halo rows of k = 2
     # (the run calls K1w k substeps at a time; the kernel's time a launch is
@@ -3937,14 +4053,23 @@ def _mc_times(dev, card) -> dict:
              for a in (sg.pos, sg.vel)]
     c_ms = _best_ms(lambda: cloth_kernel.multi_step_window_kernel(
         *c_win, None, None, pg, DT, n, c_row0, GRID)) / n
+    cr2_ms = _best_ms(lambda: cloth_kernel.multi_step_window(
+        *c_win, None, None, pg, DT, k_c, c_row0, GRID)) / k_c
+    cpl_ms = _best_ms(lambda: cloth_kernel.multi_step_window_plain(
+        *c_win, None, None, pg, DT, n_plain, c_row0, GRID)) / n_plain
     cbm, cbb = _cloth_bound(half + 4 * k_c, GRID, 1, k_c)
     cbm /= k_c
-    res["k1w_composed"] = {"ms": c_ms, "bound_ms": cbm, "bound_by": cbb,
-                           "rows": half + 4 * k_c}
+    c_err, c_eq = _k1w_composed_check(c_win, pg, k_c, c_row0, dev, card)
+    res["k1w_composed"] = {"ms": c_ms, "routed_2_ms": cr2_ms,
+                           "plain_ms": cpl_ms, "bound_ms": cbm,
+                           "bound_by": cbb, "rows": half + 4 * k_c,
+                           "max_abs_err": c_err, "bitwise_plain": c_eq}
     print(f"phase 6 cloth_step_window (K1w) on a composed shard's window "
           f"{half + 4 * k_c}x{GRID} (k = {k_c}), {n} substeps [{card}]: "
-          f"{c_ms:.5f} ms a launch (a substep), bound {cbm:.5f} ms ({cbb}; "
-          f"the bytes once a call of {k_c})")
+          f"{c_ms:.5f} ms a launch (a substep); the routed multi_step_window "
+          f"in the path's calls of {k_c} {cr2_ms:.5f} ms a substep; plain "
+          f"{cpl_ms:.5f}; bound {cbm:.5f} ms ({cbb}; the bytes once a call "
+          f"of {k_c})")
     print(f"phase 6 cloth_step_window (K1w) @{LG}x{LG} window, {n} substeps "
           f"[{card}]: {w_ms:.5f} ms/substep; K1 {k1_ms:.5f}, K6 {k6_ms:.5f}; "
           f"plain {pl_ms:.5f}; bound {bm / n:.5f} ms ({bb}), K1w at "
@@ -3988,27 +4113,31 @@ def _mc_times(dev, card) -> dict:
 
 
 def _multi_device(dev, card):
-    """Phase 21 and its phases 6 and 7: the checks of K1w and K10b, the
-    counted main path, the timings and the trace. Returns the results and
-    the two kernels' entries of the ``kernels`` line."""
+    """Phase 21 and its phases 6 and 7: the checks of K1w, K6w and K10b,
+    the counted main path, the timings and the trace. Returns the results
+    and the three kernels' entries of the ``kernels`` line."""
     res = {}
-    res["cloth_step_window"], k1w_err = _k1w_checks(dev, card)
+    res["cloth_step_window"], win_err = _k1w_checks(dev, card)
     res["main"] = _phase21(dev, card)
     res["granular_step_sharded"], k10b_err = _k10b_checks(dev, card)
     res["times"] = t = _mc_times(dev, card)
     launches = res["main"]["launches"]
     k10b = res["granular_step_sharded"]
-    n_rows = 2 * MC_STEPS * MC_SHARDS           # phase 21's split, checked
     kernels = [
         _kernel("cloth_step_window", "cloth_step.cu", "cloth_pallas.py:763",
-                k1w_err, t["k1w"]["ms"], t["k1w"]["plain_ms"],
-                t["k1w"]["bound_ms"], t["k1w"]["bound_by"], [
-                    _site(f"rows, a shard's window of {LG}²", n_rows,
-                          t["k1w"]["ms"], t["k1w"]["bound_ms"]),
+                t["k1w_composed"]["max_abs_err"], t["k1w_composed"]["ms"],
+                t["k1w_composed"]["plain_ms"], t["k1w_composed"]["bound_ms"],
+                t["k1w_composed"]["bound_by"], [
                     _site(f"composed worlds x rows, {GRID}² worlds",
-                          launches["cloth_step_window"] - n_rows,
+                          launches["cloth_step_window"],
                           t["k1w_composed"]["ms"],
                           t["k1w_composed"]["bound_ms"])]),
+        _kernel("cloth_tiled_window", "cloth_tiled.cu", "cloth_pallas.py:763",
+                win_err["k6w"], t["k6w"]["ms"], t["k6w"]["plain_ms"],
+                t["k6w"]["bound_ms"], t["k6w"]["bound_by"], [
+                    _site(f"rows, a shard's window of {LG}²",
+                          launches["cloth_tiled_window"], t["k6w"]["ms"],
+                          t["k6w"]["bound_ms"])]),
         _kernel("granular_step_sharded", "granular_step.cu",
                 "granular_pallas.py:707", k10b_err, k10b["ms"],
                 k10b["plain_ms"], k10b["bound_ms"], k10b["bound_by"], [
@@ -4392,7 +4521,7 @@ def main() -> int:
     lgt = _k6_times(dev, card)
     results["large_grid_times"] = lgt
 
-    # ---- phase 21: the multi-device paths (K1w, K10b) ----
+    # ---- phase 21: the multi-device paths (K6w, K1w, K10b) ----
     mc, mc_kernels = _multi_device(dev, card)
     results["multi_device"] = mc
     mc_launches = mc["main"]["launches"]

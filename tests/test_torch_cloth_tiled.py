@@ -359,3 +359,91 @@ def test_multi_step_diff_through_route_bitwise(monkeypatch, tiled_calls):
     assert any(float(g.abs().max()) > 0 for g in g_on)
     for a, b in zip(g_on, g_off):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K6w: the row window on the tiles (the rows-sharded path's shard body)
+# ---------------------------------------------------------------------------
+
+def _window_rows(x, lo, hi, h):
+    """Rows [lo, hi) of ``x`` [..., h, W], zero where they leave the grid
+    (what a boundary shard's halo receives)."""
+    out = torch.zeros(x.shape[:-2] + (hi - lo, x.shape[-1]), dtype=x.dtype)
+    a, b = max(lo, 0), min(hi, h)
+    out[..., a - lo:b - lo, :] = x[..., a:b, :]
+    return out
+
+
+@pytest.fixture(scope="module")
+def draped_48x40():
+    """The draped 48 × 40 cloth (contact, friction and projection run)
+    and its params, pinned along the top row and at (20, 5)."""
+    s, tp = _draped(48, 40, [(0, c) for c in range(40)] + [(20, 5)])
+    assert _contact_share(s, tp) > 0
+    return s, tp
+
+
+@pytest.mark.parametrize("where", ["top", "middle", "bottom"])
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("pins", [False, True], ids=["free", "pinned"])
+def test_window_tiled_plain_equals_k1w_plain(draped_48x40, where, k, pins):
+    """K6w's plain version (the tiles with K1w's global-row masks) ≡
+    ``cloth_kernel.multi_step_window_plain`` bit for bit on the whole
+    window, halo and dead rows included: the top window (row0 < 0, zero
+    leading rows) and the bottom one (rows past the grid), at k ∈ {1, 2}
+    a launch, on ragged tiles, on one tile taller than the window and on
+    the default schedule."""
+    s, tp = draped_48x40
+    h, h_local = 48, 16
+    i = {"top": 0, "middle": 1, "bottom": 2}[where]
+    halo = 2 * k
+    lo, hi = i * h_local - halo, (i + 1) * h_local + halo
+    args = [_window_rows(a, lo, hi, h) for a in (s.pos, s.vel)]
+    args += ([_window_rows(s.pin_mask, lo, hi, h),
+              _window_rows(s.pin_pos, lo, hi, h)] if pins else [None, None])
+    ref = cloth_kernel.multi_step_window_plain(*args, tp, DT, 5, lo, h)
+    for schedule in ((k, 5, 13), (1, 7, 9), (k, 64, 64), None):
+        got = cloth_tiled_kernel.multi_step_window_plain(
+            *args, tp, DT, 5, lo, h, schedule=schedule)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    if where != "middle":                     # the dead rows moved
+        dead = slice(0, halo) if where == "top" else slice(-halo, None)
+        assert not torch.equal(ref[0][:, dead], args[0][:, dead])
+
+
+@pytest.mark.parametrize("where", ["top", "bottom"])
+def test_window_route_takes_tiled_plain_and_matches_jax(monkeypatch,
+                                                        where):
+    """Above the (lowered) limit ``cloth_kernel.multi_step_window`` takes
+    K6w's plain version (and K1w's at or under it), and one substep of the
+    top or bottom window equals ``cloth_pallas.multi_step_window`` through
+    JAX (interpret mode) within the one-substep contract (1e-6)."""
+    h, w, h_local, k = 48, 40, 16, 1
+    js, jp, ts, tp = _pair(h, w, seed=5, pins=[(0, c) for c in range(w)])
+    i = {"top": 0, "bottom": 2}[where]
+    lo, hi = i * h_local - 2 * k, (i + 1) * h_local + 2 * k
+    args = [_window_rows(a, lo, hi, h)
+            for a in (ts.pos, ts.vel, ts.pin_mask, ts.pin_pos)]
+    calls = []
+    plain = cloth_tiled_kernel.multi_step_window_plain
+
+    def counted(*a, **kw):
+        calls.append(a[0].shape)
+        return plain(*a, **kw)
+
+    monkeypatch.setattr(cloth_tiled_kernel, "multi_step_window_plain",
+                        counted)
+    monkeypatch.setattr(cloth_kernel, "_TILED_PARTICLE_LIMIT",
+                        (hi - lo) * w)
+    small = cloth_kernel.multi_step_window(*args, tp, DT, k, lo, h)
+    assert calls == []
+    monkeypatch.setattr(cloth_kernel, "_TILED_PARTICLE_LIMIT",
+                        (hi - lo) * w - 1)
+    got = cloth_kernel.multi_step_window(*args, tp, DT, k, lo, h)
+    assert calls == [(3, hi - lo, w)]
+    assert torch.equal(got[0], small[0]) and torch.equal(got[1], small[1])
+    jargs = [jnp.asarray(a.numpy()) for a in args]
+    ref = cloth_pallas.multi_step_window(*jargs, jp, jnp.float32(DT), k, lo,
+                                         h, interpret=True)
+    _close(got[0], ref[0], 1e-6)
+    _close(got[1], ref[1], 1e-6)

@@ -28,7 +28,10 @@ large-grid kernel (K6) is held to its plain version and to K1 bit for bit,
 and the route above ``cloth_kernel._TILED_PARTICLE_LIMIT`` to K6's launch
 count. The row-window kernel (K1w) is held to its plain version and, on a
 window's centre rows, to K1 bit for bit, and the rows path on four shards
-of one card to K1; the granular kernel with a base (K10b) to the same rows
+of one card to K1; its tiled form (K6w) to its plain version and K1w on
+whole windows, dead rows included, and to K6 on the centre rows, bit for
+bit; the one-launch adjoint's state and pin cotangents to its plain
+version bit for bit; the granular kernel with a base (K10b) to the same rows
 of K10 bit for bit and to its plain version within K10's 1e-5, and the
 grain-sharded pile to the single-device K10 path bit for bit. K11 and K12
 on the long windows of a thin self-collision set (several lanes a slot)
@@ -802,6 +805,7 @@ def test_cloth_window_kernel_matches_plain_and_k1(dev, k, pins):
     ref = cloth_kernel.multi_step_kernel(s, p, DT, k)
     h_local, halo = h // n_shards, 2 * k
     before = cloth_kernel.LAUNCHES_WINDOW
+    k6w = cloth_tiled_kernel.LAUNCHES_WINDOW
     for i in range(n_shards):
         lo, hi = i * h_local - halo, (i + 1) * h_local + halo
         args = [_window_of(s.pos, lo, hi, h), _window_of(s.vel, lo, hi, h),
@@ -815,6 +819,87 @@ def test_cloth_window_kernel_matches_plain_and_k1(dev, k, pins):
         assert torch.equal(kp[:, halo:-halo], ref.pos[:, rows])
         assert torch.equal(kv[:, halo:-halo], ref.vel[:, rows])
     assert cloth_kernel.LAUNCHES_WINDOW == before + n_shards * k
+    # the windows lie under the tiled limit: the route keeps K1w's body
+    assert cloth_tiled_kernel.LAUNCHES_WINDOW == k6w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,pins,schedule", [
+    (1, True, None), (2, False, None), (2, True, (1, 7, 29)),
+    (4, True, (2, 9, 50))])
+def test_cloth_window_k6w_matches_plain_and_k1w(dev, monkeypatch, k, pins,
+                                                schedule):
+    """K6w on the four row windows of a draped 448×256 grid (above the
+    tiled limit; the top window with zero-filled dead rows, row0 < 0)
+    against K1w's plain version and K1w's body on the whole window, and on
+    each window's centre rows against K6 on the whole grid, bit for bit;
+    the default schedule and ragged ones (k = 2 a launch included). With
+    the limit lowered the route launches K6w and not K1w."""
+    h, w, n_shards = 448, 256, 4
+    s, p = _k6_state(dev, h, w, True, [(0, c) for c in range(w)]
+                     if pins else None)
+    ref = cloth_tiled_kernel.multi_step_kernel(s, p, DT, k)
+    h_local, halo = h // n_shards, 2 * k
+    monkeypatch.setattr(cloth_kernel, "_TILED_PARTICLE_LIMIT", 1000)
+    for i in range(n_shards):
+        lo, hi = i * h_local - halo, (i + 1) * h_local + halo
+        args = [_window_of(a, lo, hi, h) for a in (s.pos, s.vel)]
+        args += ([_window_of(s.pin_mask, lo, hi, h),
+                  _window_of(s.pin_pos, lo, hi, h)] if pins
+                 else [None, None])
+        kw, k1w = (cloth_tiled_kernel.LAUNCHES_WINDOW,
+                   cloth_kernel.LAUNCHES_WINDOW)
+        got = cloth_tiled_kernel.multi_step_window_kernel(
+            *args, p, DT, k, lo, h, schedule=schedule)
+        routed = cloth_kernel.multi_step_window(*args, p, DT, k, lo, h)
+        torch.cuda.synchronize()
+        k_sub = (schedule or cloth_tiled_kernel.pick_schedule(
+            hi - lo, w, k))[0]
+        assert (cloth_tiled_kernel.LAUNCHES_WINDOW
+                == kw + -(-k // k_sub) + k)
+        assert cloth_kernel.LAUNCHES_WINDOW == k1w
+        body = cloth_kernel.multi_step_window_kernel(*args, p, DT, k, lo, h)
+        plain = cloth_kernel.multi_step_window_plain(*args, p, DT, k, lo, h)
+        for r in (routed, body, plain):
+            assert torch.equal(got[0], r[0]) and torch.equal(got[1], r[1])
+        rows = slice(i * h_local, (i + 1) * h_local)
+        assert torch.equal(got[0][:, halo:-halo], ref.pos[:, rows])
+        assert torch.equal(got[1][:, halo:-halo], ref.vel[:, rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [64, 256])
+@pytest.mark.parametrize("case", ["free", "pinned"])
+def test_adjoint_one_launch_matches_plain(dev, side, case):
+    """The one-launch substep adjoint against ``substep_vjp_plain`` (one
+    substep) and ``_walk_plain`` (a walk of 12 over the trace) at 64² and
+    256², in free fall and draped with the top row pinned: state and pin
+    cotangents bit for bit, the parameter cotangent within 1e-5
+    (float64 sums in another order, rounded once); one launch a
+    substep."""
+    s, p = _grad_state(dev, side, side, case)
+    prm = cloth_kernel._pack_params(p, DT)
+    rng = np.random.default_rng(side)
+    cp, cv = (torch.tensor(rng.standard_normal((3, side, side))
+                           .astype(np.float32), device=dev)
+              for _ in range(2))
+    pins = None if s.pin_mask is None else (s.pin_mask, s.pin_pos)
+    traj = cloth_kernel.trace(s, prm, 12)
+    refs = {1: cloth_grad_kernel.substep_vjp_plain(traj[0], cp, cv, prm,
+                                                   pins),
+            12: cloth_grad_kernel._walk_plain(traj, cp, cv, prm, pins)}
+    for n, ref in refs.items():
+        before = cloth_grad_kernel.LAUNCHES
+        got = cloth_grad_kernel._walk_kernel(traj[:n], cp, cv, prm, pins)
+        torch.cuda.synchronize()
+        assert cloth_grad_kernel.LAUNCHES == before + n
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert _max_rel(got[2], ref[2]) <= 1e-5
+        if pins is None:
+            assert got[3] is None
+        else:
+            assert torch.equal(got[3], ref[3])
+            assert float(got[3].abs().max()) > 0
 
 
 @pytest.mark.cuda

@@ -440,3 +440,50 @@ def test_dispatch_cpu_plain_and_other_devices_raise(scene):
         tcloth.multi_step_diff(batch, tp, DT, 4)
     with pytest.raises(ValueError, match="segment"):
         tcloth.multi_step_diff(ts, tp, DT, 4, segment=0)
+
+
+# ---------------------------------------------------------------------------
+# (g) The adjoint kernel's tile decomposition (csrc/cloth_grad.cu) in torch
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def draped_40x52():
+    """A draped 40 × 52 cloth (a short fall onto the globe, 300 substeps
+    of the port's plain stepper from numpy velocities), pinned along the
+    top row and at (17, 16), its packed params and two cotangents."""
+    from wgpu_physics_engine_torch.core import config as tcfg
+
+    h, w = 40, 52
+    c = tcfg.ClothConfig(height=h, width=w, center=(0.0, 12.0, 0.0),
+                         cloth_size=8.0)
+    rng = np.random.default_rng(3)
+    s = tstate.init_cloth_state(c, device="cpu")
+    s = s._replace(vel=torch.tensor(
+        (0.5 * rng.standard_normal((3, h, w))).astype(np.float32)))
+    p = tstate.ClothParams.from_config(c, device="cpu")
+    s = cloth_kernel.multi_step_plain(s, p, DT, 300)
+    pin = torch.zeros((h, w), dtype=torch.bool)
+    pin[0] = True
+    pin[17, 16] = True
+    prm = cloth_kernel._pack_params(p, DT)
+    assert int((torch.linalg.vector_norm(s.pos, dim=0) < prm[14]).sum()) > 0
+    cp, cv = (torch.tensor(rng.standard_normal((3, h, w)).astype(np.float32))
+              for _ in range(2))
+    return torch.cat([s.pos, s.vel]), (pin, s.pos), prm, cp, cv
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (8, 32), (7, 9), (13, 20),
+                                  (64, 64)])
+def test_substep_vjp_tiled_mirror_equals_plain(draped_40x52, tile):
+    """``substep_vjp_tiled`` (the kernel's decomposition: state over the
+    tile grown by 4, the incoming cotangent over the tile grown by 2, core
+    cells only) ≡ ``substep_vjp_plain`` bit for bit on the pinned, draped
+    cloth: state and pin cotangents, and the parameter cotangent summed
+    over the cores in float64 and rounded once; ragged tiles and one
+    larger than the grid included."""
+    planes, pins, prm, cp, cv = draped_40x52
+    ref = cg.substep_vjp_plain(planes, cp, cv, prm, pins)
+    got = cg.substep_vjp_tiled(planes, cp, cv, prm, pins, tile)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert float(got[3].abs().max()) > 0

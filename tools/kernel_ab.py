@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Times of the contact pair-force walk (K10, K11, K12, K10b), the cloth
-kernels (K1, its trace, K5, K1w, K1f, K6) and the tile-binned sphere
-raster (K2/K3) at their main-path shapes on one CUDA card, for comparing
-two checkouts of the repo on one machine.
+kernels (K1, its trace, K5, K1w, K6w, K1f, K6), the cloth adjoint (K7-K9)
+and the tile-binned sphere raster (K2/K3) at their main-path shapes on one
+CUDA card, for comparing two checkouts of the repo on one machine.
 
     python3 tools/kernel_ab.py [--root DIR] [--sweep] [--check]
            [--only PART [PART ...]]
@@ -26,25 +26,42 @@ events over back-to-back launches, best of 5):
   ``k1_60_240``: the reference 60×60 cloth draped 3 s; ``k6_1000x1030``:
   ``cloth_kernel.multi_step`` at 1000×1030 (above 100,000 particles: K6),
   48 substeps, ms a substep; ``k5_1024``: K5, one substep on 1,024 worlds
-  of the 60×60 cloth (the datagen chunk); ``k1w_rows``: K1w a substep on
+  of the 60×60 cloth (the datagen chunk); ``k1f_256``: K1f at 256², a
+  call of one launch;
+* part ``window``: ``k1w_rows``: K1w a substep on
   one shard's 260×1024 window of the 1024² cloth, ``k1w_composed`` on a
   composed shard's 136×256 window (240 substeps a call, as the kernel's
-  launch time; the paths call it 1 or 2 at a time); ``k1f_256``: K1f at
-  256², a call of one launch;
+  launch time; the paths call it 1 or 2 at a time); ``k6w_composed``:
+  K6w on the composed window, timed in turns with K1w there (K1w, K6w,
+  K6w, K1w, ``TURNS`` rounds, each time in ``composed_turns``, where the
+  checkout has K6w); ``k6w_rows`` and
+  ``k6w_rows_2``: ``cloth_kernel.multi_step_window``, the routed call, on
+  the rows shard's window (above 100,000 particles: K6w where the checkout
+  has it, else K1w), 240 substeps a call and a call of 2 (the path's);
+  ``rows_1024_k1_psteps`` and ``rows_1024_k2_psteps``: the rows path end
+  to end, ``spatial_multi_step`` of the 1024² cloth on 4 row shards of the
+  card, 96 substeps at k = 1 and 2, particle-steps/s by host clock;
+* ``adj_256``: ``cloth_grad_kernel.walk`` over the training segment's
+  trace, 48 substeps of the fresh 256² cloth, ms a substep (the walk's
+  reduction included), and ``adj_256_device_us``, its device time by
+  kernel from a ``torch.profiler`` trace (other tiles and the phases of a
+  CTA: ``tools/adjoint_probe.py``);
 * ``raster_flagship``: the 256×256 frame of the 256² flagship after
   ``simulate(5.0)``, 65,536 instances; ``raster_datagen``: one call on a
   chunk of 1,024 worlds of the 60×60 cloth settled 3 s, randomized
   cameras, 256×256; ``raster_granular``: the 256×256 frame of the 1M
   ``GranularScene`` after ``simulate(1.0)``;
-* with ``--sweep`` (a checkout whose walk has ``walk_geometry``), K11 and
+* with ``--sweep`` (a checkout with K6w) K6w on the rows window over tile
+  heights and widths at k = 1; (a checkout whose walk has
+  ``walk_geometry``), K11 and
   K10-thin over lanes and CTA sizes; (a checkout whose walk has
   ``staged``) K10, K11 and K12 at 1M, K10-thin and K11 on the
   self-collision set over the staged and the direct walk; and (a checkout
   whose raster has a work list) the raster over chunk sizes;
 * with ``--check``, each kernel against its plain version: the largest
   difference and whether they are equal bit for bit;
-* with ``--only`` and one or more of ``walk``, ``cloth`` and ``raster``,
-  only those parts; with ``e2e`` among them, also the host-bound loops the
+* with ``--only`` and one or more of ``walk``, ``cloth``, ``window``,
+  ``adjoint`` and ``raster``, only those parts; with ``e2e`` among them, also the host-bound loops the
   walk runs in (``self_collide_256`` and the granular value_and_grad at
   1M, host clock, best of 5).
 
@@ -59,6 +76,9 @@ import os
 import subprocess
 import sys
 import time
+
+# rounds of (K1w, K6w, K6w, K1w) on the composed window
+TURNS = 4
 
 
 def _best_ms(fn, reps: int = 5, inner: int = 1) -> float:
@@ -183,7 +203,8 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--only", nargs="+",
-                    choices=("walk", "cloth", "raster", "e2e"))
+                    choices=("walk", "cloth", "window", "adjoint", "raster",
+                             "e2e"))
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -201,7 +222,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     for name in ("granular_step", "sphere_raster", "cloth_step",
-                 "cloth_tiled"):
+                 "cloth_tiled", "cloth_grad"):
         _build.build(name)
     out = {"root": root, "card": card}
     checks = {}
@@ -224,11 +245,16 @@ def main() -> int:
                "thin": granular.GranularConfig(
                    num_particles=1_000_000, rebuild_every=16,
                    pallas_slab=640, thin=True)}
-    parts = ("walk", "cloth", "raster") if args.only is None else args.only
+    parts = (("walk", "cloth", "window", "adjoint", "raster")
+             if args.only is None else args.only)
     if "walk" in parts:
         _walk(args, out, checks, inner, dev, c256, configs, sc_set)
     if "cloth" in parts:
         _cloth(args, out, checks, inner, dev, c256)
+    if "window" in parts:
+        _window(args, out, checks, inner, dev, c256)
+    if "adjoint" in parts:
+        _adjoint(args, out, checks, dev, c256)
     if "raster" in parts:
         _raster(args, out, checks, dev, c256, configs)
     if "e2e" in parts:
@@ -378,13 +404,6 @@ def _cloth(args, out, checks, inner, dev, c256):
         return ck.multi_step_kernel(init_cloth_state(c, device=dev), p, dt,
                                     n), p
 
-    def window(x, lo, hi, h):
-        o = torch.zeros(x.shape[:-2] + (hi - lo, x.shape[-1]),
-                        dtype=x.dtype, device=x.device)
-        a, b = max(lo, 0), min(hi, h)
-        o[..., a - lo:b - lo, :] = x[..., a:b, :]
-        return o
-
     s256, p256 = draped(c256, 2400)
     c60 = ClothConfig()
     s60, p60 = draped(c60, 1440)
@@ -427,6 +446,45 @@ def _cloth(args, out, checks, inner, dev, c256):
             tuple(ck.multi_step_plain(ws, wp, dt, 24)[:2]))
     del worlds, ws
 
+
+    fext = torch.randn(s256.pos.shape,
+                       generator=torch.Generator().manual_seed(9)).to(dev)
+    out["k1f_256"] = _best_ms(lambda: ck.substep_with_force_kernel(
+        s256, p256, dt, fext), inner=inner)
+    if args.check:
+        checks["k1f_256"] = _equal(
+            tuple(ck.substep_with_force_kernel(s256, p256, dt, fext)[:2]),
+            tuple(ck.substep_with_force_plain(s256, p256, dt, fext)[:2]))
+
+    out["k1_flagship_8_device_us"] = _device_us(
+        lambda: ck.multi_step_kernel(s256, p256, dt, 8))
+
+
+def _window(args, out, checks, inner, dev, c256):
+    """The row-window kernels' timings, ms a substep (and checks and
+    sweep): K1w on the rows and composed windows, the routed call on the
+    rows window, K6w against K1w on the composed window in turns, and the
+    rows path end to end."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import (ClothParams,
+                                                      init_cloth_state)
+    from wgpu_physics_engine_torch.ops import cloth_kernel as ck
+    from wgpu_physics_engine_torch.ops import cloth_tiled_kernel as ctk
+
+    dt = 1.0 / 480.0
+
+    def window(x, lo, hi, h):
+        o = torch.zeros(x.shape[:-2] + (hi - lo, x.shape[-1]),
+                        dtype=x.dtype, device=x.device)
+        a, b = max(lo, 0), min(hi, h)
+        o[..., a - lo:b - lo, :] = x[..., a:b, :]
+        return o
+
+    p256 = ClothParams.from_config(c256, device=dev)
+    s256 = ck.multi_step_kernel(init_cloth_state(c256, device=dev), p256, dt,
+                                2400)
     c1024 = ClothConfig(height=1024, width=1024)
     p1024 = ClothParams.from_config(c1024, device=dev)
     s1024 = init_cloth_state(c1024, device=dev)
@@ -444,19 +502,116 @@ def _cloth(args, out, checks, inner, dev, c256):
                                             hg),
                 ck.multi_step_window_plain(*win, None, None, pw, dt, 8, row0,
                                            hg))
+    # the routed call on the rows window (K6w above the limit, where the
+    # checkout has it), a substep of 240 and a call of 2
+    win, row0, hg = wins["k1w_rows"]
+    out["k6w_rows"] = _best_ms(lambda: ck.multi_step_window(
+        *win, None, None, p1024, dt, 240, row0, hg)) / 240
+    out["k6w_rows_2"] = _best_ms(lambda: ck.multi_step_window(
+        *win, None, None, p1024, dt, 2, row0, hg), inner=inner)
+    if args.check:
+        pin = torch.zeros((1024, 1024), dtype=torch.bool, device=dev)
+        pin[0] = True
+        top = [window(a, -2, 258, 1024) for a in
+               (s1024.pos, s1024.vel, pin, s1024.pos)]
+        for key, args_w, r0 in (("k6w_rows", win + [None, None], row0),
+                                ("k6w_rows_top_pinned", top, -2)):
+            for n in (1, 2, 8):
+                got = ck.multi_step_window(*args_w, p1024, dt, n, r0, hg)
+                checks[f"{key}_{n}"] = {
+                    "plain": _equal(got, ck.multi_step_window_plain(
+                        *args_w, p1024, dt, n, r0, hg)),
+                    "k1w": _equal(got, ck.multi_step_window_kernel(
+                        *args_w, p1024, dt, n, r0, hg))}
+    # the rows path end to end: the 1024² cloth on 4 row shards of the card,
+    # 96 substeps, host clock (the window kernel runs 1 or 2 substeps a
+    # call, so the wrapper's host work counts)
+    from wgpu_physics_engine_torch.parallel import mesh as pmesh
+
+    rows4 = pmesh.make_mesh((4,), ("rows",), [dev] * 4)
+    for k in (1, 2):
+        out[f"rows_1024_k{k}_psteps"] = 1024 * 1024 * 96 / _best_s(
+            lambda: pmesh.spatial_multi_step(s1024, p1024, dt, 96, rows4,
+                                             substeps_per_exchange=k))
+    if args.sweep and hasattr(ctk, "multi_step_window_kernel"):
+        sweep = {}
+        for tile_h in (4, 6, 8, 10, 12, 16, 22, 33):
+            for tile_w in (29, 57, 87):
+                sched = (1, tile_h, tile_w)
+                sweep[f"k6w_rows_{tile_h}x{tile_w}"] = _best_ms(
+                    lambda: ctk.multi_step_window_kernel(
+                        *win, None, None, p1024, dt, 240, row0, hg,
+                        schedule=sched)) / 240
+                if args.check:
+                    checks[f"k6w_rows_{tile_h}x{tile_w}"] = _equal(
+                        ctk.multi_step_window_kernel(
+                            *win, None, None, p1024, dt, 2, row0, hg,
+                            schedule=sched),
+                        ck.multi_step_window_plain(
+                            *win, None, None, p1024, dt, 2, row0, hg))
+        out["k6w_sweep"] = sweep
+    # the composed window on K6w beside K1w, in turns (K1w, K6w, K6w, K1w)
+    # within this process, where the checkout has K6w
+    if hasattr(ctk, "multi_step_window_kernel"):
+        win, row0, hg = wins["k1w_composed"]
+        fns = {"k1w_composed": ck.multi_step_window_kernel,
+               "k6w_composed": ctk.multi_step_window_kernel}
+        turns = {k: [] for k in fns}
+        for _ in range(TURNS):
+            for k in ("k1w_composed", "k6w_composed", "k6w_composed",
+                      "k1w_composed"):
+                turns[k].append(_best_ms(lambda: fns[k](
+                    *win, None, None, p256, dt, 240, row0, hg)) / 240)
+        out["composed_turns"] = turns
+        out["k6w_composed"] = min(turns["k6w_composed"])
+        if args.check:
+            top = [window(a, -4, 132, 256) for a in (s256.pos, s256.vel)]
+            for key, (w_, r0) in (("k6w_composed", (win, row0)),
+                                  ("k6w_composed_top", (top, -4))):
+                for n in (1, 2, 8):
+                    got = ctk.multi_step_window_kernel(
+                        *w_, None, None, p256, dt, n, r0, hg)
+                    checks[f"{key}_{n}"] = {
+                        "plain": _equal(got, ck.multi_step_window_plain(
+                            *w_, None, None, p256, dt, n, r0, hg)),
+                        "k1w": _equal(got, ck.multi_step_window_kernel(
+                            *w_, None, None, p256, dt, n, r0, hg))}
     del s1024
 
-    fext = torch.randn(s256.pos.shape,
-                       generator=torch.Generator().manual_seed(9)).to(dev)
-    out["k1f_256"] = _best_ms(lambda: ck.substep_with_force_kernel(
-        s256, p256, dt, fext), inner=inner)
-    if args.check:
-        checks["k1f_256"] = _equal(
-            tuple(ck.substep_with_force_kernel(s256, p256, dt, fext)[:2]),
-            tuple(ck.substep_with_force_plain(s256, p256, dt, fext)[:2]))
 
-    out["k1_flagship_8_device_us"] = _device_us(
-        lambda: ck.multi_step_kernel(s256, p256, dt, 8))
+def _adjoint(args, out, checks, dev, c256):
+    """The cloth adjoint's walk over the training segment's trace at 256²
+    (48 substeps of the fresh cloth), ms a substep and device µs (and
+    checks)."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.state import (ClothParams,
+                                                      init_cloth_state)
+    from wgpu_physics_engine_torch.ops import cloth_grad_kernel as cg
+    from wgpu_physics_engine_torch.ops import cloth_kernel as ck
+
+    dt = 1.0 / 480.0
+    n = 48
+    s0 = init_cloth_state(c256, device=dev)
+    prm = ck._pack_params(ClothParams.from_config(c256, device=dev), dt)
+    traj = ck.trace(s0, prm, n)
+    g = torch.Generator().manual_seed(5)
+    cp, cv = (torch.randn((3, 256, 256), generator=g).to(dev)
+              for _ in range(2))
+    out["adj_256"] = _best_ms(lambda: cg.walk(traj, cp, cv, prm)) / n
+    out["adj_256_device_us"] = _device_us(lambda: cg.walk(traj, cp, cv, prm))
+    if args.check:
+        pin = torch.zeros((256, 256), dtype=torch.bool, device=dev)
+        pin[0] = True
+        pins = (pin, s0.pos)
+        for key, pn in (("adj_256", None), ("adj_256_pinned", pins)):
+            got = cg.walk(traj, cp, cv, prm, pn)
+            ref = cg._walk_plain(traj, cp, cv, prm, pn)
+            checks[key] = {"state": _equal(got[:2], ref[:2]),
+                           "prm": _equal(got[2], ref[2]),
+                           "pin": (None if pn is None
+                                   else _equal(got[3], ref[3]))}
+    del traj
 
 
 def _raster(args, out, checks, dev, c256, configs):

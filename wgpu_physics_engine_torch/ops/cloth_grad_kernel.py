@@ -36,7 +36,14 @@ as ``torch.minimum`` and ``jax.lax.min`` do.
 
 There is no size limit and no alignment condition on ``n_steps`` or the
 grid: the TPU's three tiers (whole-plane, banded, streamed) were VMEM
-facts, and one adjoint kernel takes every grid.
+facts, and one adjoint kernel takes every grid. It runs one launch a
+substep on tiles of :data:`TILE` particles: each CTA stages the state over
+its tile grown by 4 in shared memory, recomputes the integration adjoint
+on the tile grown by 2 and keeps the force cotangent there, and evaluates
+each edge force and edge adjoint once. :func:`substep_vjp_tiled` is the
+same decomposition in torch (``_substep_vjp_planes`` on halo-extended
+tiles, the core cells kept), which the CPU tests hold against
+:func:`substep_vjp_plain` for the halo argument the kernel relies on.
 """
 
 from __future__ import annotations
@@ -60,12 +67,12 @@ LAUNCHES = 0
 # ``segment · 24 · H · W`` bytes of trajectory (100 MB at 256²).
 DEFAULT_SEGMENT = 64
 
-# The adjoint kernels' CTA, (rows, columns) of particles; one row of
-# per-block parameter partials per CTA (csrc/cloth_grad.cu kBlockH/kBlockW).
-_BLOCK = (8, 32)
+# The adjoint kernel's tile, (rows, columns) of particles, one row of
+# parameter partials a tile (csrc/cloth_grad.cu kTileH, kTileW).
+TILE = (16, 16)
 
 _SIGNATURES = {
-    "wpe_cloth_substep_vjp": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    "wpe_cloth_substep_vjp": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                              + [ctypes.c_void_p],
 }
 
@@ -112,20 +119,28 @@ def _integrate_planes(x, y, z, vx, vy, vz, fx, fy, fz, k_contact, mu, mass,
 # Plain version of the substep adjoint
 # ---------------------------------------------------------------------------
 
-def _sum64(plane: torch.Tensor) -> torch.Tensor:
-    return plane.double().sum()
-
-
-def _substep_vjp_planes(state_in, ct_pos, ct_vel, prm, pins):
+def _substep_vjp_planes(state_in, ct_pos, ct_vel, prm, pins, masks=None,
+                        count=None):
     """The adjoint of one substep on planes; the parameter cotangent comes
-    back as float64 sums of the fp32 per-particle and per-edge terms."""
+    back as float64 sums of the fp32 per-particle and per-edge terms.
+    ``masks`` are the families' validity planes (default: the whole grid's,
+    ``cloth_kernel._family_masks``); ``count``, a boolean plane, limits the
+    parameter sums to the terms of its cells (a cell's and the edges it
+    anchors; default: all)."""
     h, w = state_in.shape[-2:]
     dev = state_in.device
     P = prm.detach().to(device=dev, dtype=torch.float32).unbind(0)
     k, c, rest = P[0:3], P[3:6], P[6:9]
     k_contact, mu, mass, gravity = P[9], P[10], P[11], P[12]
     damp, min_dist, dt = P[13], P[14], P[15]
-    masks = cloth_kernel._family_masks(h, w, dev)
+    if masks is None:
+        masks = cloth_kernel._family_masks(h, w, dev)
+
+    def _sum64(plane):
+        if count is not None:
+            plane = torch.where(count, plane, 0.0)
+        return plane.double().sum()
+
     carry = tuple(state_in.unbind(0))
     x, y, z, vx, vy, vz = carry
     where = torch.where
@@ -300,15 +315,68 @@ def _walk_plain(traj, ct_pos, ct_vel, prm, pins):
     return ct_pos, ct_vel, g.float(), ct_pin
 
 
+def substep_vjp_tiled(state_in: torch.Tensor, ct_pos: torch.Tensor,
+                      ct_vel: torch.Tensor, prm: torch.Tensor, pins=None,
+                      tile=None):
+    """:func:`substep_vjp_plain` by the kernel's decomposition, on any
+    device: every ``tile`` (default :data:`TILE`) core is cut out with the
+    state over the core grown by 4 and the incoming cotangent over the
+    core grown by 2 (zero beyond both, and beyond the grid), all tiles at
+    once as a batch; :func:`_substep_vjp_planes` runs on them with masks
+    from grid rows and columns (``cloth_tiled_kernel._tile_masks``) and
+    sums only the core cells' parameter terms, and the cores are put back
+    together. Its state and pin cotangents equal :func:`substep_vjp_plain`
+    bit for bit, which is the halo argument of ``csrc/cloth_grad.cu``."""
+    from .cloth_tiled_kernel import _tile_masks, _tiles
+
+    th, tw = tile or TILE
+    h, w = state_in.shape[-2:]
+    dev = state_in.device
+    halo = 4                                  # _tiles' 2k for k = 2
+    masks = _tile_masks(h, w, 2, th, tw, dev)
+    st = _tiles(state_in, 2, th, tw)
+    ty, tx = st.shape[1:3]
+    lr = torch.arange(th + 2 * halo, device=dev)
+    lc = torch.arange(tw + 2 * halo, device=dev)
+
+    def band(lo, hi_h, hi_w):
+        return (((lr >= lo) & (lr < hi_h))[:, None]
+                & ((lc >= lo) & (lc < hi_w))[None, :])
+
+    ring2 = band(2, th + 6, tw + 6)
+    gr = (torch.arange(ty, device=dev) * th - halo)[:, None, None, None] \
+        + lr[:, None]
+    gc = (torch.arange(tx, device=dev) * tw - halo)[None, :, None, None] \
+        + lc[None, :]
+    core = band(halo, th + halo, tw + halo) & (gr < h) & (gc < w)
+    ct = torch.where(ring2, _tiles(torch.cat([ct_pos, ct_vel]), 2, th, tw),
+                     0.0)
+    pins_t = None
+    if pins is not None:
+        pins_t = (_tiles(pins[0].to(st.dtype), 2, th, tw),
+                  _tiles(pins[1], 2, th, tw))
+    cp, cv, g, ct_pin = _substep_vjp_planes(st, ct[:3], ct[3:], prm, pins_t,
+                                            masks, core)
+
+    def cores(a):
+        a = a[..., halo:halo + th, halo:halo + tw]
+        return a.permute(0, 1, 3, 2, 4).reshape(
+            a.shape[0], ty * th, tx * tw)[:, :h, :w]
+
+    return (cores(cp), cores(cv), g.float(),
+            None if ct_pin is None else cores(ct_pin))
+
+
 # ---------------------------------------------------------------------------
 # Kernel
 # ---------------------------------------------------------------------------
 
 def _walk_kernel(traj, ct_pos, ct_vel, prm, pins):
     """The walk of :func:`_walk_plain` with ``csrc/cloth_grad.cu``: one C
-    call enqueues, per substep in reverse, the integration adjoint and the
-    spring gather (two launches), then one fixed-order reduction of the
-    per-block parameter partials; nothing waits on the host."""
+    call enqueues, per substep in reverse, one launch of the substep
+    adjoint on tiles of :data:`TILE`, ping-ponging the state cotangent
+    between two buffers, then one fixed-order reduction of the per-tile
+    parameter partials; nothing waits on the host."""
     global LAUNCHES
     if traj.device.type != "cuda":
         raise ValueError(f"cloth adjoint kernel needs CUDA tensors, got "
@@ -317,8 +385,10 @@ def _walk_kernel(traj, ct_pos, ct_vel, prm, pins):
     dev = traj.device
     cloth_kernel._check_plane(traj, (n, 6, h, w), dev, "traj")
     traj = traj.contiguous()
-    ct = torch.cat([ct_pos, ct_vel]).to(dtype=torch.float32).contiguous()
-    cloth_kernel._check_plane(ct, (6, h, w), dev, "ct_pos/ct_vel")
+    ct_in = torch.cat([ct_pos, ct_vel]).to(dtype=torch.float32)
+    cloth_kernel._check_plane(ct_in, (6, h, w), dev, "ct_pos/ct_vel")
+    ct = torch.empty((2, 6, h, w), dtype=torch.float32, device=dev)
+    ct[0] = ct_in
     prm = prm.detach().to(device=dev, dtype=torch.float32).contiguous()
     if prm.shape != (16,):
         raise ValueError(f"prm: expected [16], got {tuple(prm.shape)}")
@@ -331,20 +401,20 @@ def _walk_kernel(traj, ct_pos, ct_vel, prm, pins):
         ct_pin = torch.zeros((3, h, w), dtype=torch.float32, device=dev)
         pin_ptrs = (pin_mask.data_ptr(), ct_pin.data_ptr())
     if n == 0 or h * w == 0:
-        return ct[:3], ct[3:], ct_prm, ct_pin
-    ctf = torch.empty((3, h, w), dtype=torch.float32, device=dev)
-    blocks = -(-h // _BLOCK[0]) * -(-w // _BLOCK[1])
-    partial = torch.empty((n, blocks, 16), dtype=torch.float64, device=dev)
+        return ct[0, :3], ct[0, 3:], ct_prm, ct_pin
+    tiles = -(-h // TILE[0]) * -(-w // TILE[1])
+    partial = torch.empty((n, tiles, 16), dtype=torch.float64, device=dev)
     lib = _build.load("cloth_grad", _SIGNATURES)
     with torch.cuda.device(dev):
         err = lib.wpe_cloth_substep_vjp(
-            prm.data_ptr(), traj.data_ptr(), pin_ptrs[0], ct.data_ptr(),
-            ctf.data_ptr(), pin_ptrs[1], partial.data_ptr(),
-            ct_prm.data_ptr(), h, w, n, int(pins is not None),
+            prm.data_ptr(), traj.data_ptr(), pin_ptrs[0], ct[0].data_ptr(),
+            ct[1].data_ptr(), pin_ptrs[1], partial.data_ptr(),
+            ct_prm.data_ptr(), h, w, n, tiles, int(pins is not None),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "cloth_grad launch")
     LAUNCHES += n
-    return ct[:3], ct[3:], ct_prm, ct_pin
+    out = ct[n % 2]
+    return out[:3], out[3:], ct_prm, ct_pin
 
 
 def substep_vjp_kernel(state_in: torch.Tensor, ct_pos: torch.Tensor,

@@ -38,9 +38,11 @@ batch of worlds ``_multi_step_lanes`` → ``_lanes_kernel``, kernel K5, and
   ``cloth_pallas.multi_step_window``, kernel K1w. Its plain version is
   ``_substep_planes`` with the spring masks taken from global rows
   (:func:`_window_masks`); on CUDA it is K1's device body with the same
-  masks. Any window size takes K1w: JAX's switch to the XLA stencil above
-  its VMEM budget (``parallel/mesh.py`` ``_kernel_fits``) has no
-  counterpart;
+  masks. A window above :data:`_TILED_PARTICLE_LIMIT` particles goes, as
+  one world does, to ``cloth_tiled_kernel.multi_step_window`` (K6w, K6's
+  edge-once tiles with the same masks; on the CPU its plain version),
+  equal to K1w bit for bit; JAX routes its windows by size too (above its
+  VMEM budget to the XLA stencil, ``parallel/mesh.py`` ``_kernel_fits``);
 * :func:`trace` re-runs substeps of one world with the same stepper and
   keeps each substep's input state, ``[K, 6, H, W]``: the trajectory the
   backward pass of ``ops/cloth_grad_kernel.py`` walks (the counterpart of
@@ -646,8 +648,16 @@ def multi_step_window(pos, vel, pin_mask, pin_pos, params, dt, n_steps: int,
     the grid's edges are where the unsharded kernel has them; the halo's
     staleness (2 rows a substep) is the caller's to slice off. Returns
     ``(pos, vel)`` with the halo rows. CPU → the plain version, CUDA →
-    K1w, any other device raises. JAX's ``fast_math`` has no caller here
-    and no counterpart."""
+    K1w, any other device raises; a window of more than
+    :data:`_TILED_PARTICLE_LIMIT` particles takes
+    ``cloth_tiled_kernel.multi_step_window`` (K6w on CUDA, its plain
+    version on the CPU), which gives the same bits. JAX's ``fast_math``
+    has no caller here and no counterpart."""
+    if pos.shape[-2] * pos.shape[-1] > _TILED_PARTICLE_LIMIT:
+        from . import cloth_tiled_kernel
+
+        return cloth_tiled_kernel.multi_step_window(
+            pos, vel, pin_mask, pin_pos, params, dt, n_steps, row0, h_global)
     state = ClothState(pos=pos, vel=vel)
     step = _dispatch(state, multi_step_window_plain, multi_step_window_kernel)
     return step(pos, vel, pin_mask, pin_pos, params, dt, n_steps, row0,

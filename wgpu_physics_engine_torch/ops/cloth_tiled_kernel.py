@@ -37,7 +37,16 @@ its fallback to the XLA stencil has no counterpart.
 * :func:`multi_step` takes the plain version for a CPU state and the
   kernel for a CUDA state, and raises for any other device. It is exact:
   ``cloth_kernel.multi_step`` drops ``fast_math`` on this route, as JAX
-  drops it on its own.
+  drops it on its own;
+* :func:`multi_step_window` (kernel K6w) steps a halo-extended band of
+  rows of a larger grid on the same tiles, the spring masks taken from
+  global rows: ``cloth_kernel.multi_step_window`` routes a window above
+  ``_TILED_PARTICLE_LIMIT`` here (the rows-sharded path's shard body;
+  ``cloth_pallas.multi_step_window``, K1w, in JAX). Its plain version is
+  the tile decomposition above with K1w's global-row masks
+  (:func:`_tile_masks` with a ``window``); every output, the window's
+  halo and dead rows included, equals ``cloth_kernel.
+  multi_step_window_plain`` (K1w's plain version) bit for bit.
 """
 
 from __future__ import annotations
@@ -51,8 +60,10 @@ from ..core.state import ClothParams, ClothState
 from . import _build, cloth_kernel
 from .cloth_kernel import _FAMILIES, _exact_dist_inv, _substep_planes
 
-# Launches of K6 by :func:`multi_step_kernel` (one per ``k_sub`` substeps).
+# Launches of K6 by :func:`multi_step_kernel` and of K6w by
+# :func:`multi_step_window_kernel` (one per ``k_sub`` substeps).
 LAUNCHES = 0
+LAUNCHES_WINDOW = 0
 
 # The schedule (chosen by a sweep on the card, PERF.md §6): K_SUB
 # substeps a launch; tiles TILE_BANDS bands of BAND columns wide (a warp
@@ -77,6 +88,9 @@ SMEM_LIMIT = 232_448
 _SIGNATURES = {
     "wpe_cloth_tiled_multi_step": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                                   + [ctypes.c_void_p],
+    "wpe_cloth_tiled_multi_step_window": [ctypes.c_void_p] * 9
+                                         + [ctypes.c_int] * 9
+                                         + [ctypes.c_void_p],
 }
 
 Schedule = Tuple[int, int, int]
@@ -140,12 +154,16 @@ def _tiles(a: torch.Tensor, k: int, tile_h: int, tile_w: int):
             .unfold(-2, tile_w + 4 * k, tile_w))
 
 
-def _tile_masks(h: int, w: int, k: int, tile_h: int, tile_w: int, device):
+def _tile_masks(h: int, w: int, k: int, tile_h: int, tile_w: int, device,
+                window: Optional[Tuple[int, int]] = None):
     """Validity mask ``[ty, tx, eh, ew]`` per family for the tiles of
     :func:`_tiles`, from grid rows and columns: the anchor and the far end
     of the edge are grid cells, and the far end lies inside the tile
     (no wraparound of ``torch.roll``, whose reaction would otherwise wrap
-    onto the tile's first rows or columns)."""
+    onto the tile's first rows or columns). With ``window = (row0,
+    h_global)`` the ``[h, w]`` grid is a band of rows of a grid
+    ``h_global`` rows high whose row 0 is global row ``row0``, and both
+    ends must also be global rows (``cloth_kernel._window_masks``)."""
     ty, tx = -(-h // tile_h), -(-w // tile_w)
     eh, ew = tile_h + 4 * k, tile_w + 4 * k
     lr = torch.arange(eh, device=device)[:, None]
@@ -155,9 +173,13 @@ def _tile_masks(h: int, w: int, k: int, tile_h: int, tile_w: int, device):
     gc = (torch.arange(tx, device=device) * tile_w - 2 * k)[None, :, None,
                                                             None] + lc
     anchor = (gr >= 0) & (gc >= 0) & (gc < w)
+    if window is not None:
+        anchor = anchor & (gr + window[0] >= 0)
     masks = []
     for dr, dc, _ in _FAMILIES:
         ok = anchor & (gr < h - dr) & (lr < eh - dr)
+        if window is not None:
+            ok = ok & (gr + window[0] < window[1] - dr)
         if dc >= 0:
             ok = ok & (gc < w - dc) & (lc < ew - dc)
         else:
@@ -178,9 +200,12 @@ def multi_step_plain(state: ClothState, params: ClothParams, dt,
 
 def multi_step_plain_packed(state: ClothState, prm: torch.Tensor,
                             n_steps: int,
-                            schedule: Optional[Schedule] = None) -> ClothState:
+                            schedule: Optional[Schedule] = None,
+                            window: Optional[Tuple[int, int]] = None
+                            ) -> ClothState:
     """:func:`multi_step_plain` on the packed vector of
-    ``cloth_kernel._pack_params``."""
+    ``cloth_kernel._pack_params``; with ``window = (row0, h_global)`` the
+    state is a row window and the masks K1w's (:func:`_tile_masks`)."""
     if state.pos.ndim != 3:
         raise ValueError(f"the tiled stepper takes one world [3, H, W], got "
                          f"{tuple(state.pos.shape)}")
@@ -192,7 +217,7 @@ def multi_step_plain_packed(state: ClothState, prm: torch.Tensor,
     plane = cloth_kernel._plane_params(prm, state)
     pos, vel = state.pos, state.vel
     for k in _launches(n_steps, k_sub):
-        masks = _tile_masks(h, w, k, tile_h, tile_w, pos.device)
+        masks = _tile_masks(h, w, k, tile_h, tile_w, pos.device, window)
         carry = tuple(_tiles(torch.cat([pos, vel]), k, tile_h, tile_w))
         pins = None
         if state.pin_mask is not None:
@@ -223,15 +248,19 @@ def multi_step_kernel(state: ClothState, params: ClothParams, dt,
 
 def multi_step_kernel_packed(state: ClothState, prm: torch.Tensor,
                              n_steps: int,
-                             schedule: Optional[Schedule] = None
+                             schedule: Optional[Schedule] = None,
+                             window: Optional[Tuple[int, int]] = None
                              ) -> ClothState:
     """:func:`multi_step_kernel` on the packed vector of
-    ``cloth_kernel._pack_params``."""
-    global LAUNCHES
+    ``cloth_kernel._pack_params``; with ``window = (row0, h_global)`` K6w
+    on a row window (``wpe_cloth_tiled_multi_step_window``)."""
+    global LAUNCHES, LAUNCHES_WINDOW
     pos, vel, prm, pins, lead, h, w = cloth_kernel._kernel_inputs(state, prm)
     if lead:
         raise ValueError(f"the tiled kernel takes one world [3, H, W], got "
                          f"{tuple(pos.shape)}")
+    if window is not None and window[1] < 1:
+        raise ValueError(f"h_global must be positive, got {window[1]}")
     if n_steps <= 0 or pos.numel() == 0:
         return state
     k_sub, tile_h, tile_w = _check_schedule(schedule or pick_schedule(
@@ -245,15 +274,24 @@ def multi_step_kernel_packed(state: ClothState, prm: torch.Tensor,
                 else (None, None))
     bufs = torch.empty((4, 3, h, w), dtype=torch.float32, device=pos.device)
     lib = _build.load("cloth_tiled", _SIGNATURES)
-    with torch.cuda.device(pos.device):
-        err = lib.wpe_cloth_tiled_multi_step(
-            prm.data_ptr(), pos.data_ptr(), vel.data_ptr(), *pin_ptrs,
+    ptrs = (prm.data_ptr(), pos.data_ptr(), vel.data_ptr(), *pin_ptrs,
             bufs[0].data_ptr(), bufs[1].data_ptr(), bufs[2].data_ptr(),
-            bufs[3].data_ptr(), h, w, n_steps, k_sub, tile_h, tile_w,
-            int(pins is not None), torch.cuda.current_stream().cuda_stream)
+            bufs[3].data_ptr(), h, w, n_steps, k_sub, tile_h, tile_w)
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if window is None:
+            err = lib.wpe_cloth_tiled_multi_step(
+                *ptrs, int(pins is not None), stream)
+        else:
+            err = lib.wpe_cloth_tiled_multi_step_window(
+                *ptrs, int(window[0]), int(window[1]), int(pins is not None),
+                stream)
     _build.check(lib, err, "cloth_tiled launch")
     n_launch = len(_launches(n_steps, k_sub))
-    LAUNCHES += n_launch
+    if window is None:
+        LAUNCHES += n_launch
+    else:
+        LAUNCHES_WINDOW += n_launch
     out = bufs[0:2] if n_launch % 2 else bufs[2:4]
     return state._replace(pos=out[0], vel=out[1])
 
@@ -274,3 +312,48 @@ def multi_step_packed(state: ClothState, prm: torch.Tensor,
     step = cloth_kernel._dispatch(state, multi_step_plain_packed,
                                   multi_step_kernel_packed)
     return step(state, prm, n_steps)
+
+
+# ---------------------------------------------------------------------------
+# K6w: a row window of a larger grid on the same tiles
+# ---------------------------------------------------------------------------
+
+def multi_step_window_plain(pos, vel, pin_mask, pin_pos, params, dt,
+                            n_steps: int, row0: int, h_global: int,
+                            schedule: Optional[Schedule] = None):
+    """The plain version of K6w: ``n_steps`` exact substeps of the row
+    window ``pos``/``vel`` ``[3, h, W]`` (``row0`` the global row of local
+    row 0, ``h_global`` the grid's height) by the tile decomposition, on
+    any device; the arguments and result of
+    ``cloth_kernel.multi_step_window_plain``, which it equals bit for
+    bit."""
+    state = ClothState(pos=pos, vel=vel, pin_mask=pin_mask, pin_pos=pin_pos)
+    out = multi_step_plain_packed(state,
+                                  cloth_kernel._pack_params(params, dt),
+                                  n_steps, schedule, (row0, h_global))
+    return out.pos, out.vel
+
+
+def multi_step_window_kernel(pos, vel, pin_mask, pin_pos, params, dt,
+                             n_steps: int, row0: int, h_global: int,
+                             schedule: Optional[Schedule] = None):
+    """K6w on a CUDA window: ``⌈n_steps / k_sub⌉`` launches of
+    ``csrc/cloth_tiled.cu``'s ``wpe_cloth_tiled_multi_step_window`` on the
+    current stream into new buffers (the inputs are only read). Returns
+    ``(pos, vel)`` ``[3, h, W]``."""
+    state = ClothState(pos=pos, vel=vel, pin_mask=pin_mask, pin_pos=pin_pos)
+    out = multi_step_kernel_packed(state,
+                                   cloth_kernel._pack_params(params, dt),
+                                   n_steps, schedule, (row0, h_global))
+    return out.pos, out.vel
+
+
+def multi_step_window(pos, vel, pin_mask, pin_pos, params, dt,
+                      n_steps: int, row0: int, h_global: int):
+    """``cloth_kernel.multi_step_window`` on the tiles: CPU → the plain
+    version, CUDA → K6w, any other device raises."""
+    step = cloth_kernel._dispatch(ClothState(pos=pos, vel=vel),
+                                  multi_step_window_plain,
+                                  multi_step_window_kernel)
+    return step(pos, vel, pin_mask, pin_pos, params, dt, n_steps, row0,
+                h_global)

@@ -24,7 +24,9 @@
 //     with the spring masks taken from global rows (cloth_substep.cuh
 //     `edge_ok`). It is K1 with two more ints and a few integer compares a
 //     spring; what bounds K1 bounds it. JAX sends a window above its VMEM
-//     budget to the XLA stencil; any window size launches K1w here.
+//     budget to the XLA stencil; here a window above 100,000 particles
+//     takes K6w (cloth_tiled.cu, the same bits on edge-once tiles) and a
+//     smaller one K1w.
 //
 // What bounds them on the H100. Per particle and call the function reads
 // 6 floats and writes 6 (48 B); per particle and substep it does ~280 fp32

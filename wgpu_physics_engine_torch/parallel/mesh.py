@@ -23,8 +23,9 @@ The two axes of the JAX package:
    reaches 2 rows (the bend family, cloth.rs:956-957), so each band takes
    ``2·k`` halo rows from each neighbour once every ``k`` substeps (halo
    widening: the stale rows creep in 2 a substep and are sliced off) and
-   is stepped by the row-window kernel K1w
-   (``ops.cloth_kernel.multi_step_window``, global-row spring masks).
+   is stepped by a row-window kernel with global-row spring masks
+   (``ops.cloth_kernel.multi_step_window``: K1w, or K6w for a window above
+   100,000 particles).
 
 They compose: a ``(worlds, rows)`` mesh runs a batch of row-sharded cloths
 (:func:`batched_spatial_multi_step`).
@@ -279,8 +280,8 @@ def _spatial_substep_local(pos_ext, vel_ext, pinm_ext, pinpos_ext,
     """Shard body: ``substeps`` substeps of one halo-extended window
     (``[3, h_local + 2·halo, W]``, halo = ``HALO·substeps``) whose local row
     0 is global row ``row0``, then the centre ``[3, h_local, W]`` (the
-    halo's staleness sliced off). ``use_kernel``: K1w
-    (``cloth_kernel.multi_step_window``; its plain version on the CPU);
+    halo's staleness sliced off). ``use_kernel``: K1w or K6w
+    (``cloth_kernel.multi_step_window``; their plain versions on the CPU);
     else the stencil body with ``row_valid`` from global rows, CPU only."""
     halo = HALO * substeps
     if use_kernel:

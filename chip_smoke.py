@@ -31,8 +31,9 @@ free-particle box, 10 textured spheres in a wireframe box drawn at
 ``TexturedCubeScene``, ``GlobeScene`` with and without the mesh, and the
 CLI's ``cube``, ``textured`` and ``globe``); and the flagship cloth at
 1024² (``ClothScene`` and ``cloth --grid 1024``), one world above 100,000
-particles, which takes the temporal-blocking kernel K6 of
-``ops/csrc/cloth_tiled.cu``, with its gradient; and the multi-device
+particles, which takes K6r of ``ops/csrc/cloth_tiled.cu`` (the whole call
+in one cooperative launch on tiles resident in shared memory), with its
+gradient, and at 2048² the temporal-blocking kernel K6; and the multi-device
 paths on four shards of the one card (``parallel.mesh``: the 1024² cloth
 cut into bands of rows with halo exchange on the row-window kernel K6w of
 ``ops/csrc/cloth_tiled.cu`` (each shard's window lies above 100,000
@@ -75,33 +76,38 @@ gradient; ``examples/multichip_datagen.py``). Phases:
    tile, the spread of repeated timings, and one ``torch.profiler`` trace
    each of 240 substeps and of one frame, read for the kernel time per
    launch, the gaps between launches and the device's idle share;
-8. the batched-worlds cloth kernel (K5) on 4096 worlds of the 60×60
-   reference cloth with per-world parameters, 24 substeps, free and with
-   the top row pinned, first fresh (in free fall) and then settled 3 s on
-   the globe (where the contact, friction and projection branches run:
-   the shares of particles in contact and projected are reported and must
-   be above zero): against its plain version and against the
-   single-world kernel on worlds 0, 1 and 4095 (<= 1e-6, bitwise
-   reported), finite, 24 launches;
+8. the batched-worlds cloth kernels on the 60×60 reference cloth with
+   per-world parameters, 24 substeps, free and with the top row pinned,
+   first fresh (in free fall) and then settled 3 s on the globe (where the
+   contact, friction and projection branches run: the shares of particles
+   in contact and projected are reported and must be above zero): K5 on
+   4096 worlds against its plain version and against the single-world
+   kernel on worlds 0, 1 and 4095 (<= 1e-6, bitwise reported), finite, 24
+   launches; K5r (a CTA a world, the datagen chunk's kernel) on the first
+   1,024 against the plain version, K5 and K1 on worlds 0, 1 and 1023, bit
+   for bit, one launch;
 9. one batched raster launch on a chunk of 1,024 settled worlds (the
    datagen path's launch) at 256×256 against the plain sweep on worlds 0,
    511 and 1,023, under phase 4's contract;
 10. the datagen path, with the launch counters reset just before it and
    read just after: ``generate_trajectory_dataset`` over 4096 settled
    worlds, 3 frames of 24 substeps at 256×256, randomized cameras, codec
-   k = 16, then the CLI's ``datagen`` and ``decode``; cloth and globe
+   k = 16, then the CLI's ``datagen`` and ``decode`` (K5r a frame on every
+   chunk of 1,024 and on the CLI's 64 worlds, K5 never); cloth and globe
    pixels in >= 90% of worlds, the yielded frame 0 equal to the codec of
    the raw frame 0 (its decoded PSNR reported), the codec >= 28 dB mean
    PSNR on the worlds' cached globes; on 16 worlds, the kernel path's
    frames equal to the same path's with the plain stepper and sweep, and
    within uint8 1 of ``use_kernel=False`` on >= 99.9% of the pixels.
 
-Then phases 6 and 7 for the datagen path: K5 a launch (one substep on a
-chunk of 1,024 worlds, and on a multi-device shard of 16) beside its plain
-version and bound, phase 9's raster launch and one on a multi-device shard
+Then phases 6 and 7 for the datagen path: K5 and K5r a call of 24
+substeps, per substep, on a chunk of 1,024 worlds, the CLI's 64 and a
+multi-device shard of 16, beside the plain version and the call's bound
+(the bytes once, the operations of every substep), phase 9's raster launch
+and one on a multi-device shard
 (16 worlds at 64×64), one steady frame of
 4,096 worlds with and without the codec, the copy into pinned memory, and
-one ``torch.profiler`` trace of a frame split into K5, raster, composite,
+one ``torch.profiler`` trace of a frame split into K5r, raster, composite,
 codec and copy with the device's idle share.
 
 11. the substep adjoint vs its plain version at 256² with the top row
@@ -220,29 +226,32 @@ and idle.
    globe (equal on >= 99.9% of pixels, nothing dropped) with both times;
    one trace each of a cube and a mesh-globe frame; the CLI's ``cube``,
    ``textured`` and ``globe``;
-20. the large-grid path, one world above 100,000 particles on the
-   temporal-blocking kernel K6 of ``ops/csrc/cloth_tiled.cu``: K6 against
-   its plain version and against K1, bit for bit, at 512², 1024² and a
-   ragged 1000×1030, fresh and draped on the globe (the share of
-   particles in contact is reported and must be above zero), top row
-   pinned plus one pin on a tile corner, over 8 and 13 substeps, and on
-   the ragged shape also with two deeper schedules (k = 2 and 4); then,
-   with the launch counters reset just before it and read just after,
-   ``ClothScene`` at 1024², ``simulate(2.0)``, one frame of its schedule
-   (``update(1/60)``), a 256×256 render and the CLI's ``cloth --grid
-   1024``: K6 launched ⌈n/K⌉ times a call and K1 never, finite, r_min >=
-   R + r - 1e-3, globe and particle pixels, the end state equal bit for
-   bit to the same scene with the route held on K1; and
-   ``multi_step_diff`` at 1024² over one 48-substep segment, whose trace's
-   last state (K1) equals its forward (K6) bit for bit.
+20. the large-grid path, one world above 100,000 particles: K6r (the
+   whole call in one cooperative launch, tiles resident in shared memory)
+   and K6 (``ops/csrc/cloth_tiled.cu``) against K6's plain version, K1 and
+   each other, bit for bit, at 512², 1024² and a ragged 1000×1030, fresh
+   and draped on the globe (the share of particles in contact is reported
+   and must be above zero), top row pinned plus one pin on a tile corner,
+   over 8 and 13 substeps, on the ragged shape K6 also with two deeper
+   schedules (k = 2 and 4), and K6 alone at 2048² (8 substeps), above
+   K6r's reach; then, with the launch counters reset just before it and
+   read just after, ``ClothScene`` at 1024², ``simulate(2.0)``, one frame
+   of its schedule (``update(1/60)``), a 256×256 render, the CLI's
+   ``cloth --grid 1024`` and ``ClothScene`` at 2048² ``simulate(0.1)``:
+   K6r launched once a 1024² call, K6 ⌈n/K⌉ times on the 2048² call and
+   K1 never, finite, r_min >= R + r - 1e-3, globe and particle pixels, the
+   1024² end state equal bit for bit to the same scene with the route held
+   on K1; and ``multi_step_diff`` at 1024² over one 48-substep segment,
+   whose trace's last state (K1) equals its forward (K6r) bit for bit.
 
-Then phases 6 and 7 for the large-grid path: K6 and K1 a substep at 512²,
-1024² and 2048² beside the bound, K6's plain version at 512² and 1024²,
-the schedule sweep at the three sides, the ptxas report, particle-steps/s
-of 3,000 substeps at 1024², and one ``torch.profiler`` trace of 240
-substeps at 1024² (K6's time a launch, the gaps, the device's idle share;
-the profiler's schedule warms it up on the same call first, and the K6
-launches are matched to the traced call by correlation id).
+Then phases 6 and 7 for the large-grid path: K6r, K6 and K1 a substep at
+512², 1024² and 2048² (K6r where its tiles fit) beside the bound, K6's
+plain version at 512² and 1024², K6's schedule sweep at the three sides,
+the ptxas report, particle-steps/s of 3,000 substeps at 1024² through the
+path's call (K6r), and one ``torch.profiler`` trace of 240 substeps at
+1024² through the path's call (K6r's one launch, its time a substep, the
+device's idle share; the profiler's schedule warms it up on the same call
+first, and the launch is matched to the traced call by correlation id).
 
 21. the multi-device paths, each shard a tensor on the one card: K1w and
    K6w on the four row windows of the 1024² cloth (fresh and draped, top
@@ -252,11 +261,11 @@ launches are matched to the traced call by correlation id).
    whole grid, bit for bit; then, with the launch counters reset
    just before it and read just after (the references run first),
    ``spatial_multi_step`` at 1024² on 4 row shards, 480 substeps at k = 1
-   and k = 2, equal bit for bit to ``cloth_kernel.multi_step`` (K6);
+   and k = 2, equal bit for bit to ``cloth_kernel.multi_step`` (K6r);
    ``batched_spatial_multi_step`` on a (2, 2) worlds × rows mesh, 8
    worlds of the 256² flagship, 480 substeps, k = 2, each world equal to
-   K1 alone; ``batched_multi_step`` of 64 worlds on 4 shards equal to K5
-   on the whole batch; ``multi_step_sharded`` on the 1M pile over 4
+   K1 alone; ``batched_multi_step`` of 64 worlds on 4 shards (K5 on 16
+   worlds a shard) equal to K5r on the whole batch; ``multi_step_sharded`` on the 1M pile over 4
    grain shards, 8 substeps equal to ``granular.multi_step`` (K10) bit
    for bit and 64 within pos 1e-4 / vel 1e-3 with the single-device
    path's dropped count; ``multi_step_diff_sharded`` of 2 worlds of the
@@ -266,7 +275,8 @@ launches are matched to the traced call by correlation id).
    on 2 worlds shards, 240 substeps, each world equal bit for bit to
    ``multi_step_self_collide`` alone; ``examples/multichip_datagen.py`` at its
    defaults; every launch count as the path predicts (K6w on the rows
-   path, K1w on the composed one; K1 and K6 never, K10 never). Then K10b on each of the 4 slices against its plain
+   path, K1w on the composed one, K5 on the worlds shards; K1, K6, K6r,
+   K5r and K10 never). Then K10b on each of the 4 slices against its plain
    version and the same rows of K10, bit for bit.
 
 Then phases 6 and 7 for the multi-device paths: K1w a substep on a 1024²
@@ -291,12 +301,15 @@ launch, bound and ``lost_ms`` at each main-path site, None where this run
 does not time that shape); the last is ``{"ok": true, "device": {...}}``.
 The ``cloth_step`` launches are those of phases 5 and 12 (K1 steps the
 flagship and runs the training path's forward and traces); the raster's
-those of phases 5, 10, 14, 17, 18, 20 and 21; ``cloth_step_batched`` (K5) those
-of phases 10 and 21; ``granular_forces`` (K11) those of phases 16, 17 and
+those of phases 5, 10, 14, 17, 18, 20 and 21; ``cloth_step_batched`` (K5)
+those of phase 21 (phase 10's datagen runs none), ``cloth_tiled_batched``
+(K5r) phase 10's, one a frame of a chunk; ``granular_forces`` (K11) those of phases 16, 17 and
 21, ``granular_force_jvp`` (K12) phases 16's and 21's,
 ``cloth_step_force`` (K1f) phases 17's and 21's, ``sphere_raster_untiled``
-(K4) phase 18's, ``cloth_tiled`` (K6) phase 20's (the scene and CLI, and
-the gradient segment's forward), and ``cloth_tiled_window`` (K6w),
+(K4) phase 18's, ``cloth_tiled_resident`` (K6r) phase 20's (the 1024²
+scene, frame and CLI, and the gradient segment's forward, a launch a
+call: its sites count time and bound a substep), ``cloth_tiled`` (K6)
+phase 20's 2048² scene, and ``cloth_tiled_window`` (K6w),
 ``cloth_step_window`` (K1w) and ``granular_step_sharded`` (K10b) phase
 21's.
 Images and the full results go to ``chiprun_out/``.
@@ -445,6 +458,8 @@ LG_SIDES = (512, LG, 2048)
 LG_TIME_STEPS = 240
 LG_RATE_STEPS = 3000
 LG_DEEP = ((2, 17, 54), (4, 9, 46))
+LG_BIG = (2048, 2048)
+LG_BIG_SECONDS = 0.1
 LG_SWEEP = ((1, 12, 57), (1, 24, 57), (1, 47, 57), (1, 20, 115), (2, 8, 54),
             (2, 17, 54))
 # the multi-device paths (phase 21), all on shards of one card: the shards
@@ -773,16 +788,19 @@ def _dg_frame(tex, chunks, codec_k):
 @contextlib.contextmanager
 def _plain_kernels():
     """Inside, the kernels' wrappers (the cloth stepper, its trace, its
-    force-plane substep and the large-grid stepper K6, the substep adjoint's walk, both rasters, the
-    granular substep, pair forces and their directional derivative) run their
-    plain versions on the card and count no launch, so a path runs its own
-    code with the plain versions."""
+    force-plane substep, the large-grid steppers K6 and K6r, the batched
+    K5r, the substep adjoint's walk, both rasters, the granular substep,
+    pair forces and their directional derivative) run their plain versions
+    on the card and count no launch, so a path runs its own code with the
+    plain versions."""
     from wgpu_physics_engine_torch.ops import (cloth_grad_kernel, cloth_kernel,
                                                cloth_tiled_kernel,
                                                granular_kernel, raster_kernel)
 
     saved = (cloth_kernel.multi_step_kernel_packed, cloth_kernel.trace_kernel,
              cloth_tiled_kernel.multi_step_kernel_packed,
+             cloth_tiled_kernel.multi_step_resident_kernel_packed,
+             cloth_tiled_kernel.multi_step_batched_kernel_packed,
              cloth_kernel.substep_with_force_kernel,
              cloth_grad_kernel._walk_kernel,
              raster_kernel.sphere_raster_kernel,
@@ -794,6 +812,11 @@ def _plain_kernels():
     cloth_kernel.trace_kernel = cloth_kernel.trace_plain
     cloth_tiled_kernel.multi_step_kernel_packed = (
         cloth_tiled_kernel.multi_step_plain_packed)
+    cloth_tiled_kernel.multi_step_resident_kernel_packed = (
+        lambda state, prm, n_steps, tile=None:
+        cloth_tiled_kernel.multi_step_plain_packed(state, prm, n_steps))
+    cloth_tiled_kernel.multi_step_batched_kernel_packed = (
+        cloth_kernel.multi_step_plain_packed)
     cloth_kernel.substep_with_force_kernel = (
         cloth_kernel.substep_with_force_plain)
     cloth_grad_kernel._walk_kernel = cloth_grad_kernel._walk_plain
@@ -812,6 +835,8 @@ def _plain_kernels():
     finally:
         (cloth_kernel.multi_step_kernel_packed, cloth_kernel.trace_kernel,
          cloth_tiled_kernel.multi_step_kernel_packed,
+         cloth_tiled_kernel.multi_step_resident_kernel_packed,
+         cloth_tiled_kernel.multi_step_batched_kernel_packed,
          cloth_kernel.substep_with_force_kernel,
          cloth_grad_kernel._walk_kernel,
          raster_kernel.sphere_raster_kernel,
@@ -834,48 +859,81 @@ def _classify(img):
 
 
 def _phase8_k5(wb, label: str, dev, card, need_contact: bool):
-    """K5 on the card: the 4096 60x60 worlds ``wb`` with per-world params,
-    24 substeps, free and with the top row pinned, against its plain
-    version and against K1 on worlds 0, 1 and 4095. Reports the share of
-    particles that start a substep inside the globe's contact distance
-    (the penalty and friction branches) and that end projected onto it
-    (zero velocity); with ``need_contact`` both must be above zero."""
+    """K5 and K5r on the card, 24 substeps, free and with the top row
+    pinned: K5 (a launch a substep) on the 4096 60x60 worlds ``wb`` with
+    per-world params against its plain version and against K1 on worlds 0,
+    1 and 4095; K5r (one launch, a CTA a world) on the first DG_CHUNK of
+    them, the datagen path's chunk, against the plain version, K5 and K1 on
+    worlds 0, 1 and DG_CHUNK - 1, bit for bit. Reports the share of
+    particles that start a substep inside the globe's contact distance (the
+    penalty and friction branches) and that end projected onto it (zero
+    velocity); with ``need_contact`` both must be above zero. Returns the
+    results and the largest errors of K5 and of K5r."""
     import torch
 
     from wgpu_physics_engine_torch.core.state import ClothParams, ClothState
-    from wgpu_physics_engine_torch.ops import cloth_kernel
+    from wgpu_physics_engine_torch.ops import cloth_kernel, cloth_tiled_kernel
 
-    res, err = {}, 0.0
-    min_dist = cloth_kernel._pack_params(wb.params, DT)[:, 14, None, None]
+    res, err, err_r = {}, 0.0, 0.0
+    prm = cloth_kernel._pack_params(wb.params, DT)
+    min_dist = prm[:, 14, None, None]
     x, y, z = wb.state.pos.unbind(1)
     dist = torch.sqrt(x * x + y * y + z * z)
     contact = float((dist < min_dist).float().mean())
     pin = torch.zeros(wb.state.pos.shape[:1] + wb.state.pos.shape[2:],
                       dtype=torch.bool, device=dev)
     pin[:, 0] = True
+
+    def world(state, i):
+        return ClothState(
+            pos=state.pos[i], vel=state.vel[i],
+            pin_mask=None if state.pin_mask is None else state.pin_mask[i],
+            pin_pos=None if state.pin_pos is None else state.pin_pos[i])
+
     for case, state in (("free", wb.state),
                         ("pinned", wb.state._replace(pin_mask=pin,
                                                      pin_pos=wb.state.pos))):
-        cloth_kernel.LAUNCHES_BATCHED = 0
-        k5 = cloth_kernel.multi_step_kernel(state, wb.params, DT, DG_STEPS)
+        before = cloth_kernel.LAUNCHES_BATCHED
+        k5 = cloth_kernel.multi_step_launch_packed(state, prm, DG_STEPS)
         torch.cuda.synchronize()
-        n_launch = cloth_kernel.LAUNCHES_BATCHED
+        n_launch = cloth_kernel.LAUNCHES_BATCHED - before
         p5 = cloth_kernel.multi_step_plain(state, wb.params, DT, DG_STEPS)
         e = max(_maxdiff(k5.pos, p5.pos), _maxdiff(k5.vel, p5.vel))
         bitwise = bool(torch.equal(k5.pos, p5.pos)
                        and torch.equal(k5.vel, p5.vel))
         ek1, k1_bitwise = 0.0, True
         for i in (0, 1, DG_WORLDS - 1):
-            one = ClothState(
-                pos=state.pos[i], vel=state.vel[i],
-                pin_mask=None if state.pin_mask is None else state.pin_mask[i],
-                pin_pos=None if state.pin_pos is None else state.pin_pos[i])
             k1 = cloth_kernel.multi_step_kernel(
-                one, ClothParams(*(a[i] for a in wb.params)), DT, DG_STEPS)
+                world(state, i), ClothParams(*(a[i] for a in wb.params)), DT,
+                DG_STEPS)
             ek1 = max(ek1, _maxdiff(k5.pos[i], k1.pos),
                       _maxdiff(k5.vel[i], k1.vel))
             k1_bitwise &= bool(torch.equal(k5.pos[i], k1.pos)
                                and torch.equal(k5.vel[i], k1.vel))
+        # K5r on the datagen chunk
+        chunk = ClothState(*(None if a is None else a[:DG_CHUNK]
+                             for a in state))
+        before = cloth_tiled_kernel.LAUNCHES_BATCHED
+        k5r = cloth_tiled_kernel.multi_step_batched_kernel_packed(
+            chunk, prm[:DG_CHUNK], DG_STEPS)
+        torch.cuda.synchronize()
+        n_r = cloth_tiled_kernel.LAUNCHES_BATCHED - before
+        pr = cloth_kernel.multi_step_plain(
+            chunk, ClothParams(*(a[:DG_CHUNK] for a in wb.params)), DT,
+            DG_STEPS)
+        er = max(_maxdiff(k5r.pos, pr.pos), _maxdiff(k5r.vel, pr.vel))
+        r_bitwise = {
+            "plain": bool(torch.equal(k5r.pos, pr.pos)
+                          and torch.equal(k5r.vel, pr.vel)),
+            "k5": bool(torch.equal(k5r.pos, k5.pos[:DG_CHUNK])
+                       and torch.equal(k5r.vel, k5.vel[:DG_CHUNK])),
+            "k1": True}
+        for i in (0, 1, DG_CHUNK - 1):
+            k1 = cloth_kernel.multi_step_kernel(
+                world(state, i), ClothParams(*(a[i] for a in wb.params)), DT,
+                DG_STEPS)
+            r_bitwise["k1"] &= bool(torch.equal(k5r.pos[i], k1.pos)
+                                    and torch.equal(k5r.vel[i], k1.vel))
         finite = bool(torch.isfinite(k5.pos).all()
                       and torch.isfinite(k5.vel).all())
         free = torch.ones_like(pin) if state.pin_mask is None else ~pin
@@ -887,9 +945,16 @@ def _phase8_k5(wb, label: str, dev, card, need_contact: bool):
               f"launches {n_launch}; finite {finite}; particles in contact "
               f"at the start {contact:.4f}, projected in the last substep "
               f"{projected:.4f}")
+        print(f"phase 8 cloth_tiled_batched (K5r) {label} {case} @{DG_CHUNK} "
+              f"x 60x60 x {DG_STEPS} substeps [{card}]: vs plain {er:.3e}; "
+              f"bitwise vs plain, K5 and K1 on worlds 0, 1, {DG_CHUNK - 1} "
+              f"{r_bitwise}; launches {n_r}")
         _check(n_launch == DG_STEPS, f"K5 launched {n_launch} times")
         _check(e <= 1e-6, f"K5 {label} {case} vs plain diff {e}")
         _check(ek1 <= 1e-6, f"K5 {label} {case} vs K1 diff {ek1}")
+        _check(n_r == 1, f"K5r launched {n_r} times for one call")
+        _check(all(r_bitwise.values()),
+               f"K5r {label} {case} not bit for bit: {r_bitwise} ({er})")
         _check(finite, f"K5 {label} {case} state not finite")
         if need_contact:
             _check(contact > 0 and projected > 0,
@@ -900,9 +965,12 @@ def _phase8_k5(wb, label: str, dev, card, need_contact: bool):
         res[case] = {"err_vs_plain": e, "bitwise": bitwise,
                      "err_vs_k1": ek1, "bitwise_vs_k1": k1_bitwise,
                      "launches": n_launch, "contact_share": contact,
-                     "projected_share": projected}
+                     "projected_share": projected,
+                     "k5r": {"err_vs_plain": er, "bitwise": r_bitwise,
+                             "launches": n_r}}
         err = max(err, e, ek1)
-    return res, err
+        err_r = max(err_r, er)
+    return res, err, err_r
 
 
 def _phase9_raster(settled, dev, card):
@@ -975,7 +1043,9 @@ def _phase10_datagen(settled, dev, card, cli_main):
     import torch
 
     from wgpu_physics_engine_torch.core.config import ClothConfig
-    from wgpu_physics_engine_torch.ops import cloth_kernel, raster_kernel
+    from wgpu_physics_engine_torch.ops import (cloth_kernel,
+                                               cloth_tiled_kernel,
+                                               raster_kernel)
     from wgpu_physics_engine_torch.parallel import codec, datagen
     from wgpu_physics_engine_torch.render import texture as tex_mod
 
@@ -990,6 +1060,7 @@ def _phase10_datagen(settled, dev, card, cli_main):
     torch.cuda.reset_peak_memory_stats()
     cloth_kernel.LAUNCHES = 0
     cloth_kernel.LAUNCHES_BATCHED = 0
+    cloth_tiled_kernel.LAUNCHES_BATCHED = 0
     raster_kernel.LAUNCHES = 0
     t0 = time.perf_counter()
     frames, yields = [], []
@@ -1002,6 +1073,7 @@ def _phase10_datagen(settled, dev, card, cli_main):
     gen_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     gen_launches = {"cloth_step_batched": cloth_kernel.LAUNCHES_BATCHED,
+                    "cloth_tiled_batched": cloth_tiled_kernel.LAUNCHES_BATCHED,
                     "sphere_raster": raster_kernel.LAUNCHES}
     rc = cli_main(["datagen", "--worlds", str(DG_CLI_WORLDS), "--frames",
                    "2", "--codec-k",
@@ -1009,6 +1081,7 @@ def _phase10_datagen(settled, dev, card, cli_main):
     torch.cuda.synchronize()
     launches = {"cloth_step": cloth_kernel.LAUNCHES,
                 "cloth_step_batched": cloth_kernel.LAUNCHES_BATCHED,
+                "cloth_tiled_batched": cloth_tiled_kernel.LAUNCHES_BATCHED,
                 "sphere_raster": raster_kernel.LAUNCHES}
     rc_dec = cli_main(["decode", "--indir", dg_out, "--outdir", dg_dec])
     n_chunks = -(-DG_WORLDS // DG_CHUNK)
@@ -1020,9 +1093,14 @@ def _phase10_datagen(settled, dev, card, cli_main):
           f"device memory {peak / 2**30:.3f} GiB; CLI datagen rc {rc}, decode "
           f"rc {rc_dec}; launches {launches}")
     _check(rc == 0 and rc_dec == 0, f"CLI datagen/decode rc {rc} {rc_dec}")
-    _check(launches["cloth_step_batched"] >= 3 * n_chunks * DG_STEPS
+    # every chunk of 1,024 worlds and the CLI's 64 take K5r, one launch a
+    # frame; K5 never
+    _check(gen_launches["cloth_tiled_batched"] >= 3 * n_chunks
+           and launches["cloth_tiled_batched"] > gen_launches[
+               "cloth_tiled_batched"]
+           and launches["cloth_step_batched"] == 0
            and launches["sphere_raster"] >= 3 * n_chunks,
-           f"a kernel of the datagen path never launched: {launches}")
+           f"the datagen path's kernels launched {launches}")
     shape = (DG_WORLDS, DG_FB[0] // 8, DG_FB[1] // 8, 3, DG_K)
     _check(len(frames) == 3 and all(f.shape == shape and f.dtype == np.int8
                                     for f in frames),
@@ -1116,9 +1194,12 @@ def _phase10_datagen(settled, dev, card, cli_main):
 
 
 def _dg_times(settled, raster_in, dev, card) -> dict:
-    """Phase 6 for the datagen path: K5 a launch (one substep on one chunk
-    of worlds: DG_CHUNK, the datagen path's, and the multi-device path's
-    shard of MC_K5_WORLDS / MC_SHARDS) beside its plain version and bound,
+    """Phase 6 for the datagen path: K5 (a launch a substep) and K5r (one
+    launch) a call of DG_STEPS substeps on DG_CHUNK worlds (the datagen
+    path's chunk), DG_CLI_WORLDS (the datagen CLI's) and the multi-device
+    path's shard of MC_K5_WORLDS / MC_SHARDS, each per substep beside the
+    plain version and the call's bound (bytes once, operations every
+    substep) per substep,
     the raster a call at its two sites (phase 9's launch on DG_CHUNK worlds
     at DG_FB, and a shard of the multi-device example: 16 of the worlds at
     64×64), one steady frame of all worlds with and without the codec, and
@@ -1126,7 +1207,9 @@ def _dg_times(settled, raster_in, dev, card) -> dict:
     import torch
 
     from wgpu_physics_engine_torch.core.state import ClothParams, ClothState
-    from wgpu_physics_engine_torch.ops import cloth_kernel, raster_kernel
+    from wgpu_physics_engine_torch.ops import (cloth_kernel,
+                                               cloth_tiled_kernel,
+                                               raster_kernel)
     from wgpu_physics_engine_torch.parallel import datagen
     from wgpu_physics_engine_torch.render import camera as cam_mod
 
@@ -1135,18 +1218,27 @@ def _dg_times(settled, raster_in, dev, card) -> dict:
                      ("k5_shard", MC_K5_WORLDS // MC_SHARDS)):
         st = ClothState(*(None if a is None else a[:n_w]
                           for a in settled.state))
-        pr = ClothParams(*(a[:n_w] for a in settled.params))
-        k_ms = _best_ms(lambda: cloth_kernel.multi_step_kernel(
-            st, pr, DT, DG_STEPS)) / DG_STEPS
-        p_ms = _best_ms(lambda: cloth_kernel.multi_step_plain(
-            st, pr, DT, DG_STEPS)) / DG_STEPS
-        b_ms, b_by = _cloth_bound(60, 60, n_w, 1)
-        res[key] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "worlds": n_w}
-        print(f"phase 6 cloth_step_batched (K5) {n_w} x 60x60, a launch (one "
-              f"substep; {DG_STEPS} a call) [{card}]: kernel {k_ms:.5f} ms, "
-              f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), kernel at "
-              f"{b_ms / k_ms:.4f} of the bound")
+        prm = cloth_kernel._pack_params(
+            ClothParams(*(a[:n_w] for a in settled.params)), DT)
+        k_ms = _best_ms(lambda: cloth_kernel.multi_step_launch_packed(
+            st, prm, DG_STEPS)) / DG_STEPS
+        r_ms = _best_ms(lambda: cloth_tiled_kernel.
+                        multi_step_batched_kernel_packed(
+                            st, prm, DG_STEPS)) / DG_STEPS
+        p_ms = _best_ms(lambda: cloth_kernel.multi_step_plain_packed(
+            st, prm, DG_STEPS)) / DG_STEPS
+        b_ms, b_by = _cloth_bound(60, 60, n_w, DG_STEPS)
+        res[key] = {"ms": k_ms, "k5r_ms": r_ms, "plain_ms": p_ms,
+                    "bound_ms": b_ms / DG_STEPS, "bound_by": b_by,
+                    "worlds": n_w}
+        print(f"phase 6 cloth_step_batched (K5) and cloth_tiled_batched "
+              f"(K5r), {n_w} x 60x60, a call of {DG_STEPS} substeps, ms a "
+              f"substep [{card}]: K5 {k_ms:.5f}, K5r {r_ms:.5f} "
+              f"({k_ms / r_ms:.3f}x), plain {p_ms:.4f}, bound "
+              f"{b_ms / DG_STEPS:.5f} "
+              f"({b_by}; the call's bytes once), K5 at "
+              f"{b_ms / DG_STEPS / k_ms:.4f} and K5r at "
+              f"{b_ms / DG_STEPS / r_ms:.4f} of it")
 
     wins, ocb, rect, dirs, znear = raster_in
     n, (h, w) = dirs.shape[0], DG_FB
@@ -1219,7 +1311,8 @@ def _dg_times(settled, raster_in, dev, card) -> dict:
 def _dg_trace(tex, chunks, card) -> dict:
     """Phase 7 for the datagen path: one torch.profiler trace of one steady
     frame of all worlds with the codec and the copy to pinned memory, split
-    into K5, raster, composite (the rest of the render range: binning,
+    into K5r (K5 where a chunk is too small for it), raster, composite
+    (the rest of the render range: binning,
     rays, shading of the hits, the uint8 cast), codec and copy, with the
     device's idle share over the frame."""
     import torch
@@ -1247,8 +1340,8 @@ def _dg_trace(tex, chunks, card) -> dict:
               and "correlation" in e.get("args", {})}
     dev = [e for e in events
            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    split = {"k5": 0.0, "raster": 0.0, "composite": 0.0, "codec": 0.0,
-             "copy": 0.0, "other": 0.0}
+    split = {"k5": 0.0, "k5r": 0.0, "raster": 0.0, "composite": 0.0,
+             "codec": 0.0, "copy": 0.0, "other": 0.0}
     for e in dev:
         name = e["name"]
         t = launch.get(e.get("args", {}).get("correlation"))
@@ -1256,6 +1349,8 @@ def _dg_trace(tex, chunks, card) -> dict:
         owner = min(owner, key=lambda r: r[1] - r[0])[2] if owner else ""
         if "substep_kernel_batched" in name:
             split["k5"] += e["dur"]
+        elif "tiled_kernel" in name:
+            split["k5r"] += e["dur"]
         elif "sphere_raster" in name:
             split["raster"] += e["dur"]
         elif e.get("cat") == "gpu_memcpy" or owner == "datagen.fetch":
@@ -1274,8 +1369,8 @@ def _dg_trace(tex, chunks, card) -> dict:
     t1 = max(b for _, b in host + spans)
     busy = _union_us(spans)
     idle = 1.0 - busy / (t1 - t0)
-    _check(split["k5"] > 0 and split["raster"] > 0,
-           f"datagen trace shows no K5 or raster time: {split}")
+    _check(split["k5r"] > 0 and split["raster"] > 0,
+           f"datagen trace shows no K5r or raster time: {split}")
     print(f"phase 7 trace one datagen frame, {DG_WORLDS} worlds with codec "
           f"and copy [{card}]: window {t1 - t0:.1f} us (host, profiled), "
           f"device busy {busy:.1f} us in {len(dev)} device ops; device time "
@@ -2978,74 +3073,111 @@ def _k6_states(h: int, w: int, dev):
 
 def _k6_case(state, params, n: int, label: str, card,
              schedule=None) -> dict:
-    """K6 over ``n`` substeps (on ``schedule``, by default
-    ``pick_schedule``'s) against its plain version and against K1, bit for
-    bit, with its launch count."""
+    """The large-grid kernels over ``n`` substeps against K6's plain
+    version and against K1, bit for bit, with their launch counts: K6r
+    (one launch, on ``resident_tile``'s tiles) where its tiles fit the
+    card, and K6 (on ``schedule``, by default ``pick_schedule``'s, ⌈n / k⌉
+    launches). Returns the results and the largest errors of K6 and K6r
+    (None where K6r does not fit)."""
     import torch
 
     from wgpu_physics_engine_torch.ops import cloth_kernel, cloth_tiled_kernel
 
+    ct = cloth_tiled_kernel
     h, w = state.pos.shape[-2:]
-    sched = schedule or cloth_tiled_kernel.pick_schedule(h, w, n)
-    before = cloth_tiled_kernel.LAUNCHES
-    k6 = cloth_tiled_kernel.multi_step_kernel(state, params, DT, n,
-                                              schedule=schedule)
-    torch.cuda.synchronize()
-    launches = cloth_tiled_kernel.LAUNCHES - before
-    plain = cloth_tiled_kernel.multi_step_plain(state, params, DT, n,
-                                                schedule=schedule)
+    sched = schedule or ct.pick_schedule(h, w, n)
+    out, errs = {"schedule": list(sched)}, {}
+    plain = ct.multi_step_plain(state, params, DT, n, schedule=schedule)
     k1 = cloth_kernel.multi_step_kernel(state, params, DT, n)
-    torch.cuda.synchronize()
-    err = max(_maxdiff(k6.pos, plain.pos), _maxdiff(k6.vel, plain.vel))
-    err_k1 = max(_maxdiff(k6.pos, k1.pos), _maxdiff(k6.vel, k1.vel))
-    eq_plain = bool(torch.equal(k6.pos, plain.pos)
-                    and torch.equal(k6.vel, plain.vel))
-    eq_k1 = bool(torch.equal(k6.pos, k1.pos) and torch.equal(k6.vel, k1.vel))
-    contact = _contact_share(k6.pos, params)
-    print(f"phase 20 cloth_tiled (K6) {label} @{h}x{w}, {n} substeps, "
-          f"schedule {sched} [{card}]: vs plain max abs {err:.3e} bitwise "
-          f"{eq_plain}; vs K1 max abs {err_k1:.3e} bitwise {eq_k1}; "
-          f"launches {launches}; particles in contact {contact:.4f}")
-    _check(launches == -(-n // sched[0]),
-           f"K6 {label} {h}x{w}: {launches} launches for {n} substeps")
-    _check(eq_plain, f"K6 {label} {h}x{w} n={n}: differs from its plain "
-           f"version by {err}")
-    _check(eq_k1, f"K6 {label} {h}x{w} n={n}: differs from K1 by {err_k1}")
-    _check(bool(torch.isfinite(k6.pos).all()), f"K6 {label}: not finite")
-    _check(torch.equal(k6.pos[:, 0], state.pos[:, 0]),
-           f"K6 {label}: pinned row moved")
-    return {"schedule": list(sched), "launches": launches, "err_plain": err,
-            "err_k1": err_k1, "bitwise_plain": eq_plain, "bitwise_k1": eq_k1,
-            "contact_share": contact}, err
+    runs = {"k6": (lambda: ct.multi_step_kernel(state, params, DT, n,
+                                                schedule=schedule),
+                   "LAUNCHES", -(-n // sched[0]))}
+    if ct.resident_fits(h, w, state.pos.device):
+        runs["k6r"] = (lambda: ct.multi_step_resident_kernel(state, params,
+                                                             DT, n),
+                       "LAUNCHES_RESIDENT", 1)
+    got = {}
+    for key, (fn, counter, expect) in runs.items():
+        before = getattr(ct, counter)
+        got[key] = fn()
+        torch.cuda.synchronize()
+        launches = getattr(ct, counter) - before
+        err = max(_maxdiff(got[key].pos, plain.pos),
+                  _maxdiff(got[key].vel, plain.vel))
+        err_k1 = max(_maxdiff(got[key].pos, k1.pos),
+                     _maxdiff(got[key].vel, k1.vel))
+        eq_plain = bool(torch.equal(got[key].pos, plain.pos)
+                        and torch.equal(got[key].vel, plain.vel))
+        eq_k1 = bool(torch.equal(got[key].pos, k1.pos)
+                     and torch.equal(got[key].vel, k1.vel))
+        out[key] = {"launches": launches, "err_plain": err, "err_k1": err_k1,
+                    "bitwise_plain": eq_plain, "bitwise_k1": eq_k1}
+        errs[key] = err
+        _check(launches == expect, f"{key} {label} {h}x{w}: {launches} "
+               f"launches for {n} substeps, not {expect}")
+        _check(eq_plain, f"{key} {label} {h}x{w} n={n}: differs from K6's "
+               f"plain version by {err}")
+        _check(eq_k1, f"{key} {label} {h}x{w} n={n}: differs from K1 by "
+               f"{err_k1}")
+        _check(bool(torch.isfinite(got[key].pos).all()),
+               f"{key} {label}: not finite")
+        _check(torch.equal(got[key].pos[:, 0], state.pos[:, 0]),
+               f"{key} {label}: pinned row moved")
+    if "k6r" in got:
+        out["k6r"]["tile"] = list(ct.resident_tile(h, w, state.pos.device))
+        out["k6r"]["bitwise_k6"] = bool(
+            torch.equal(got["k6r"].pos, got["k6"].pos)
+            and torch.equal(got["k6r"].vel, got["k6"].vel))
+        _check(out["k6r"]["bitwise_k6"], f"K6r {label} {h}x{w}: not K6")
+    contact = _contact_share(got["k6"].pos, params)
+    out["contact_share"] = contact
+    print(f"phase 20 cloth_tiled (K6) and cloth_tiled_resident (K6r) {label} "
+          f"@{h}x{w}, {n} substeps, K6 schedule {sched} [{card}]: "
+          + "; ".join(f"{k} launches {v['launches']}, bitwise vs plain "
+                      f"{v['bitwise_plain']} and K1 {v['bitwise_k1']}"
+                      for k, v in out.items() if k in runs)
+          + (f", K6r tile {out['k6r']['tile']} == K6 "
+             f"{out['k6r']['bitwise_k6']}" if "k6r" in out else
+             ", K6r: no resident tiling fits")
+          + f"; particles in contact {contact:.4f}")
+    return out, errs.get("k6", 0.0), errs.get("k6r")
 
 
 def _k6_checks(dev, card):
-    """Phase 20, part 1: K6 against its plain version and K1 on each of
-    LG_SHAPES (512², LG² and the ragged LG_RAGGED), fresh and draped, over
-    each of LG_STEPS substeps, and on the ragged shape also with the
-    schedules of LG_DEEP (k > 1). Returns the results and the largest
-    error."""
-    res, err = {}, 0.0
-    for h, w in LG_SHAPES:
+    """Phase 20, part 1: K6r and K6 against K6's plain version and K1 on
+    each of LG_SHAPES (512², LG² and the ragged LG_RAGGED), fresh and
+    draped, over each of LG_STEPS substeps; on the ragged shape K6 also
+    with the schedules of LG_DEEP (k > 1); and K6 alone on LG_BIG, above
+    K6r's reach. Returns the results and the largest errors of K6 and
+    K6r."""
+    res, err, err_r = {}, 0.0, 0.0
+    for h, w in LG_SHAPES + (LG_BIG,):
         params, states = _k6_states(h, w, dev)
         for label, s in states.items():
+            if (h, w) == LG_BIG and label == "draped":
+                continue
             if label == "draped":
                 share = _contact_share(s.pos, params)
                 print(f"phase 20 draped state @{h}x{w}: particles in contact "
                       f"{share:.4f}")
                 _check(share > 0, f"draped {h}x{w}: no particle in contact")
-            for n in LG_STEPS:
-                res[f"{h}x{w} {label} n={n}"], e = _k6_case(
+            for n in (LG_STEPS if (h, w) != LG_BIG else LG_STEPS[:1]):
+                res[f"{h}x{w} {label} n={n}"], e, er = _k6_case(
                     s, params, n, label, card)
                 err = max(err, e)
+                if (h, w) == LG_BIG:
+                    _check(er is None, f"K6r took {h}x{w}")
+                else:
+                    _check(er is not None, f"no K6r tiling of {h}x{w}")
+                    err_r = max(err_r, er)
             if (h, w) == LG_RAGGED:
                 # deeper temporal blocking than the default schedule's
                 for sched in LG_DEEP:
-                    res[f"{h}x{w} {label} n={LG_STEPS[-1]} {sched}"], e = (
+                    res[f"{h}x{w} {label} n={LG_STEPS[-1]} {sched}"], e, _ = (
                         _k6_case(s, params, LG_STEPS[-1], label, card,
                                  sched))
                     err = max(err, e)
-    return res, err
+    return res, err, err_r
 
 
 def _phase20(dev, card, cli_main) -> dict:
@@ -3073,14 +3205,15 @@ def _phase20(dev, card, cli_main) -> dict:
     n_frame = cloth.frame_substeps(1.0 / 60.0, cfg.time_scale, cfg.hz,
                                    cfg.max_substeps)[0]
     n_cli = int(round(LG_CLI_SECONDS * cfg.hz))
-    k_of = lambda n: cloth_tiled_kernel.pick_schedule(LG, LG, n)[0]
-    expect = sum(-(-n // k_of(n)) for n in (n_sim, n_frame, n_cli))
+    # simulate, the frame and the CLI: a call of K6r each
+    expect = 3
 
     scene = ClothScene(cfg, device=dev)
     scene.resize(fw, fh)
     torch.cuda.synchronize()
     cloth_kernel.LAUNCHES = 0
     cloth_tiled_kernel.LAUNCHES = 0
+    cloth_tiled_kernel.LAUNCHES_RESIDENT = 0
     raster_kernel.LAUNCHES = 0
     t0 = time.time()
     scene.simulate(LG_SECONDS)
@@ -3091,18 +3224,35 @@ def _phase20(dev, card, cli_main) -> dict:
     rc = cli_main(["cloth", "--grid", str(LG), "--size", str(fh), str(fw),
                    "--seconds", str(LG_CLI_SECONDS), "--out", png,
                    "--device", "cuda"])
+    # a grid above K6r's reach takes K6
+    big = ClothScene(ClothConfig(height=LG_BIG[0], width=LG_BIG[1]),
+                     device=dev)
+    big.simulate(LG_BIG_SECONDS)
     torch.cuda.synchronize()
-    launches = {"cloth_tiled": cloth_tiled_kernel.LAUNCHES,
+    n_big = int(round(LG_BIG_SECONDS * cfg.hz))
+    expect_k6 = -(-n_big // cloth_tiled_kernel.pick_schedule(*LG_BIG,
+                                                             n_big)[0])
+    big_finite = bool(torch.isfinite(big.state.pos).all())
+    del big
+    launches = {"cloth_tiled_resident": cloth_tiled_kernel.LAUNCHES_RESIDENT,
+                "cloth_tiled": cloth_tiled_kernel.LAUNCHES,
                 "cloth_step": cloth_kernel.LAUNCHES,
                 "sphere_raster": raster_kernel.LAUNCHES}
     print(f"phase 20 main path: ClothScene {LG}x{LG} simulate({LG_SECONDS}) "
           f"+ update(1/60) ({n_sim} + {n_frame} substeps) {sim_s:.3f} s host "
           f"clock + render{LG_FRAME} + CLI cloth --grid {LG} --seconds "
-          f"{LG_CLI_SECONDS} (rc {rc}); launches {launches}, K6 expected "
-          f"{expect}")
+          f"{LG_CLI_SECONDS} ({n_cli} substeps, rc {rc}) + ClothScene "
+          f"{LG_BIG[0]}x{LG_BIG[1]} simulate({LG_BIG_SECONDS}) ({n_big} "
+          f"substeps, finite {big_finite}); launches {launches}, K6r "
+          f"expected {expect}, K6 {expect_k6}")
     _check(rc == 0, f"CLI cloth --grid {LG} returned {rc}")
-    _check(launches["cloth_tiled"] == expect,
-           f"K6 launched {launches['cloth_tiled']} times, not {expect}")
+    _check(launches["cloth_tiled_resident"] == expect,
+           f"K6r launched {launches['cloth_tiled_resident']} times, not "
+           f"{expect}")
+    _check(launches["cloth_tiled"] == expect_k6,
+           f"K6 launched {launches['cloth_tiled']} times, not {expect_k6} "
+           f"(the {LG_BIG} scene)")
+    _check(big_finite, f"the {LG_BIG} scene is not finite")
     _check(launches["cloth_step"] == 0,
            f"K1 launched {launches['cloth_step']} times on the large grid")
     _check(launches["sphere_raster"] > 0, "the raster never launched")
@@ -3134,14 +3284,14 @@ def _phase20(dev, card, cli_main) -> dict:
     _check(r_min >= md - 1e-3, f"large-grid r_min {r_min} below {md - 1e-3}")
     _check(red > 100 and globe > 100,
            f"large-grid image lacks globe/particles: {red} {globe}")
-    _check(same, "large-grid scene on K6 differs from the scene on K1")
+    _check(same, "large-grid scene on K6r differs from the scene on K1")
     _check(bool(np.isfinite(img).all()), "large-grid image not finite")
     del ref
     raster = _raster_site(scene.camera(), pos.reshape(3, -1).T,
                           float(scene.params.particle_radius), fh, fw,
                           "the large-grid frame", card)
 
-    # gradients: one segment at LG², the forward on K6, the trace on K1
+    # gradients: one segment at LG², the forward on K6r, the trace on K1
     params = ClothParams.from_config(cfg, device=dev)
     s0 = scene.state
     pin = torch.zeros((LG, LG), dtype=torch.bool, device=dev)
@@ -3151,10 +3301,13 @@ def _phase20(dev, card, cli_main) -> dict:
     wp, wv = (torch.randn((3, LG, LG), generator=g).to(dev) for _ in range(2))
     cloth_kernel.LAUNCHES = 0
     cloth_tiled_kernel.LAUNCHES = 0
+    cloth_tiled_kernel.LAUNCHES_RESIDENT = 0
     cloth_grad_kernel.LAUNCHES = 0
     grads, out = _diff_grads(s0, params, FIT_SEG, FIT_SEG, wp, wv)
     torch.cuda.synchronize()
-    g_launches = {"cloth_tiled": cloth_tiled_kernel.LAUNCHES,
+    g_launches = {"cloth_tiled_resident":
+                  cloth_tiled_kernel.LAUNCHES_RESIDENT,
+                  "cloth_tiled": cloth_tiled_kernel.LAUNCHES,
                   "cloth_step": cloth_kernel.LAUNCHES,
                   "cloth_substep_vjp": cloth_grad_kernel.LAUNCHES}
     prm = cloth_kernel._pack_params(params, DT).to(dev)
@@ -3165,17 +3318,20 @@ def _phase20(dev, card, cli_main) -> dict:
     finite_g = all(bool(torch.isfinite(v).all()) for v in grads.values())
     print(f"phase 20 multi_step_diff @{LG}x{LG}, {FIT_SEG} substeps (one "
           f"segment) [{card}]: launches {g_launches}; trace's last state "
-          f"(K1) == forward (K6) {trace_ok}; gradients finite {finite_g}, "
+          f"(K1) == forward (K6r) {trace_ok}; gradients finite {finite_g}, "
           f"|d/d gravity| {float(grads['gravity'].abs()):.6e}")
-    _check(g_launches["cloth_tiled"] == -(-FIT_SEG // k_of(FIT_SEG)),
-           f"multi_step_diff forward: K6 launched {g_launches}")
+    _check(g_launches["cloth_tiled_resident"] == 1
+           and g_launches["cloth_tiled"] == 0,
+           f"multi_step_diff forward: K6r launched {g_launches}")
     _check(g_launches["cloth_step"] == FIT_SEG - 1,
            f"multi_step_diff trace: K1 launched {g_launches}")
     _check(g_launches["cloth_substep_vjp"] == FIT_SEG,
            f"multi_step_diff adjoint launched {g_launches}")
-    _check(trace_ok, "large-grid trace's last state != the K6 forward")
+    _check(trace_ok, "large-grid trace's last state != the K6r forward")
     _check(finite_g, "large-grid gradients not finite")
-    return {"launches": launches, "expected_k6": expect, "simulate_s": sim_s,
+    return {"launches": launches, "expected_k6r": expect,
+            "expected_k6": expect_k6, "substeps_k6r": n_sim + n_frame + n_cli,
+            "substeps_k6": n_big, "simulate_s": sim_s,
             "raster": raster,
             "finite": finite, "r_min": r_min, "particle_px": red,
             "globe_px": globe, "equal_k1_route": same,
@@ -3214,42 +3370,41 @@ def _k6_sweep(dev, card) -> dict:
 
 def _k6_trace(state, params, card) -> dict:
     """Phase 7 for the large-grid path: one torch.profiler trace of
-    LG_TIME_STEPS substeps on K6 (``trace_large_grid.json``): its launches,
-    kernel time a launch, the gaps between launches and the device's idle
-    share over the call."""
-    from wgpu_physics_engine_torch.ops import cloth_tiled_kernel
+    LG_TIME_STEPS substeps at LG² through ``cloth_kernel.multi_step``, the
+    path's call (``trace_large_grid.json``): K6r's one launch, its time a
+    substep, and the device's idle share over the call."""
+    from wgpu_physics_engine_torch.ops import cloth_kernel
 
-    # the K6 launches are the device records whose correlation id is that
-    # of a launch issued inside the kept call's annotation
+    # the K6r launch is the device record whose correlation id is that of a
+    # launch issued inside the kept call's annotation
     n = LG_TIME_STEPS
     spans, (t0, t1), _ = _trace_kept(
-        lambda: cloth_tiled_kernel.multi_step_kernel(state, params, DT, n),
-        os.path.join(OUT, "trace_large_grid.json"), "k6_traced")
+        lambda: cloth_kernel.multi_step(state, params, DT, n),
+        os.path.join(OUT, "trace_large_grid.json"), "k6r_traced")
     dev_spans = [(a, b, name) for a, b, name, _ in spans]
-    ks = sorted((a, b) for a, b, name in dev_spans if "tiled_kernel" in name)
-    k_exp = -(-n // cloth_tiled_kernel.pick_schedule(LG, LG, n)[0])
-    _check(len(ks) == k_exp,
-           f"trace shows {len(ks)} K6 launches, not {k_exp}")
+    ks = sorted((a, b) for a, b, name in dev_spans
+                if "resident_kernel" in name)
+    _check(len(ks) == 1, f"trace shows {len(ks)} K6r launches, not 1")
     busy = _union_us([(a, b) for a, b, _ in dev_spans])
     kb = _union_us(ks)
-    span = ks[-1][1] - ks[0][0]
-    res = {"launches": len(ks), "kernel_us": kb / len(ks),
-           "gap_us": (span - kb) / max(len(ks) - 1, 1),
-           "window_us": t1 - t0, "device_busy_us": busy,
+    res = {"launches": len(ks), "kernel_us": kb,
+           "kernel_us_per_substep": kb / n, "window_us": t1 - t0,
+           "device_busy_us": busy, "device_ops": len(dev_spans),
            "idle_share": 1.0 - busy / (t1 - t0)}
-    print(f"phase 7 trace {n} substeps @{LG}x{LG} on K6 [{card}]: "
-          f"{len(ks)} launches, {kb / len(ks):.3f} us of kernel time per "
-          f"launch, mean gap {res['gap_us']:.3f} us; window "
-          f"{t1 - t0:.1f} us (host, profiled), device busy {busy:.1f} us; "
-          f"device idle share {res['idle_share']:.4f}")
+    print(f"phase 7 trace {n} substeps @{LG}x{LG} on K6r [{card}]: "
+          f"{len(ks)} launch, {kb:.1f} us of kernel time = {kb / n:.3f} us a "
+          f"substep; {len(dev_spans)} device ops; window {t1 - t0:.1f} us "
+          f"(host, profiled), device busy {busy:.1f} us; device idle share "
+          f"{res['idle_share']:.4f}")
     return res
 
 
 def _k6_times(dev, card) -> dict:
-    """Phases 6 and 7 for the large-grid path: K6 and K1 a substep at
-    LG_SIDES beside the bound, the schedule sweep, K6's plain version,
-    particle-steps/s of LG_RATE_STEPS substeps at LG², the ptxas report,
-    and one traced run of LG_TIME_STEPS substeps at LG²."""
+    """Phases 6 and 7 for the large-grid path: K6r (where its tiles fit),
+    K6 and K1 a substep at LG_SIDES beside the bound, K6's schedule sweep,
+    K6's plain version (K6r's too), particle-steps/s of LG_RATE_STEPS
+    substeps at LG² through the path's call (K6r), the ptxas report, and
+    one traced run of LG_TIME_STEPS substeps at LG²."""
     from wgpu_physics_engine_torch.core.config import ClothConfig
     from wgpu_physics_engine_torch.core.state import (ClothParams,
                                                       init_cloth_state)
@@ -3279,6 +3434,12 @@ def _k6_times(dev, card) -> dict:
         bm, bb = _cloth_bound(side, side, 1, n)
         row = {"ms": k6, "k1_ms": k1, "bound_ms": bm / n, "bound_by": bb,
                "psteps_per_s": side * side / (k6 / 1e3)}
+        if cloth_tiled_kernel.resident_fits(side, side, dev):
+            row["k6r_ms"] = _best_ms(
+                lambda: cloth_tiled_kernel.multi_step_resident_kernel(
+                    s, p, DT, n)) / n
+            row["k6r_tile"] = list(cloth_tiled_kernel.resident_tile(
+                side, side, dev))
         if side <= LG:
             n_plain = 8
             row["plain_ms"] = _best_ms(lambda: cloth_tiled_kernel.
@@ -3290,17 +3451,23 @@ def _k6_times(dev, card) -> dict:
               f"{side * side / (k6 / 1e3):.4e} particle-steps/s; K1 "
               f"{k1:.5f} ms/substep; bound {bm / n:.5f} ms ({bb}), K6 at "
               f"{bm / n / k6:.4f} of it"
+              + (f"; cloth_tiled_resident (K6r, tile {row['k6r_tile']}) "
+                 f"{row['k6r_ms']:.5f} ms/substep, at "
+                 f"{bm / n / row['k6r_ms']:.4f} of the bound, "
+                 f"{k6 / row['k6r_ms']:.3f}x K6" if "k6r_ms" in row else
+                 "; K6r: no resident tiling fits")
               + (f"; plain {row['plain_ms']:.5f} ms/substep" if "plain_ms"
                  in row else ""))
     res["sweep"] = _k6_sweep(dev, card)
 
     s, p = states[LG]
     n3 = LG_RATE_STEPS
-    ms = _best_ms(lambda: cloth_tiled_kernel.multi_step_kernel(s, p, DT, n3))
+    ms = _best_ms(lambda: cloth_kernel.multi_step(s, p, DT, n3))
     res["rate"] = {"substeps": n3, "ms": ms,
                    "psteps_per_s": LG * LG * n3 / (ms / 1e3)}
-    print(f"phase 6 cloth {LG}x{LG} x {n3} substeps on K6 [{card}]: "
-          f"{ms:.3f} ms = {LG * LG * n3 / (ms / 1e3):.4e} particle-steps/s")
+    print(f"phase 6 cloth {LG}x{LG} x {n3} substeps through "
+          f"cloth_kernel.multi_step (K6r) [{card}]: {ms:.3f} ms = "
+          f"{LG * LG * n3 / (ms / 1e3):.4e} particle-steps/s")
 
     res["trace"] = _k6_trace(s, p, card)
     return res
@@ -3400,6 +3567,9 @@ def _mc_counters(reset: bool = False) -> dict:
              "cloth_step_batched": (cloth_kernel, "LAUNCHES_BATCHED"),
              "cloth_step_force": (cloth_kernel, "LAUNCHES_FORCE"),
              "cloth_tiled": (cloth_tiled_kernel, "LAUNCHES"),
+             "cloth_tiled_resident": (cloth_tiled_kernel,
+                                      "LAUNCHES_RESIDENT"),
+             "cloth_tiled_batched": (cloth_tiled_kernel, "LAUNCHES_BATCHED"),
              "granular_step_sharded": (granular_kernel, "LAUNCHES_SHARDED"),
              "granular_step": (granular_kernel, "LAUNCHES"),
              "granular_forces": (granular_kernel, "LAUNCHES_FORCES"),
@@ -3487,7 +3657,7 @@ def _phase21(dev, card):
     pin = torch.zeros((LG, LG), dtype=torch.bool, device=dev)
     pin[0] = True
     s_lg = s_lg._replace(pin_mask=pin, pin_pos=s_lg.pos)
-    ref_lg = cloth_kernel.multi_step(s_lg, p_lg, DT, MC_STEPS)       # K6
+    ref_lg = cloth_kernel.multi_step(s_lg, p_lg, DT, MC_STEPS)       # K6r
     c_fl = ClothConfig(height=GRID, width=GRID)
     p_fl = ClothParams.from_config(c_fl, device=dev)
     fl = datagen.randomized_worlds(c_fl, MC_WORLDS,
@@ -3500,7 +3670,7 @@ def _phase21(dev, card):
     dg = datagen.randomized_worlds(ClothConfig(), MC_K5_WORLDS,
                                    torch.Generator().manual_seed(22),
                                    device=dev)
-    ref_k5 = cloth_kernel.multi_step(dg.state, dg.params, DT, DG_STEPS)
+    ref_k5 = cloth_kernel.multi_step(dg.state, dg.params, DT, DG_STEPS)  # K5r
     gcfg = _gr_configs()["default"]
     pile = granular.init_state(gcfg, torch.Generator().manual_seed(0),
                                device=dev)
@@ -3567,6 +3737,7 @@ def _phase21(dev, card):
     launches = _mc_counters()
     print(f"phase 21 multi-device main path on {MC_SHARDS} shards of one "
           f"card [{card}]: host clock {host}; launches {launches}")
+    # the shards of 16 worlds stay on K5, a shard's window on K6w
 
     # ---- the checks ----
     n_rows = MC_STEPS * MC_SHARDS
@@ -3574,7 +3745,8 @@ def _phase21(dev, card):
     exp = {"cloth_tiled_window": 2 * n_rows, "cloth_step_window": n_comp,
            "granular_step_sharded": MC_SHARDS * sum(MC_GR_STEPS),
            "cloth_step_batched": DG_STEPS * MC_SHARDS * (1 + 4),
-           "cloth_step": 0, "cloth_tiled": 0, "granular_step": 0,
+           "cloth_step": 0, "cloth_tiled": 0, "cloth_tiled_resident": 0,
+           "cloth_tiled_batched": 0, "granular_step": 0,
            "cloth_step_force": MC_SC_WORLDS * MC_SC_STEPS,
            "granular_forces": (2 * MC_DIFF_WORLDS * MC_DIFF_STEPS
                                + MC_SC_WORLDS * MC_SC_STEPS),
@@ -3593,15 +3765,15 @@ def _phase21(dev, card):
                  and torch.equal(k5.vel, ref_k5.vel))
     contact = _contact_share(ref_lg.pos, p_lg)
     print(f"phase 21 spatial_multi_step @{LG}x{LG}, {MC_STEPS} substeps, "
-          f"{MC_SHARDS} row shards [{card}]: vs cloth_kernel.multi_step (K6) "
+          f"{MC_SHARDS} row shards [{card}]: vs cloth_kernel.multi_step (K6r) "
           f"bitwise k=1 {eq_rows[1]}, k=2 {eq_rows[2]}; particles in contact "
           f"{contact:.4f}; batched_spatial_multi_step {MC_WORLDS} worlds "
           f"@{GRID}x{GRID} on (2, 2), k = 2: each world vs K1 alone bitwise "
           f"{eq_comp}; batched_multi_step {MC_K5_WORLDS} worlds on "
-          f"{MC_SHARDS} shards vs K5 on the whole batch bitwise {eq_k5}")
-    _check(all(eq_rows.values()), f"rows path differs from K6: {eq_rows}")
+          f"{MC_SHARDS} shards (K5) vs the whole batch (K5r) bitwise {eq_k5}")
+    _check(all(eq_rows.values()), f"rows path differs from K6r: {eq_rows}")
     _check(eq_comp, "composed worlds x rows path differs from K1")
-    _check(eq_k5, "worlds-sharded K5 differs from K5 on the whole batch")
+    _check(eq_k5, "worlds-sharded K5 differs from K5r on the whole batch")
     _check(torch.equal(rows[1].pos[:, 0], s_lg.pos[:, 0]),
            "rows path: pinned row moved")
     res["cloth"] = {"bitwise_rows": eq_rows, "bitwise_composed": eq_comp,
@@ -4148,14 +4320,17 @@ def _multi_device(dev, card):
     return res, kernels
 
 
-def _site(name: str, launches: int, ms=None, bound_ms=None) -> dict:
-    """One main-path site of a kernel: its launches in this run, its ms a
-    launch and bound there (None where this run does not time the shape),
-    and the time it loses, launches × (ms − bound)."""
+def _site(name: str, launches: int, ms=None, bound_ms=None,
+          substeps: float = 1) -> dict:
+    """One main-path site of a kernel: its launches in this run, its ms
+    and bound there a launch, or a substep for a kernel that runs
+    ``substeps`` substeps a launch (K6r, K5r; None where this run does not
+    time the shape), and the time it loses, launches × substeps × (ms −
+    bound)."""
     lost = (None if ms is None or bound_ms is None
-            else launches * (ms - bound_ms))
-    return {"site": name, "launches": launches, "ms": ms,
-            "bound_ms": bound_ms, "lost_ms": lost}
+            else launches * substeps * (ms - bound_ms))
+    return {"site": name, "launches": launches, "substeps_per_launch": substeps,
+            "ms": ms, "bound_ms": bound_ms, "lost_ms": lost}
 
 
 def _kernel(name: str, source: str, replaces: str, err: float, ms: float,
@@ -4182,6 +4357,8 @@ def _ranking(kernels, card) -> None:
     for total, k in lost:
         parts = "; ".join(
             f"{x['site']}: {x['launches']} x "
+            + ("" if x["substeps_per_launch"] == 1 else
+               f"{x['substeps_per_launch']:g} substeps x ")
             + ("(not timed)" if x["ms"] is None else
                f"({x['ms']:.5f} - {x['bound_ms']:.5f}) = "
                f"{x['lost_ms']:.1f} ms") for x in k["sites"])
@@ -4418,9 +4595,9 @@ def main() -> int:
     fresh = datagen.randomized_worlds(
         ClothConfig(), DG_WORLDS, torch.Generator().manual_seed(DG_SEED),
         device=dev)
-    k5_res, k5_err = {}, 0.0
-    k5_res["fresh"], e = _phase8_k5(fresh, "fresh", dev, card, False)
-    k5_err = max(k5_err, e)
+    k5_res = {}
+    k5_res["fresh"], k5_err, k5r_err = _phase8_k5(fresh, "fresh", dev, card,
+                                                  False)
     # drop the fresh worlds onto the globe (3 s), where the contact and
     # friction branches run and the randomized views of phases 9 and 10
     # see the cloth
@@ -4429,8 +4606,8 @@ def main() -> int:
                                              DG_SETTLE),
         params=fresh.params)
     del fresh
-    k5_res["settled"], e = _phase8_k5(settled, "settled", dev, card, True)
-    k5_err = max(k5_err, e)
+    k5_res["settled"], e, er = _phase8_k5(settled, "settled", dev, card, True)
+    k5_err, k5r_err = max(k5_err, e), max(k5r_err, er)
     results["cloth_step_batched"] = k5_res
 
     # ---- phase 9: the batched raster, one chunk of worlds ----
@@ -4512,7 +4689,7 @@ def main() -> int:
     results["meshes"] = _phase19_meshes(dev, card, cli_main)
 
     # ---- phase 20: the large-grid path (K6) ----
-    results["cloth_tiled"], k6_err = _k6_checks(dev, card)
+    results["cloth_tiled"], k6_err, k6r_err = _k6_checks(dev, card)
     results["large_grid"] = _phase20(dev, card, cli_main)
     lg_launches = results["large_grid"]["launches"]
     lg_grad_launches = results["large_grid"]["grad_launches"]
@@ -4543,19 +4720,31 @@ def main() -> int:
                     _site(f"training {GRID}²", tr_launches["cloth_step"],
                           k_ms / n, k1_bound / n)]),
         _kernel("cloth_step_batched", "cloth_step.cu", "cloth_pallas.py:345",
-                k5_err, dg["k5"]["ms"], dg["k5"]["plain_ms"],
-                dg["k5"]["bound_ms"], dg["k5"]["bound_by"], [
-                    _site(f"datagen, a substep on {DG_CHUNK} worlds",
-                          gen["cloth_step_batched"], dg["k5"]["ms"],
-                          dg["k5"]["bound_ms"]),
-                    _site(f"datagen CLI, {DG_CLI_WORLDS} worlds",
-                          dg_launches["cloth_step_batched"]
-                          - gen["cloth_step_batched"], dg["k5_cli"]["ms"],
-                          dg["k5_cli"]["bound_ms"]),
+                k5_err, dg["k5_shard"]["ms"], dg["k5_shard"]["plain_ms"],
+                dg["k5_shard"]["bound_ms"], dg["k5_shard"]["bound_by"], [
                     _site(f"multi-device, a substep on "
                           f"{MC_K5_WORLDS // MC_SHARDS} worlds",
                           mc_launches["cloth_step_batched"],
-                          dg["k5_shard"]["ms"], dg["k5_shard"]["bound_ms"])]),
+                          dg["k5_shard"]["ms"], dg["k5_shard"]["bound_ms"]),
+                    _site(f"datagen, {DG_CHUNK} worlds (K5r takes it)",
+                          gen["cloth_step_batched"], dg["k5"]["ms"],
+                          dg["k5"]["bound_ms"]),
+                    _site(f"datagen CLI, {DG_CLI_WORLDS} worlds (K5r takes "
+                          f"it)", dg_launches["cloth_step_batched"]
+                          - gen["cloth_step_batched"], dg["k5_cli"]["ms"],
+                          dg["k5_cli"]["bound_ms"])]),
+        _kernel("cloth_tiled_batched", "cloth_tiled.cu",
+                "cloth_pallas.py:302", k5r_err, dg["k5"]["k5r_ms"],
+                dg["k5"]["plain_ms"], dg["k5"]["bound_ms"],
+                dg["k5"]["bound_by"], [
+                    _site(f"datagen, a call on {DG_CHUNK} worlds",
+                          gen["cloth_tiled_batched"], dg["k5"]["k5r_ms"],
+                          dg["k5"]["bound_ms"], DG_STEPS),
+                    _site(f"datagen CLI, a call on {DG_CLI_WORLDS} worlds",
+                          dg_launches["cloth_tiled_batched"]
+                          - gen["cloth_tiled_batched"],
+                          dg["k5_cli"]["k5r_ms"], dg["k5_cli"]["bound_ms"],
+                          DG_STEPS)]),
         _kernel("sphere_raster", "sphere_raster.cu", "raster_pallas.py:209",
                 max(r_err, r9_err, g_r["err_tmin"], g_r["err_oc"]), rk_ms,
                 rp_ms, r_bound, r_by, [
@@ -4649,10 +4838,23 @@ def main() -> int:
         _kernel("cloth_tiled", "cloth_tiled.cu", "cloth_pallas_tiled.py:40",
                 k6_err, lgt[str(LG)]["ms"], lgt[str(LG)]["plain_ms"],
                 lgt[str(LG)]["bound_ms"], lgt[str(LG)]["bound_by"], [
-                    _site(f"large grid {LG}²",
+                    _site(f"large grid {LG_BIG[0]}² (above K6r's reach)",
                           lg_launches["cloth_tiled"]
                           + lg_grad_launches["cloth_tiled"],
-                          lgt[str(LG)]["ms"], lgt[str(LG)]["bound_ms"])]),
+                          lgt[str(LG_BIG[0])]["ms"],
+                          lgt[str(LG_BIG[0])]["bound_ms"])]),
+        _kernel("cloth_tiled_resident", "cloth_tiled.cu",
+                "cloth_pallas_tiled.py:264", k6r_err,
+                lgt[str(LG)]["k6r_ms"], lgt[str(LG)]["plain_ms"],
+                lgt[str(LG)]["bound_ms"], lgt[str(LG)]["bound_by"], [
+                    _site(f"large grid {LG}², a call (scene, frame, CLI, "
+                          f"gradient forward)",
+                          lg_launches["cloth_tiled_resident"]
+                          + lg_grad_launches["cloth_tiled_resident"],
+                          lgt[str(LG)]["k6r_ms"], lgt[str(LG)]["bound_ms"],
+                          (results["large_grid"]["substeps_k6r"] + FIT_SEG)
+                          / (lg_launches["cloth_tiled_resident"]
+                             + lg_grad_launches["cloth_tiled_resident"]))]),
     ] + mc_kernels
     _ranking(kernels, card)
     print(card)

@@ -153,3 +153,29 @@ def test_kernel_plain_zero_steps_is_identity():
     _, _, ts, tp = _pair(8, 8, seed=5)
     got = cloth_kernel.multi_step(ts, tp, DT, 0)
     np.testing.assert_array_equal(got.pos.numpy(), ts.pos.numpy())
+
+
+H100_SMEM = 232_448      # the H100's shared memory a CTA can opt in to
+A100_SMEM = 166_912
+
+
+@pytest.mark.parametrize("n_worlds,hw,fast,sms,smem,takes", [
+    (1024, (60, 60), False, 132, H100_SMEM, True),   # the datagen chunk
+    (64, (60, 60), False, 132, H100_SMEM, True),     # the datagen CLI
+    (50, (60, 60), False, 132, H100_SMEM, True),     # 0.375 worlds an SM
+    (49, (60, 60), False, 132, H100_SMEM, False),
+    (16, (60, 60), False, 132, H100_SMEM, False),    # a multi-device shard
+    (24, (60, 60), False, 64, H100_SMEM, True),      # a smaller card
+    (23, (60, 60), False, 64, H100_SMEM, False),
+    (1024, (60, 60), True, 132, H100_SMEM, False),   # fast_math stays on K5
+    (1024, (69, 70), False, 132, H100_SMEM, True),   # 4,830, 231,840 B
+    (1024, (70, 70), False, 132, H100_SMEM, False),  # 4,900: overflows
+    (65536, (8, 8), False, 132, H100_SMEM, False),   # more than a grid's z
+    (1024, (60, 60), False, 108, A100_SMEM, False),  # 172,800 B: no room
+    (1024, (57, 60), False, 108, A100_SMEM, True),   # 164,160 B
+])
+def test_resident_batch_route(n_worlds, hw, fast, sms, smem, takes):
+    """The batch route (K5r or K5) as a pure function of the batch's shape,
+    the card's multiprocessors and shared memory, and fast_math."""
+    assert cloth_kernel.resident_batch(n_worlds, *hw, fast, sms,
+                                       smem) is takes

@@ -29,6 +29,9 @@ from wgpu_physics_engine_torch.models import cloth as tcloth
 from wgpu_physics_engine_torch.ops import cloth_kernel, cloth_tiled_kernel
 
 DT = 1.0 / 480.0
+# The shared memory one CTA can opt in to: the H100's, and a smaller card's
+H100_SMEM = 232_448
+A100_SMEM = 166_912
 SHORT_FALL = dict(center=(0.0, 12.0, 0.0), cloth_size=8.0)
 # vel bound of test_tiled_matches_jax. JAX's own test holds its two paths
 # to 1e-4 on its own inputs; on these (velocities 0.5·N(0, 1) from numpy
@@ -447,3 +450,215 @@ def test_window_route_takes_tiled_plain_and_matches_jax(monkeypatch,
                                          h, interpret=True)
     _close(got[0], ref[0], 1e-6)
     _close(got[1], ref[1], 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K6r: the resident tiling, and a mirror of its in-place walk
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hw,sms", [((1024, 1024), 132), ((1000, 1030), 132),
+                                    ((512, 512), 132), ((320, 320), 132),
+                                    ((900, 900), 114), ((700, 1500), 132)])
+def test_resident_schedule_covers_the_grid_in_shared_memory(hw, sms):
+    """K6r's tiles: at most one a multiprocessor, each at least 2 a side
+    and at most RES_WARPS bands wide, covering the grid, the tile grown by
+    the ring within 232,448 B; 1024² on the H100's 132 SMs is 11 × 12
+    tiles of 94 × 86."""
+    ct = cloth_tiled_kernel
+    h, w = hw
+    th, tw = ct.resident_schedule(h, w, sms, H100_SMEM)
+    ty, tx = -(-h // th), -(-w // tw)
+    assert ty * tx <= sms and (ty - 1) * th < h <= ty * th
+    assert (tx - 1) * tw < w <= tx * tw
+    assert th >= 2 and tw >= 2 and -(-tw // ct.BAND) <= ct.RES_WARPS
+    assert ct.resident_bytes(h, w, th, tw) <= H100_SMEM
+    if (hw, sms) == ((1024, 1024), 132):
+        assert (th, tw) == (94, 86) and ty * tx == 132
+        assert ct.resident_bytes(h, w, th, tw) == 211_680
+
+
+@pytest.mark.parametrize("hw,sms,smem", [
+    ((2048, 2048), 132, H100_SMEM), ((1200, 1200), 132, H100_SMEM),
+    ((1024, 1024), 100, H100_SMEM), ((4, 100_000), 132, H100_SMEM),
+    ((1024, 1024), 132, A100_SMEM)])
+def test_resident_schedule_refuses_what_does_not_fit(hw, sms, smem):
+    """A grid whose tiles, one a multiprocessor, outgrow shared memory
+    (2048² and 1200² on the H100, 1024² on 100 SMs or in a smaller card's
+    shared memory) or whose tiles would be under 2 rows keeps K6."""
+    assert cloth_tiled_kernel.resident_schedule(*hw, sms, smem) is None
+
+
+def _mirror_edges(T, r, c, ext, prm):
+    """The six edges anchored at row ``r`` and columns ``c`` (32 lanes) of
+    a tile's extent ``ext = (er0, er1, ec0, ec1)`` read from its shared
+    memory ``T`` [6, rows, cols], as K6r's lanes compute them: family f
+    counts where the anchor and its far end lie in the extent, else +0."""
+    er0, er1, ec0, ec1 = ext
+    held = (c >= ec0) & (c < ec1) & (er0 <= r < er1)
+    rr = min(max(r, er0), er1 - 1) - er0
+    p = T[:, rr, (c.clamp(ec0, ec1 - 1) - ec0)]
+    k, cd, rest = prm[0:3], prm[3:6], prm[6:9]
+    out = []
+    for dr, dc, t in cloth_kernel._FAMILIES:
+        ok = held & (r + dr < er1) & (c + dc >= ec0) & (c + dc < ec1)
+        rq = min(r + dr, er1 - 1) - er0
+        q = T[:, max(rq, 0), ((c + dc).clamp(ec0, ec1 - 1) - ec0)]
+        dx, dy, dz = q[0] - p[0], q[1] - p[1], q[2] - p[2]
+        dist, inv = cloth_kernel._exact_dist_inv(dx * dx + dy * dy + dz * dz)
+        ux, uy, uz = dx * inv, dy * inv, dz * inv
+        v_along = ((q[3] - p[3]) * ux + (q[4] - p[4]) * uy
+                   + (q[5] - p[5]) * uz)
+        s = k[t] * (dist - rest[t]) + cd[t] * v_along
+        keep = ok & (dist >= cloth_kernel._EPS)
+        out.append(torch.stack([torch.where(keep, s * ux, 0.0),
+                                torch.where(keep, s * uy, 0.0),
+                                torch.where(keep, s * uz, 0.0)]))
+    return out
+
+
+def _lanes(x, d):
+    """x [3, 32] of lane L - d (d > 0: 0 below lane d) or L + |d|."""
+    z = torch.zeros_like(x)
+    if d > 0:
+        z[:, d:] = x[:, :-d]
+    else:
+        z[:, :d] = x[:, -d:]
+    return z
+
+
+def _mirror_tile_walk(T, tile, ext, warps, prm, pins, order):
+    """One substep of one K6r tile in place on ``T``: warps (run, band) of
+    ``cloth_tiled.cu`` ``resident_kernel``, their two-row prologues first,
+    then each run's rows in lock step (at step i every band first writes
+    row r - 1 of the step before, then reads rows r..r + 2), the runs one
+    after the other in ``order`` ("down": the top run first, "up": the
+    bottom run first), then each run's first two and last rows."""
+    cr0, cr1, cc0, cc1 = tile
+    er0, er1, ec0, ec1 = ext
+    th, tw = cr1 - cr0, cc1 - cc0
+    first = 31 if cc0 == ec0 else 29
+    bands = 1 if tw <= first else 1 + -(-(tw - first) // 29)
+    runs = max(1, min(15, warps // bands))
+    run_h = -(-th // runs)
+    lane = torch.arange(32)
+    cols, steps = [], []
+    for b in range(bands):
+        c0 = cc0 - (31 - first) if b == 0 else cc0 + first + (b - 1) * 29 - 2
+        lo = 31 - first if b == 0 else 2
+        cols.append(c0 + lane)
+        steps.append((lane >= lo) & (lane < 31) & (c0 + lane < cc1))
+    pro = {}
+    for j in range(runs):                   # prologues, before any write
+        rb = cr0 + j * run_h
+        for b in range(bands):
+            pro[j, b] = (_mirror_edges(T, rb - 2, cols[b], ext, prm),
+                         _mirror_edges(T, rb - 1, cols[b], ext, prm))
+
+    def put(r, b, q):
+        st = steps[b]
+        T[:, r - er0, cols[b][st] - ec0] = q[:, st]
+
+    held = {}
+    for j in (range(runs) if order == "down" else reversed(range(runs))):
+        rb = cr0 + j * run_h
+        n = max(0, min(cr1, rb + run_h) - rb)
+        e2 = {b: pro[j, b][0] for b in range(bands)}   # edges of row r - 2
+        e1 = {b: pro[j, b][1] for b in range(bands)}   # edges of row r - 1
+        last = {}
+        for i in range(n):
+            r = rb + i
+            if i >= 3:
+                for b in range(bands):
+                    put(r - 1, b, last[b])
+            for b in range(bands):
+                e = _mirror_edges(T, r, cols[b], ext, prm)
+                react = (_lanes(e[0], 1), e1[b][1], _lanes(e1[b][2], 1),
+                         _lanes(e1[b][3], -1), _lanes(e[4], 2), e2[b][5])
+                f = torch.zeros(3, 32)
+                for own, re_ in zip(e, react):
+                    f = f + own
+                    f = f - re_
+                ci = cols[b].clamp(ec0, ec1 - 1) - ec0
+                carry = tuple(T[:, r - er0, ci])
+                gc = cols[b].clamp(0, None)
+                pin = None if pins is None else (
+                    pins[0][r, gc.clamp(max=pins[0].shape[1] - 1)],
+                    *pins[1][:, r, gc.clamp(max=pins[0].shape[1] - 1)])
+                q = torch.stack(cloth_kernel._integrate_planes(
+                    carry, tuple(f), prm, cloth_kernel._exact_dist_inv, pin))
+                held[j, b, i] = q
+                last[b] = q
+                e2[b], e1[b] = e1[b], e
+    for j in range(runs):                   # the held rows, after every run
+        rb = cr0 + j * run_h
+        n = max(0, min(cr1, rb + run_h) - rb)
+        for b in range(bands):
+            for i in {0, 1, n - 1} & set(range(n)):
+                put(rb + i, b, held[j, b, i])
+
+
+def _mirror_resident(state, prm, n_steps, tile_hw, warps, order):
+    """K6r in torch: every tile's extent (the tile grown by 2, clipped)
+    resident in its own ``T`` for the whole call; each substep every tile
+    walks in place (:func:`_mirror_tile_walk`), publishes its core's
+    2-deep border to the substep's exchange buffer and copies its ring
+    from there; after the last, the cores."""
+    h, w = state.pos.shape[-2:]
+    th, tw = tile_hw
+    plane = cloth_kernel._plane_params(prm, state)
+    pins = (None if state.pin_mask is None
+            else (state.pin_mask != 0, state.pin_pos))
+    full = torch.cat([state.pos, state.vel])
+    tiles = []
+    for r0 in range(0, h, th):
+        for c0 in range(0, w, tw):
+            core = (r0, min(h, r0 + th), c0, min(w, c0 + tw))
+            ext = (max(0, r0 - 2), min(h, core[1] + 2), max(0, c0 - 2),
+                   min(w, core[3] + 2))
+            tiles.append((core, ext, full[:, ext[0]:ext[1],
+                                          ext[2]:ext[3]].clone()))
+    buf = torch.zeros_like(full)
+    for s in range(n_steps):
+        for core, ext, T in tiles:
+            _mirror_tile_walk(T, core, ext, warps, plane, pins, order)
+        if s == n_steps - 1:
+            break
+        for (r0, r1, c0, c1), ext, T in tiles:      # the borders
+            border = T[:, r0 - ext[0]:r1 - ext[0], c0 - ext[2]:c1 - ext[2]]
+            buf[:, r0:r1, c0:c1] = float("nan")
+            for rs in (slice(0, 2), slice(-2, None)):
+                buf[:, r0:r1, c0:c1][:, rs] = border[:, rs]
+            for cs in (slice(0, 2), slice(-2, None)):
+                buf[:, r0:r1, c0:c1][:, :, cs] = border[:, :, cs]
+        for (r0, r1, c0, c1), (e0, e1, f0, f1), T in tiles:   # the rings
+            core = T[:, r0 - e0:r1 - e0, c0 - f0:c1 - f0].clone()
+            T.copy_(buf[:, e0:e1, f0:f1])
+            T[:, r0 - e0:r1 - e0, c0 - f0:c1 - f0] = core
+    out = torch.empty_like(full)
+    for (r0, r1, c0, c1), (e0, _, f0, _), T in tiles:
+        out[:, r0:r1, c0:c1] = T[:, r0 - e0:r1 - e0, c0 - f0:c1 - f0]
+    return state._replace(pos=out[:3].contiguous(), vel=out[3:].contiguous())
+
+
+@pytest.mark.parametrize("tile,warps,order", [
+    ((14, 40), 4, "down"),     # edge tiles of 31 + 9 columns, 2 runs
+    ((14, 40), 4, "up"),
+    ((13, 45), 6, "up"),       # 2 runs of 7 and 6 rows, then 1 row tiles
+    ((11, 26), 15, "down"),    # one band, 11 runs of one row
+])
+def test_resident_walk_mirror_equals_plain(tile, warps, order):
+    """A torch mirror of K6r's in-place walk (its warps' row order, the
+    one-row write lag inside a run, the two held rows of every run, the
+    ring exchange) equals ``multi_step_plain`` (K6's plain version, which
+    equals K1's) bit for bit over 5 substeps of a draped, pinned 40 × 52
+    cloth on ragged tiles. A border row or column read after its write, or
+    a ring left stale, would change the bits (the borders' NaN fill makes a
+    missed ring cell poison the state)."""
+    s, tp = _draped(40, 52, [(0, c) for c in range(52)] + [(13, 31),
+                                                            (27, 40)])
+    assert _contact_share(s, tp) > 0
+    prm = cloth_kernel._pack_params(tp, DT)
+    ref = cloth_tiled_kernel.multi_step_plain(s, tp, DT, 5)
+    got = _mirror_resident(s, prm, 5, tile, warps, order)
+    assert torch.equal(got.pos, ref.pos)
+    assert torch.equal(got.vel, ref.vel)

@@ -25,8 +25,11 @@ amplifies);
 the golden scenes to ``tests/golden/*.png`` (at most 2 in u8 on < 2% of
 pixels, ``tests/test_render.py::test_golden_frame``'s tolerance). The
 large-grid kernel (K6) is held to its plain version and to K1 bit for bit,
-and the route above ``cloth_kernel._TILED_PARTICLE_LIMIT`` to K6's launch
-count. The row-window kernel (K1w) is held to its plain version and, on a
+and the route above ``cloth_kernel._TILED_PARTICLE_LIMIT`` to K6r's launch
+count (K6 where no resident tiling fits); the resident kernels K6r (one
+large world, one cooperative launch a call) and K5r (a batch, one CTA a
+world) to their plain versions, K1 and K6 or K5 bit for bit on ragged
+shapes, with one launch a call. The row-window kernel (K1w) is held to its plain version and, on a
 window's centre rows, to K1 bit for bit, and the rows path on four shards
 of one card to K1; its tiled form (K6w) to its plain version and K1w on
 whole windows, dead rows included, and to K6 on the centre rows, bit for
@@ -47,6 +50,7 @@ are held to their plain versions bit for bit at 1M, in window mode and as
 K10b, and K11 with the plain integrate to K10.
 """
 
+import math
 import os
 
 import numpy as np
@@ -741,28 +745,41 @@ def test_cloth_tiled_kernel_matches_plain_and_k1(dev, hw, schedule, n,
 
 @pytest.mark.cuda
 def test_cloth_route_on_cuda_launches_k6(dev, monkeypatch):
-    """Above the limit one CUDA world takes K6 (fast_math dropped) and K1
-    never; a batch stays on K5; the input is only read."""
+    """Above the limit one CUDA world takes the large-grid kernels
+    (fast_math dropped) and K1 never: K6r, one launch, where its resident
+    tiles fit the card, else K6; a batch of two stays on K5; the input is
+    only read."""
+    ct = cloth_tiled_kernel
     monkeypatch.setattr(cloth_kernel, "_TILED_PARTICLE_LIMIT", 1000)
     s, p = _k6_state(dev, 48, 40, True, [(0, 5)])
     pos0 = s.pos.clone()
-    k1_before, k6_before = cloth_kernel.LAUNCHES, cloth_tiled_kernel.LAUNCHES
+    k1_before, k6_before = cloth_kernel.LAUNCHES, ct.LAUNCHES
+    r_before = ct.LAUNCHES_RESIDENT
     got = cloth_kernel.multi_step(s, p, DT, 7, fast_math=True)
     torch.cuda.synchronize()
-    k = cloth_tiled_kernel.pick_schedule(48, 40, 7)[0]
-    assert cloth_tiled_kernel.LAUNCHES == k6_before + -(-7 // k)
+    assert ct.LAUNCHES_RESIDENT == r_before + 1
+    assert ct.LAUNCHES == k6_before
     assert cloth_kernel.LAUNCHES == k1_before
     assert torch.equal(s.pos, pos0)
-    ref = cloth_kernel.multi_step_kernel(s, p, DT, 7)
+    ref = cloth_kernel.multi_step_launch_packed(
+        s, cloth_kernel._pack_params(p, DT), 7)
+    assert torch.equal(got.pos, ref.pos) and torch.equal(got.vel, ref.vel)
+    # no resident tiling fits: K6, ceil(n / k) launches
+    monkeypatch.setattr(ct, "_card_resident", lambda h, w, sms, smem: None)
+    got = cloth_kernel.multi_step(s, p, DT, 7)
+    torch.cuda.synchronize()
+    k = ct.pick_schedule(48, 40, 7)[0]
+    assert ct.LAUNCHES == k6_before + -(-7 // k)
+    assert ct.LAUNCHES_RESIDENT == r_before + 1
     assert torch.equal(got.pos, ref.pos) and torch.equal(got.vel, ref.vel)
     batch = s._replace(pos=torch.stack([s.pos, s.pos]),
                        vel=torch.stack([s.vel, s.vel]), pin_mask=None,
                        pin_pos=None)
-    k6 = cloth_tiled_kernel.LAUNCHES
+    k6 = ct.LAUNCHES
     b_before = cloth_kernel.LAUNCHES_BATCHED
     cloth_kernel.multi_step(batch, p, DT, 3)
     torch.cuda.synchronize()
-    assert cloth_tiled_kernel.LAUNCHES == k6
+    assert ct.LAUNCHES == k6
     assert cloth_kernel.LAUNCHES_BATCHED == b_before + 3
 
 
@@ -772,6 +789,105 @@ def test_cloth_tiled_refuses_oversized_schedule(dev):
     with pytest.raises(ValueError, match="shared memory"):
         cloth_tiled_kernel.multi_step_kernel(s, p, DT, 8,
                                              schedule=(8, 200, 200))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,tile,n,draped,pins", [
+    ((448, 256), None, 13, True, [(0, 0), (200, 100)]),   # the schedule's
+    ((448, 256), None, 8, False, [(35, 26)]),            # even n: buffer b
+    ((130, 100), (30, 40), 9, True, [(0, 50), (30, 40)]),
+    ((64, 64), (16, 16), 6, False, [(16, 15), (47, 48)]),
+    ((37, 53), (37, 53), 11, False, None),               # one tile
+])
+def test_cloth_resident_kernel_matches_plain_k1_and_k6(dev, hw, tile, n,
+                                                       draped, pins):
+    """K6r (the whole call in one cooperative launch, tiles resident in
+    shared memory, borders exchanged each substep) ≡ K6's plain version,
+    K1 and K6, bit for bit, pins on tile corners included; the input is
+    only read."""
+    ct = cloth_tiled_kernel
+    h, w = hw
+    s, p = _k6_state(dev, h, w, draped, pins)
+    pos0 = s.pos.clone()
+    before = ct.LAUNCHES_RESIDENT
+    got = ct.multi_step_resident_kernel(s, p, DT, n, tile)
+    torch.cuda.synchronize()
+    assert ct.LAUNCHES_RESIDENT == before + 1
+    assert torch.equal(s.pos, pos0)
+    prm = cloth_kernel._pack_params(p, DT)
+    for ref in (ct.multi_step_plain(s, p, DT, n),
+                cloth_kernel.multi_step_launch_packed(s, prm, n),
+                ct.multi_step_kernel(s, p, DT, n)):
+        assert torch.equal(got.pos, ref.pos)
+        assert torch.equal(got.vel, ref.vel)
+
+
+@pytest.mark.cuda
+def test_cloth_resident_kernel_refuses_bad_tiles(dev):
+    s, p = _k6_state(dev, 300, 300, False, None)
+    for tile in ((1, 64), (64, 1), (200, 200), (8, 17 * 29)):
+        with pytest.raises(ValueError, match="resident tile"):
+            cloth_tiled_kernel.multi_step_resident_kernel(s, p, DT, 4, tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,n_worlds,pins,contact", [
+    ((37, 53), 9, False, False), ((37, 53), 9, True, True),
+    ((60, 60), 7, True, False), ((12, 20), 5, False, True)])
+def test_cloth_batched_resident_kernel_matches_plain_k1_and_k5(
+        dev, hw, n_worlds, pins, contact):
+    """K5r (a CTA a world, all substeps in one launch) ≡ the plain
+    version, K5 on the batch and K1 on each world, bit for bit."""
+    ct = cloth_tiled_kernel
+    h, w = hw
+    b = _worlds(dev, n_worlds, h, w, seed=h * w, contact=contact)
+    s = b.state
+    if pins:
+        mask = torch.zeros((n_worlds, h, w), dtype=torch.bool, device=dev)
+        mask[:, 0] = True
+        mask[:, h // 2, w // 3] = True
+        s = s._replace(pin_mask=mask, pin_pos=s.pos)
+    prm = cloth_kernel._pack_params(b.params, DT)
+    before = ct.LAUNCHES_BATCHED
+    got = ct.multi_step_batched_kernel_packed(s, prm, 11)
+    torch.cuda.synchronize()
+    assert ct.LAUNCHES_BATCHED == before + 1
+    for ref in (cloth_kernel.multi_step_plain(s, b.params, DT, 11),
+                cloth_kernel.multi_step_launch_packed(s, prm, 11)):
+        assert torch.equal(got.pos, ref.pos)
+        assert torch.equal(got.vel, ref.vel)
+    for i in (0, n_worlds - 1):
+        one = st.ClothState(
+            pos=s.pos[i], vel=s.vel[i],
+            pin_mask=None if s.pin_mask is None else s.pin_mask[i],
+            pin_pos=None if s.pin_pos is None else s.pin_pos[i])
+        k1 = cloth_kernel.multi_step_launch_packed(one, prm[i], 11)
+        assert torch.equal(got.pos[i], k1.pos)
+        assert torch.equal(got.vel[i], k1.vel)
+    if contact:
+        assert int((got.vel == 0).all(1).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cloth_batch_route_on_cuda_takes_k5r(dev):
+    """``cloth_kernel.multi_step`` sends an exact batch of at least
+    ``_RESIDENT_MIN_WAVES`` worlds a multiprocessor to K5r (one launch), a
+    fast_math one and a smaller one to K5 (a launch a substep)."""
+    ct = cloth_tiled_kernel
+    n = math.ceil(cloth_kernel._RESIDENT_MIN_WAVES * ct.sm_count(dev))
+    big = _worlds(dev, n, 12, 20, seed=1)
+    small = _worlds(dev, n - 1, 12, 20, seed=1)
+    r0, k0 = ct.LAUNCHES_BATCHED, cloth_kernel.LAUNCHES_BATCHED
+    got = cloth_kernel.multi_step(big.state, big.params, DT, 6)
+    torch.cuda.synchronize()
+    assert (ct.LAUNCHES_BATCHED, cloth_kernel.LAUNCHES_BATCHED) == (r0 + 1, k0)
+    ref = cloth_kernel.multi_step_plain(big.state, big.params, DT, 6)
+    assert torch.equal(got.pos, ref.pos) and torch.equal(got.vel, ref.vel)
+    cloth_kernel.multi_step(big.state, big.params, DT, 6, fast_math=True)
+    cloth_kernel.multi_step(small.state, small.params, DT, 6)
+    torch.cuda.synchronize()
+    assert (ct.LAUNCHES_BATCHED, cloth_kernel.LAUNCHES_BATCHED) == (r0 + 1,
+                                                                     k0 + 12)
 
 
 # --- the multi-device paths (K1w, K10b) ---

@@ -25,9 +25,20 @@ events over back-to-back launches, best of 5):
   segment's trace, 48 substeps at 256², ms a substep; ``k1_60_8`` and
   ``k1_60_240``: the reference 60×60 cloth draped 3 s; ``k6_1000x1030``:
   ``cloth_kernel.multi_step`` at 1000×1030 (above 100,000 particles: K6),
-  48 substeps, ms a substep; ``k5_1024``: K5, one substep on 1,024 worlds
-  of the 60×60 cloth (the datagen chunk); ``k1f_256``: K1f at 256², a
-  call of one launch;
+  48 substeps, ms a substep; ``k1f_256``: K1f at 256², a call of one
+  launch;
+* part ``resident``: ``k6_1024``: ``cloth_kernel.multi_step``, the routed
+  call, on the 1024² cloth draped 3 s (K6, or K6r where the checkout has
+  it), 240 substeps, ms a substep; ``k5_1024``, ``k5_64``, ``k5_16``: the
+  routed call of 24 substeps (a datagen frame) on 1,024, 64 and 16 worlds
+  of the 60×60 cloth settled 3 s (the datagen chunk, the datagen CLI, a
+  multi-device shard; K5, or K5r where the checkout routes them there), ms
+  a call, and ``k5_<n>_substep``, ms a substep; ``k6w_rows_2``: the rows
+  path's routed call of 2 substeps on a shard's 260×1024 window (K6w's
+  wrapper, host bound), ms a call, and ``k6w_rows_240``, a call of 240, ms
+  a substep (K6w's kernel); ``k6_2048``: K6
+  (``cloth_tiled_kernel.multi_step_kernel``) on the fresh 2048² cloth, 48
+  substeps, ms a substep;
 * part ``window``: ``k1w_rows``: K1w a substep on
   one shard's 260×1024 window of the 1024² cloth, ``k1w_composed`` on a
   composed shard's 136×256 window (240 substeps a call, as the kernel's
@@ -60,8 +71,8 @@ events over back-to-back launches, best of 5):
   whose raster has a work list) the raster over chunk sizes;
 * with ``--check``, each kernel against its plain version: the largest
   difference and whether they are equal bit for bit;
-* with ``--only`` and one or more of ``walk``, ``cloth``, ``window``,
-  ``adjoint`` and ``raster``, only those parts; with ``e2e`` among them, also the host-bound loops the
+* with ``--only`` and one or more of ``walk``, ``cloth``, ``resident``,
+  ``window``, ``adjoint`` and ``raster``, only those parts; with ``e2e`` among them, also the host-bound loops the
   walk runs in (``self_collide_256`` and the granular value_and_grad at
   1M, host clock, best of 5).
 
@@ -203,8 +214,8 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--only", nargs="+",
-                    choices=("walk", "cloth", "window", "adjoint", "raster",
-                             "e2e"))
+                    choices=("walk", "cloth", "resident", "window", "adjoint",
+                             "raster", "e2e"))
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -245,12 +256,14 @@ def main() -> int:
                "thin": granular.GranularConfig(
                    num_particles=1_000_000, rebuild_every=16,
                    pallas_slab=640, thin=True)}
-    parts = (("walk", "cloth", "window", "adjoint", "raster")
+    parts = (("walk", "cloth", "resident", "window", "adjoint", "raster")
              if args.only is None else args.only)
     if "walk" in parts:
         _walk(args, out, checks, inner, dev, c256, configs, sc_set)
     if "cloth" in parts:
         _cloth(args, out, checks, inner, dev, c256)
+    if "resident" in parts:
+        _resident(args, out, checks, inner, dev)
     if "window" in parts:
         _window(args, out, checks, inner, dev, c256)
     if "adjoint" in parts:
@@ -395,7 +408,6 @@ def _cloth(args, out, checks, inner, dev, c256):
                                                       init_cloth_state)
     from wgpu_physics_engine_torch.ops import cloth_kernel as ck
     from wgpu_physics_engine_torch.ops import cloth_tiled_kernel as ctk
-    from wgpu_physics_engine_torch.parallel import datagen
 
     dt = 1.0 / 480.0
 
@@ -435,18 +447,6 @@ def _cloth(args, out, checks, inner, dev, c256):
             tuple(ctk.multi_step_plain(sbig, pbig, dt, 48)[:2]))
     del sbig
 
-    worlds = datagen.randomized_worlds(
-        c60, 1024, torch.Generator().manual_seed(0), device=dev)
-    ws, wp = worlds.state, worlds.params
-    out["k5_1024"] = _best_ms(lambda: ck.multi_step_kernel(ws, wp, dt, 1),
-                              inner=inner)
-    if args.check:
-        checks["k5_1024"] = _equal(
-            tuple(ck.multi_step_kernel(ws, wp, dt, 24)[:2]),
-            tuple(ck.multi_step_plain(ws, wp, dt, 24)[:2]))
-    del worlds, ws
-
-
     fext = torch.randn(s256.pos.shape,
                        generator=torch.Generator().manual_seed(9)).to(dev)
     out["k1f_256"] = _best_ms(lambda: ck.substep_with_force_kernel(
@@ -458,6 +458,77 @@ def _cloth(args, out, checks, inner, dev, c256):
 
     out["k1_flagship_8_device_us"] = _device_us(
         lambda: ck.multi_step_kernel(s256, p256, dt, 8))
+
+
+def _resident(args, out, checks, inner, dev):
+    """The routed calls that have resident kernels: the 1024² cloth
+    (K6, or K6r where the checkout has it) and batches of the 60×60 cloth
+    (K5, or K5r), and the rows window's call of 2 (K6w's wrapper), ms a
+    substep and a call (and checks)."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import (ClothParams,
+                                                      init_cloth_state)
+    from wgpu_physics_engine_torch.ops import cloth_kernel as ck
+    from wgpu_physics_engine_torch.ops import cloth_tiled_kernel as ctk
+    from wgpu_physics_engine_torch.parallel import datagen
+
+    dt = 1.0 / 480.0
+    c1024 = ClothConfig(height=1024, width=1024)
+    p1024 = ClothParams.from_config(c1024, device=dev)
+    s1024 = ck.multi_step_kernel(init_cloth_state(c1024, device=dev), p1024,
+                                 dt, 1440)
+    out["k6_1024"] = _best_ms(lambda: ck.multi_step(s1024, p1024, dt, 240)
+                              ) / 240
+    if args.check:
+        checks["k6_1024"] = _equal(
+            tuple(ck.multi_step(s1024, p1024, dt, 13)[:2]),
+            tuple(ctk.multi_step_plain(s1024, p1024, dt, 13)[:2]))
+    # the rows path's routed call of 2 on a shard's 260×1024 window
+    win = []
+    for a in (s1024.pos, s1024.vel):
+        o = torch.zeros((3, 260, 1024), device=dev)
+        o[:] = a[:, 254:514]
+        win.append(o)
+    out["k6w_rows_2"] = _best_ms(lambda: ck.multi_step_window(
+        *win, None, None, p1024, dt, 2, 254, 1024), inner=inner)
+    out["k6w_rows_240"] = _best_ms(lambda: ck.multi_step_window(
+        *win, None, None, p1024, dt, 240, 254, 1024)) / 240
+    if args.check:
+        checks["k6w_rows_240"] = _equal(
+            ck.multi_step_window(*win, None, None, p1024, dt, 13, 254, 1024),
+            ck.multi_step_window_plain(*win, None, None, p1024, dt, 13, 254,
+                                       1024))
+    del s1024, win
+    c2048 = ClothConfig(height=2048, width=2048)
+    p2048 = ClothParams.from_config(c2048, device=dev)
+    s2048 = init_cloth_state(c2048, device=dev)
+    out["k6_2048"] = _best_ms(lambda: ctk.multi_step_kernel(
+        s2048, p2048, dt, 48)) / 48
+    if args.check:
+        checks["k6_2048"] = _equal(
+            tuple(ctk.multi_step_kernel(s2048, p2048, dt, 8)[:2]),
+            tuple(ctk.multi_step_plain(s2048, p2048, dt, 8)[:2]))
+    del s2048
+
+    worlds = datagen.randomized_worlds(
+        ClothConfig(), 1024, torch.Generator().manual_seed(0), device=dev)
+    worlds = datagen.WorldBatch(
+        state=ck.multi_step_kernel(worlds.state, worlds.params, dt, 1440),
+        params=worlds.params)
+    for n in (1024, 64, 16):
+        ws = worlds.state._replace(pos=worlds.state.pos[:n].contiguous(),
+                                   vel=worlds.state.vel[:n].contiguous())
+        wp = ClothParams(*(a[:n] for a in worlds.params))
+        out[f"k5_{n}"] = _best_ms(lambda: ck.multi_step(ws, wp, dt, 24),
+                                  inner=max(1, inner * 16 // n))
+        out[f"k5_{n}_substep"] = out[f"k5_{n}"] / 24
+        if args.check:
+            checks[f"k5_{n}"] = _equal(
+                tuple(ck.multi_step(ws, wp, dt, 24)[:2]),
+                tuple(ck.multi_step_plain(ws, wp, dt, 24)[:2]))
+    del worlds
 
 
 def _window(args, out, checks, inner, dev, c256):

@@ -13,13 +13,19 @@ batch of worlds ``_multi_step_lanes`` → ``_lanes_kernel``, kernel K5, and
   elementwise, so world i of a batched run equals the single-world run;
 * :func:`multi_step_kernel` launches ``csrc/cloth_step.cu`` once per
   substep on the current stream: K1 for one world, K5 for a batch (one
-  launch per substep for all worlds);
+  launch per substep for all worlds). An exact batch of enough worlds
+  small enough for one CTA (:func:`resident_batch`) takes K5r instead,
+  ``cloth_tiled_kernel.multi_step_batched_kernel_packed``: one launch a
+  call, one CTA a world holding it in shared memory for every substep,
+  world i equal to K1 on world i bit for bit;
 * :func:`multi_step` takes the plain version for a CPU tensor and a
   kernel for a CUDA tensor, and raises for anything else. There is no
   fallback on CUDA. One world above :data:`_TILED_PARTICLE_LIMIT`
   particles (JAX's ``_VMEM_PARTICLE_LIMIT``, ``cloth_pallas.py:293``) goes
-  to ``ops/cloth_tiled_kernel.py`` (K6, K substeps a launch by temporal
-  blocking; on the CPU its plain version), as JAX sends it to
+  to ``ops/cloth_tiled_kernel.py`` (on the card K6r, the whole call in
+  one launch on resident tiles, where its tiles fit the card, else K6, K
+  substeps a launch by temporal blocking; on the CPU their plain
+  version), as JAX sends it to
   ``cloth_pallas_tiled``; the route is exact and drops ``fast_math``, as
   JAX's does (``:628-638``). JAX's branch for a grid with no banded
   schedule (``h % 8 != 0`` or ``n_steps`` indivisible, to the XLA stencil
@@ -75,6 +81,13 @@ _FAMILIES = (
 # (``cloth_tiled_kernel``, K6): JAX's ``_VMEM_PARTICLE_LIMIT``. A module
 # constant, so a test can lower it.
 _TILED_PARTICLE_LIMIT = 100_000
+
+# An exact batch of at least this many worlds a multiprocessor takes K5r
+# (:func:`resident_batch`): K5r's call costs one CTA's time up to a world
+# an SM, K5's grows with the worlds, and the two cross at ~50 worlds on
+# the H100's 132 SMs (PERF.md §6). A module constant, so a test can
+# change it.
+_RESIDENT_MIN_WAVES = 0.375
 
 # Kernel launches by :func:`multi_step_kernel` and :func:`trace_kernel`
 # (one per substep): K1 for one world, K5 for a batch. A run reads them to
@@ -451,11 +464,44 @@ def _kernel_inputs(state: ClothState, prm: torch.Tensor):
     return pos, vel, prm, pins, lead, h, w
 
 
+def resident_batch(n_worlds: int, h: int, w: int, fast_math: bool,
+                   sms: int, smem: int) -> bool:
+    """Whether a CUDA batch of ``n_worlds`` worlds of ``h × w`` on a card
+    of ``sms`` multiprocessors and ``smem`` bytes of shared memory a CTA
+    takes K5r: exact (K5r has no fast_math), a world that fits one CTA
+    (``cloth_tiled_kernel.batched_fits``), at most 65,535 worlds, and at
+    least :data:`_RESIDENT_MIN_WAVES` worlds a multiprocessor: below that
+    one CTA a world leaves too many multiprocessors idle, and K5 is faster
+    on the H100."""
+    from .cloth_tiled_kernel import batched_fits
+
+    return (not fast_math and batched_fits(h, w, smem)
+            and _RESIDENT_MIN_WAVES * sms <= n_worlds <= 65535)
+
+
 def multi_step_kernel_packed(state: ClothState, prm: torch.Tensor,
                              n_steps: int,
                              fast_math: bool = False) -> ClothState:
     """:func:`multi_step_kernel` on the packed vector of
-    :func:`_pack_params` (``[16]``, or ``[B, 16]`` for a batch)."""
+    :func:`_pack_params` (``[16]``, or ``[B, 16]`` for a batch): K5r for
+    a batch :func:`resident_batch` takes, else :func:`multi_step_launch_packed`."""
+    if state.pos.ndim == 4 and state.pos.is_cuda:
+        from . import cloth_tiled_kernel
+
+        if resident_batch(state.pos.shape[0], *state.pos.shape[-2:],
+                          fast_math, *cloth_tiled_kernel.card(
+                              state.pos.device)):
+            return cloth_tiled_kernel.multi_step_batched_kernel_packed(
+                state, prm, n_steps)
+    return multi_step_launch_packed(state, prm, n_steps, fast_math)
+
+
+def multi_step_launch_packed(state: ClothState, prm: torch.Tensor,
+                             n_steps: int,
+                             fast_math: bool = False) -> ClothState:
+    """K1 on one world, K5 on a batch: ``n_steps`` launches of
+    ``csrc/cloth_step.cu`` on the current stream, ping-ponging between two
+    new buffers; the packed vector of :func:`_pack_params`."""
     global LAUNCHES, LAUNCHES_BATCHED
     pos, vel, prm, pins, lead, h, w = _kernel_inputs(state, prm)
     if n_steps <= 0 or pos.numel() == 0:
@@ -595,10 +641,11 @@ def multi_step(state: ClothState, params: ClothParams, dt, n_steps: int,
     """Run ``n_steps`` fused substeps; the drop-in counterpart of
     ``cloth_pallas.multi_step``, for one world (``[3, H, W]``) or a batch
     (``[B, 3, H, W]``). A CPU state takes the plain version, a CUDA state
-    the kernel (K1 or K5); any other device raises. One world of more than
-    :data:`_TILED_PARTICLE_LIMIT` particles takes
-    ``cloth_tiled_kernel.multi_step`` (K6 on CUDA, its plain version on
-    the CPU), exactly, with ``fast_math`` dropped.
+    the kernel (K1, or for a batch K5r or K5); any other device raises.
+    One world of more than :data:`_TILED_PARTICLE_LIMIT` particles takes
+    the tiled steppers of ``cloth_tiled_kernel`` (on CUDA K6r where its
+    resident tiles fit the card, else K6; on the CPU their plain version),
+    exactly, with ``fast_math`` dropped.
 
     ``fast_math=True`` computes distances with rsqrt instead of
     sqrt + divide (≈1 ulp a step off the exact path)."""
@@ -613,6 +660,10 @@ def multi_step_packed(state: ClothState, prm: torch.Tensor, n_steps: int,
     if state.pos.ndim == 3 and h * w > _TILED_PARTICLE_LIMIT:
         from . import cloth_tiled_kernel
 
+        if (state.pos.device.type == "cuda"
+                and cloth_tiled_kernel.resident_fits(h, w, state.pos.device)):
+            return cloth_tiled_kernel.multi_step_resident_kernel_packed(
+                state, prm, n_steps)
         return cloth_tiled_kernel.multi_step_packed(state, prm, n_steps)
     step = _dispatch(state, multi_step_plain_packed, multi_step_kernel_packed)
     return step(state, prm, n_steps, fast_math)

@@ -46,12 +46,32 @@ its fallback to the XLA stencil has no counterpart.
   the tile decomposition above with K1w's global-row masks
   (:func:`_tile_masks` with a ``window``); every output, the window's
   halo and dead rows included, equals ``cloth_kernel.
-  multi_step_window_plain`` (K1w's plain version) bit for bit.
+  multi_step_window_plain`` (K1w's plain version) bit for bit;
+* :func:`multi_step_resident_kernel` (kernel K6r) runs all ``n_steps``
+  substeps of one world in one cooperative launch, each CTA holding one
+  tile of :func:`resident_schedule` (at most one a multiprocessor) with a
+  ring of 2 cells in shared memory for the whole call and exchanging
+  2-deep borders with its neighbours through device memory each substep.
+  ``cloth_kernel.multi_step`` takes it for a CUDA world above
+  ``_TILED_PARTICLE_LIMIT`` whose tiles fit (512², 1024²; 2048² stays on
+  K6); its plain version is :func:`multi_step_plain`, the same function;
+* :func:`multi_step_batched_kernel_packed` (kernel K5r) steps a batch of
+  small worlds, one CTA a world holding it in shared memory for all
+  ``n_steps`` substeps, in one launch: K6's walk with the world as its one
+  tile. ``cloth_kernel.multi_step_kernel`` takes it for an exact batch of
+  worlds that fit (:func:`cloth_kernel.resident_batch`); world i equals K1
+  on world i bit for bit.
+
+What fits is worked out from the card: :func:`card` reads its
+multiprocessors and the shared memory a CTA can opt in to, once a device,
+and :func:`resident_schedule` (K6r) and :func:`batched_fits` (K5r) take
+both as arguments, so that the CPU tests reach them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -61,9 +81,13 @@ from . import _build, cloth_kernel
 from .cloth_kernel import _FAMILIES, _exact_dist_inv, _substep_planes
 
 # Launches of K6 by :func:`multi_step_kernel` and of K6w by
-# :func:`multi_step_window_kernel` (one per ``k_sub`` substeps).
+# :func:`multi_step_window_kernel` (one per ``k_sub`` substeps), of K6r by
+# :func:`multi_step_resident_kernel` and of K5r by
+# :func:`multi_step_batched_kernel_packed` (one a call).
 LAUNCHES = 0
 LAUNCHES_WINDOW = 0
+LAUNCHES_RESIDENT = 0
+LAUNCHES_BATCHED = 0
 
 # The schedule (chosen by a sweep on the card, PERF.md §6): K_SUB
 # substeps a launch; tiles TILE_BANDS bands of BAND columns wide (a warp
@@ -82,8 +106,11 @@ CTAS_PER_SM = 3
 # The shared memory an SM shares out (228 KB), less the 1 KB the card
 # keeps for each CTA, over CTAS_PER_SM.
 SMEM_PER_CTA = 233_472 // CTAS_PER_SM - 1024
-# The most dynamic shared memory one CTA can opt in to on the H100.
-SMEM_LIMIT = 232_448
+# K6r: the warps of a CTA (csrc/cloth_tiled.cu WPE_K6R_THREADS / 32), the
+# most runs of rows (its named barriers) and the ring's depth.
+RES_WARPS = 16
+RES_MAX_RUNS = 15
+RING = 2
 
 _SIGNATURES = {
     "wpe_cloth_tiled_multi_step": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
@@ -91,6 +118,12 @@ _SIGNATURES = {
     "wpe_cloth_tiled_multi_step_window": [ctypes.c_void_p] * 9
                                          + [ctypes.c_int] * 9
                                          + [ctypes.c_void_p],
+    "wpe_cloth_tiled_multi_step_batched": [ctypes.c_void_p] * 7
+                                          + [ctypes.c_int] * 5
+                                          + [ctypes.c_void_p],
+    "wpe_cloth_tiled_multi_step_resident": [ctypes.c_void_p] * 10
+                                           + [ctypes.c_int] * 6
+                                           + [ctypes.c_void_p],
 }
 
 Schedule = Tuple[int, int, int]
@@ -126,6 +159,33 @@ def pick_schedule(h: int, w: int, n_steps: int,
     rows = max(rows, (-(-rows * cols // slots) * slots) // cols)
     rows = min(rows, -(-h // MIN_TILE_H))
     return k_sub, -(-h // rows), tile_w
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int) -> Tuple[int, int]:
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+def card(device) -> Tuple[int, int]:
+    """``(sms, smem)`` of a CUDA ``device``: its multiprocessors and the
+    most shared memory one CTA can opt in to, in bytes, asked once a
+    device."""
+    device = torch.device(device)
+    return _card(torch.cuda.current_device() if device.index is None
+                 else device.index)
+
+
+def sm_count(device) -> int:
+    """The multiprocessors of a CUDA ``device`` (:func:`card`)."""
+    return card(device)[0]
+
+
+@functools.lru_cache(maxsize=256)
+def _card_schedule(h: int, w: int, n_steps: int, sms: int) -> Schedule:
+    """:func:`pick_schedule` for a kernel call, computed once a shape and
+    card (the module's constants are read at the first call)."""
+    return pick_schedule(h, w, n_steps, sms)
 
 
 def _check_schedule(schedule: Schedule) -> Schedule:
@@ -263,13 +323,14 @@ def multi_step_kernel_packed(state: ClothState, prm: torch.Tensor,
         raise ValueError(f"h_global must be positive, got {window[1]}")
     if n_steps <= 0 or pos.numel() == 0:
         return state
-    k_sub, tile_h, tile_w = _check_schedule(schedule or pick_schedule(
-        h, w, n_steps,
-        torch.cuda.get_device_properties(pos.device).multi_processor_count))
-    if smem_bytes(h, w, k_sub, tile_h, tile_w) > SMEM_LIMIT:
+    sms, smem = card(pos.device)
+    k_sub, tile_h, tile_w = _check_schedule(
+        schedule or _card_schedule(h, w, n_steps, sms))
+    if smem_bytes(h, w, k_sub, tile_h, tile_w) > smem:
         raise ValueError(f"schedule {(k_sub, tile_h, tile_w)} needs "
                          f"{smem_bytes(h, w, k_sub, tile_h, tile_w)} B of "
-                         f"shared memory a CTA, more than {SMEM_LIMIT}")
+                         f"shared memory a CTA, more than the card's "
+                         f"{smem}")
     pin_ptrs = ((pins[0].data_ptr(), pins[1].data_ptr()) if pins
                 else (None, None))
     bufs = torch.empty((4, 3, h, w), dtype=torch.float32, device=pos.device)
@@ -312,6 +373,167 @@ def multi_step_packed(state: ClothState, prm: torch.Tensor,
     step = cloth_kernel._dispatch(state, multi_step_plain_packed,
                                   multi_step_kernel_packed)
     return step(state, prm, n_steps)
+
+
+# ---------------------------------------------------------------------------
+# K6r: the whole call in one launch, the tiles resident in shared memory
+# ---------------------------------------------------------------------------
+
+Tile = Tuple[int, int]
+
+
+def resident_bytes(h: int, w: int, tile_h: int, tile_w: int) -> int:
+    """Shared memory of a K6r CTA: one copy of six fp32 planes over the
+    tile grown by :data:`RING` a side, clipped to the grid."""
+    return 24 * min(h, tile_h + 2 * RING) * min(w, tile_w + 2 * RING)
+
+
+def resident_schedule(h: int, w: int, sms: int, smem: int,
+                      warps: int = RES_WARPS) -> Optional[Tile]:
+    """The tile ``(tile_h, tile_w)`` of K6r for an ``h × w`` grid on a card
+    of ``sms`` multiprocessors, or None where no tiling fits: at most one
+    tile a multiprocessor (every CTA resident, one an SM), each at least
+    2 a side (so that a ring 2 deep comes from the 8 neighbours), at most
+    ``warps`` bands wide, and the tile grown by 2 a side in ``smem`` bytes.
+    Of those, the tiling whose walk is shortest, counted in rows a warp
+    steps: a CTA's warps take (band, run) pairs, bands of :data:`BAND`
+    columns across the tile and runs of rows down it, and the walk takes
+    the larger of a run's rows and the CTA's band-rows over its warps (a
+    run's prologue counts 0.8 row); then the fewest band-rows, then the
+    smallest extent. 1024² on the H100 (132 SMs, 232,448 B): 11 × 12 tiles
+    of 94 × 86, 211,680 B."""
+    best = None
+    for tx in range(1, min(sms, w) + 1):
+        tile_w = -(-w // tx)
+        ty = sms // tx
+        if ty < 1:
+            break
+        tile_h = -(-h // ty)
+        bands = -(-tile_w // BAND)
+        runs = max(1, min(RES_MAX_RUNS, warps // bands))
+        run_h = -(-tile_h // runs)
+        if (tile_h < 2 or tile_w < 2 or bands > warps
+                or resident_bytes(h, w, tile_h, tile_w) > smem):
+            continue
+        band_rows = bands * runs * (run_h + 0.8)
+        key = (max(run_h + 0.8, band_rows / warps), band_rows,
+               resident_bytes(h, w, tile_h, tile_w))
+        if best is None or key < best[0]:
+            best = (key, (tile_h, tile_w))
+    return None if best is None else best[1]
+
+
+def multi_step_resident_kernel(state: ClothState, params: ClothParams, dt,
+                               n_steps: int,
+                               tile: Optional[Tile] = None) -> ClothState:
+    """``n_steps`` exact substeps of K6r on a CUDA state of one world, in
+    one cooperative launch on the current stream into new buffers; on the
+    tiles of :func:`resident_schedule` unless ``tile`` is given. Raises
+    where the tiles do not fit or the card refuses the launch."""
+    return multi_step_resident_kernel_packed(
+        state, cloth_kernel._pack_params(params, dt), n_steps, tile)
+
+
+def multi_step_resident_kernel_packed(state: ClothState, prm: torch.Tensor,
+                                      n_steps: int,
+                                      tile: Optional[Tile] = None
+                                      ) -> ClothState:
+    """:func:`multi_step_resident_kernel` on the packed vector of
+    ``cloth_kernel._pack_params``."""
+    global LAUNCHES_RESIDENT
+    pos, vel, prm, pins, lead, h, w = cloth_kernel._kernel_inputs(state, prm)
+    if lead:
+        raise ValueError(f"the resident kernel takes one world [3, H, W], "
+                         f"got {tuple(pos.shape)}")
+    if n_steps <= 0 or pos.numel() == 0:
+        return state
+    smem = card(pos.device)[1]
+    tile = tile or resident_tile(h, w, pos.device)
+    if tile is None:
+        raise ValueError(f"no resident tiling of {h}x{w} fits the card")
+    tile_h, tile_w = (int(v) for v in tile)
+    if (tile_h < 2 or tile_w < 2 or -(-tile_w // BAND) > RES_WARPS
+            or resident_bytes(h, w, tile_h, tile_w) > smem):
+        raise ValueError(f"resident tile {tile} of {h}x{w}: each side must "
+                         f"be >= 2, at most {RES_WARPS} bands wide, and the "
+                         f"tile grown by {RING} within the card's {smem} B")
+    tiles = -(-h // tile_h) * -(-w // tile_w)
+    pin_ptrs = ((pins[0].data_ptr(), pins[1].data_ptr()) if pins
+                else (None, None))
+    bufs = torch.empty((4, 3, h, w), dtype=torch.float32, device=pos.device)
+    flags = torch.zeros(tiles, dtype=torch.int32, device=pos.device)
+    lib = _build.load("cloth_tiled", _SIGNATURES)
+    with torch.cuda.device(pos.device):
+        err = lib.wpe_cloth_tiled_multi_step_resident(
+            prm.data_ptr(), pos.data_ptr(), vel.data_ptr(), *pin_ptrs,
+            bufs[0].data_ptr(), bufs[1].data_ptr(), bufs[2].data_ptr(),
+            bufs[3].data_ptr(), flags.data_ptr(), h, w, n_steps, tile_h,
+            tile_w, int(pins is not None),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "cloth_tiled resident launch")
+    LAUNCHES_RESIDENT += 1
+    out = bufs[0:2] if n_steps % 2 else bufs[2:4]
+    return state._replace(pos=out[0], vel=out[1])
+
+
+@functools.lru_cache(maxsize=256)
+def _card_resident(h: int, w: int, sms: int, smem: int) -> Optional[Tile]:
+    return resident_schedule(h, w, sms, smem)
+
+
+def resident_tile(h: int, w: int, device) -> Optional[Tile]:
+    """K6r's tile for one ``h × w`` world on the CUDA ``device``:
+    :func:`resident_schedule` on the card's multiprocessors and shared
+    memory (:func:`card`), once a shape and card; None where none fits."""
+    return _card_resident(h, w, *card(device))
+
+
+def resident_fits(h: int, w: int, device) -> bool:
+    """Whether one ``h × w`` world on the CUDA ``device`` takes K6r."""
+    return resident_tile(h, w, device) is not None
+
+
+# ---------------------------------------------------------------------------
+# K5r: a batch of small worlds, one CTA a world for the whole call
+# ---------------------------------------------------------------------------
+
+def batched_fits(h: int, w: int, smem: int) -> bool:
+    """Whether K5r holds a world of ``h × w`` in one CTA of ``smem``
+    bytes of shared memory: two copies of six fp32 planes, 48 B a
+    particle (4,842 particles on the H100)."""
+    return 48 * h * w <= smem
+
+
+def multi_step_batched_kernel_packed(state: ClothState, prm: torch.Tensor,
+                                     n_steps: int) -> ClothState:
+    """``n_steps`` exact substeps of K5r on a CUDA batch ``[B, 3, H, W]``
+    and the packed vector of ``cloth_kernel._pack_params`` (``[16]`` or
+    ``[B, 16]``): one launch on the current stream, one CTA a world, into
+    new buffers (the input is only read)."""
+    global LAUNCHES_BATCHED
+    pos, vel, prm, pins, lead, h, w = cloth_kernel._kernel_inputs(state, prm)
+    if len(lead) != 1:
+        raise ValueError(f"the batched resident kernel takes [B, 3, H, W], "
+                         f"got {tuple(pos.shape)}")
+    smem = card(pos.device)[1]
+    if not batched_fits(h, w, smem) or lead[0] > 65535:
+        raise ValueError(f"{lead[0]} worlds of {h}x{w}: K5r takes at most "
+                         f"65535 worlds of at most {smem // 48} particles")
+    if n_steps <= 0 or pos.numel() == 0:
+        return state
+    pin_ptrs = ((pins[0].data_ptr(), pins[1].data_ptr()) if pins
+                else (None, None))
+    out = torch.empty((2,) + lead + (3, h, w), dtype=torch.float32,
+                      device=pos.device)
+    lib = _build.load("cloth_tiled", _SIGNATURES)
+    with torch.cuda.device(pos.device):
+        err = lib.wpe_cloth_tiled_multi_step_batched(
+            prm.data_ptr(), pos.data_ptr(), vel.data_ptr(), *pin_ptrs,
+            out[0].data_ptr(), out[1].data_ptr(), lead[0], h, w, n_steps,
+            int(pins is not None), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "cloth_tiled batched launch")
+    LAUNCHES_BATCHED += 1
+    return state._replace(pos=out[0], vel=out[1])
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,10 @@ The counterpart of ``wgpu_physics_engine_tpu/parallel/datagen.py``. What
 the two kernels of the path each take the whole batch in one launch:
 
 * stepping: ``ops.cloth_kernel.multi_step`` on a ``[B, 3, H, W]`` state
-  runs the batched-worlds kernel K5 (one launch per substep for all
-  worlds, a parameter row per world);
+  runs a batched-worlds kernel, a parameter row per world: K5r (one launch
+  a call, a CTA a world holding it in shared memory) for a chunk of enough
+  worlds, such as the default 1,024, else K5 (one launch per substep for
+  all worlds);
 * rendering: one binning pass for all worlds
   (``raster_kernel.tiled_prologue_batched``) and one sphere-raster launch
   for all worlds, composited over each world's cached globe.
@@ -192,8 +194,8 @@ def step_and_render(batch: WorldBatch, dt, n_steps: int, camera: R.Camera,
     (leaves ``[B, ...]``, e.g. from :func:`randomized_cameras`).
     ``base_fb``: the worlds' cached globe (:func:`globe_base_fbs`); without
     it the globe is rendered here. ``use_kernel=True`` steps with
-    ``ops.cloth_kernel.multi_step`` (K5 on a CUDA batch, its plain version
-    on a CPU one); ``use_kernel=False`` with the stencil twin
+    ``ops.cloth_kernel.multi_step`` (K5r or K5 on a CUDA batch, their
+    plain version on a CPU one); ``use_kernel=False`` with the stencil twin
     ``models.cloth.multi_step``."""
     with record_function("datagen.step"):
         if use_kernel:

@@ -201,8 +201,9 @@ def batched_multi_step(state: ClothState, params: ClothParams, dt,
                        axis: str = "worlds") -> ClothState:
     """``n_steps`` substeps of a batch of worlds (``pos`` ``[B, 3, H, W]``,
     params ``[B]`` or shared 0-d), each shard of ``mesh``'s ``axis``
-    stepped by the batched kernel K5 (``ops.cloth_kernel.multi_step``; its
-    plain version on CPU shards); no copies between shards. JAX partitions
+    stepped by ``ops.cloth_kernel.multi_step`` (K5, or K5r for a shard of
+    enough worlds; their plain version on CPU shards); no copies between
+    shards. JAX partitions
     a vmapped stepper by the input's sharding; here the mesh is an
     argument."""
     shards = shard_worlds(state, mesh, axis)

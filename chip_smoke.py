@@ -171,8 +171,11 @@ K10 and idle.
    to K11's, ``<J u, v>`` against ``<u, J v>`` within 1e-4 relative where
    nothing is dropped, and K11 with the plain integrate equal to one K10
    substep bit for bit; K1f at 256² with the top row pinned and that set's
-   forces within 1e-6 of its plain version, and with a zero force plane
-   equal to K1 bit for bit;
+   forces equal to its plain version bit for bit, in grid order and as the
+   self-collision block calls it (the forces in the set's sorted order
+   through the inverse permutation, the next sorted positions written),
+   the two entries equal, and with a zero force plane equal to K1 bit for
+   bit;
 16. the granular gradient path, with the launch counters reset just before
    it and read just after: ``granular.multi_step_diff`` at 1M, default
    configuration, 16 substeps at 240 Hz (two segments), on the fresh
@@ -187,7 +190,9 @@ K10 and idle.
    it and read just after: ``ClothScene`` 256² ``self_collide=True``,
    ``simulate(2.0)``, a frame and the CLI's ``cloth --self-collide``; K11
    and K1f launched once a substep; finite, r_min >= R + r - 1e-3, nothing
-   dropped over the scene's schedule, globe and particle pixels; then
+   dropped over the scene's schedule, globe and particle pixels; one
+   rebuild block on the scene's end state equal bit for bit to the same
+   block with K1f's plain version; then
    ``multi_step_self_collide_diff`` over 16 substeps of the scene's end
    state: the gradients of pos, vel, dt and every ``ClothParams`` leaf
    within 1e-4 max-relative of its plain versions.
@@ -195,7 +200,10 @@ K10 and idle.
 Then phases 6 and 7 for these paths: K11 and K12 a launch at 1M, K11 on
 the self-collision set of phase 17's cloth (the scene's slab; its bound
 from that set's candidate slots and touching pairs) and K1f at 256² beside
-their plain versions and bounds (K12's operations from its own body),
+their plain versions and bounds (K12's operations from its own body; K1f's
+device time a launch from the traced block, its bound from the 76 bytes a
+particle of its sorted site), one rebuild block of 8 substeps by CUDA
+events and host clock,
 granular value_and_grad particle-steps/s at 1M (16 substeps),
 the counterpart of ``bench.py``'s ``self_collide_256`` (256², 512
 substeps, rebuild every 32, slab 640, skin 0.5·r), and one
@@ -212,7 +220,10 @@ and idle.
    never); all finite, |pos| <= bounds - radius + 1e-5 in the correct
    mode, sphere and wireframe pixels, each frame within 1 in u8 of the CPU
    frame of the same state on >= 99.9% of pixels; then K4 against its
-   plain version and against the tiled kernel, and the tiled kernel
+   plain version (also at 601×799, the kernel's scalar accesses) and
+   against the tiled kernel, with its bound from 7 operations a (pixel,
+   instance) pair and 4 more on the pairs with disc > 0, and the tiled
+   kernel
    against the full sweep, bit for bit, on the scene's frame (10
    instances) and on 16,384 (K4's ceiling: radius 0.25,
    uniform in the box), with K4's, the plain version's and the tiled
@@ -273,7 +284,8 @@ first, and the launch is matched to the traced call by correlation id).
    of the per-world serial sum; ``batched_self_collide_multi_step`` of 4
    worlds of the 256² self-collision configuration (the scene's schedule)
    on 2 worlds shards, 240 substeps, each world equal bit for bit to
-   ``multi_step_self_collide`` alone; ``examples/multichip_datagen.py`` at its
+   ``multi_step_self_collide`` alone, and world 0 to the same run with
+   K1f's plain version; ``examples/multichip_datagen.py`` at its
    defaults; every launch count as the path predicts (K6w on the rows
    path, K1w on the composed one, K5 on the worlds shards; K1, K6, K6r,
    K5r and K10 never). Then K10b on each of the 4 slices against its plain
@@ -364,6 +376,10 @@ OPS_EDGE = 34
 OPS_PARTICLE = 82
 # per (pixel, candidate) of the sphere sweep: b 5, disc 2, t 3, tests 3
 OPS_RAY_SPHERE = 13
+# K4's work as any implementation must do it: b and the discriminant for
+# every (pixel, instance) pair (b 5, disc 2), and the square root, t and
+# the two compares only for the pairs with disc > 0
+OPS_DISC, OPS_HIT = 7, 4
 # fp32 operations of the substep adjoint (csrc/cloth_grad.cu): per spring
 # edge 116, its forward force again (34, the linearization point) and its
 # adjoint 82 (difference, length, unit vector, stretch, relative velocity
@@ -509,6 +525,22 @@ def _best_ms(fn, reps: int = 3) -> float:
         end.record()
         end.synchronize()
         best = min(best, start.elapsed_time(end))
+    return best
+
+
+def _best_s(fn, reps: int = 5) -> float:
+    """Best of ``reps`` host-clock seconds of ``fn`` ending in a
+    synchronize, after one warm-up."""
+    import torch
+
+    best = float("inf")
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i:
+            best = min(best, time.perf_counter() - t0)
     return best
 
 
@@ -802,6 +834,7 @@ def _plain_kernels():
              cloth_tiled_kernel.multi_step_resident_kernel_packed,
              cloth_tiled_kernel.multi_step_batched_kernel_packed,
              cloth_kernel.substep_with_force_kernel,
+             cloth_kernel.substep_with_force_sorted_kernel,
              cloth_grad_kernel._walk_kernel,
              raster_kernel.sphere_raster_kernel,
              raster_kernel.sphere_raster_untiled_kernel,
@@ -819,6 +852,8 @@ def _plain_kernels():
         cloth_kernel.multi_step_plain_packed)
     cloth_kernel.substep_with_force_kernel = (
         cloth_kernel.substep_with_force_plain)
+    cloth_kernel.substep_with_force_sorted_kernel = (
+        cloth_kernel.substep_with_force_sorted_plain)
     cloth_grad_kernel._walk_kernel = cloth_grad_kernel._walk_plain
     raster_kernel.sphere_raster_kernel = (
         lambda wins, ocb, rect, dirs, znear:
@@ -838,12 +873,29 @@ def _plain_kernels():
          cloth_tiled_kernel.multi_step_resident_kernel_packed,
          cloth_tiled_kernel.multi_step_batched_kernel_packed,
          cloth_kernel.substep_with_force_kernel,
+         cloth_kernel.substep_with_force_sorted_kernel,
          cloth_grad_kernel._walk_kernel,
          raster_kernel.sphere_raster_kernel,
          raster_kernel.sphere_raster_untiled_kernel,
          granular_kernel.substep_sorted_kernel,
          granular_kernel.contact_forces_sorted_kernel,
          granular_kernel.contact_force_jvp_sorted_kernel) = saved
+
+
+@contextlib.contextmanager
+def _k1f_sorted_plain():
+    """Inside, K1f's sorted entry (``cloth_kernel.
+    substep_with_force_sorted_kernel``, the self-collision block's) runs
+    its plain version on the card; K11 and every other kernel stay."""
+    from wgpu_physics_engine_torch.ops import cloth_kernel
+
+    saved = cloth_kernel.substep_with_force_sorted_kernel
+    cloth_kernel.substep_with_force_sorted_kernel = (
+        cloth_kernel.substep_with_force_sorted_plain)
+    try:
+        yield
+    finally:
+        cloth_kernel.substep_with_force_sorted_kernel = saved
 
 
 def _classify(img):
@@ -2164,35 +2216,54 @@ def _phase15(fresh, draped, params, card):
         f"cloth (thin, block {SC_BLOCK}, slab {SC_SLAB})", card, d)
     err = max(err, e)
 
-    # K1f at 256² with the top row pinned and that set's pair forces
+    # K1f at 256² with the top row pinned and that set's pair forces: the
+    # grid-order entry and the sorted entry of the self-collision block
     h, w = draped.pos.shape[-2:]
-    f_self = gk.contact_forces_sorted_kernel(p, md, kc, slabs)[
-        :, broadphase._inverse(order)].reshape(3, h, w)
+    inv = broadphase._inverse(order)
+    f_sorted = gk.contact_forces_sorted_kernel(p, md, kc, slabs)
+    f_self = f_sorted[:, inv].reshape(3, h, w)
     pin = torch.zeros((h, w), dtype=torch.bool, device=draped.pos.device)
     pin[0] = True
     s = draped._replace(pin_mask=pin, pin_pos=draped.pos)
+    blk, sb = cloth_kernel.force_block(s, params, DT, inv)
     before = cloth_kernel.LAUNCHES_FORCE
     k = cloth_kernel.substep_with_force_kernel(s, params, DT, f_self)
+    ks, ksp = cloth_kernel.substep_with_force_sorted_kernel(sb, blk, f_sorted)
     torch.cuda.synchronize()
     launched = cloth_kernel.LAUNCHES_FORCE - before
     pl = cloth_kernel.substep_with_force_plain(s, params, DT, f_self)
-    ek = max(_maxdiff(k.pos, pl.pos), _maxdiff(k.vel, pl.vel))
+    pls, plsp = cloth_kernel.substep_with_force_sorted_plain(sb, blk, f_sorted)
+    ek = max(_maxdiff(k.pos, pl.pos), _maxdiff(k.vel, pl.vel),
+             _maxdiff(ks.pos, pls.pos), _maxdiff(ks.vel, pls.vel),
+             _maxdiff(ksp, plsp))
     bitwise = bool(torch.equal(k.pos, pl.pos) and torch.equal(k.vel, pl.vel))
+    sorted_bitwise = bool(torch.equal(ks.pos, pls.pos)
+                          and torch.equal(ks.vel, pls.vel)
+                          and torch.equal(ksp, plsp))
+    same = bool(torch.equal(ks.pos, k.pos) and torch.equal(ks.vel, k.vel)
+                and torch.equal(ksp, k.pos.reshape(3, -1)[:, order.long()]))
     z = cloth_kernel.substep_with_force_kernel(s, params, DT,
                                                torch.zeros_like(f_self))
     k1 = cloth_kernel.multi_step_kernel(s, params, DT, 1)
     k1_same = bool(torch.equal(z.pos, k1.pos) and torch.equal(z.vel, k1.vel))
     moved = _maxdiff(k.vel, k1.vel)
     print(f"phase 15 cloth_step_force (K1f) @{h}x{w} pinned, draped, with the "
-          f"self-collision forces [{card}]: vs plain {ek:.3e} (<=1e-6), "
-          f"bitwise {bitwise}; fext = 0 equals K1 bit for bit {k1_same}; the "
-          f"force plane moves vel by {moved:.3e}; launches {launched}")
-    _check(launched == 1, f"K1f launched {launched} times")
-    _check(ek <= 1e-6, f"K1f vs plain {ek}")
+          f"self-collision forces [{card}]: grid-order entry vs plain bitwise "
+          f"{bitwise}, the sorted entry (forces in the block's sorted order, "
+          f"the next sorted positions written) vs its plain version bitwise "
+          f"{sorted_bitwise} (largest difference of both {ek:.3e}), the two "
+          f"entries and the gather equal {same}; fext = 0 equals K1 bit for "
+          f"bit {k1_same}; the force plane moves vel by {moved:.3e}; "
+          f"launches {launched}")
+    _check(launched == 2, f"K1f launched {launched} times, not 2")
+    _check(bitwise and sorted_bitwise, f"K1f differs from its plain version "
+           f"({bitwise}, sorted {sorted_bitwise}, {ek})")
+    _check(same, "K1f's sorted and grid-order entries differ")
     _check(k1_same, "K1f with fext = 0 differs from K1")
     _check(moved > 0, "the self-collision forces moved nothing")
     _check(torch.equal(k.pos[:, 0], s.pos[:, 0]), "K1f pinned row moved")
     res["cloth_step_force"] = {"err": ek, "bitwise": bitwise,
+                               "sorted_bitwise": sorted_bitwise,
                                "k1_bitwise_at_zero": k1_same}
     return res, err, ek
 
@@ -2423,6 +2494,26 @@ def _phase17(dev, card, cli_main):
         float(scene.params.particle_radius), fh, fw, "the self-collision "
         "frame", card)
 
+    # one rebuild block of the scene's schedule on its state: K1f's sorted
+    # entry against its plain version inside the block, K11 the same
+    blk_args = (scene.state, scene.params, DT, SC_REBUILD, scene._sc_grid,
+                SC_BLOCK, scenes.SELF_COLLIDE_SLAB)
+    f0 = cloth_kernel.LAUNCHES_FORCE
+    kb, _ = cloth._self_collide_block(*blk_args)
+    torch.cuda.synchronize()
+    blk_launches = cloth_kernel.LAUNCHES_FORCE - f0
+    with _k1f_sorted_plain():
+        pb, _ = cloth._self_collide_block(*blk_args)
+    blk_same = bool(torch.equal(kb.pos, pb.pos) and torch.equal(kb.vel,
+                                                                pb.vel))
+    print(f"phase 17 one rebuild block ({SC_REBUILD} substeps) on the "
+          f"scene's state [{card}]: K1f's sorted entry vs its plain version "
+          f"in the block bitwise {blk_same}; K1f launches {blk_launches}")
+    _check(blk_same, "the block on K1f differs from its plain version")
+    _check(blk_launches == SC_REBUILD,
+           f"the block launched K1f {blk_launches} times")
+    res["block_k1f_bitwise"] = blk_same
+
     rng = np.random.default_rng(17)
     wp, wv = (torch.tensor(rng.standard_normal((3, GRID, GRID)).astype(
         np.float32), device=dev) for _ in range(2))
@@ -2571,19 +2662,22 @@ def _contact_times(fresh, sc_state, params, dev, card) -> dict:
     sp, sslabs, md, kc, order, _ = _sc_structs(sc_state, params,
                                                scenes.SELF_COLLIDE_SLAB)
     h, w = sc_state.pos.shape[-2:]
-    f_self = gk.contact_forces_sorted_kernel(sp, md, kc, sslabs)[
-        :, broadphase._inverse(order)].reshape(3, h, w)
-    k_ms = per_launch(lambda: cloth_kernel.substep_with_force_kernel(
-        sc_state, params, DT, f_self))
-    p_ms = _best_ms(lambda: cloth_kernel.substep_with_force_plain(
-        sc_state, params, DT, f_self))
-    b_ms, b_by = _cloth_bound(h, w, 1, 1, extra_bytes=12.0, extra_ops=3.0)
-    res["cloth_step_force"] = {"host_bound_ms": k_ms, "plain_ms": p_ms,
+    f_sorted = gk.contact_forces_sorted_kernel(sp, md, kc, sslabs)
+    blk, sb = cloth_kernel.force_block(sc_state, params, DT,
+                                       broadphase._inverse(order))
+    host_ms = per_launch(lambda: cloth_kernel.substep_with_force_sorted_kernel(
+        sb, blk, f_sorted))
+    p_ms = _best_ms(lambda: cloth_kernel.substep_with_force_sorted_plain(
+        sb, blk, f_sorted))
+    # the sorted site's bytes: the state (48), the force plane (12), inv (4)
+    # and the next sorted positions (12) a particle
+    b_ms, b_by = _cloth_bound(h, w, 1, 1, extra_bytes=28.0, extra_ops=3.0)
+    res["cloth_step_force"] = {"host_bound_ms": host_ms, "plain_ms": p_ms,
                                "bound_ms": b_ms, "bound_by": b_by}
-    print(f"phase 6 cloth_step_force (K1f) @{h}x{w} [{card}]: {k_ms:.5f} ms a "
-          f"launch over {REPS} back to back (host bound: the device time "
-          f"is the trace's, below), plain {p_ms:.4f} ms, bound {b_ms:.6f} ms "
-          f"({b_by})")
+    print(f"phase 6 cloth_step_force (K1f) sorted entry @{h}x{w} [{card}]: "
+          f"{host_ms:.5f} ms a launch over {REPS} back to back (host bound: "
+          f"the device time is the trace's, below), plain {p_ms:.4f} ms, "
+          f"bound {b_ms:.6f} ms ({b_by}; 76 B a particle)")
     n_sc = h * w
     sc_ms = per_launch(lambda: gk.contact_forces_sorted_kernel(sp, md, kc,
                                                                sslabs))
@@ -2669,12 +2763,17 @@ def _contact_times(fresh, sc_state, params, dev, card) -> dict:
            f"gradient trace launches {tr['launches']}")
 
     sgrid = cloth.default_self_collision_grid(c, skin=2.0 * c.particle_radius)
+
+    def block():
+        return cloth._self_collide_block(sc_state, params, DT, SC_REBUILD,
+                                         sgrid, SC_BLOCK,
+                                         scenes.SELF_COLLIDE_SLAB)
+
+    blk_ms = _best_ms(block)
+    blk_host = _best_s(block) * 1e3
     tr = _trace_split(
-        lambda: cloth._self_collide_block(sc_state, params, DT, SC_REBUILD,
-                                          sgrid, SC_BLOCK,
-                                          scenes.SELF_COLLIDE_SLAB),
-        os.path.join(OUT, "trace_self_collide_block.json"),
-        {"k11": _is_k11, "k1f": lambda name: "substep_kernel" in name},
+        block, os.path.join(OUT, "trace_self_collide_block.json"),
+        {"k11": _is_k11, "k1f": lambda name: "force_kernel" in name},
         "cloth.self_collide.rebuild")
     res["trace_self_collide_block"] = tr
     print(f"phase 7 trace one self-collision rebuild block ({SC_REBUILD} "
@@ -2683,17 +2782,20 @@ def _contact_times(fresh, sc_state, params, dev, card) -> dict:
           f"{tr['device_busy_us']:.1f} us in {tr['device_ops']} device ops; "
           f"device us " + ", ".join(f"{k} {v:.1f}"
                                    for k, v in tr["split_us"].items())
-          + f" (launches {tr['launches']}; 'other' is the frozen-order "
-          f"gathers and the scatter back); device idle share "
-          f"{tr['idle_share']:.4f}")
+          + f" (launches {tr['launches']}; 'other' is what the block issues "
+          f"outside the rebuild, K11 and K1f: K11's parameter pair a "
+          f"substep); device idle share {tr['idle_share']:.4f}")
     _check(tr["launches"] == {"k11": SC_REBUILD, "k1f": SC_REBUILD},
            f"self-collision trace launches {tr['launches']}")
     k1f = res["cloth_step_force"]
     k1f["ms"] = tr["split_us"]["k1f"] / SC_REBUILD / 1e3
+    k1f["block_ms"], k1f["block_host_ms"] = blk_ms, blk_host
     print(f"phase 6 cloth_step_force (K1f) @{h}x{w} [{card}]: "
           f"{k1f['ms']:.6f} ms of device time a launch (the trace), bound "
           f"{k1f['bound_ms']:.6f} ms, kernel at "
-          f"{k1f['bound_ms'] / k1f['ms']:.4f} of the bound")
+          f"{k1f['bound_ms'] / k1f['ms']:.4f} of the bound; one rebuild "
+          f"block of {SC_REBUILD} substeps {blk_ms:.4f} ms (CUDA events, "
+          f"best of 3), {blk_host:.4f} ms host clock (best of 5)")
     return res
 
 
@@ -2773,11 +2875,16 @@ def _k4_case(cam, centers, radius, label: str, card) -> dict:
     tiled_pro = _best_ms(lambda: rk.sphere_raster_tiled(
         rot, eye, dirs, centers, radius, zn, tan_half, cam.aspect))
     p = h * w
-    bound, by = _bound(3 * p * 4 + 2 * p * 4 + 16 * n,
-                       float(p) * n * OPS_RAY_SPHERE)
+    disc_pairs = _disc_pairs(ocb, dirs)
+    nbytes = 3 * p * 4 + 2 * p * 4 + 16 * n
+    bound, by = _bound(nbytes, float(p) * n * OPS_DISC + OPS_HIT * disc_pairs)
+    old_bound, old_by = _bound(nbytes, float(p) * n * OPS_RAY_SPHERE)
     print(f"phase 6 sphere_raster_untiled (K4) @{h}x{w}, {n} instances "
           f"[{card}]: kernel {ms:.5f} ms ({ms_pro:.5f} with its prologue), "
-          f"plain {plain_ms:.5f} ms, bound {bound:.5f} ms ({by}), kernel at "
+          f"plain {plain_ms:.5f} ms, bound {bound:.5f} ms ({by}; {OPS_DISC} "
+          f"operations on each of {p * n} pairs and {OPS_HIT} more on the "
+          f"{disc_pairs} with disc > 0; counted as {OPS_RAY_SPHERE} on every "
+          f"pair before: {old_bound:.5f} ms, {old_by}), kernel at "
           f"{bound / ms:.4f} of the bound; the tiled kernel (K2/K3) on the "
           f"same frame {tiled_ms:.5f} ms ({tiled_pro:.5f} with its "
           f"prologue)")
@@ -2786,7 +2893,42 @@ def _k4_case(cam, centers, radius, label: str, card) -> dict:
             "err_tmin": err, "ms": ms,
             "ms_with_prologue": ms_pro, "plain_ms": plain_ms,
             "tiled_ms": tiled_ms, "tiled_ms_with_prologue": tiled_pro,
-            "bound_ms": bound, "bound_by": by}
+            "bound_ms": bound, "bound_by": by, "disc_pairs": disc_pairs,
+            "old_bound_ms": old_bound}
+
+
+def _disc_pairs(ocb, dirs) -> int:
+    """The (pixel, instance) pairs of K4's sweep with disc > 0, counted in
+    torch on the card (the same b and disc expressions, in chunks)."""
+    d = dirs.reshape(3, -1)
+    cnt = 0
+    for k0 in range(0, ocb.shape[1], 256):
+        o = ocb[:, k0:k0 + 256]
+        b = d[0][:, None] * o[0] + d[1][:, None] * o[1] + d[2][:, None] * o[2]
+        cnt += int(((b * b - o[3]) > 0.0).sum())
+    return cnt
+
+
+def _k4_ragged(cam, centers, radius, label: str, card) -> bool:
+    """K4 against its plain version bit for bit on a frame of 601x799,
+    whose planes (h·w not a multiple of 4) take the kernel's scalar
+    accesses."""
+    import torch
+
+    from wgpu_physics_engine_torch.ops import raster_kernel as rk
+    from wgpu_physics_engine_torch.render import camera as cam_mod
+
+    h, w = PT_FRAME[0] + 1, PT_FRAME[1] - 1
+    eye, dirs = cam_mod.pixel_rays(cam, h, w)
+    ocb = rk.untiled_prologue(eye, centers, radius)
+    kt, ki = rk.sphere_raster_untiled_kernel(ocb, dirs, cam.znear)
+    pt, pi = rk.sphere_raster_untiled_plain(ocb, dirs, cam.znear)
+    eq = bool(torch.equal(kt, pt) and torch.equal(ki, pi))
+    hits = int((ki >= 0).sum())
+    print(f"{label} @{h}x{w}: hits {hits}, K4 vs plain bitwise {eq}")
+    _check(eq and hits > 0, f"{label} @{h}x{w}: K4 differs from its plain "
+           f"version ({eq}, hits {hits})")
+    return eq
 
 
 def _phase18_particles(dev, card, cli_main) -> dict:
@@ -2896,6 +3038,12 @@ def _phase18_particles(dev, card, cli_main) -> dict:
     res["k4_max"] = _k4_case(cam, big, PT_MAX_RADIUS,
                              f"phase 18 K4 @{fh}x{fw}, {rk.MAX_INSTANCES} "
                              f"instances of radius {PT_MAX_RADIUS}", card)
+    res["k4_ragged"] = [
+        _k4_ragged(cam, scene.state.pos.T.contiguous(),
+                   float(scene.params.radius), "phase 18 K4, the scene's "
+                   "instances", card),
+        _k4_ragged(cam, big, PT_MAX_RADIUS, f"phase 18 K4, "
+                   f"{rk.MAX_INSTANCES} instances", card)]
     res["frame_ms"] = _best_ms(lambda: scene.render(fh, fw))
     scene.resize(256, 256)                 # the CLI's default frame
     res["raster_cli"] = _raster_site(
@@ -3830,10 +3978,22 @@ def _phase21(dev, card):
           f"rebuild every {SC_REBUILD} [{card}]: each world vs "
           f"multi_step_self_collide alone bitwise {eq_sc}; dropped (serial "
           f"runs) {sc_drop}; finite {sc_finite}")
+    with _k1f_sorted_plain():
+        r0, _ = cloth.multi_step_self_collide(
+            ClothState(pos=s_fl.pos, vel=sc_vel[0]), p_fl, DT, MC_SC_STEPS,
+            sc_spec, return_stats=True, **sc_kw)
+    k1f_plain = bool(torch.equal(sc.pos[0], r0.pos)
+                     and torch.equal(sc.vel[0], r0.vel))
+    print(f"phase 21 world 0 of the worlds-sharded self-collision vs the "
+          f"same world with K1f's plain version [{card}]: bitwise "
+          f"{k1f_plain}")
     _check(all(eq_sc), f"worlds-sharded self-collision differs: {eq_sc}")
+    _check(k1f_plain, "worlds-sharded self-collision differs from K1f's "
+           "plain version")
     _check(sc_drop == 0, f"self-collision dropped {sc_drop} window entries")
     _check(sc_finite, "worlds-sharded self-collision not finite")
-    res["self_collide"] = {"bitwise": eq_sc, "dropped": sc_drop}
+    res["self_collide"] = {"bitwise": eq_sc, "dropped": sc_drop,
+                           "k1f_plain_bitwise": k1f_plain}
 
     arrs = [np.load(f) for f in frames]
     ok = (len(arrs) == 4 and all(a.shape == (64, 64, 64, 3)

@@ -14,11 +14,14 @@ within 1e-5 max-relative (its parameter cotangents are sums taken in
 another order), and ``multi_step_diff`` to the plain path within 1e-4.
 The contact kernels K11 and K12 are held to their plain versions within
 1e-5 relative (each group's sum in double, rounded once), K11 with the
-plain integrate to K10 bit for bit, K1f to its plain version within 1e-6
-and, with a zero force plane, to K1 bit for bit; the granular gradient
+plain integrate to K10 bit for bit, K1f to its plain version bit for bit
+(grid order at 256², 48×40, 61×67 and 2×3; its sorted entry, the next
+sorted positions included, to the gather, plain substep and scatter) and,
+with a zero force plane, to K1 bit for bit; the granular gradient
 path on the card to the CPU plain path within 1e-4. The untiled sphere
 raster (K4) is held to its plain version and to the tiled kernel bit for
-bit; the free-particle and mesh frames on the card to their CPU frames
+bit, at 600×800 and 601×799 from 0 to 16,384 instances, on two identical
+spheres (the lower id wins) and a sphere behind the camera; the free-particle and mesh frames on the card to their CPU frames
 within 1 in u8 on >= 99.9% of pixels (CPU and CUDA libm round
 pow/atan2/asin apart by ulps, which a sphere's pole or silhouette
 amplifies);
@@ -508,34 +511,72 @@ def test_granular_forces_and_jvp_match_plain(dev, kw):
     assert torch.equal(kp, ip) and torch.equal(kv, iv)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("pins", [False, True])
-def test_cloth_substep_with_force_matches_plain_and_k1(dev, pins):
-    """K1f against its plain version (1e-6, one substep) and, with a zero
-    force plane, against K1 bit for bit."""
-    h, w = 48, 40
+def _k1f_state(dev, h, w, pins, seed=8):
+    """A fresh h × w cloth with seeded velocities and force plane, the top
+    row pinned with ``pins``."""
     c = cfg.ClothConfig(height=h, width=w)
     s = st.init_cloth_state(c, device=dev)
-    rng = np.random.default_rng(8)
+    rng = np.random.default_rng(seed)
     s = s._replace(vel=torch.tensor(
         (0.5 * rng.standard_normal((3, h, w))).astype(np.float32), device=dev))
     if pins:
         mask = torch.zeros((h, w), dtype=torch.bool, device=dev)
         mask[0] = True
         s = s._replace(pin_mask=mask, pin_pos=s.pos)
-    p = st.ClothParams.from_config(c, device=dev)
     fext = torch.tensor((20.0 * rng.standard_normal((3, h, w))).astype(
         np.float32), device=dev)
+    return s, st.ClothParams.from_config(c, device=dev), fext
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(256, 256), (48, 40), (61, 67), (2, 3)])
+@pytest.mark.parametrize("pins", [False, True])
+def test_cloth_substep_with_force_matches_plain_and_k1(dev, pins, hw):
+    """K1f against its plain version bit for bit (one substep) and, with a
+    zero force plane, against K1 bit for bit."""
+    s, p, fext = _k1f_state(dev, *hw, pins)
     before = cloth_kernel.LAUNCHES_FORCE
     got = cloth_kernel.substep_with_force(s, p, DT, fext)
     torch.cuda.synchronize()
     assert cloth_kernel.LAUNCHES_FORCE == before + 1
     ref = cloth_kernel.substep_with_force_plain(s, p, DT, fext)
-    torch.testing.assert_close(got.pos, ref.pos, atol=1e-6, rtol=0)
-    torch.testing.assert_close(got.vel, ref.vel, atol=1e-6, rtol=0)
+    assert torch.equal(got.pos, ref.pos) and torch.equal(got.vel, ref.vel)
     zero = cloth_kernel.substep_with_force(s, p, DT, torch.zeros_like(fext))
     k1 = cloth_kernel.multi_step(s, p, DT, 1)
     assert torch.equal(zero.pos, k1.pos) and torch.equal(zero.vel, k1.vel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(256, 256), (61, 67)])
+@pytest.mark.parametrize("pins", [False, True])
+def test_cloth_substep_with_force_sorted_matches_composition(dev, pins, hw):
+    """K1f's sorted entry (forces in a permuted order, the next sorted
+    positions written) against its plain version, the gather, K1f's plain
+    substep and the scatter, and against the grid-order entry on the
+    gathered forces, all bit for bit; without ``want_sp`` no sorted copy
+    and the same state."""
+    s, p, fext = _k1f_state(dev, *hw, pins)
+    n = hw[0] * hw[1]
+    order = torch.randperm(n, generator=torch.Generator().manual_seed(3)).to(
+        dev)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(n, device=dev)
+    f_sorted = fext.reshape(3, n)[:, order].contiguous()
+    blk, sb = cloth_kernel.force_block(s, p, DT, inv)
+    before = cloth_kernel.LAUNCHES_FORCE
+    got, sp = cloth_kernel.substep_with_force_sorted(sb, blk, f_sorted)
+    last, none = cloth_kernel.substep_with_force_sorted(sb, blk, f_sorted,
+                                                        want_sp=False)
+    torch.cuda.synchronize()
+    assert cloth_kernel.LAUNCHES_FORCE == before + 2
+    ref, rsp = cloth_kernel.substep_with_force_sorted_plain(sb, blk, f_sorted)
+    assert torch.equal(got.pos, ref.pos) and torch.equal(got.vel, ref.vel)
+    assert torch.equal(sp, rsp)
+    assert torch.equal(sp, got.pos.reshape(3, n)[:, order])
+    grid = cloth_kernel.substep_with_force(s, p, DT, fext)
+    assert torch.equal(got.pos, grid.pos) and torch.equal(got.vel, grid.vel)
+    assert none is None
+    assert torch.equal(last.pos, got.pos) and torch.equal(last.vel, got.vel)
 
 
 @pytest.mark.cuda
@@ -614,6 +655,61 @@ def test_untiled_raster_kernel_matches_plain_and_tiled(dev, n, radius):
                                                    tc.znear)
     ids = torch.where(ti >= 0, order[ti.clamp_min(0).long()], -1)
     assert torch.equal(ids, ki) and torch.equal(tt, kt)
+
+
+def _k4_against_plain_and_tiled(dev, h, w, centers, radius):
+    """K4 on the box camera's h × w rays against its plain version and the
+    tiled kernel (winners mapped back to instance ids), bit for bit; the
+    hit count."""
+    tc, eye, dirs = _box_rays(dev, h, w)
+    kt, ki = raster_kernel.sphere_raster_untiled(eye, dirs, centers, radius,
+                                                 tc.znear)
+    ocb = raster_kernel.untiled_prologue(eye, centers, radius)
+    pt, pi = raster_kernel.sphere_raster_untiled_plain(ocb, dirs, tc.znear)
+    assert torch.equal(ki, pi) and torch.equal(kt, pt)
+    if centers.shape[0]:
+        wins, tocb, order, rect = raster_kernel.tiled_prologue(
+            tc.view[:3, :3], eye, centers, radius, tc.znear,
+            torch.tan(tc.fovy_rad / 2.0), tc.aspect, h, w)
+        tt, ti, _ = raster_kernel.sphere_raster_kernel(wins, tocb, rect, dirs,
+                                                       tc.znear)
+        ids = torch.where(ti >= 0, order[ti.clamp_min(0).long()], -1)
+        assert torch.equal(ids, ki) and torch.equal(tt, kt)
+    return int((ki >= 0).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 10, 2048, 2049, 16384])
+@pytest.mark.parametrize("hw", [(600, 800), (601, 799)])
+def test_untiled_raster_kernel_at_frame_sizes(dev, hw, n):
+    """K4 at the free-particle scene's 600×800 and at 601×799 (h·w not a
+    multiple of 4: the kernel's scalar accesses), from no instance to
+    MAX_INSTANCES, across a chunk boundary (2,048 and 2,049), against its
+    plain version and the tiled kernel bit for bit."""
+    radius = 1.0 if n <= 10 else 0.25
+    hits = _k4_against_plain_and_tiled(dev, *hw, _box_centers(dev, n, n),
+                                       radius)
+    assert (hits == 0) == (n == 0)
+
+
+@pytest.mark.cuda
+def test_untiled_raster_ties_and_behind_camera(dev):
+    """Two identical spheres: the lower id wins every pixel they cover; a
+    sphere behind the camera (t below znear) hits no pixel."""
+    h, w = 601, 799
+    tc, eye, dirs = _box_rays(dev, h, w)
+    fwd = -tc.view[2, :3]                  # the camera looks down -z_view
+    front = eye + 30.0 * fwd
+    behind = eye - 5.0 * fwd
+    centers = torch.stack([behind, front, front, front + 0.5 * fwd])
+    kt, ki = raster_kernel.sphere_raster_untiled(eye, dirs, centers, 2.0,
+                                                 tc.znear)
+    ocb = raster_kernel.untiled_prologue(eye, centers, 2.0)
+    pt, pi = raster_kernel.sphere_raster_untiled_plain(ocb, dirs, tc.znear)
+    assert torch.equal(ki, pi) and torch.equal(kt, pt)
+    assert int((ki == 1).sum()) > 100
+    assert int((ki == 2).sum()) == 0 and int((ki == 0).sum()) == 0
+    assert int((ki == 3).sum()) == 0     # behind sphere 1, farther
 
 
 @pytest.mark.cuda

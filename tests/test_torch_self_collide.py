@@ -2,7 +2,11 @@
 (``cloth_kernel.substep_with_force``), ``models.cloth.
 multi_step_self_collide`` (both schedules, both spring paths) and
 ``multi_step_self_collide_diff`` against the JAX package on the CPU (its
-Pallas kernels in interpret mode).
+Pallas kernels in interpret mode). Then, on the port alone, K1f's sorted
+entry (``cloth_kernel.substep_with_force_sorted``) against the gather,
+plain substep and scatter it replaces, and the frozen block on it against
+the per-substep gathers around K11 and K1f, bit for bit, with the
+parameters packed once a block.
 
 The configuration is ``tests/test_self_collide_grad.py``'s: a 12×12 cloth
 of side 2 and particle radius 0.12 (neighbours overlap, so self-contacts
@@ -218,3 +222,91 @@ def test_self_collision_forces_match_jax(setup):
     assert float(got.abs().max()) > 1.0
     assert _rel(got.numpy(), ref) <= 1e-5
     assert granular_kernel.LAUNCHES_FORCES == 0
+
+
+# --- K1f's sorted entry and the frozen block (port only, no JAX run) ---
+
+def _pinned_state(ts):
+    mask = torch.zeros((12, 12), dtype=torch.bool)
+    mask[0] = True
+    return ts._replace(pin_mask=mask, pin_pos=ts.pos)
+
+
+def _frozen(setup, ts):
+    """The block's rebuild on ``ts``: the grid and thin slabs, the inverse
+    permutation and the pair forces in sorted order (K11's plain version)."""
+    grid, slabs, _ = tcloth._frozen_structs(
+        ts.pos.reshape(3, -1), ts.vel.reshape(3, -1), setup["tgrid"], BLOCK,
+        SLAB)
+    md = 2.0 * setup["tp"].particle_radius
+    f = granular_kernel.contact_forces_sorted(grid.sorted_pos, md,
+                                              setup["tp"].k_contact, slabs)
+    return grid, slabs, f
+
+
+@pytest.mark.parametrize("pins", [False, True], ids=["free", "pinned"])
+def test_sorted_entry_plain_is_gather_substep_scatter(setup, pins):
+    """The sorted entry's plain version equals, bit for bit, the gather of
+    the sorted forces to the grid, ``substep_with_force_plain`` and the
+    scatter of the new positions to the sorted order (``pos[:, order]``);
+    without ``want_sp`` it writes no sorted copy."""
+    ts = _pinned_state(setup["ts"]) if pins else setup["ts"]
+    grid, _, f = _frozen(setup, ts)
+    inv = tcloth.broadphase._inverse(grid.order)
+    blk, st = cloth_kernel.force_block(ts, setup["tp"], DT, inv)
+    got, sp = cloth_kernel.substep_with_force_sorted(st, blk, f)
+    ref = cloth_kernel.substep_with_force_plain(
+        ts, setup["tp"], DT, f[:, inv].reshape(3, 12, 12))
+    assert torch.equal(got.pos, ref.pos) and torch.equal(got.vel, ref.vel)
+    assert torch.equal(sp, ref.pos.reshape(3, -1)[:, grid.order.long()])
+    assert float((got.pos - ts.pos).abs().max()) > 0
+    last, none = cloth_kernel.substep_with_force_sorted(st, blk, f,
+                                                        want_sp=False)
+    assert none is None and torch.equal(last.pos, got.pos)
+    assert cloth_kernel.LAUNCHES_FORCE == 0
+
+
+def _parent_block(setup, ts, length):
+    """The frozen block as it was composed before the sorted entry: every
+    substep the positions gathered to the sorted order, K11, the forces
+    gathered back to the grid, then ``substep_with_force``."""
+    grid, slabs, _ = _frozen(setup, ts)
+    order = grid.order.long()
+    inv = tcloth.broadphase._inverse(grid.order)
+    md = 2.0 * setup["tp"].particle_radius
+    for _ in range(length):
+        sp = ts.pos.reshape(3, -1)[:, order]
+        f = granular_kernel.contact_forces_sorted(
+            sp, md, setup["tp"].k_contact, slabs)[:, inv].reshape(3, 12, 12)
+        ts = cloth_kernel.substep_with_force(ts, setup["tp"], DT, f)
+    return ts
+
+
+@pytest.mark.parametrize("pins", [False, True], ids=["free", "pinned"])
+def test_self_collide_block_equals_parent_composition(setup, pins):
+    """``_self_collide_block`` on the sorted entry equals the parent's
+    per-substep gathers around K11 and K1f bit for bit over a block of
+    ``REBUILD`` substeps."""
+    ts = _pinned_state(setup["ts"]) if pins else setup["ts"]
+    got, dropped = tcloth._self_collide_block(
+        ts, setup["tp"], torch.tensor(DT), REBUILD, setup["tgrid"], BLOCK,
+        SLAB)
+    ref = _parent_block(setup, ts, REBUILD)
+    assert int(dropped) == 0
+    assert torch.equal(got.pos, ref.pos) and torch.equal(got.vel, ref.vel)
+    assert float((got.pos - ts.pos).abs().max()) > 0
+
+
+def test_self_collide_block_packs_params_once(setup, monkeypatch):
+    """The block packs the cloth parameters once, not once a substep."""
+    calls = []
+    pack = cloth_kernel._pack_params
+
+    def counted(p, dt):
+        calls.append(1)
+        return pack(p, dt)
+
+    monkeypatch.setattr(cloth_kernel, "_pack_params", counted)
+    tcloth._self_collide_block(setup["ts"], setup["tp"], torch.tensor(DT),
+                               REBUILD, setup["tgrid"], BLOCK, SLAB)
+    assert len(calls) == 1

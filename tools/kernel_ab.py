@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Times of the contact pair-force walk (K10, K11, K12, K10b), the cloth
-kernels (K1, its trace, K5, K1w, K6w, K1f, K6), the cloth adjoint (K7-K9)
-and the tile-binned sphere raster (K2/K3) at their main-path shapes on one
-CUDA card, for comparing two checkouts of the repo on one machine.
+kernels (K1, its trace, K5, K1w, K6w, K1f, K6), the cloth adjoint (K7-K9),
+the tile-binned sphere raster (K2/K3) and the untiled one (K4) at their
+main-path shapes on one CUDA card, for comparing two checkouts of the repo
+on one machine.
 
     python3 tools/kernel_ab.py [--root DIR] [--sweep] [--check]
            [--only PART [PART ...]]
@@ -62,6 +63,19 @@ events over back-to-back launches, best of 5):
   chunk of 1,024 worlds of the 60×60 cloth settled 3 s, randomized
   cameras, 256×256; ``raster_granular``: the 256×256 frame of the 1M
   ``GranularScene`` after ``simulate(1.0)``;
+* part ``k1f_k4``: on the 256² cloth of ``ClothScene(self_collide=True)``
+  after ``simulate(2.0)``, one rebuild block of 8 substeps
+  (``models.cloth._self_collide_block`` with the scene's grid and slab, the
+  main path's): ``k1f_sc_device_us``, K1f's device µs a launch from a
+  ``torch.profiler`` trace of five blocks (CUDA events around a launch
+  read its wrapper's host issue); ``sc_block_ms``, the block by CUDA
+  events (best of 5), ``sc_block_host_ms`` by host clock, and
+  ``sc_block_device_us`` and ``sc_block_ops``, its device busy time and
+  device ops from a trace; ``k4_10_device_us`` and ``k4_16384_device_us``:
+  K4 (``raster_kernel.sphere_raster_untiled_kernel``) on the 600×800 frame
+  of ``FreeParticleScene`` after ``simulate(3.0)`` with its 10 instances
+  and with 16,384 of radius 0.25 in the box, device µs a launch from a
+  trace of five, and ``k4_10_ms``, ``k4_16384_ms`` by CUDA events;
 * with ``--sweep`` (a checkout with K6w) K6w on the rows window over tile
   heights and widths at k = 1; (a checkout whose walk has
   ``walk_geometry``), K11 and
@@ -72,7 +86,7 @@ events over back-to-back launches, best of 5):
 * with ``--check``, each kernel against its plain version: the largest
   difference and whether they are equal bit for bit;
 * with ``--only`` and one or more of ``walk``, ``cloth``, ``resident``,
-  ``window``, ``adjoint`` and ``raster``, only those parts; with ``e2e`` among them, also the host-bound loops the
+  ``window``, ``adjoint``, ``raster`` and ``k1f_k4``, only those parts; with ``e2e`` among them, also the host-bound loops the
   walk runs in (``self_collide_256`` and the granular value_and_grad at
   1M, host clock, best of 5).
 
@@ -215,7 +229,7 @@ def main() -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--only", nargs="+",
                     choices=("walk", "cloth", "resident", "window", "adjoint",
-                             "raster", "e2e"))
+                             "raster", "k1f_k4", "e2e"))
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -233,7 +247,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     for name in ("granular_step", "sphere_raster", "cloth_step",
-                 "cloth_tiled", "cloth_grad"):
+                 "cloth_tiled", "cloth_grad", "sphere_raster_untiled"):
         _build.build(name)
     out = {"root": root, "card": card}
     checks = {}
@@ -270,6 +284,8 @@ def main() -> int:
         _adjoint(args, out, checks, dev, c256)
     if "raster" in parts:
         _raster(args, out, checks, dev, c256, configs)
+    if "k1f_k4" in parts:
+        _k1f_k4(args, out, checks, dev, c256)
     if "e2e" in parts:
         _e2e(out, dev, c256, configs)
     if args.check:
@@ -771,6 +787,103 @@ def _raster(args, out, checks, dev, c256, configs):
     for key in ("raster_flagship", "raster_datagen"):
         b, d, zn = cases[key]
         out[key + "_device_us"] = _device_us(lambda: raster(b, d, zn))
+
+
+def _trace_device(fn, match) -> tuple:
+    """One torch.profiler trace of ``fn``: the device µs and count of the
+    kernels whose name ``match`` accepts, the device busy µs of all ops
+    and their count."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    hit = [e.device_time for e in ev if match(e.name)]
+    return sum(hit), len(hit), sum(e.device_time for e in ev), len(ev)
+
+
+def _k1f_k4(args, out, checks, dev, c256):
+    """K1f in the self-collision block and K4 on the free-particle frame
+    (and checks)."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import FreeParticleConfig
+    from wgpu_physics_engine_torch.models import broadphase, cloth, scenes
+    from wgpu_physics_engine_torch.ops import cloth_kernel as ck
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+    from wgpu_physics_engine_torch.ops import raster_kernel as rk
+    from wgpu_physics_engine_torch.render import camera as cam_mod
+
+    dt = 1.0 / 480.0
+    scene = scenes.ClothScene(c256, self_collide=True, device=dev)
+    scene.simulate(2.0)
+    st, prm = scene.state, scene.params
+
+    def block():
+        return cloth._self_collide_block(st, prm, dt, 8, scene._sc_grid, 256,
+                                         scenes.SELF_COLLIDE_SLAB)
+
+    def k1f(name):
+        # the parent's K1f is substep_kernel<..., EXT = true>, the only
+        # substep_kernel a block launches
+        return "force_kernel" in name or "substep_kernel" in name
+
+    us, n, _, _ = _trace_device(lambda: [block() for _ in range(5)], k1f)
+    out["k1f_sc_device_us"] = us / max(n, 1)
+    out["k1f_sc_launches_traced"] = n
+    out["sc_block_ms"] = _best_ms(block)
+    out["sc_block_host_ms"] = _best_s(block) * 1e3
+    _, _, busy, ops = _trace_device(block, k1f)
+    out["sc_block_device_us"], out["sc_block_ops"] = busy, ops
+    if args.check:
+        n = st.pos.shape[-1] * st.pos.shape[-2]
+        grid, slabs, _ = cloth._frozen_structs(
+            st.pos.reshape(3, n), st.vel.reshape(3, n), scene._sc_grid, 256,
+            scenes.SELF_COLLIDE_SLAB)
+        inv = broadphase._inverse(grid.order)
+        f = gk.contact_forces_sorted_kernel(
+            grid.sorted_pos, 2.0 * prm.particle_radius, prm.k_contact, slabs)
+        fg = f[:, inv].reshape(st.pos.shape)
+        checks["k1f_sc"] = _equal(
+            tuple(ck.substep_with_force_kernel(st, prm, dt, fg)[:2]),
+            tuple(ck.substep_with_force_plain(st, prm, dt, fg)[:2]))
+        if hasattr(ck, "force_block"):
+            blk, sb = ck.force_block(st, prm, dt, inv)
+            got, sp = ck.substep_with_force_sorted_kernel(sb, blk, f)
+            ref, rsp = ck.substep_with_force_sorted_plain(sb, blk, f)
+            checks["k1f_sc_sorted"] = _equal((got.pos, got.vel, sp),
+                                             (ref.pos, ref.vel, rsp))
+
+    ps = scenes.FreeParticleScene(FreeParticleConfig(), seed=0, device=dev)
+    ps.simulate(3.0)
+    ps.resize(800, 600)
+    cam = ps.camera()
+    eye, dirs = cam_mod.pixel_rays(cam, 600, 800)
+    g = torch.Generator().manual_seed(0)
+    big = ((torch.rand((rk.MAX_INSTANCES, 3), generator=g) * 2.0 - 1.0)
+           * 9.75).to(dev)
+    for key, centers, radius in (
+            ("k4_10", ps.state.pos.T.contiguous(), float(ps.params.radius)),
+            ("k4_16384", big, 0.25)):
+        ocb = rk.untiled_prologue(eye, centers, radius)
+
+        def k4():
+            return rk.sphere_raster_untiled_kernel(ocb, dirs, cam.znear)
+
+        us, n, _, _ = _trace_device(lambda: [k4() for _ in range(5)],
+                                    lambda name: "sphere_raster_untiled" in
+                                    name)
+        out[key + "_device_us"] = us / max(n, 1)
+        out[key + "_ms"] = _best_ms(k4)
+        if args.check:
+            checks[key] = _equal(k4(), rk.sphere_raster_untiled_plain(
+                ocb, dirs, cam.znear))
 
 
 if __name__ == "__main__":

@@ -234,14 +234,18 @@ def _self_collide_block(state: ClothState, params: ClothParams, dt,
                         length: int, grid_spec, block: int, slab: int,
                         use_kernel: bool = True, stats: bool = False):
     """Frozen-window self-collision: one broad-phase rebuild and ``length``
-    substeps against it. The sort order is frozen for the block and the
-    positions are gathered into it every substep; per substep the pair
-    forces come from ``granular_kernel.contact_forces_sorted`` on the thin
-    (3-group) candidate set (K11), are scattered back to the grid, and
-    enter one fused cloth substep with the force plane
-    (``cloth_kernel.substep_with_force``, K1f), or with
-    ``use_kernel=False`` the stencil springs and ``integrate``. Valid while
-    the displacement between rebuilds stays under ``(cell_size −
+    substeps against it. The sort order is frozen for the block. Per
+    substep the pair forces come from ``granular_kernel.
+    contact_forces_sorted`` on the thin (3-group) candidate set (K11) in
+    that order, and enter one fused cloth substep with the force plane
+    (``cloth_kernel.substep_with_force_sorted``, K1f), which reads them
+    through the block's inverse permutation and writes the next substep's
+    sorted positions; its parameters are packed once a block
+    (``cloth_kernel.force_block``), and the first substep's sorted
+    positions are the rebuild's. With ``use_kernel=False`` the forces are
+    gathered to the grid and the positions to the sorted order every
+    substep around the stencil springs and ``integrate``. Valid while the
+    displacement between rebuilds stays under ``(cell_size −
     2·particle_radius)/2`` (size the grid with a skin). Returns ``(state,
     dropped)``."""
     h, w = state.pos.shape[-2:]
@@ -249,16 +253,22 @@ def _self_collide_block(state: ClothState, params: ClothParams, dt,
     grid, slabs, dropped = _frozen_structs(
         state.pos.reshape(3, n), state.vel.reshape(3, n), grid_spec, block,
         slab, stats)
-    order = grid.order.long()
     inv = broadphase._inverse(grid.order)
     md = 2.0 * params.particle_radius
+    if use_kernel:
+        blk, state = cloth_kernel.force_block(state, params, dt, inv)
+        sp = grid.sorted_pos                           # frozen sort order
+        for s in range(length):
+            f_self = granular_kernel.contact_forces_sorted(
+                sp, md, params.k_contact, slabs)
+            state, sp = cloth_kernel.substep_with_force_sorted(
+                state, blk, f_self, want_sp=s + 1 < length)
+        return state, dropped
+    order = grid.order.long()
     for _ in range(length):
         sp = state.pos.reshape(3, n)[:, order]        # frozen sort order
         f_self = granular_kernel.contact_forces_sorted(
             sp, md, params.k_contact, slabs)[:, inv].reshape(3, h, w)
-        if use_kernel:
-            state = cloth_kernel.substep_with_force(state, params, dt, f_self)
-            continue
         force = spring_forces(state.pos, state.vel, params) + f_self
         pos, vel = integrate(state.pos, state.vel, force, params, dt)
         state = _pinned(state, pos, vel)

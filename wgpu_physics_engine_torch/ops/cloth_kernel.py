@@ -36,9 +36,14 @@ batch of worlds ``_multi_step_lanes`` → ``_lanes_kernel``, kernel K5, and
   size in one launch a substep and computes the same function;
 * :func:`substep_with_force` is one substep of one world with an external
   force plane added after the springs (``cloth_pallas.substep_with_force``,
-  K1f; the cloth self-collision loop feeds its pair forces in here): its
-  plain version, and on CUDA the same device body as K1 with one more
-  force plane read;
+  K1f): its plain version, and on CUDA ``csrc/cloth_step.cu``'s K1f, K1's
+  arithmetic with a particle's edges spread over three warps.
+  :func:`substep_with_force_sorted` is the same substep as the cloth
+  self-collision block runs it: the pair forces in the block's frozen
+  sorted order, read through its inverse permutation, and the next
+  substep's sorted positions written back, with the parameters, checks
+  and pins prepared once a block (:func:`force_block`); on the CPU the
+  gather, :func:`substep_with_force_plain` and the scatter;
 * :func:`multi_step_window` steps a halo-extended band of rows of a larger
   grid, the shard body of the rows-sharded path (``parallel/mesh.py``):
   ``cloth_pallas.multi_step_window``, kernel K1w. Its plain version is
@@ -62,6 +67,7 @@ the TPU kernel, and the paths agree to the last bit on one device.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -94,7 +100,8 @@ _RESIDENT_MIN_WAVES = 0.375
 # show that its path went through the kernels.
 LAUNCHES = 0
 LAUNCHES_BATCHED = 0
-# Launches of K1f by :func:`substep_with_force_kernel` (one per substep).
+# Launches of K1f by :func:`substep_with_force_kernel` and
+# :func:`substep_with_force_sorted_kernel` (one per substep).
 LAUNCHES_FORCE = 0
 # Launches of K1w by :func:`multi_step_window_kernel` (one per substep).
 LAUNCHES_WINDOW = 0
@@ -106,7 +113,7 @@ _SIGNATURES = {
                                     + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "wpe_cloth_trace": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p],
-    "wpe_cloth_substep_with_force": [ctypes.c_void_p] * 8
+    "wpe_cloth_substep_with_force": [ctypes.c_void_p] * 10
                                     + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "wpe_cloth_multi_step_window": [ctypes.c_void_p] * 9
                                    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
@@ -383,14 +390,88 @@ def substep_with_force_plain(state: ClothState, params: ClothParams, dt,
     force ``fext`` ``[3, H, W]`` added to the spring force before gravity
     (the cloth self-collision pair forces), on any device: the plain
     version of K1f, ``cloth_pallas.substep_with_force``."""
+    return _substep_with_force_packed_plain(state, _pack_params(params, dt),
+                                            fext)
+
+
+def _substep_with_force_packed_plain(state: ClothState, prm: torch.Tensor,
+                                     fext: torch.Tensor) -> ClothState:
+    """:func:`substep_with_force_plain` on the packed vector of
+    :func:`_pack_params`."""
     h, w = state.pos.shape[-2:]
-    prm = _plane_params(_pack_params(params, dt), state)
     carry = (*state.pos.unbind(-3), *state.vel.unbind(-3))
-    carry = _substep_planes(carry, _family_masks(h, w, state.pos.device), prm,
-                            _exact_dist_inv, _plain_pins(state),
+    carry = _substep_planes(carry, _family_masks(h, w, state.pos.device),
+                            _plane_params(prm, state), _exact_dist_inv,
+                            _plain_pins(state),
                             fext.to(state.pos.device).unbind(-3))
     return state._replace(pos=torch.stack(carry[:3], dim=-3),
                           vel=torch.stack(carry[3:], dim=-3))
+
+
+class ForceBlock(NamedTuple):
+    """What K1f reads unchanged through one frozen self-collision block
+    (``models.cloth._self_collide_block``), prepared once a block by
+    :func:`force_block`: the packed parameters, the block's inverse
+    permutation ``inv`` (int32 ``[n]``: particle i's column of the sorted
+    order) and, on CUDA, the checked pins, the loaded library, the
+    stream and the entry point's fixed pointers, so that a substep only
+    allocates its outputs and launches."""
+    prm: torch.Tensor
+    inv: torch.Tensor
+    h: int
+    w: int
+    pins: Optional[tuple] = None     # CUDA: (pin_mask f32, pin_pos)
+    lib: Optional[ctypes.CDLL] = None
+    device: int = -1                 # CUDA: the device index
+    stream: int = 0
+    ptrs: tuple = ()                 # CUDA: prm, pin_mask, pin_pos, inv
+
+
+def force_block(state: ClothState, params: ClothParams, dt,
+                inv: torch.Tensor):
+    """``(block, state)``: the :class:`ForceBlock` of a self-collision
+    block of one world, its parameters packed once, and on CUDA the state
+    checked and made contiguous for :func:`substep_with_force_sorted`."""
+    h, w = state.pos.shape[-2:]
+    prm = _pack_params(params, dt)
+    inv = inv.to(device=state.pos.device, dtype=torch.int32).contiguous()
+    if inv.shape != (h * w,):
+        raise ValueError(f"inv: expected [{h * w}], got {tuple(inv.shape)}")
+    if state.pos.device.type != "cuda":
+        return ForceBlock(prm, inv, h, w), state
+    pos, vel, prm, pins, lead, h, w = _kernel_inputs(state, prm)
+    if lead:
+        raise ValueError(f"substep_with_force takes one world, got "
+                         f"{tuple(pos.shape)}")
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (prm.data_ptr(),
+            *((pins[0].data_ptr(), pins[1].data_ptr()) if pins
+              else (None, None)),
+            inv.data_ptr())
+    blk = ForceBlock(prm, inv, h, w, pins, _build.load("cloth_step",
+                                                       _SIGNATURES),
+                     pos.device.index, stream, ptrs)
+    return blk, state._replace(pos=pos, vel=vel)
+
+
+def substep_with_force_sorted_plain(state: ClothState, blk: ForceBlock,
+                                    f_sorted: torch.Tensor,
+                                    want_sp: bool = True):
+    """The plain version of K1f's sorted entry: the pair forces
+    ``f_sorted`` ``[3, n]`` in the block's sorted order gathered to the
+    grid, :func:`substep_with_force_plain`'s substep on the block's packed
+    parameters, and with ``want_sp`` the new positions scattered to the
+    sorted order, ``sp[:, inv[i]] = pos[:, i]``. Returns ``(state, sp or
+    None)``."""
+    inv = blk.inv.to(f_sorted.device).long()
+    fext = f_sorted[:, inv].reshape(3, blk.h, blk.w)
+    out = _substep_with_force_packed_plain(state, blk.prm, fext)
+    sp = None
+    if want_sp:
+        sp = torch.empty_like(f_sorted)
+        sp[:, inv] = out.pos.reshape(3, blk.h * blk.w)
+    return out, sp
 
 
 def multi_step_window_plain(pos, vel, pin_mask, pin_pos, params, dt,
@@ -568,8 +649,8 @@ def substep_with_force_kernel(state: ClothState, params: ClothParams, dt,
                               fext: torch.Tensor) -> ClothState:
     """K1f on a CUDA state of one world: one launch of ``csrc/
     cloth_step.cu``'s ``wpe_cloth_substep_with_force`` on the current
-    stream, the same device body as K1 with one more force plane, into new
-    buffers."""
+    stream with the force plane ``fext`` ``[3, H, W]`` in grid order (no
+    permutation), into new buffers."""
     global LAUNCHES_FORCE
     pos, vel, prm, pins, lead, h, w = _kernel_inputs(
         state, _pack_params(params, dt))
@@ -587,11 +668,52 @@ def substep_with_force_kernel(state: ClothState, params: ClothParams, dt,
     with torch.cuda.device(pos.device):
         err = lib.wpe_cloth_substep_with_force(
             prm.data_ptr(), pos.data_ptr(), vel.data_ptr(), *pin_ptrs,
-            fext.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), h, w,
-            int(pins is not None), torch.cuda.current_stream().cuda_stream)
+            fext.data_ptr(), None, out[0].data_ptr(), out[1].data_ptr(),
+            None, h, w, int(pins is not None),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "cloth_step substep_with_force launch")
     LAUNCHES_FORCE += 1
     return state._replace(pos=out[0], vel=out[1])
+
+
+def substep_with_force_sorted_kernel(state: ClothState, blk: ForceBlock,
+                                     f_sorted: torch.Tensor,
+                                     want_sp: bool = True):
+    """K1f's sorted entry on CUDA: one launch of
+    ``wpe_cloth_substep_with_force`` with the block's inverse permutation,
+    reading the pair forces ``f_sorted`` (f32 ``[3, n]``, contiguous, in
+    the block's sorted order: K11's output) and with ``want_sp`` also
+    writing the next substep's sorted positions. ``state`` is the one
+    :func:`force_block` returned or this function's last result; the
+    checks and the parameters are the block's. Returns ``(state, sp or
+    None)``, the new state and ``sp`` ``[3, n]`` in new buffers."""
+    global LAUNCHES_FORCE
+    h, w = blk.h, blk.w
+    hw = h * w
+    if (not f_sorted.is_cuda or f_sorted.shape != (3, hw)
+            or not f_sorted.is_contiguous()):
+        raise ValueError(f"f_sorted: expected a contiguous CUDA [3, {hw}], "
+                         f"got {tuple(f_sorted.shape)} on {f_sorted.device}")
+    out = torch.empty((3 if want_sp else 2, 3, h, w), dtype=torch.float32,
+                      device=f_sorted.device)
+    o = out.data_ptr()
+    plane = 12 * hw                    # bytes of three planes
+    prm_ptr, mask_ptr, pin_ptr, inv_ptr = blk.ptrs
+    args = (prm_ptr, state.pos.data_ptr(), state.vel.data_ptr(), mask_ptr,
+            pin_ptr, f_sorted.data_ptr(), inv_ptr, o, o + plane,
+            o + 2 * plane if want_sp else None, h, w,
+            int(blk.pins is not None), blk.stream)
+    if hw:
+        if torch.cuda.current_device() == blk.device:
+            err = blk.lib.wpe_cloth_substep_with_force(*args)
+        else:
+            with torch.cuda.device(blk.device):
+                err = blk.lib.wpe_cloth_substep_with_force(*args)
+        _build.check(blk.lib, err, "cloth_step substep_with_force launch")
+        LAUNCHES_FORCE += 1
+    planes = out.unbind(0)
+    return state._replace(pos=planes[0], vel=planes[1]), (
+        planes[2].view(3, hw) if want_sp else None)
 
 
 def multi_step_window_kernel(pos, vel, pin_mask, pin_pos, params, dt,
@@ -683,6 +805,18 @@ def substep_with_force(state: ClothState, params: ClothParams, dt,
     any other device raises."""
     step = _dispatch(state, substep_with_force_plain, substep_with_force_kernel)
     return step(state, params, dt, fext)
+
+
+def substep_with_force_sorted(state: ClothState, blk: ForceBlock,
+                              f_sorted: torch.Tensor, want_sp: bool = True):
+    """One fused exact substep with the pair forces ``f_sorted`` ``[3, n]``
+    in the sorted order of a self-collision block (:func:`force_block`),
+    and with ``want_sp`` the new positions in that order: ``(state, sp or
+    None)``. CPU → the plain version, CUDA → K1f's sorted entry, any other
+    device raises."""
+    step = _dispatch(state, substep_with_force_sorted_plain,
+                     substep_with_force_sorted_kernel)
+    return step(state, blk, f_sorted, want_sp)
 
 
 def multi_step_window(pos, vel, pin_mask, pin_pos, params, dt, n_steps: int,

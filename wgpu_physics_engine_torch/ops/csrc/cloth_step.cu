@@ -1,7 +1,9 @@
 // Fused cloth substeps for Hopper (sm_90a): one world (K1), one world with
 // an external force plane (K1f), a batch of independent worlds (K5) and a
-// row window of a larger grid (K1w). All run the per-particle body of
-// cloth_substep.cuh, one thread per particle, one launch per substep.
+// row window of a larger grid (K1w). K1, K5 and K1w run the per-particle
+// body of cloth_substep.cuh, one thread per particle; K1f runs its edges
+// and integration spread over three warps a particle (below). One launch
+// per substep.
 //
 // Replaces: wgpu_physics_engine_tpu/ops/cloth_pallas.py
 //   * `_kernel` (K1), the single-world fused substeps, with
@@ -9,8 +11,14 @@
 //   * `_kernel(extra_force=True)` (K1f, reached through
 //     `substep_with_force` :682 -> :708), one substep with a per-particle
 //     external force added after the springs (the cloth self-collision pair
-//     forces), with `wpe_cloth_substep_with_force`: the same body with one
-//     more force plane read, 12 bytes a particle more than K1;
+//     forces), with `wpe_cloth_substep_with_force`. The self-collision
+//     block (models/cloth.py) gives it the pair forces in its frozen sorted
+//     order with the inverse permutation, and takes back the next
+//     substep's sorted positions: the two gathers JAX does around its
+//     kernel (wgpu_physics_engine_tpu/models/cloth.py:279, :291) happen in
+//     the launch. It moves 48
+//     bytes of state, 12 of force, 4 of permutation and 12 of sorted copy
+//     a particle;
 //   * `_lanes_kernel` (K5) and `_batched_kernel` (K5b), the same physics for
 //     B worlds with a per-world parameter row, with
 //     `wpe_cloth_multi_step_batched`. K5 folds several padded worlds into
@@ -70,22 +78,20 @@ namespace {
 constexpr int kBlockW = 32;
 constexpr int kBlockH = 8;
 
-template <bool FAST, bool PINS, bool EXT = false>
+template <bool FAST, bool PINS>
 __global__ void __launch_bounds__(kBlockW * kBlockH)
     substep_kernel(const float* __restrict__ prm,
                    const float* __restrict__ pos,
                    const float* __restrict__ vel,
                    const float* __restrict__ pin_mask,
                    const float* __restrict__ pin_pos,
-                   const float* __restrict__ fext,
                    float* __restrict__ pos_out, float* __restrict__ vel_out,
                    int h, int w) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
   if (r >= h || c >= w) return;
-  cloth::substep_particle<FAST, PINS, EXT>(prm, pos, vel, pin_mask, pin_pos,
-                                           fext, pos_out, vel_out, r, c, h,
-                                           w);
+  cloth::substep_particle<FAST, PINS>(prm, pos, vel, pin_mask, pin_pos,
+                                      pos_out, vel_out, r, c, h, w);
 }
 
 // K1w: one substep of a row window whose local row 0 is global row `row0`
@@ -103,9 +109,9 @@ __global__ void __launch_bounds__(kBlockW * kBlockH)
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
   if (r >= h || c >= w) return;
-  cloth::substep_particle<false, PINS, false, true>(
-      prm, pos, vel, pin_mask, pin_pos, nullptr, pos_out, vel_out, r, c, h, w,
-      row0, h_global);
+  cloth::substep_particle<false, PINS, true>(prm, pos, vel, pin_mask,
+                                             pin_pos, pos_out, vel_out, r, c,
+                                             h, w, row0, h_global);
 }
 
 // The trajectory of one world for the backward pass (ops/cloth_grad_kernel.py):
@@ -126,7 +132,7 @@ cudaError_t trace(const float* params, const float* pin_mask,
     const float* src = traj + 6 * plane * s;
     float* dst = traj + 6 * plane * (s + 1);
     substep_kernel<false, PINS><<<grid, block, 0, stream>>>(
-        params, src, src + 3 * plane, pin_mask, pin_pos, nullptr, dst,
+        params, src, src + 3 * plane, pin_mask, pin_pos, dst,
         dst + 3 * plane, h, w);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -158,8 +164,8 @@ __global__ void __launch_bounds__(kBlockW * kBlockH)
   cloth::substep_particle<FAST, PINS>(
       prm + cloth::kNumParams * world, pos + state, vel + state,
       PINS ? pin_mask + plane * world : pin_mask,
-      PINS ? pin_pos + state : pin_pos, nullptr, pos_out + state,
-      vel_out + state, r, c, h, w);
+      PINS ? pin_pos + state : pin_pos, pos_out + state, vel_out + state, r,
+      c, h, w);
 }
 
 // n_steps launches ping-ponging between buffers a and b; `launch(src_p,
@@ -193,8 +199,7 @@ cudaError_t run(const float* params, const float* pos_in, const float* vel_in,
                    [&](const float* sp, const float* sv, float* dp,
                        float* dv) {
                      substep_kernel<FAST, PINS><<<grid, block, 0, stream>>>(
-                         params, sp, sv, pin_mask, pin_pos, nullptr, dp, dv,
-                         h, w);
+                         params, sp, sv, pin_mask, pin_pos, dp, dv, h, w);
                    });
 }
 
@@ -235,6 +240,181 @@ cudaError_t run_window(const float* params, const float* pos_in,
                          params, sp, sv, pin_mask, pin_pos, dp, dv, h, w,
                          row0, h_global);
                    });
+}
+
+// ---------------------------------------------------------------------------
+// K1f: one substep with a force plane
+// ---------------------------------------------------------------------------
+//
+// K1's gather body, one thread a particle, waits on a dozen neighbour
+// loads and twelve edge forces in a row with ~16 warps an SM at 256^2.
+// K1f spreads each particle over three warps instead: warp g of a row
+// computes the edges of families 2g and 2g + 1 (each the spring the
+// particle anchors and its reaction, gathered from device memory as K1
+// does, all loads issued before the first edge), and warps 1 and 2 leave
+// theirs in shared memory for warp 0, which sums all twelve in K1's order
+// (`_FAMILIES`, +e then -reaction), adds the force plane and integrates.
+// Three times the threads, a third of the chain each: ~46 warps an SM's
+// worth at 256^2. The edges and the integration take the header's inline
+// IEEE fast paths (`Checked`), and a thread that met an input outside them
+// computes them again exactly, so every value is K1's and the plain
+// version's. Measured on the H100 at 256^2 in the self-collision block
+// (tools/kernel_ab.py, ten pairs in turns, PERF.md §6): 5.46 us of device
+// time a launch against 5.92 for K1's body with the force plane; six
+// groups of one family and an edge-once tile in shared memory measured
+// slower than three groups.
+
+using cloth::Checked;
+using cloth::P6;
+
+// 3 groups of 2 families over 4 rows of 32 particles: 12 warps a CTA, at
+// most 85 registers a thread (two CTAs an SM; fewer spill).
+constexpr int kGroups = 3, kForceCols = 32, kForceRows = 4;
+constexpr int kForceThreads = 32 * kForceRows * kGroups;
+
+// The force plane and the sorted copy of wpe_cloth_substep_with_force.
+struct ForceIO {
+  const float* __restrict__ fext;
+  const int* __restrict__ inv;
+  float* __restrict__ sp_out;
+};
+
+struct F3 {
+  float x, y, z;
+};
+
+// Spring family F = (dr, dc, type) of `_FAMILIES` at compile time.
+template <int F>
+struct Fam {
+  static constexpr int dr = F == 0 || F == 4 ? 0 : (F == 5 ? 2 : 1);
+  static constexpr int dc =
+      F == 1 || F == 5 ? 0 : (F == 3 ? -1 : (F == 4 ? 2 : 1));
+  static constexpr int t = F / 2;
+};
+
+// The spring family F anchors at particle (r, c) (state p, index i) and
+// its reaction, the spring anchored at (r - dr, c - dc), both from device
+// memory; 0 where the grid does not hold both ends (cloth_substep.cuh
+// `spring_force`'s masks). A spring that does not count is evaluated on
+// the particle itself and dropped, without a branch. M: cloth::Exact<false>
+// or Checked, whose slow flag is kept only for a spring that counts.
+template <int F, class M>
+__device__ __forceinline__ void family_edges(
+    const float* __restrict__ prm, const float* __restrict__ pos,
+    const float* __restrict__ vel, const P6& p, int r, int c, int i, int h,
+    int w, F3& own, F3& react, bool& slow) {
+  constexpr int dr = Fam<F>::dr, dc = Fam<F>::dc, t = Fam<F>::t;
+  const int hw = h * w;
+  const float k = prm[t], cd = prm[3 + t], rest = prm[6 + t];
+  const bool ok = cloth::edge_ok<false>(r, c, h, w, dr, dc, 0, 0);
+  const P6 q = cloth::load(pos, vel, ok ? i + dr * w + dc : i, hw);
+  const int ar = r - dr, ac = c - dc;
+  const bool aok = ar >= 0 && (dc >= 0 ? ac >= 0 : ac < w);
+  const P6 a = cloth::load(pos, vel, aok ? ar * w + ac : i, hw);
+  bool s = false, s2 = false;
+  F3 e, x;
+  cloth::edge<false>(p, q, k, cd, rest, e.x, e.y, e.z, cloth::make<M>(s));
+  cloth::edge<false>(a, p, k, cd, rest, x.x, x.y, x.z, cloth::make<M>(s2));
+  slow |= (ok && s) || (aok && s2);
+  own = ok ? e : F3{0.0f, 0.0f, 0.0f};
+  react = aok ? x : F3{0.0f, 0.0f, 0.0f};
+}
+
+// Families F0 and F0 + 1 of the particle: Checked, then again exactly if
+// a spring that counts met a slow-path input.
+template <int F0>
+__device__ __forceinline__ void two_families(
+    const float* __restrict__ prm, const float* __restrict__ pos,
+    const float* __restrict__ vel, const P6& p, int r, int c, int i, int h,
+    int w, F3* own, F3* react) {
+  bool slow = false;
+  family_edges<F0, Checked>(prm, pos, vel, p, r, c, i, h, w, own[0],
+                            react[0], slow);
+  family_edges<F0 + 1, Checked>(prm, pos, vel, p, r, c, i, h, w, own[1],
+                                react[1], slow);
+  if (slow) {
+    family_edges<F0, cloth::Exact<false>>(prm, pos, vel, p, r, c, i, h, w,
+                                          own[0], react[0], slow);
+    family_edges<F0 + 1, cloth::Exact<false>>(prm, pos, vel, p, r, c, i, h,
+                                              w, own[1], react[1], slow);
+  }
+}
+
+// One substep of a kForceRows x kForceCols block of particles. blockIdx is
+// the block's (column, row); warp (row, g) of the CTA computes families
+// 2g, 2g + 1 of its row's particles, lane L column L. With io.inv the
+// force plane is in the sorted order and particle i reads column inv[i];
+// with io.sp_out the new positions are also written there.
+template <bool PINS>
+__global__ void __launch_bounds__(kForceThreads, 2)
+    force_kernel(const float* __restrict__ prm, const float* __restrict__ pos,
+                 const float* __restrict__ vel,
+                 const float* __restrict__ pin_mask,
+                 const float* __restrict__ pin_pos, const ForceIO io,
+                 float* __restrict__ pos_out, float* __restrict__ vel_out,
+                 int h, int w) {
+  // the edges of warps 1 and 2: [group - 1][row][own, react of 2 families]
+  __shared__ F3 s_e[kGroups - 1][kForceRows][4][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = warp / kGroups, g = warp % kGroups;
+  const int r0 = blockIdx.y * kForceRows + row;
+  const int c0 = blockIdx.x * kForceCols + lane;
+  const bool live = r0 < h && c0 < w;
+  // a lane beyond the grid steps particle (0, 0) and stores nothing
+  const int r = live ? r0 : 0, c = live ? c0 : 0;
+  const int hw = h * w, i = r * w + c;
+  // warp 0's force-plane entry, read early
+  const int j = g == 0 && io.inv != nullptr ? io.inv[i] : i;
+  const F3 fe = g == 0 ? F3{io.fext[j], io.fext[hw + j], io.fext[2 * hw + j]}
+                       : F3{0.0f, 0.0f, 0.0f};
+  const P6 p = cloth::load(pos, vel, i, hw);
+  F3 own[2], react[2];
+  if (g == 0) {  // g is the same for the whole warp
+    two_families<0>(prm, pos, vel, p, r, c, i, h, w, own, react);
+  } else {
+    if (g == 1)
+      two_families<2>(prm, pos, vel, p, r, c, i, h, w, own, react);
+    else
+      two_families<4>(prm, pos, vel, p, r, c, i, h, w, own, react);
+    s_e[g - 1][row][0][lane] = own[0];
+    s_e[g - 1][row][1][lane] = react[0];
+    s_e[g - 1][row][2][lane] = own[1];
+    s_e[g - 1][row][3][lane] = react[1];
+  }
+  __syncthreads();
+  if (g > 0 || !live) return;
+  float fx = 0.0f, fy = 0.0f, fz = 0.0f;
+#pragma unroll
+  for (int f = 0; f < 6; ++f) {
+    const F3 e = f < 2 ? own[f] : s_e[f / 2 - 1][row][2 * (f % 2)][lane];
+    const F3 x = f < 2 ? react[f] : s_e[f / 2 - 1][row][2 * (f % 2) + 1][lane];
+    fx = fx + e.x;
+    fy = fy + e.y;
+    fz = fz + e.z;
+    fx = fx - x.x;
+    fy = fy - x.y;
+    fz = fz - x.z;
+  }
+  fx = fx + fe.x;
+  fy = fy + fe.y;
+  fz = fz + fe.z;
+  bool slow = false;
+  P6 q = cloth::integrate<false, PINS>(prm, p, fx, fy, fz, pin_mask, pin_pos,
+                                       i, hw, Checked{slow});
+  if (slow)
+    q = cloth::integrate<false, PINS>(prm, p, fx, fy, fz, pin_mask, pin_pos,
+                                      i, hw);
+  pos_out[i] = q.x;
+  pos_out[hw + i] = q.y;
+  pos_out[2 * hw + i] = q.z;
+  vel_out[i] = q.vx;
+  vel_out[hw + i] = q.vy;
+  vel_out[2 * hw + i] = q.vz;
+  if (io.sp_out != nullptr) {
+    io.sp_out[j] = q.x;
+    io.sp_out[hw + j] = q.y;
+    io.sp_out[2 * hw + j] = q.z;
+  }
 }
 
 }  // namespace
@@ -310,23 +490,28 @@ extern "C" int wpe_cloth_trace(const float* params, const float* pin_mask,
                             s);
 }
 
-// One exact substep of one world with the external force plane fext f32
-// [3, h, w] added after the springs (K1f): pos_in/vel_in are only read, the
-// result is written to pos_out/vel_out; params and pins as for
-// wpe_cloth_multi_step.
+// One exact substep of one world with an external force plane added after
+// the springs (K1f): pos_in/vel_in are only read and the result is written
+// to pos_out/vel_out; params and pins as for wpe_cloth_multi_step. With inv
+// null, fext is f32 [3, h, w] in grid order and sp_out must be null. With
+// inv (int32 [h*w], a permutation: particle i's column of the sorted
+// order), fext is f32 [3, h*w] in that sorted order, particle i reading
+// column inv[i], and sp_out, if not null, receives the new positions in the
+// same order, sp_out[:, inv[i]] = pos_out[:, i] (f32 [3, h*w]).
 extern "C" int wpe_cloth_substep_with_force(
     const float* params, const float* pos_in, const float* vel_in,
     const float* pin_mask, const float* pin_pos, const float* fext,
-    float* pos_out, float* vel_out, int h, int w, int use_pins,
-    void* stream) {
-  if (fext == nullptr) return cudaErrorInvalidValue;
+    const int* inv, float* pos_out, float* vel_out, float* sp_out, int h,
+    int w, int use_pins, void* stream) {
+  if (fext == nullptr || (inv == nullptr && sp_out != nullptr))
+    return cudaErrorInvalidValue;
+  const ForceIO io{fext, inv, sp_out};
   auto s = static_cast<cudaStream_t>(stream);
-  const dim3 block(kBlockW, kBlockH);
-  const dim3 grid((w + kBlockW - 1) / kBlockW, (h + kBlockH - 1) / kBlockH);
-  auto kernel = use_pins ? substep_kernel<false, true, true>
-                         : substep_kernel<false, false, true>;
-  kernel<<<grid, block, 0, s>>>(params, pos_in, vel_in, pin_mask, pin_pos,
-                                fext, pos_out, vel_out, h, w);
+  const dim3 grid((w + kForceCols - 1) / kForceCols,
+                  (h + kForceRows - 1) / kForceRows);
+  auto kernel = use_pins ? force_kernel<true> : force_kernel<false>;
+  kernel<<<grid, kForceThreads, 0, s>>>(params, pos_in, vel_in, pin_mask,
+                                        pin_pos, io, pos_out, vel_out, h, w);
   return static_cast<int>(cudaGetLastError());
 }
 

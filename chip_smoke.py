@@ -306,19 +306,48 @@ of the grain-sharded pile beside K10; and one ``torch.profiler`` trace of
 8 row-sharded substeps at 1024² (``trace_rows_block.json``: K6w, the halo
 copies, the rest, the device's idle share).
 
+22. granular datagen, counted: ``generate_granular_dataset`` on 256
+   worlds of the CLI's 20,000-particle pile in chunks of 64, 3 frames of
+   12 substeps at 240 Hz, 256×256, randomized cameras, codec k = 16
+   (K10 a world a substep, the batched raster a chunk a frame), then the
+   CLI's ``datagen --family granular`` (through the native shard writer)
+   and ``decode``: two worlds equal ``granular.multi_step`` with their
+   materials bit for bit, every world's frame shows sand and box pixels,
+   the decoded frames have the raw frames' shape. Then K10 on a world of
+   the run (its materials in the parameter vector) and the raster on the
+   first chunk, each against its plain version on those inputs (K10 bit
+   for bit over a rebuild block; the raster on the chunk's first, middle
+   and last worlds under phase 4's contract) and timed beside its bound;
+   the steady frame a world (CUDA events and the host clock), egress and
+   peak memory; one traced frame of a chunk (its idle share, top ops).
+23. the differentiable render: the gradients of
+   ``tests/test_torch_cuda.py``'s instanced-sphere loss on the card at
+   32×48 (K4) and 32×128 (K2/K3) against the CPU route within that
+   file's ``DIFF_RENDER_TOL``; the loss frame, the flagship frame and a
+   datagen frame equal bit for bit with and without a gradient; then,
+   counted, the port's ``examples/inverse_rendering.py``: the light
+   within 20° in 6 iterations and the gravity fit within 0.01 of −22.5
+   (K4, K1 and the adjoint); and the example's sites (K4 at 48×64 with
+   256 spheres, K1 and the adjoint's walk at 16²) against their plain
+   versions on the inputs they are timed on, bit for bit.
+24. ``cloth --live --seconds 1`` in a process without a terminal: exit
+   code 0 and 20 ANSI frames.
+
 Any failed check raises, so the script exits non-zero; with no CUDA device
 it exits non-zero before doing anything. The next-to-last line of stdout is
 ``{"kernels": [...]}`` (each kernel with its ``sites``: launches, ms a
 launch, bound and ``lost_ms`` at each main-path site, None where this run
 does not time that shape); the last is ``{"ok": true, "device": {...}}``.
-The ``cloth_step`` launches are those of phases 5 and 12 (K1 steps the
-flagship and runs the training path's forward and traces); the raster's
-those of phases 5, 10, 14, 17, 18, 20 and 21; ``cloth_step_batched`` (K5)
+The ``cloth_step`` launches are those of phases 5, 12 and 23 (K1 steps the
+flagship and runs the training path's and the example's forward and
+traces), ``cloth_substep_vjp`` those of phases 12 and 23,
+``granular_step`` (K10) those of phases 14 and 22; the raster's
+those of phases 5, 10, 14, 17, 18, 20, 21 and 22; ``cloth_step_batched`` (K5)
 those of phase 21 (phase 10's datagen runs none), ``cloth_tiled_batched``
 (K5r) phase 10's, one a frame of a chunk; ``granular_forces`` (K11) those of phases 16, 17 and
 21, ``granular_force_jvp`` (K12) phases 16's and 21's,
 ``cloth_step_force`` (K1f) phases 17's and 21's, ``sphere_raster_untiled``
-(K4) phase 18's, ``cloth_tiled_resident`` (K6r) phase 20's (the 1024²
+(K4) phases 18's and 23's, ``cloth_tiled_resident`` (K6r) phase 20's (the 1024²
 scene, frame and CLI, and the gradient segment's forward, a launch a
 call: its sites count time and bound a substep), ``cloth_tiled`` (K6)
 phase 20's 2048² scene, and ``cloth_tiled_window`` (K6w),
@@ -498,6 +527,24 @@ MC_DIFF_STEPS = 16
 MC_SC_WORLDS = 4
 MC_SC_STEPS = 240
 MC_TRACE_STEPS = 8
+# the granular datagen path (phase 22): the CLI's family (JAX __main__.py
+# :149-159): piles of 20,000 particles (GranularConfig's defaults
+# otherwise), 12 substeps a frame at 240 Hz; 256 worlds in chunks of 64
+# (a raster call of 64 x 20,000 = 1.28M instances, a third of the cloth
+# chunk's 1,024 x 3,600), 3 frames at DG_FB with the codec at DG_K; the
+# CLI's worlds
+GG_N = 20_000
+GG_WORLDS = 256
+GG_CHUNK = 64
+GG_STEPS = 12
+GG_FRAMES = 3
+GG_SEED = 0
+GG_CLI_WORLDS = 64
+# the differentiable render (phase 23): the frames of the instanced-sphere
+# loss (K4; K2/K3); the loss and the card's gradients' tolerance against
+# the CPU route are tests/test_torch_cuda.py's (_render_loss,
+# DIFF_RENDER_TOL)
+DR_FRAMES = ((32, 48), (32, 128))
 TRACE_TRIES = 3                 # profiled runs of a kept trace at most
 
 
@@ -714,6 +761,51 @@ def _raster_vs_plain(wins, ocb, rect, dirs, znear, label: str,
            f"bit")
     return {"hit_agree": agree, "hits": n_hit, "same_winner": n_same,
             "err_tmin": et, "err_oc": eo, "bitwise": bitwise}
+
+
+def _batched_raster_vs_plain(out, ocb, dirs, znear, label: str):
+    """The batched raster kernel's outputs ``out`` (tmin, winner, centre
+    of every world) against the plain sweep on the first, middle and last
+    worlds of the batch, under phase 4's contract (:func:`_raster_vs_plain`
+    on one world). Returns the results by world and the largest error."""
+    import torch
+
+    from wgpu_physics_engine_torch.ops import raster_kernel
+
+    kt, ki, ko = out
+    n, (h, w) = dirs.shape[0], dirs.shape[-2:]
+    res, err = {}, 0.0
+    for i in (0, n // 2 - 1, n - 1):
+        pt, pi, po = raster_kernel.sphere_raster_plain(ocb[i], dirs[i],
+                                                       znear[i])
+        hit_k, hit_p = ki[i] >= 0, pi >= 0
+        agree = float((hit_k == hit_p).float().mean())
+        both = hit_k & hit_p
+        same = (ki[i] == pi) & hit_k
+        n_hit, n_same = int(hit_k.sum()), int(same.sum())
+        et = _maxdiff(kt[i][both], pt[both]) if bool(both.any()) else 0.0
+        eo = _maxdiff(ko[i][:, same], po[:, same]) if n_same else 0.0
+        miss = ~hit_k
+        miss_ok = bool(torch.isinf(kt[i][miss]).all()
+                       and (ko[i][:, miss] == 0).all())
+        bitwise = bool(torch.equal(ki[i], pi) and torch.equal(kt[i], pt)
+                       and torch.equal(ko[i], po))
+        print(f"{label} world {i} of {n} @{h}x{w}: hit agree {agree:.6f} "
+              f"(>=0.9999), hits {n_hit}, same winner {n_same} (>=0.9999 of "
+              f"hits), tmin {et:.3e} oc {eo:.3e} (<=1e-6), bitwise {bitwise}")
+        _check(n_hit > 0, f"{label} world {i}: no particle hit")
+        _check(agree >= 0.9999, f"{label} world {i} agreement {agree}")
+        _check(n_same >= 0.9999 * n_hit,
+               f"{label} world {i}: winner agrees on {n_same} of {n_hit}")
+        _check(et <= 1e-6 and eo <= 1e-6, f"{label} world {i} diff {et} {eo}")
+        _check(miss_ok, f"{label} world {i}: a miss is not (+inf, 0)")
+        _check(bitwise, f"{label} world {i}: not equal to the full sweep bit "
+               f"for bit")
+        res[str(i)] = {"hit_agree": agree, "hits": n_hit,
+                       "same_winner": n_same, "err_tmin": et, "err_oc": eo,
+                       "bitwise": bitwise}
+        err = max(err, et, eo)
+    return res, err
 
 
 def _bound(nbytes: float, ops: float):
@@ -1051,40 +1143,8 @@ def _phase9_raster(settled, dev, card):
     torch.cuda.synchronize()
     _check(raster_kernel.LAUNCHES == 1,
            f"batched raster launched {raster_kernel.LAUNCHES} times")
-    res, err = {}, 0.0
-    for i in (0, n // 2 - 1, n - 1):
-        pt, pi, po = raster_kernel.sphere_raster_plain(ocb[i], dirs[i],
-                                                       cams.znear[i])
-        hit_k, hit_p = ki[i] >= 0, pi >= 0
-        agree = float((hit_k == hit_p).float().mean())
-        both = hit_k & hit_p
-        same = (ki[i] == pi) & hit_k
-        n_hit, n_same = int(hit_k.sum()), int(same.sum())
-        et = _maxdiff(kt[i][both], pt[both]) if bool(both.any()) else 0.0
-        eo = _maxdiff(ko[i][:, same], po[:, same]) if n_same else 0.0
-        miss = ~hit_k
-        miss_ok = bool(torch.isinf(kt[i][miss]).all()
-                       and (ko[i][:, miss] == 0).all())
-        bitwise = bool(torch.equal(ki[i], pi) and torch.equal(kt[i], pt)
-                       and torch.equal(ko[i], po))
-        print(f"phase 9 batched sphere_raster world {i} of {n} @{h}x{w}: hit "
-              f"agree {agree:.6f} (>=0.9999), hits {n_hit}, same winner "
-              f"{n_same} (>=0.9999 of hits), tmin {et:.3e} oc {eo:.3e} "
-              f"(<=1e-6), bitwise {bitwise}")
-        _check(n_hit > 0, f"batched raster world {i}: no particle hit")
-        _check(agree >= 0.9999, f"batched raster world {i} agreement {agree}")
-        _check(n_same >= 0.9999 * n_hit,
-               f"batched raster world {i}: winner agrees on {n_same} of "
-               f"{n_hit}")
-        _check(et <= 1e-6 and eo <= 1e-6,
-               f"batched raster world {i} diff {et} {eo}")
-        _check(miss_ok, f"batched raster world {i}: a miss is not (+inf, 0)")
-        _check(bitwise, f"batched raster world {i}: not equal to the full "
-               f"sweep bit for bit")
-        res[str(i)] = {"hit_agree": agree, "hits": n_hit,
-                       "same_winner": n_same, "err_tmin": et, "err_oc": eo,
-                       "bitwise": bitwise}
-        err = max(err, et, eo)
+    res, err = _batched_raster_vs_plain((kt, ki, ko), ocb, dirs, cams.znear,
+                                        "phase 9 batched sphere_raster")
     return res, err, (wins, ocb, rect, dirs, cams.znear)
 
 
@@ -1360,25 +1420,22 @@ def _dg_times(settled, raster_in, dev, card) -> dict:
     return res
 
 
-def _dg_trace(tex, chunks, card) -> dict:
-    """Phase 7 for the datagen path: one torch.profiler trace of one steady
-    frame of all worlds with the codec and the copy to pinned memory, split
-    into K5r (K5 where a chunk is too small for it), raster, composite
-    (the rest of the render range: binning,
-    rays, shading of the hits, the uint8 cast), codec and copy, with the
-    device's idle share over the frame."""
+def _frame_trace(fn, path, classify, buckets) -> dict:
+    """One torch.profiler trace of ``fn()``, exported to ``path``: each
+    device op's time added to the bucket of ``buckets`` that
+    ``classify(name, cat, owner)`` names (``owner`` the innermost
+    ``datagen.*`` range around its launch, "" outside them), the device's
+    busy time (the union of its spans), the window on the host's clock,
+    the idle share over it and the top five device ops."""
+    import collections
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from wgpu_physics_engine_torch.parallel import datagen
-
-    side = torch.cuda.Stream()
-    path = os.path.join(OUT, "trace_datagen_frame.json")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        parts = _dg_frame(tex, chunks, DG_K)
-        datagen._Fetch(parts, side).wait()
+        fn()
         torch.cuda.synchronize()
     prof.export_chrome_trace(path)
     with open(path) as f:
@@ -1392,44 +1449,65 @@ def _dg_trace(tex, chunks, card) -> dict:
               and "correlation" in e.get("args", {})}
     dev = [e for e in events
            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    split = {"k5": 0.0, "k5r": 0.0, "raster": 0.0, "composite": 0.0,
-             "codec": 0.0, "copy": 0.0, "other": 0.0}
+    split = dict.fromkeys(buckets, 0.0)
+    by_name = collections.Counter()
     for e in dev:
-        name = e["name"]
         t = launch.get(e.get("args", {}).get("correlation"))
         owner = [r for r in ranges if t is not None and r[0] <= t <= r[1]]
         owner = min(owner, key=lambda r: r[1] - r[0])[2] if owner else ""
-        if "substep_kernel_batched" in name:
-            split["k5"] += e["dur"]
-        elif "tiled_kernel" in name:
-            split["k5r"] += e["dur"]
-        elif "sphere_raster" in name:
-            split["raster"] += e["dur"]
-        elif e.get("cat") == "gpu_memcpy" or owner == "datagen.fetch":
-            split["copy"] += e["dur"]
-        elif owner == "datagen.codec":
-            split["codec"] += e["dur"]
-        elif owner == "datagen.render":
-            split["composite"] += e["dur"]
-        else:
-            split["other"] += e["dur"]
+        split[classify(e["name"], e.get("cat"), owner)] += e["dur"]
+        by_name[e["name"][:60]] += e["dur"]
     host = [(e["ts"], e["ts"] + e["dur"]) for e in events
             if e.get("cat") in ("cpu_op", "cuda_runtime", "user_annotation")]
     spans = [(e["ts"], e["ts"] + e["dur"]) for e in dev]
-    _check(bool(spans) and bool(host), "datagen trace: no device/host spans")
+    _check(bool(spans) and bool(host), f"trace {path}: no device/host spans")
     t0 = min(a for a, _ in host + spans)
     t1 = max(b for _, b in host + spans)
     busy = _union_us(spans)
-    idle = 1.0 - busy / (t1 - t0)
+    return {"window_us": t1 - t0, "device_busy_us": busy,
+            "device_ops": len(dev), "split_us": split,
+            "idle_share": 1.0 - busy / (t1 - t0),
+            "top_ops_us": by_name.most_common(5)}
+
+
+def _dg_trace(tex, chunks, card) -> dict:
+    """Phase 7 for the datagen path: one torch.profiler trace of one steady
+    frame of all worlds with the codec and the copy to pinned memory, split
+    into K5r (K5 where a chunk is too small for it), raster, composite
+    (the rest of the render range: binning,
+    rays, shading of the hits, the uint8 cast), codec and copy, with the
+    device's idle share over the frame."""
+    import torch
+
+    from wgpu_physics_engine_torch.parallel import datagen
+
+    def classify(name, cat, owner):
+        if "substep_kernel_batched" in name:
+            return "k5"
+        if "tiled_kernel" in name:
+            return "k5r"
+        if "sphere_raster" in name:
+            return "raster"
+        if cat == "gpu_memcpy" or owner == "datagen.fetch":
+            return "copy"
+        return {"datagen.codec": "codec",
+                "datagen.render": "composite"}.get(owner, "other")
+
+    side = torch.cuda.Stream()
+    tr = _frame_trace(
+        lambda: datagen._Fetch(_dg_frame(tex, chunks, DG_K), side).wait(),
+        os.path.join(OUT, "trace_datagen_frame.json"), classify,
+        ("k5", "k5r", "raster", "composite", "codec", "copy", "other"))
+    split = tr["split_us"]
     _check(split["k5r"] > 0 and split["raster"] > 0,
            f"datagen trace shows no K5r or raster time: {split}")
     print(f"phase 7 trace one datagen frame, {DG_WORLDS} worlds with codec "
-          f"and copy [{card}]: window {t1 - t0:.1f} us (host, profiled), "
-          f"device busy {busy:.1f} us in {len(dev)} device ops; device time "
-          f"us: " + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
-          + f"; device idle share {idle:.4f}")
-    return {"window_us": t1 - t0, "device_busy_us": busy,
-            "device_ops": len(dev), "split_us": split, "idle_share": idle}
+          f"and copy [{card}]: window {tr['window_us']:.1f} us (host, "
+          f"profiled), device busy {tr['device_busy_us']:.1f} us in "
+          f"{tr['device_ops']} device ops; device time us: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+          + f"; device idle share {tr['idle_share']:.4f}")
+    return tr
 
 
 def _max_rel(a, b) -> float:
@@ -4480,6 +4558,578 @@ def _multi_device(dev, card):
     return res, kernels
 
 
+# ---------------------------------------------------------------------------
+# Granular datagen, the differentiable render and the live view (22-24)
+# ---------------------------------------------------------------------------
+
+def _gg_config():
+    from wgpu_physics_engine_torch.models import granular
+
+    return granular.GranularConfig(num_particles=GG_N)
+
+
+def _gg_frame(cfg, batches, cams, bases, codec_k):
+    """One steady frame of every chunk of the granular datagen path
+    (``datagen.encode_parts`` over ``granular_step_and_render``, the
+    generator's own frame), from a copy of ``batches``, which is left as
+    it is."""
+    from wgpu_physics_engine_torch.parallel import datagen
+    from wgpu_physics_engine_torch.parallel import datagen_granular as dgg
+
+    return datagen.encode_parts(
+        list(batches), lambda bi, b: dgg.granular_step_and_render(
+            b, cfg, GR_DT, GG_STEPS, cams[bi], fb_size=DG_FB,
+            base_fb=bases[bi]), codec_k)
+
+
+def _gg_trace(cfg, batch, cams, base, card) -> dict:
+    """Phase 7 for the granular datagen path: one torch.profiler trace of a
+    steady frame of one chunk, with the codec, split into K10, the rest of
+    the step (the rebuilds and the loop's glue), the raster, the rest of
+    the render (binning, rays, the composite, the uint8 cast) and the
+    codec; the device's idle share and its top ops. The trace itself
+    (~50,000 events) stays under build/ only while it is read."""
+    def classify(name, cat, owner):
+        if "granular_step" in name:
+            return "k10"
+        if "sphere_raster" in name:
+            return "raster"
+        return {"datagen.step": "step_other", "datagen.render": "render_other",
+                "datagen.codec": "codec"}.get(owner, "other")
+
+    path = os.path.join(HERE, "build", "chip_smoke_granular",
+                        "trace_granular_datagen_frame.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tr = _frame_trace(lambda: _gg_frame(cfg, [batch], [cams], [base], DG_K),
+                      path, classify, ("k10", "step_other", "raster",
+                                       "render_other", "codec", "other"))
+    os.unlink(path)
+    split = tr["split_us"]
+    n_worlds = batch.state.pos.shape[0]
+    print(f"phase 7 trace one granular datagen frame, a chunk of {n_worlds} "
+          f"worlds with codec [{card}]: window {tr['window_us']:.1f} us "
+          f"(host, profiled), device busy {tr['device_busy_us']:.1f} us in "
+          f"{tr['device_ops']} device ops ({tr['device_ops'] / n_worlds:.1f} "
+          f"a world); device time us: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+          + f"; device idle share {tr['idle_share']:.4f}; top device ops: "
+          + "; ".join(f"{k} {v:.1f}" for k, v in tr["top_ops_us"]))
+    _check(split["k10"] > 0 and split["raster"] > 0,
+           f"granular datagen trace shows no K10 or raster time: {split}")
+    return tr
+
+
+def _phase22_granular_datagen(dev, card, cli_main) -> dict:
+    """Phase 22: granular datagen at full size, counted: GG_WORLDS worlds
+    of the CLI's 20,000-particle pile in chunks of GG_CHUNK, 3 frames of
+    GG_STEPS substeps at 256x256 with randomized cameras and the codec;
+    then the CLI's ``datagen --family granular`` (through the native
+    writer) and ``decode``. Checks: two worlds equal ``granular.multi_step``
+    with their materials bit for bit; every world's raw frame shows sand
+    and box pixels; the decoded frames have the raw frames' shape. Then
+    the times (a steady frame by CUDA events and by the host clock, ms per
+    world, egress, peak memory; K10 and the raster a launch at this site
+    with their bounds, each first held against its plain version on the
+    inputs it is timed on: K10 on a world of the run with its materials,
+    one substep and a rebuild block bit for bit; the raster on the first
+    chunk's first, middle and last worlds under phase 4's contract) and a
+    traced frame of one chunk."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from wgpu_physics_engine_torch.core.state import ParticleState
+    from wgpu_physics_engine_torch.models import granular
+    from wgpu_physics_engine_torch.ops import granular_kernel as gk
+    from wgpu_physics_engine_torch.ops import raster_kernel
+    from wgpu_physics_engine_torch.parallel import codec
+    from wgpu_physics_engine_torch.parallel import datagen_granular as dgg
+    from wgpu_physics_engine_torch.render import camera as cam_mod
+
+    cfg = _gg_config()
+    worlds = dgg.randomized_granular_worlds(
+        cfg, GG_WORLDS, torch.Generator().manual_seed(GG_SEED), device=dev)
+    probes = [0, GG_WORLDS - 1]
+    starts = [(ParticleState(worlds.state.pos[i].clone(),
+                             worlds.state.vel[i].clone()),
+               worlds.k_contact[i], worlds.gravity[i], worlds.restitution[i])
+              for i in probes]
+    gen_kw = dict(n_worlds=GG_WORLDS, n_frames=GG_FRAMES,
+                  steps_per_frame=GG_STEPS, fb_size=DG_FB,
+                  randomize_cameras=True, world_chunk=GG_CHUNK, codec_k=DG_K,
+                  hz=1.0 / GR_DT, device=dev)
+    scratch = os.path.join(HERE, "build", "chip_smoke_granular")
+    dg_out, dg_dec = os.path.join(scratch, "enc"), os.path.join(scratch, "dec")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.LAUNCHES = 0
+    raster_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    frames, yields = [], []
+    for _, enc, batches in dgg.generate_granular_dataset(
+            cfg, generator=torch.Generator().manual_seed(GG_SEED + 1),
+            worlds=worlds, **gen_kw):
+        frames.append(enc)
+        yields.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    gen_launches = {"granular_step": gk.LAUNCHES,
+                    "sphere_raster": raster_kernel.LAUNCHES}
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        rc = cli_main(["datagen", "--family", "granular", "--worlds",
+                       str(GG_CLI_WORLDS), "--frames", "2", "--codec-k",
+                       str(DG_K), "--random-cameras", "--outdir", dg_out,
+                       "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {"granular_step": gk.LAUNCHES,
+                "sphere_raster": raster_kernel.LAUNCHES}
+    rc_dec = cli_main(["decode", "--indir", dg_out, "--outdir", dg_dec])
+    n_chunks = -(-GG_WORLDS // GG_CHUNK)
+    want_gen = {"granular_step": GG_WORLDS * GG_FRAMES * GG_STEPS,
+                "sphere_raster": n_chunks * GG_FRAMES}
+    want = {"granular_step": want_gen["granular_step"]
+            + GG_CLI_WORLDS * 2 * GG_STEPS,
+            "sphere_raster": want_gen["sphere_raster"] + 2}
+    native_used = "shard writer native" in said.getvalue()
+    print(f"phase 22 granular datagen path [{card}]: generate_granular_"
+          f"dataset(GranularConfig(num_particles={GG_N}), n_worlds="
+          f"{GG_WORLDS}, n_frames={GG_FRAMES}, steps_per_frame={GG_STEPS}, "
+          f"fb_size={DG_FB}, randomize_cameras=True, codec_k={DG_K}, "
+          f"world_chunk={GG_CHUNK}) {gen_s:.3f} s host clock (frames yielded "
+          f"at {', '.join(f'{t:.3f}' for t in yields)} s), peak device "
+          f"memory {peak / 2**30:.3f} GiB; launches {gen_launches}, expected "
+          f"{want_gen}; CLI datagen --family granular rc {rc}, decode rc "
+          f"{rc_dec}; launches with the CLI {launches}, expected {want}")
+    for line in said.getvalue().splitlines():
+        print(f"  cli: {line}")
+    _check(rc == 0 and rc_dec == 0, f"granular CLI rc {rc} {rc_dec}")
+    _check(native_used, "the granular CLI did not write through the native "
+           "shard writer")
+    _check(gen_launches == want_gen and launches == want,
+           f"granular datagen launches {launches}, expected {want}")
+    shape = (GG_WORLDS, DG_FB[0] // 8, DG_FB[1] // 8, 3, DG_K)
+    _check(len(frames) == GG_FRAMES and all(
+        f.shape == shape and f.dtype == np.int8 for f in frames),
+        f"granular frames {[(f.shape, f.dtype) for f in frames]}")
+    shards = sorted(os.listdir(dg_out))
+    cli_shape = (GG_CLI_WORLDS,) + shape[1:]
+    cli_ok = (shards == ["codec_meta.json", "frame_00000.npy",
+                         "frame_00001.npy"]
+              and all(np.load(os.path.join(dg_out, s)).shape == cli_shape
+                      for s in shards[1:])
+              and all(np.load(os.path.join(dg_dec, f"frame_0000{i}_rgb.npy"))
+                      .shape == (GG_CLI_WORLDS,) + DG_FB + (3,)
+                      for i in range(2)))
+    _check(cli_ok, f"granular CLI shards {shards}")
+
+    # check 1: two worlds against granular.multi_step, bit for bit
+    end = torch.cat([b.state.pos for b in batches])
+    end_v = torch.cat([b.state.vel for b in batches])
+    exact = True
+    for i, (s, kc, g, e) in zip(probes, starts):
+        for _ in range(GG_FRAMES):
+            s = granular.multi_step(s, cfg, GR_DT, GG_STEPS, k_contact=kc,
+                                    gravity=g, restitution=e)
+        exact &= bool(torch.equal(s.pos, end[i]) and torch.equal(s.vel,
+                                                                 end_v[i]))
+    finite = bool(torch.isfinite(end).all() and torch.isfinite(end_v).all())
+    # checks 2 and 3: a raw frame of every world from the run's cameras
+    _, cams, bases = dgg.granular_chunks(
+        cfg, GG_WORLDS, torch.Generator().manual_seed(GG_SEED + 1), DG_FB,
+        None, GG_CHUNK, True, worlds=worlds, device=dev)
+    raw = torch.cat(_gg_frame(cfg, batches, cams, bases, None))
+    sand = (raw == torch.tensor([219, 166, 89], dtype=torch.uint8,
+                                device=dev)).all(-1).sum((1, 2))
+    box = (raw == torch.tensor([0, 0, 255], dtype=torch.uint8,
+                               device=dev)).all(-1).sum((1, 2))
+    dec = codec.decode(frames[-1])
+    print(f"phase 22 checks: worlds {probes} == granular.multi_step with "
+          f"their materials, {GG_FRAMES} x {GG_STEPS} substeps, bit for bit "
+          f"{exact}; state finite {finite}; raw frame: sand px a world min "
+          f"{int(sand.min())} mean {float(sand.float().mean()):.1f}, box px "
+          f"a world min {int(box.min())} mean {float(box.float().mean()):.1f}"
+          f"; decoded frame {dec.shape} {dec.dtype}, raw {tuple(raw.shape)} "
+          f"{raw.dtype}")
+    _check(exact, "a granular datagen world differs from granular.multi_step")
+    _check(finite, "granular datagen state not finite")
+    _check(int(sand.min()) > 0 and int(box.min()) > 0,
+           f"a world's frame lacks sand or box pixels: {int(sand.min())} "
+           f"{int(box.min())}")
+    _check(tuple(dec.shape) == tuple(raw.shape) and dec.dtype == np.uint8,
+           f"decoded {dec.shape} vs raw {tuple(raw.shape)}")
+
+    # phase 6: the steady frame, ms per world, egress
+    res = {"launches": launches, "generate_launches": gen_launches,
+           "generate_s": gen_s, "yields_s": yields, "peak_bytes": peak,
+           "cli_rc": [rc, rc_dec], "native_writer": native_used,
+           "bitwise_multi_step": exact, "sand_px_min": int(sand.min()),
+           "box_px_min": int(box.min())}
+    out = {}
+    for codec_k in (None, DG_K):
+        ms = _best_ms(lambda: _gg_frame(cfg, batches, cams, bases, codec_k))
+        host_s = _best_s(lambda: _gg_frame(cfg, batches, cams, bases,
+                                           codec_k), reps=2)
+        parts = _gg_frame(cfg, batches, cams, bases, codec_k)
+        pinned = [torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                  for p in parts]
+
+        def copy():
+            for hb, p in zip(pinned, parts):
+                hb.copy_(p, non_blocking=True)
+
+        c_ms = _best_ms(copy)
+        nbytes = sum(p.numel() * p.element_size() for p in parts)
+        key = "raw" if codec_k is None else f"codec_k{codec_k}"
+        out[key] = {"frame_ms": ms, "ms_per_world": ms / GG_WORLDS,
+                    "host_s": host_s,
+                    "host_ms_per_world": host_s * 1e3 / GG_WORLDS,
+                    "egress_bytes": nbytes, "egress_ms": c_ms,
+                    "egress_MBps": nbytes / 1e6 / (c_ms / 1e3),
+                    "egress_MBps_of_frame": nbytes / 1e6 / host_s}
+        print(f"phase 6 granular datagen steady frame {key} [{card}]: "
+              f"{ms:.3f} ms for {GG_WORLDS} worlds = {ms / GG_WORLDS:.4f} "
+              f"ms/world (CUDA events), host clock {host_s * 1e3:.3f} ms = "
+              f"{host_s * 1e3 / GG_WORLDS:.4f} ms/world; egress "
+              f"{nbytes / 1e6:.2f} MB into pinned memory in {c_ms:.3f} ms = "
+              f"{nbytes / 1e6 / (c_ms / 1e3):.1f} MB/s, "
+              f"{nbytes / 1e6 / host_s:.2f} MB/s at the frame rate")
+    res["frame"] = out
+
+    # K10 a launch on one world of the run (its last state), and the raster
+    # a call on the first chunk's bins, each with its bound
+    b0 = batches[0]
+    st = ParticleState(b0.state.pos[0], b0.state.vel[0])
+    grid, slabs, _ = granular.rebuild(st.pos, st.vel, cfg)
+    prm = gk.kernel_params(cfg, GR_DT, dev, b0.k_contact[0], b0.gravity[0],
+                           b0.restitution[0])
+    p0, v0 = grid.sorted_pos, grid.sorted_vel
+    # K10 against its plain version on these inputs (the world's own
+    # materials in the parameter vector): one substep and a rebuild block,
+    # bit for bit
+    kp, kv = gk.substep_sorted_kernel(p0, v0, prm, slabs)
+    pp, pv = gk.substep_sorted_plain(p0, v0, prm, slabs)
+    k10_err = max(_maxdiff(kp, pp), _maxdiff(kv, pv))
+    k10_eq = bool(torch.equal(kp, pp) and torch.equal(kv, pv))
+    for _ in range(cfg.rebuild_every - 1):
+        kp, kv = gk.substep_sorted_kernel(kp, kv, prm, slabs)
+        pp, pv = gk.substep_sorted_plain(pp, pv, prm, slabs)
+    torch.cuda.synchronize()
+    k10_err = max(k10_err, _maxdiff(kp, pp), _maxdiff(kv, pv))
+    k10_eq &= bool(torch.equal(kp, pp) and torch.equal(kv, pv))
+    print(f"phase 22 granular_step (K10) vs plain on a datagen world @{GG_N} "
+          f"with its materials [{card}]: 1 substep and a "
+          f"{cfg.rebuild_every}-substep block, max abs {k10_err:.3e}, bitwise "
+          f"{k10_eq}")
+    _check(k10_eq, f"K10 on a granular datagen world differs from its plain "
+           f"version: {k10_err}")
+    # at 20,000 particles a launch is shorter than its wrapper's host work,
+    # so its time is the device time queued behind a sleep; the call's
+    # CUDA events, host work included, beside it
+    k_ms = _queued_us(lambda: gk.substep_sorted_kernel(p0, v0, prm,
+                                                       slabs)) / 1e3
+    call_ms = _best_ms(lambda: gk.substep_sorted_kernel(p0, v0, prm, slabs))
+    p_ms = _best_ms(lambda: gk.substep_sorted_plain(p0, v0, prm, slabs))
+    r_ms = _best_ms(lambda: granular.rebuild(st.pos, st.vel, cfg))
+    cand = gk.candidate_count(slabs, GG_N)
+    touch = gk.touching_count(p0, prm, slabs)
+    kb_ms, kb_by = _bound(GR_BYTES * GG_N, OPS_SLOT * cand + OPS_TOUCH * touch
+                          + OPS_GR_PARTICLE * GG_N)
+    w_ms = _best_ms(lambda: granular.multi_step(
+        st, cfg, GR_DT, GG_STEPS, k_contact=b0.k_contact[0],
+        gravity=b0.gravity[0], restitution=b0.restitution[0]))
+    w_s = _best_s(lambda: granular.multi_step(
+        st, cfg, GR_DT, GG_STEPS, k_contact=b0.k_contact[0],
+        gravity=b0.gravity[0], restitution=b0.restitution[0]))
+    res["k10"] = {"err": k10_err, "ms": k_ms, "call_ms": call_ms,
+                  "plain_ms": p_ms,
+                  "rebuild_ms": r_ms,
+                  "candidates": cand, "touching": touch, "bound_ms": kb_ms,
+                  "bound_by": kb_by, "world_step_ms": w_ms,
+                  "world_step_host_ms": w_s * 1e3}
+    print(f"phase 6 granular_step (K10) on a datagen world @{GG_N} [{card}]: "
+          f"kernel {k_ms:.5f} ms/substep of device time (a call by CUDA "
+          f"events, host work included, {call_ms:.5f}), plain {p_ms:.5f}, "
+          f"bound "
+          f"{kb_ms:.6f} ms ({kb_by}; {cand} candidate slots, {touch} "
+          f"touching), kernel at {kb_ms / k_ms:.4f} of the bound; rebuild "
+          f"{r_ms:.4f} ms; one world's frame step (multi_step, {GG_STEPS} "
+          f"substeps) {w_ms:.4f} ms CUDA events, {w_s * 1e3:.4f} ms host "
+          f"clock")
+    cams0 = cams[0]
+    eye, dirs = cam_mod.pixel_rays(cams0, *DG_FB)
+    wins, ocb, _, rect = raster_kernel.tiled_prologue_batched(
+        cams0.view[:, :3, :3], eye, b0.state.pos.transpose(1, 2),
+        cfg.radius, cams0.znear, torch.tan(cams0.fovy_rad / 2.0),
+        cams0.aspect, *DG_FB)
+    r_cmp, r_err = _batched_raster_vs_plain(
+        raster_kernel.sphere_raster_kernel(wins, ocb, rect, dirs,
+                                           cams0.znear),
+        ocb, dirs, cams0.znear, "phase 22 batched sphere_raster (granular "
+        "datagen)")
+    rs_ms = _best_ms(lambda: raster_kernel.sphere_raster_kernel(
+        wins, ocb, rect, dirs, cams0.znear))
+    rb_ms, rb_by, _ = _raster_bound(wins, rect, *DG_FB)
+    res["raster"] = {"ms": rs_ms, "bound_ms": rb_ms, "bound_by": rb_by,
+                     "vs_plain": r_cmp, "err": r_err}
+    print(f"phase 6 batched sphere_raster {GG_CHUNK} worlds x {GG_N} "
+          f"instances @{DG_FB[0]}x{DG_FB[1]} (granular datagen) [{card}]: "
+          f"{rs_ms:.4f} ms, bound {rb_ms:.5f} ms ({rb_by})")
+    res["trace"] = _gg_trace(cfg, batches[0], cams[0], bases[0], card)
+    return res
+
+
+def _card_tests():
+    """``tests/test_torch_cuda.py`` (it imports no jax), loaded by path: the
+    differentiable render's loss and tolerance come from there, so the card
+    test and phase 23 hold the same contract."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke_card_tests", os.path.join(HERE, "tests",
+                                               "test_torch_cuda.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _phase23_diff_render(dev, card) -> dict:
+    """Phase 23: the differentiable render on the card. The gradients of
+    the instanced-sphere loss through K4 (32x48) and K2/K3 (32x128) against
+    the CPU plain route on the same inputs; the frames keep the kernels'
+    bits when a gradient is carried (that loss's frame, the flagship frame,
+    a datagen frame); then ``examples/inverse_rendering.py``'s two stages,
+    counted: the light under 20 degrees in 6 iterations and the gravity
+    fit bracketing the truth through K4, K1 and the adjoint; and the
+    example's sites held against their plain versions on the inputs they
+    are timed on (K4 on its 48x64 frame, K1 over a segment at 16², the
+    adjoint's walk back over the segment's trace: bit for bit, the
+    parameter cotangent within phase 11's 1e-5) and timed with their
+    bounds."""
+    import numpy as np
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import CameraConfig, ClothConfig
+    from wgpu_physics_engine_torch.core.state import (ClothParams,
+                                                      init_cloth_state)
+    from wgpu_physics_engine_torch.examples import inverse_rendering as ir
+    from wgpu_physics_engine_torch.models.scenes import ClothScene
+    from wgpu_physics_engine_torch.ops import (cloth_grad_kernel, cloth_kernel,
+                                               raster_kernel)
+    from wgpu_physics_engine_torch.ops.cloth_kernel import _FAMILIES
+    from wgpu_physics_engine_torch.parallel import datagen
+    from wgpu_physics_engine_torch.render import camera as cam_mod
+    from wgpu_physics_engine_torch import render as R
+
+    tests = _card_tests()
+    tol = tests.DIFF_RENDER_TOL
+    res = {"grads": {}}
+    centers = np.random.default_rng(0).uniform(-4.0, 4.0, (40, 3)).astype(
+        np.float32)
+    bits = True
+    for h, w in DR_FRAMES:
+        got = {}
+        for key, d in (("cpu", "cpu"), ("cuda", dev)):
+            cen = torch.tensor(centers, device=d, requires_grad=True)
+            lp = torch.tensor([25.0, 18.0, 12.0], device=d,
+                              requires_grad=True)
+            fb, val = tests._render_loss(cen, lp, h, w, d)
+            g_cen, g_lp = torch.autograd.grad(val, (cen, lp))
+            got[key] = (float(val.detach()), g_cen.cpu().numpy(),
+                        g_lp.cpu().numpy())
+            if key == "cuda":
+                with torch.no_grad():
+                    ref, _ = tests._render_loss(cen, lp, h, w, d)
+                bits &= bool(torch.equal(fb.color.detach(), ref.color)
+                             and torch.equal(fb.depth.detach(), ref.depth))
+        (lc, gc, gl), (lk, gk_, glk) = got["cpu"], got["cuda"]
+        dev_c = float(np.abs(gk_ - gc).max() / np.abs(gc).max())
+        dev_l = float(np.abs(glk - gl).max() / np.abs(gl).max())
+        route = "K4" if h % 16 or w % 128 else "K2/K3"
+        finite = bool(np.isfinite(gk_).all() and np.isfinite(glk).all())
+        res["grads"][f"{h}x{w}"] = {"route": route, "loss_cpu": lc,
+                                    "loss_cuda": lk, "dev_centers": dev_c,
+                                    "dev_light": dev_l, "finite": finite}
+        print(f"phase 23 diff render @{h}x{w} ({route}) [{card}]: loss card "
+              f"{lk:.9f} cpu {lc:.9f}; centre gradients largest deviation "
+              f"{dev_c:.3e} of the largest (tol {tol}), light {dev_l:.3e} "
+              f"(tol {tol}); finite {finite}")
+        _check(finite and abs(lk - lc) <= 1e-5 * abs(lc)
+               and dev_c <= tol and dev_l <= tol,
+               f"card gradients off the CPU route's at {h}x{w}: "
+               f"{res['grads'][f'{h}x{w}']}")
+
+    # the flagship frame and a cloth datagen frame keep their bits when the
+    # centres carry a gradient (the recompute adds zero)
+    scene = ClothScene(ClothConfig(height=GRID, width=GRID), device=dev)
+    scene.simulate(3.0)
+    fh, fw = FRAME
+    scene.resize(fw, fh)
+    img = torch.from_numpy(scene.render(fh, fw))
+    cam = scene.camera()
+    fb = R.draw_globe(R.clear(fh, fw, device=dev), cam,
+                      float(scene.params.globe_radius), scene.globe_texture,
+                      scene.light)
+    fb = R.draw_instanced_spheres(
+        fb, cam, scene.state.pos.reshape(3, -1).T.clone().requires_grad_(),
+        float(scene.params.particle_radius), flat_color=scene.particle_color)
+    flag_eq = bool(torch.equal(
+        torch.clamp(fb.color.detach(), 0.0, 1.0).cpu(), img))
+    wb = datagen.randomized_worlds(ClothConfig(), 16,
+                                   torch.Generator().manual_seed(3),
+                                   device=dev)
+    cams = datagen.randomized_cameras(16, torch.Generator().manual_seed(4),
+                                      device=dev)
+    tex = datagen.globe_texture(dev)
+    base = datagen.globe_base_fbs(cams, wb.params, tex, fb_size=DG_FB)
+    cen = wb.state.pos.reshape(16, 3, -1).transpose(1, 2)
+    plain = R.draw_instanced_spheres(base, cams, cen,
+                                     wb.params.particle_radius)
+    withg = R.draw_instanced_spheres(base, cams, cen.clone().requires_grad_(),
+                                     wb.params.particle_radius)
+    dg_eq = bool(torch.equal(plain.color, withg.color.detach())
+                 and torch.equal(plain.depth, withg.depth.detach()))
+    print(f"phase 23 frames with a gradient carried == without, bit for bit: "
+          f"the loss frames {bits}, the flagship {GRID}² frame {flag_eq}, a "
+          f"datagen frame of 16 worlds {dg_eq}")
+    _check(bits and flag_eq and dg_eq, "a frame changed under autograd")
+    res.update(frames_bitwise=bits, flagship_bitwise=flag_eq,
+               datagen_bitwise=dg_eq)
+
+    # the example, counted
+    torch.cuda.synchronize()
+    cloth_kernel.LAUNCHES = 0
+    cloth_grad_kernel.LAUNCHES = 0
+    raster_kernel.LAUNCHES = 0
+    raster_kernel.LAUNCHES_UNTILED = 0
+    t0 = time.perf_counter()
+    err = ir.recover_light(n_iters=6, device=dev)
+    light_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g, g_true = ir.recover_gravity(device=dev)
+    torch.cuda.synchronize()
+    grav_s = time.perf_counter() - t0
+    launches = {"cloth_step": cloth_kernel.LAUNCHES,
+                "cloth_substep_vjp": cloth_grad_kernel.LAUNCHES,
+                "sphere_raster_untiled": raster_kernel.LAUNCHES_UNTILED,
+                "sphere_raster": raster_kernel.LAUNCHES}
+    print(f"phase 23 python -m wgpu_physics_engine_torch.examples."
+          f"inverse_rendering stages [{card}]: recover_light(n_iters=6) "
+          f"direction error {err:.3f} deg (< 20) in {light_s:.3f} s; "
+          f"recover_gravity() {g:.5f} (true {g_true}, |error| "
+          f"{abs(g - g_true):.5f} <= 0.01) in {grav_s:.3f} s host clock; "
+          f"launches {launches}")
+    _check(err < 20.0, f"light direction error {err}")
+    _check(abs(g - g_true) <= 0.01, f"gravity {g} does not bracket {g_true}")
+    _check(launches["cloth_step"] > 0 and launches["cloth_substep_vjp"] > 0
+           and launches["sphere_raster_untiled"] > 0
+           and launches["sphere_raster"] == 0,
+           f"the example's kernels launched {launches}")
+    res.update(light_err_deg=err, gravity=g, launches=launches,
+               light_s=light_s, gravity_s=grav_s)
+
+    # the example's sites: K4 on its 48x64 frame of 256 spheres, K1 and the
+    # adjoint at 16²
+    c = ClothConfig(height=16, width=16)
+    params = ClothParams.from_config(c, device=dev)
+    s0 = init_cloth_state(c, device=dev)
+    st = cloth_kernel.multi_step(s0, params._replace(
+        gravity=torch.tensor(g_true, device=dev)), DT, 240)
+    h, w = 48, 64
+    ecam = cam_mod.make_camera(CameraConfig(target=(0.0, 36.0, 0.0),
+                                            radius=30.0), aspect=w / h,
+                               device=dev)
+    eye, dirs = cam_mod.pixel_rays(ecam, h, w)
+    ocb = raster_kernel.untiled_prologue(eye, st.pos.reshape(3, -1).T, 0.6)
+    # the example's launches are short: device time queued behind a sleep
+    k4_ms = _queued_us(lambda: raster_kernel.sphere_raster_untiled_kernel(
+        ocb, dirs, ecam.znear)) / 1e3
+    k4_plain = _best_ms(lambda: raster_kernel.sphere_raster_untiled_plain(
+        ocb, dirs, ecam.znear))
+    # each site's kernel against its plain version on these inputs, bit
+    # for bit: K4 on the frame, K1 over a segment, the adjoint's walk back
+    # over the segment's trace
+    kt, ki = raster_kernel.sphere_raster_untiled_kernel(ocb, dirs, ecam.znear)
+    pt, pi = raster_kernel.sphere_raster_untiled_plain(ocb, dirs, ecam.znear)
+    both = (ki >= 0) & (pi >= 0)
+    k4_err = _maxdiff(kt[both], pt[both]) if bool(both.any()) else 0.0
+    k4_eq = bool(torch.equal(ki, pi) and torch.equal(kt, pt))
+    k1 = cloth_kernel.multi_step_kernel(s0, params, DT, FIT_SEG)
+    p1 = cloth_kernel.multi_step_plain(s0, params, DT, FIT_SEG)
+    k1_err = max(_maxdiff(k1.pos, p1.pos), _maxdiff(k1.vel, p1.vel))
+    k1_eq = bool(torch.equal(k1.pos, p1.pos) and torch.equal(k1.vel, p1.vel))
+    prm = cloth_kernel._pack_params(params, DT).to(dev)
+    traj = cloth_kernel.trace(s0, prm, FIT_SEG)
+    cp, cv = (torch.randn((3, 16, 16), generator=torch.Generator()
+                          .manual_seed(6 + i)).to(dev) for i in range(2))
+    kw = cloth_grad_kernel._walk_kernel(traj, cp, cv, prm, None)
+    pw = cloth_grad_kernel._walk_plain(traj, cp, cv, prm, None)
+    torch.cuda.synchronize()
+    vjp_err = max(_maxdiff(a, b) for a, b in zip(kw[:3], pw[:3]))
+    vjp_eq = bool(torch.equal(kw[0], pw[0]) and torch.equal(kw[1], pw[1]))
+    vjp_rel = _max_rel(kw[2], pw[2])
+    hits = int((ki >= 0).sum())
+    print(f"phase 23 the example's sites vs their plain versions [{card}]: "
+          f"K4 @{h}x{w}, {ocb.shape[1]} instances, {hits} hits, tmin "
+          f"{k4_err:.3e}, bitwise {k4_eq}; K1 @16x16, {FIT_SEG} substeps, "
+          f"{k1_err:.3e}, bitwise {k1_eq}; the adjoint's walk of {FIT_SEG} "
+          f"substeps @16x16, max abs {vjp_err:.3e}, state cotangents bitwise "
+          f"{vjp_eq}, ct_prm max-relative {vjp_rel:.3e} (<=1e-5, phase 11)")
+    _check(hits > 0, "the example's K4 frame shows no hit")
+    _check(k4_eq and k1_eq and vjp_eq and vjp_rel <= 1e-5,
+           f"an example's site differs from its plain version: K4 {k4_eq}, "
+           f"K1 {k1_eq}, the adjoint {vjp_eq} {vjp_rel}")
+    n_inst = ocb.shape[1]
+    k4_b, k4_by = _bound(3 * h * w * 4 + 2 * h * w * 4 + 16 * n_inst,
+                         float(h * w) * n_inst * OPS_DISC
+                         + OPS_HIT * _disc_pairs(ocb, dirs))
+    k1_ms = _queued_us(lambda: cloth_kernel.multi_step_kernel(
+        s0, params, DT, FIT_SEG)) / 1e3 / FIT_SEG
+    k1_b, k1_by = _cloth_bound(16, 16, 1, 1)
+    vjp_ms = _queued_us(lambda: cloth_grad_kernel._walk_kernel(
+        traj, cp, cv, prm, None)) / 1e3 / FIT_SEG
+    edges = sum((16 - dr) * (16 - abs(dc)) for dr, dc, _ in _FAMILIES)
+    vjp_b, vjp_by = _bound(VJP_BYTES * 256, OPS_VJP_EDGE * edges
+                           + OPS_VJP_PARTICLE * 256)
+    res["sites"] = {
+        "k4": {"err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
+               "bound_ms": k4_b, "bound_by": k4_by},
+        "k1": {"err": k1_err, "ms": k1_ms, "bound_ms": k1_b,
+               "bound_by": k1_by},
+        "vjp": {"err": vjp_err, "ms": vjp_ms, "bound_ms": vjp_b,
+                "bound_by": vjp_by}}
+    print(f"phase 6 inverse rendering sites, device time [{card}]: K4 "
+          f"@{h}x{w}, {n_inst} "
+          f"instances {k4_ms:.5f} ms (plain {k4_plain:.5f}), bound "
+          f"{k4_b:.6f} ms ({k4_by}); K1 @16x16 {k1_ms:.6f} ms/substep, bound "
+          f"{k1_b:.7f} ms ({k1_by}); the adjoint @16x16 {vjp_ms:.6f} "
+          f"ms/substep, bound {vjp_b:.7f} ms ({vjp_by})")
+    return res
+
+
+def _phase24_live(card) -> dict:
+    """Phase 24: ``cloth --live --seconds 1`` in a process with no terminal
+    (stdin from /dev/null): ANSI frames on stdout and exit code 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "wgpu_physics_engine_torch", "cloth", "--live",
+         "--seconds", "1", "--device", "cuda"], cwd=HERE,
+        stdin=subprocess.DEVNULL, capture_output=True, text=True,
+        timeout=300)
+    s = time.perf_counter() - t0
+    frames = proc.stdout.count("fps ")
+    ansi = "\x1b[38;2;" in proc.stdout
+    print(f"phase 24 cloth --live --seconds 1 without a terminal [{card}]: "
+          f"rc {proc.returncode}, {frames} status lines, ANSI truecolor "
+          f"{ansi}, {len(proc.stdout)} bytes in {s:.3f} s")
+    _check(proc.returncode == 0 and ansi and frames == 20,
+           f"live view: rc {proc.returncode}, frames {frames}, ansi {ansi}; "
+           f"{proc.stderr[-2000:]}")
+    return {"rc": proc.returncode, "frames": frames, "s": s}
+
+
 def _site(name: str, launches: int, ms=None, bound_ms=None,
           substeps: float = 1) -> dict:
     """One main-path site of a kernel: its launches in this run, its ms
@@ -4862,6 +5512,19 @@ def main() -> int:
     mc, mc_kernels = _multi_device(dev, card)
     results["multi_device"] = mc
     mc_launches = mc["main"]["launches"]
+
+    # ---- phase 22: granular datagen, counted (and its phases 6 and 7) ----
+    gg = _phase22_granular_datagen(dev, card, cli_main)
+    results["granular_datagen"] = gg
+    gdg_launches = gg["launches"]
+
+    # ---- phase 23: the differentiable render and the example, counted ----
+    dr = _phase23_diff_render(dev, card)
+    results["diff_render"] = dr
+    ir_launches = dr["launches"]
+
+    # ---- phase 24: the live view without a terminal ----
+    results["live"] = _phase24_live(card)
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
 
@@ -4874,11 +5537,15 @@ def main() -> int:
     fr = f"{fh}x{fw}"
     kernels = [
         _kernel("cloth_step", "cloth_step.cu", "cloth_pallas.py:195",
-                max(e1, e240, efp), k_ms / n, p_ms / n, k1_bound / n, k1_by, [
+                max(e1, e240, efp, dr["sites"]["k1"]["err"]), k_ms / n,
+                p_ms / n, k1_bound / n, k1_by, [
                     _site(f"flagship {GRID}²", launches["cloth_step"],
                           k_ms / n, k1_bound / n),
                     _site(f"training {GRID}²", tr_launches["cloth_step"],
-                          k_ms / n, k1_bound / n)]),
+                          k_ms / n, k1_bound / n),
+                    _site("inverse rendering 16²", ir_launches["cloth_step"],
+                          dr["sites"]["k1"]["ms"],
+                          dr["sites"]["k1"]["bound_ms"])]),
         _kernel("cloth_step_batched", "cloth_step.cu", "cloth_pallas.py:345",
                 k5_err, dg["k5_shard"]["ms"], dg["k5_shard"]["plain_ms"],
                 dg["k5_shard"]["bound_ms"], dg["k5_shard"]["bound_by"], [
@@ -4906,8 +5573,8 @@ def main() -> int:
                           dg["k5_cli"]["k5r_ms"], dg["k5_cli"]["bound_ms"],
                           DG_STEPS)]),
         _kernel("sphere_raster", "sphere_raster.cu", "raster_pallas.py:209",
-                max(r_err, r9_err, g_r["err_tmin"], g_r["err_oc"]), rk_ms,
-                rp_ms, r_bound, r_by, [
+                max(r_err, r9_err, g_r["err_tmin"], g_r["err_oc"],
+                    gg["raster"]["err"]), rk_ms, rp_ms, r_bound, r_by, [
                     _site(f"flagship frame {fr}, {GRID * GRID} instances",
                           launches["sphere_raster"], rk_ms, r_bound),
                     _site(f"datagen, {DG_CHUNK} worlds at {DG_FB[0]}x"
@@ -4935,22 +5602,34 @@ def main() -> int:
                     _site(f"multi-device, {MC_K5_WORLDS // MC_SHARDS} worlds "
                           f"at 64x64", mc_launches["sphere_raster"],
                           dg["raster_shard"]["ms"],
-                          dg["raster_shard"]["bound_ms"])]),
+                          dg["raster_shard"]["bound_ms"]),
+                    _site(f"granular datagen, {GG_CHUNK} worlds x {GG_N} at "
+                          f"{DG_FB[0]}x{DG_FB[1]}",
+                          gdg_launches["sphere_raster"], gg["raster"]["ms"],
+                          gg["raster"]["bound_ms"])]),
         _kernel("cloth_substep_vjp", "cloth_grad.cu",
-                "cloth_pallas_grad.py:269", vjp_err, gt["vjp"]["ms"],
+                "cloth_pallas_grad.py:269",
+                max(vjp_err, dr["sites"]["vjp"]["err"]), gt["vjp"]["ms"],
                 gt["vjp"]["plain_ms"], gt["vjp"]["bound_ms"],
                 gt["vjp"]["bound_by"], [
                     _site(f"training {GRID}²",
                           tr_launches["cloth_substep_vjp"], gt["vjp"]["ms"],
-                          gt["vjp"]["bound_ms"])]),
+                          gt["vjp"]["bound_ms"]),
+                    _site("inverse rendering 16²",
+                          ir_launches["cloth_substep_vjp"],
+                          dr["sites"]["vjp"]["ms"],
+                          dr["sites"]["vjp"]["bound_ms"])]),
         _kernel("granular_step", "granular_step.cu", "granular_pallas.py:684",
-                k10_err, grt["default fresh"]["ms"],
+                max(k10_err, gg["k10"]["err"]), grt["default fresh"]["ms"],
                 grt["default fresh"]["plain_ms"],
                 grt["default fresh"]["bound_ms"],
                 grt["default fresh"]["bound_by"], [
                     _site(f"granular {GR_N}", gr_launches["granular_step"],
                           grt["default fresh"]["ms"],
-                          grt["default fresh"]["bound_ms"])]),
+                          grt["default fresh"]["bound_ms"]),
+                    _site(f"granular datagen, a world of {GG_N}",
+                          gdg_launches["granular_step"], gg["k10"]["ms"],
+                          gg["k10"]["bound_ms"])]),
         _kernel("granular_forces", "granular_step.cu",
                 "granular_pallas.py:750", ct_err, ct_sc["ms"],
                 ct_sc["plain_ms"], ct_sc["bound_ms"], ct_sc["bound_by"], [
@@ -4988,13 +5667,18 @@ def main() -> int:
                           ctt["cloth_step_force"]["bound_ms"])]),
         _kernel("sphere_raster_untiled", "sphere_raster_untiled.cu",
                 "raster_pallas.py:35",
-                max(pt["k4_scene"]["err_tmin"], pt["k4_max"]["err_tmin"]),
+                max(pt["k4_scene"]["err_tmin"], pt["k4_max"]["err_tmin"],
+                    dr["sites"]["k4"]["err"]),
                 pt["k4_scene"]["device_ms"], pt["k4_scene"]["plain_ms"],
                 pt["k4_scene"]["bound_ms"], pt["k4_scene"]["bound_by"], [
                     _site("free particles 600x800, 10 instances",
                           pt_launches["sphere_raster_untiled"],
                           pt["k4_scene"]["device_ms"],
-                          pt["k4_scene"]["bound_ms"])]),
+                          pt["k4_scene"]["bound_ms"]),
+                    _site("inverse rendering 48x64, 256 instances",
+                          ir_launches["sphere_raster_untiled"],
+                          dr["sites"]["k4"]["ms"],
+                          dr["sites"]["k4"]["bound_ms"])]),
         _kernel("cloth_tiled", "cloth_tiled.cu", "cloth_pallas_tiled.py:40",
                 k6_err, lgt[str(LG)]["ms"], lgt[str(LG)]["plain_ms"],
                 lgt[str(LG)]["bound_ms"], lgt[str(LG)]["bound_by"], [

@@ -1501,3 +1501,60 @@ def test_granular_walks_match_plain_at_1m(dev, kw):
     assert torch.equal(ip, got[0]) and torch.equal(iv, got[1])
     assert torch.equal(f, gk.contact_forces_sorted_plain(p, prm[0], prm[1],
                                                          slabs))
+
+
+# The differentiable render on the card against the CPU route: the same
+# losses and the gradients of their centres and light within this share of
+# the largest CPU gradient (the routes differ only where the card's libm
+# and correctly rounded sqrt part from the CPU's by ulps).
+DIFF_RENDER_TOL = 1e-3
+
+
+def _render_loss(centers, light_pos, h, w, device, lit=True):
+    import dataclasses
+
+    from wgpu_physics_engine_torch.render import raster
+
+    light = dataclasses.replace(cfg.LightConfig(), position=light_pos)
+    cam = camera.make_camera(cfg.CameraConfig(), aspect=w / h, device=device)
+    fb = raster.draw_instanced_spheres(raster.clear(h, w, device=device), cam,
+                                       centers, 0.8, light, lit=lit)
+    return fb, torch.mean(fb.color ** 2) + torch.mean(fb.depth)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(32, 48), (32, 128)])
+def test_diff_render_kernel_route_grad_matches_cpu(dev, hw):
+    """``test_instanced_spheres_grads_no_nan_with_background``'s loss: on
+    the card the nearest hit comes from K4 (32×48) or K2/K3 (32×128) and
+    the gradient from the torch recompute of the winner's hit; it matches
+    the CPU plain route's, and the frame keeps the kernel's bits."""
+    h, w = hw
+    centers = np.random.default_rng(0).uniform(-4.0, 4.0, (40, 3)).astype(
+        np.float32)
+    out = {}
+    for d in ("cpu", dev):
+        cen = torch.tensor(centers, device=d, requires_grad=True)
+        lp = torch.tensor([25.0, 18.0, 12.0], device=d, requires_grad=True)
+        launches = (raster_kernel.LAUNCHES, raster_kernel.LAUNCHES_UNTILED)
+        fb, val = _render_loss(cen, lp, h, w, d)
+        g_cen, g_lp = torch.autograd.grad(val, (cen, lp))
+        out[torch.device(d).type] = (float(val.detach()), g_cen.cpu().numpy(),
+                                     g_lp.cpu().numpy())
+        if torch.device(d).type == "cuda":
+            torch.cuda.synchronize()
+            untiled = h % 16 != 0 or w % 128 != 0
+            assert (raster_kernel.LAUNCHES_UNTILED - launches[1],
+                    raster_kernel.LAUNCHES - launches[0]) == (
+                        (1, 0) if untiled else (0, 1))
+            with torch.no_grad():
+                ref, _ = _render_loss(cen, lp, h, w, d)
+            assert torch.equal(fb.color.detach(), ref.color)
+            assert torch.equal(fb.depth.detach(), ref.depth)
+    (lc, gc, gl), (lk, gk, glk) = out["cpu"], out["cuda"]
+    assert np.isfinite(gk).all() and np.isfinite(glk).all()
+    assert abs(lk - lc) <= 1e-5 * abs(lc)
+    np.testing.assert_allclose(gk, gc, rtol=0,
+                               atol=DIFF_RENDER_TOL * np.abs(gc).max())
+    np.testing.assert_allclose(glk, gl, rtol=0,
+                               atol=DIFF_RENDER_TOL * np.abs(gl).max())

@@ -13,11 +13,15 @@ and globe (``CubeScene``, ``TexturedCubeScene``, ``GlobeScene``), the
 free-particle box (``FreeParticleScene``), the flagship cloth
 (``ClothScene``) and the granular pile (``GranularScene``), all in
 ``models.scenes`` and behind ``python -m wgpu_physics_engine_torch
-{cube,textured,globe,particles,cloth,granular}``; batched cloth datagen;
-gradients through the cloth and through granular contact; and the
-multi-device paths over a mesh of torch devices held by one process
-(``parallel.mesh``: worlds- and rows-sharded cloth with halo exchange;
-``parallel.granular_mesh``: the grain-sharded granular pile).
+{cube,textured,globe,particles,cloth,granular}`` (``--live`` streams
+ANSI frames to the terminal); batched datagen of both model families,
+cloth and granular, written through the native shard writer (``native``);
+gradients through the cloth, through granular contact and through the
+renderer (``examples.inverse_rendering``); the utils (checkpoints, debug,
+metrics, profiling); and the multi-device paths over a mesh of torch
+devices held by one process (``parallel.mesh``: worlds- and rows-sharded
+cloth with halo exchange; ``parallel.granular_mesh``: the grain-sharded
+granular pile).
 """
 
 __version__ = "0.1.0"

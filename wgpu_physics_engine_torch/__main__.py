@@ -1,7 +1,7 @@
 """CLI entry point: run a scene headless (the mesh cube, textured cube
 and globe, the free-particle box, the flagship cloth or the granular
-pile) and write a PNG or an animated GIF, generate a batched cloth
-dataset, or decode one.
+pile) and write a PNG or an animated GIF or stream it to the terminal,
+generate a batched cloth or granular dataset, or decode one.
 
     python -m wgpu_physics_engine_torch cube --size 600 800 --out cube.png
     python -m wgpu_physics_engine_torch textured --out tex.png
@@ -11,19 +11,25 @@ dataset, or decode one.
     python -m wgpu_physics_engine_torch cloth --grid 256 --size 256 256 \\
         --seconds 5 --out cloth.png
     python -m wgpu_physics_engine_torch cloth --seconds 3 --gif cloth.gif
+    python -m wgpu_physics_engine_torch cloth --live --seconds 3
     python -m wgpu_physics_engine_torch cloth --self-collide --grid 256 \\
         --out cloth_sc.png
     python -m wgpu_physics_engine_torch granular --particles 1000000 \\
         --seconds 2 --size 256 256 --out pile.png
     python -m wgpu_physics_engine_torch datagen --worlds 64 --frames 8 \\
         --codec-k 16 --outdir datagen_out
+    python -m wgpu_physics_engine_torch datagen --family granular \\
+        --worlds 64 --frames 2 --codec-k 16 --random-cameras
     python -m wgpu_physics_engine_torch decode --indir datagen_out
 
 ``--device`` defaults to ``cuda``; on a host without CUDA the command
 fails (``--device cpu`` runs the plain torch versions of the kernels).
-``datagen`` writes one ``frame_NNNNN.npy`` shard per frame (``np.save``)
-and, with ``--codec-k``, the codec's ``codec_meta.json`` sidecar, which
-``decode`` reads.
+``datagen`` writes one ``frame_NNNNN.npy`` shard per frame, through the
+native async writer (``native.ShardWriter``, built with g++ at first use)
+where it builds, else ``np.save``, and says which; with ``--codec-k`` also
+the codec's ``codec_meta.json`` sidecar, which ``decode`` reads.
+``--family granular`` runs 20,000-particle piles (``--particles``) with
+per-world materials, 12 substeps a frame at 240 Hz.
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ def main(argv=None) -> int:
                                      "decode"])
     p.add_argument("--out", default=None, help="PNG path for a single frame")
     p.add_argument("--gif", default=None, help="animated GIF path")
+    p.add_argument("--live", action="store_true",
+                   help="stream frames to the terminal (ANSI truecolor)")
     p.add_argument("--seconds", type=float, default=3.0,
                    help="simulated seconds (cloth, particles, granular; "
                         "a GIF's length for every scene)")
@@ -58,6 +66,10 @@ def main(argv=None) -> int:
                    help="datagen: number of worlds")
     p.add_argument("--frames", type=int, default=8,
                    help="datagen: frames per world")
+    p.add_argument("--family", choices=["cloth", "granular"],
+                   default="cloth",
+                   help="datagen: model family (granular = per-world "
+                        "material constants on the kernel's parameters)")
     p.add_argument("--outdir", default="datagen_out")
     p.add_argument("--random-cameras", action="store_true",
                    help="datagen: randomize the viewpoint per world")
@@ -124,6 +136,9 @@ def main(argv=None) -> int:
     # App::resize before the first frame: sync the camera aspect to the
     # output size
     s.resize(w, h)
+    if args.live:
+        viewer.live(s, seconds=args.seconds, fps=args.fps, size=(h, w))
+        return 0
     if args.gif:
         frames = []
         n = int(args.seconds * args.fps)
@@ -142,29 +157,57 @@ def main(argv=None) -> int:
 
 
 def _datagen(args, c, t0) -> int:
-    """Batched cloth datagen: one ``frame_NNNNN.npy`` shard per frame."""
+    """Batched datagen, cloth or granular: one ``frame_NNNNN.npy`` shard
+    per frame, through the native async writer where it builds."""
     import os
 
     import numpy as np
     import torch
 
-    from .parallel import codec, datagen
+    from . import native
+    from .parallel import codec
 
     quality = args.quality if args.quality is not None else 1.0
-    gen = datagen.generate_trajectory_dataset(
-        c, n_worlds=args.worlds, n_frames=args.frames, steps_per_frame=24,
-        generator=torch.Generator().manual_seed(args.seed),
-        fb_size=tuple(args.size), randomize_cameras=args.random_cameras,
-        codec_k=args.codec_k, codec_quality=quality, device=args.device)
+    gen_kw = dict(n_worlds=args.worlds, n_frames=args.frames,
+                  generator=torch.Generator().manual_seed(args.seed),
+                  fb_size=tuple(args.size),
+                  randomize_cameras=args.random_cameras, codec_k=args.codec_k,
+                  codec_quality=quality, device=args.device)
+    if args.family == "granular":
+        from .models.granular import GranularConfig
+        from .parallel import datagen_granular
+
+        gen = datagen_granular.generate_granular_dataset(
+            GranularConfig(num_particles=args.particles or 20_000),
+            steps_per_frame=12, hz=240.0, **gen_kw)
+    else:
+        from .parallel import datagen
+
+        gen = datagen.generate_trajectory_dataset(c, steps_per_frame=24,
+                                                  **gen_kw)
     os.makedirs(args.outdir, exist_ok=True)
     if args.codec_k is not None:
         codec.write_meta(args.outdir, args.codec_k, quality, args.size)
+    # the async C++ writer copies each frame and writes it on its own
+    # thread, so the disk IO overlaps the next frame's compute
+    writer = native.ShardWriter() if native.available() else None
+    print(f"datagen {args.family}: shard writer "
+          + ("native (async, C++)" if writer is not None else "np.save"))
     n = 0
     for f, imgs, _ in gen:
         path = os.path.join(args.outdir, f"frame_{f:05d}.npy")
-        np.save(path, imgs)
+        if writer is not None:
+            writer.submit(path, imgs)
+        else:
+            np.save(path, imgs)
         n += imgs.shape[0]
         print(f"frame {f}: {imgs.shape} -> {path}")
+    if writer is not None:
+        written = writer.close()
+        print(f"native writer: {written} shards")
+        if written < 0:
+            print(f"native writer: {-written} shards failed", file=sys.stderr)
+            return 1
     print(f"datagen: {n} world-frames in {time.time()-t0:.1f}s")
     return 0
 

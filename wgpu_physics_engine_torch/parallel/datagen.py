@@ -257,6 +257,33 @@ def globe_texture(device="cuda") -> torch.Tensor:
     return T.pack_rgb8(T.get("mesh", max_size=256, device=device))
 
 
+def chunk_sizes(n_worlds: int, world_chunk: Optional[int]) -> List[int]:
+    """Worlds per chunk: ``world_chunk`` each (default: all at once), the
+    last chunk taking the remainder."""
+    world_chunk = world_chunk or n_worlds
+    n_full, rem = divmod(n_worlds, world_chunk)
+    return [world_chunk] * n_full + ([rem] if rem else [])
+
+
+def chunk_cameras(size: int, i0: int, camera: Optional[R.Camera],
+                  randomize_cameras: bool,
+                  generator: Optional[torch.Generator], device,
+                  default: cfg.CameraConfig = cfg.CameraConfig(),
+                  radius_range=(30.0, 55.0)) -> R.Camera:
+    """The cameras of the chunk of ``size`` worlds starting at world
+    ``i0``: drawn from ``generator`` (:func:`randomized_cameras` with
+    ``radius_range``) if ``randomize_cameras``, else the chunk's slice of a
+    batched ``camera``, else one camera (``camera`` or the orbit of
+    ``default``) shared by the chunk."""
+    if randomize_cameras:
+        return randomized_cameras(size, generator, radius_range=radius_range,
+                                  device=device)
+    if camera is not None and camera.view.ndim == 3:
+        return R.Camera(*(a[i0:i0 + size].to(device) for a in camera))
+    one = camera if camera is not None else R.make_camera(default, aspect=1.0)
+    return _broadcast_camera(R.Camera(*(a.to(device) for a in one)), size)
+
+
 def world_chunks(
     config: cfg.ClothConfig, n_worlds: int, globe_tex: torch.Tensor,
     generator: Optional[torch.Generator] = None,
@@ -278,14 +305,11 @@ def world_chunks(
     if worlds is not None and worlds.state.pos.shape[0] != n_worlds:
         raise ValueError(f"worlds holds {worlds.state.pos.shape[0]} worlds, "
                          f"n_worlds is {n_worlds}")
-    world_chunk = world_chunk or n_worlds
-    n_full, rem = divmod(n_worlds, world_chunk)
-    chunk_sizes = [world_chunk] * n_full + ([rem] if rem else [])
     batches: List[WorldBatch] = []
     cameras: List[R.Camera] = []
     base_fbs: List[Optional[R.Framebuffer]] = []
     i0 = 0
-    for size in chunk_sizes:
+    for size in chunk_sizes(n_worlds, world_chunk):
         i1 = i0 + size
         if worlds is None:
             batches.append(randomized_worlds(config, size, generator,
@@ -296,21 +320,30 @@ def world_chunks(
                                    for a in worlds.state)),
                 params=ClothParams(*(a[i0:i1].to(device)
                                      for a in worlds.params))))
-        if randomize_cameras:
-            cams = randomized_cameras(size, generator, device=device)
-        elif camera is not None and camera.view.ndim == 3:
-            cams = R.Camera(*(a[i0:i1].to(device) for a in camera))
-        else:
-            one = camera if camera is not None else R.make_camera(
-                cfg.CameraConfig(), aspect=1.0)
-            cams = _broadcast_camera(R.Camera(*(a.to(device) for a in one)),
-                                     size)
+        cams = chunk_cameras(size, i0, camera, randomize_cameras, generator,
+                             device)
         cameras.append(cams)
         base_fbs.append(globe_base_fbs(cams, batches[-1].params, globe_tex,
                                        fb_size=fb_size)
                         if cache_globe else None)
         i0 = i1
     return batches, cameras, base_fbs
+
+
+def encode_parts(batches: list, step, codec_k: Optional[int] = None,
+                 codec_quality: float = 1.0) -> List[torch.Tensor]:
+    """One frame on the device, chunk by chunk: ``step(i, batches[i])``
+    returns the chunk's next batch (stored back into ``batches``) and its
+    images, which the codec then compresses if ``codec_k``. Returns each
+    chunk's images (uint8 ``[b, h, w, 3]``, or int8 coefficients)."""
+    parts = []
+    for bi in range(len(batches)):
+        batches[bi], im = step(bi, batches[bi])
+        if codec_k is not None:
+            with record_function("datagen.codec"):
+                im = codec.encode(im, k=codec_k, quality=codec_quality)
+        parts.append(im)
+    return parts
 
 
 def frame_parts(batches: List[WorldBatch], cameras: List[R.Camera],
@@ -321,18 +354,43 @@ def frame_parts(batches: List[WorldBatch], cameras: List[R.Camera],
                 codec_quality: float = 1.0) -> List[torch.Tensor]:
     """One frame of :func:`generate_trajectory_dataset` on the device:
     :func:`step_and_render` on every chunk (``batches`` advance in place),
-    then the codec if ``codec_k``. Returns each chunk's images (uint8
-    ``[b, h, w, 3]``, or int8 coefficients)."""
-    parts = []
-    for bi in range(len(batches)):
-        batches[bi], im = step_and_render(
-            batches[bi], dt, steps_per_frame, cameras[bi], globe_tex,
-            fb_size=fb_size, base_fb=base_fbs[bi], use_kernel=use_kernel)
-        if codec_k is not None:
-            with record_function("datagen.codec"):
-                im = codec.encode(im, k=codec_k, quality=codec_quality)
-        parts.append(im)
-    return parts
+    then the codec if ``codec_k`` (:func:`encode_parts`)."""
+    return encode_parts(
+        batches, lambda bi, b: step_and_render(
+            b, dt, steps_per_frame, cameras[bi], globe_tex, fb_size=fb_size,
+            base_fb=base_fbs[bi], use_kernel=use_kernel),
+        codec_k, codec_quality)
+
+
+def stream_frames(frame, n_frames: int, batches: list, device
+                  ) -> Iterator[Tuple[int, np.ndarray, list]]:
+    """Yield ``(frame_idx, images, batches)`` host-side for ``n_frames``
+    frames of ``frame()`` (each chunk's images on the device, ``batches``
+    advanced in place), concatenated over the chunks.
+
+    On CUDA each frame's copy to pinned host memory starts on a side
+    stream as soon as the frame is enqueued (:class:`_Fetch`), and frame
+    f+1 is enqueued before frame f is waited for and yielded, so the copy
+    of frame f runs beside the compute of frame f+1; the yielded
+    ``batches`` then already hold frame f+1's state. On the CPU each frame
+    is copied as it is made."""
+    device = torch.device(device)
+    side = torch.cuda.Stream(device) if device.type == "cuda" else None
+    pending = None          # (frame_idx, fetch of that frame)
+    for f in range(n_frames):
+        parts = frame()
+        with record_function("datagen.fetch"):
+            if side is not None:
+                fetch = _Fetch(parts, side)
+            else:
+                fetch = torch.cat(parts).numpy()
+        if pending is not None:
+            pf, pfetch = pending
+            yield pf, pfetch.wait() if side is not None else pfetch, batches
+        pending = (f, fetch)
+    if pending is not None:                       # n_frames == 0: yield nothing
+        pf, pfetch = pending
+        yield pf, pfetch.wait() if side is not None else pfetch, batches
 
 
 def generate_trajectory_dataset(
@@ -367,12 +425,11 @@ def generate_trajectory_dataset(
     yielded arrays are ``[B, h/8, w/8, 3, codec_k]`` int8 (64/k× fewer
     bytes; decode with :func:`codec.decode`); else ``[B, h, w, 3]`` uint8.
 
-    Transfer/compute overlap (on CUDA): each frame's copy to pinned host
-    memory starts on a side stream as soon as the frame is enqueued, and
-    frame f+1's step and render are enqueued before frame f is waited for
-    and yielded, so the copy of frame f runs beside the compute of frame
-    f+1. The yielded ``batches`` therefore already hold frame f+1's state
-    when frame f's images are delivered.
+    Transfer/compute overlap (on CUDA, :func:`stream_frames`): frame f+1's
+    step and render are enqueued before frame f is waited for and yielded,
+    so the copy of frame f runs beside the compute of frame f+1. The
+    yielded ``batches`` therefore already hold frame f+1's state when frame
+    f's images are delivered.
     """
     device = torch.device(device)
     globe_tex = (globe_texture(device) if globe_tex is None
@@ -381,22 +438,8 @@ def generate_trajectory_dataset(
         config, n_worlds, globe_tex, generator, fb_size, camera, world_chunk,
         randomize_cameras, cache_globe, worlds, device)
     dt = 1.0 / config.hz
-
-    side = torch.cuda.Stream(device) if device.type == "cuda" else None
-    pending = None          # (frame_idx, fetch of that frame)
-    for f in range(n_frames):
-        parts = frame_parts(batches, cameras, base_fbs, dt, steps_per_frame,
+    yield from stream_frames(
+        lambda: frame_parts(batches, cameras, base_fbs, dt, steps_per_frame,
                             globe_tex, fb_size, use_kernel, codec_k,
-                            codec_quality)
-        with record_function("datagen.fetch"):
-            if side is not None:
-                fetch = _Fetch(parts, side)
-            else:
-                fetch = torch.cat(parts).numpy()
-        if pending is not None:
-            pf, pfetch = pending
-            yield pf, pfetch.wait() if side is not None else pfetch, batches
-        pending = (f, fetch)
-    if pending is not None:                       # n_frames == 0: yield nothing
-        pf, pfetch = pending
-        yield pf, pfetch.wait() if side is not None else pfetch, batches
+                            codec_quality),
+        n_frames, batches, device)

@@ -48,6 +48,24 @@ def clear(height: int, width: int, color=(0.05, 0.05, 0.08),
                          device=device))
 
 
+def _sqrt0(x: torch.Tensor) -> torch.Tensor:
+    """``sqrt(max(x, 0))``. Where ``x`` carries a gradient, the form whose
+    backward pass is finite everywhere (JAX's ``raster._safe_sqrt``):
+    ``d sqrt/dx`` at 0 is inf, and inf times the 0 cotangent of a masked
+    pixel is NaN. Both forms give the same bits."""
+    if not x.requires_grad:
+        return torch.sqrt(torch.clamp_min(x, 0.0))
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
+def _needs_grad(*xs) -> bool:
+    """Whether autograd is recording and any of ``xs`` (tensors or numbers)
+    requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
+
+
 def _plane(x: torch.Tensor) -> torch.Tensor:
     """A per-camera scalar (0-d, or [B] for a batch) shaped to broadcast
     against [..., H, W] planes."""
@@ -103,13 +121,20 @@ def _composite(fb: Framebuffer, hit: torch.Tensor, p_view: torch.Tensor,
 
 
 def draw_globe(fb: Framebuffer, camera: Camera, radius, texture: torch.Tensor,
-               light: cfg.LightConfig) -> Framebuffer:
-    """Lit, textured sphere at the origin — the analytic equivalent of the
+               light: cfg.LightConfig, compute_specular=None,
+               center=(0.0, 0.0, 0.0)) -> Framebuffer:
+    """Lit, textured sphere at ``center`` — the analytic equivalent of the
     globe render pipeline (cloth.rs:705-773 + globe_shader.wgsl).
-    ``radius`` is a number, or a [B] tensor for a batch of worlds."""
+    ``radius`` is a number, or a [B] tensor for a batch of worlds;
+    ``compute_specular`` overrides the light's toggle (None keeps it).
+
+    Differentiable: ``torch.autograd`` carries gradients to ``radius``,
+    ``center``, the camera and a tensor ``light.position``, through the
+    gradient-safe square roots of :func:`_sqrt0` and
+    ``shading._normalize`` and the pole-safe :func:`_sphere_uv`."""
     h, w = fb.depth.shape[-2:]
     eye, dirs = pixel_rays(camera, h, w)              # [3], [3,H,W]
-    center = torch.zeros(3, dtype=torch.float32, device=eye.device)
+    center = torch.as_tensor(center, dtype=torch.float32, device=eye.device)
     radius = torch.as_tensor(radius, dtype=torch.float32, device=eye.device)
     oc = center - eye
     b = (_plane(oc[..., 0]) * dirs[..., 0, :, :]
@@ -118,7 +143,7 @@ def draw_globe(fb: Framebuffer, camera: Camera, radius, texture: torch.Tensor,
     cc = torch.dot(oc, oc) if oc.ndim == 1 else torch.sum(oc * oc, dim=-1)
     disc = b * b - _plane(cc - radius * radius)
     hit = disc > 0.0
-    t = b - torch.sqrt(torch.clamp_min(disc, 0.0))
+    t = b - _sqrt0(disc)
     hit = hit & (t > _plane(camera.znear))
 
     p_world = eye[..., :, None, None] + t[..., None, :, :] * dirs
@@ -132,8 +157,26 @@ def draw_globe(fb: Framebuffer, camera: Camera, radius, texture: torch.Tensor,
     u, v = _sphere_uv(rel, _plane(radius))
     albedo = tex_mod.sample(texture, u, v)
     color = shading.phong(p_view, n_view, albedo, _light_view(camera, light),
-                          light)
+                          light, compute_specular)
     return _composite(fb, hit, p_view, color, camera)
+
+
+def _hit_t(cen: torch.Tensor, eye: torch.Tensor, dirs: torch.Tensor, radius,
+           hit: torch.Tensor) -> torch.Tensor:
+    """``t_t - t_t.detach()``: zero in value, the gradient of the hit
+    distance of rays ``dirs`` against the spheres centred at ``cen``
+    ([..., 3, H, W], each pixel's winner), the plain sweep's expression
+    (``raster_kernel._sweep``) on the winner alone; 0 where nothing
+    hit."""
+    oc = cen - eye[..., :, None, None]
+    ox, oy, oz = oc.unbind(-3)
+    r = _plane(torch.as_tensor(radius, dtype=torch.float32,
+                               device=dirs.device))
+    b = (dirs[..., 0, :, :] * ox + dirs[..., 1, :, :] * oy
+         + dirs[..., 2, :, :] * oz)
+    disc = b * b - (ox * ox + oy * oy + oz * oz - r * r)
+    t = torch.where(hit, b - _sqrt0(disc), 0.0)
+    return t - t.detach()
 
 
 def draw_instanced_spheres(
@@ -160,27 +203,56 @@ def draw_instanced_spheres(
     from its ``oc`` output (a batch is binned in one pass and takes one
     launch for all worlds). Each route runs its CUDA kernel for a CUDA
     framebuffer and its plain version for a CPU one.
+
+    Differentiable on both routes and devices: the search for the nearest
+    hit is discrete and carries no gradient, so where autograd needs one
+    (grad enabled and ``centers``, ``radius`` or a camera leaf requiring
+    grad) the winner's hit distance, and on the K2/K3 route its centre,
+    are recomputed in torch from the winner's index, the a.e. gradient of
+    JAX's plain route through its argmin. The forward keeps the kernel's
+    bits (``t_k + (t_t - t_t.detach())``); without a gradient to carry
+    nothing is recomputed.
     """
     h, w = fb.depth.shape[-2:]
     eye, dirs = pixel_rays(camera, h, w)
     shaded = texture is not None or lit
+    grad = _needs_grad(centers, radius, *camera)
     if (eye.ndim == 1 and centers.shape[0] <= raster_kernel.MAX_INSTANCES
             and (h % 16 or w % 128)):
-        tmin, inst = raster_kernel.sphere_raster_untiled(
-            eye, dirs, centers, radius, camera.znear)
+        with torch.no_grad():
+            tmin, inst = raster_kernel.sphere_raster_untiled(
+                eye, dirs, centers, radius, camera.znear)
         hit = inst >= 0
-        cen = centers.T[:, inst.clamp_min(0).long()] if shaded else None
+        cen = (centers.T[:, inst.clamp_min(0).long()] if shaded or grad
+               else None)
     else:
         prologue = (raster_kernel.tiled_prologue_batched if eye.ndim == 2
                     else raster_kernel.tiled_prologue)
-        wins, ocb, _, rect = prologue(camera.view[..., :3, :3], eye,
-                                      centers, radius, camera.znear,
-                                      torch.tan(camera.fovy_rad / 2.0),
-                                      camera.aspect, h, w)
-        tmin, inst, oc = raster_kernel.sphere_raster_binned(
-            wins, ocb, rect, dirs, camera.znear)
+        with torch.no_grad():
+            wins, ocb, order, rect = prologue(
+                camera.view[..., :3, :3], eye, centers, radius, camera.znear,
+                torch.tan(camera.fovy_rad / 2.0), camera.aspect, h, w)
+            tmin, inst, oc = raster_kernel.sphere_raster_binned(
+                wins, ocb, rect, dirs, camera.znear)
         hit = inst >= 0
         cen = eye[..., :, None, None] + oc if shaded else None
+        if grad:
+            # the winner's original index: order maps sorted to original
+            srt = inst.clamp_min(0).long()
+            if eye.ndim == 1:
+                idx = order.long()[srt]
+                cen_t = centers.T[:, idx]
+            else:
+                idx = torch.gather(order.long(), 1, srt.flatten(1)
+                                   ).reshape(srt.shape)
+                cen_t = torch.stack([
+                    torch.gather(centers[..., k], 1, idx.flatten(1)
+                                 ).reshape(idx.shape) for k in range(3)],
+                    dim=1)
+            cen = ((eye[..., :, None, None] + oc).detach()
+                   + (cen_t - cen_t.detach()))
+    if grad:
+        tmin = tmin + _hit_t(cen, eye, dirs, radius, hit)
 
     tmin_g = torch.where(hit, tmin, 0.0)
     p_world = eye[..., :, None, None] + tmin_g[..., None, :, :] * dirs
@@ -552,14 +624,18 @@ def draw_mesh(fb: Framebuffer, camera: Camera, mesh: DeviceMesh,
 
 
 def _linear_rows(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``v @ m[:3, :3].T`` for ``v`` [L, 3], written out."""
-    return torch.stack([v[:, 0] * m[i, 0] + v[:, 1] * m[i, 1]
-                        + v[:, 2] * m[i, 2] for i in range(3)], dim=1)
+    """``v @ m[..., :3, :3].T`` for ``v`` [..., L, 3], written out; a
+    leading [B] on ``m`` maps each world's rows with its own matrix."""
+    return torch.stack([v[..., 0] * m[..., i, 0, None]
+                        + v[..., 1] * m[..., i, 1, None]
+                        + v[..., 2] * m[..., i, 2, None] for i in range(3)],
+                       dim=-1)
 
 
 def _affine_rows(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``v @ m[:3, :3].T + m[:3, 3]`` for ``v`` [L, 3], written out."""
-    return _linear_rows(m, v) + m[:3, 3]
+    """``v @ m[..., :3, :3].T + m[..., :3, 3]`` for ``v`` [..., L, 3],
+    written out."""
+    return _linear_rows(m, v) + m[..., None, :3, 3]
 
 
 def draw_lines(fb: Framebuffer, camera: Camera, segments,
@@ -567,8 +643,11 @@ def draw_lines(fb: Framebuffer, camera: Camera, segments,
     """Line-list pass (the wireframe bounds box, the reference's
     wireframe_shader). ``segments``: [L, 2, 3] world-space endpoints (a
     tensor or an array). Screen-space distance test per pixel, depth-tested
-    against the interpolated segment depth. One framebuffer, no batch."""
-    h, w = fb.depth.shape
+    against the interpolated segment depth. A batch of framebuffers
+    ([B, H, W]) takes a batched camera and draws each world with its own,
+    every op elementwise, so world i equals the single-camera pass bit for
+    bit."""
+    h, w = fb.depth.shape[-2:]
     dev = fb.depth.device
     seg = torch.as_tensor(segments, dtype=torch.float32, device=dev)
     view = camera.view.to(dev)
@@ -576,32 +655,34 @@ def draw_lines(fb: Framebuffer, camera: Camera, segments,
 
     def project(v):
         vv = _affine_rows(view, v)
-        wc = -vv[:, 2]
-        ndc = _affine_rows(proj, vv) / wc[:, None]
-        return (torch.stack([(ndc[:, 0] + 1) * 0.5 * w,
-                             (1 - ndc[:, 1]) * 0.5 * h], 1), ndc[:, 2], wc)
+        wc = -vv[..., 2]
+        ndc = _affine_rows(proj, vv) / wc[..., None]
+        return (torch.stack([(ndc[..., 0] + 1) * 0.5 * w,
+                             (1 - ndc[..., 1]) * 0.5 * h], -1), ndc[..., 2],
+                wc)
 
-    pa, za, wa = project(seg[:, 0, :])
+    pa, za, wa = project(seg[:, 0, :])                 # [..., L, 2], [..., L]
     pb, zb, wb = project(seg[:, 1, :])
-    znear = camera.znear.to(dev)
+    znear = camera.znear.to(dev)[..., None]
     ok = (wa > znear) & (wb > znear)
 
     px = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5)[None, :, None]
     py = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5)[:, None, None]
-    ab = pb - pa                                       # [L, 2]
-    ap_x = px - pa[None, None, :, 0]
-    ap_y = py - pa[None, None, :, 1]
-    ab2 = ab[:, 0] * ab[:, 0] + ab[:, 1] * ab[:, 1]
-    s = ((ap_x * ab[None, None, :, 0] + ap_y * ab[None, None, :, 1])
+    ab = (pb - pa)[..., None, None, :, :]              # [..., 1, 1, L, 2]
+    pa = pa[..., None, None, :, :]
+    ap_x = px - pa[..., 0]
+    ap_y = py - pa[..., 1]
+    ab2 = ab[..., 0] * ab[..., 0] + ab[..., 1] * ab[..., 1]
+    s = ((ap_x * ab[..., 0] + ap_y * ab[..., 1])
          / torch.clamp_min(ab2, 1e-12))
     s = torch.clamp(s, 0.0, 1.0)
-    dx = ap_x - s * ab[None, None, :, 0]
-    dy = ap_y - s * ab[None, None, :, 1]
+    dx = ap_x - s * ab[..., 0]
+    dy = ap_y - s * ab[..., 1]
     dist2 = dx * dx + dy * dy
-    on_line = (dist2 <= (0.5 + px_width / 2) ** 2) & ok[None, None, :]
-    z = za[None, None, :] + s * (zb - za)[None, None, :]
+    on_line = (dist2 <= (0.5 + px_width / 2) ** 2) & ok[..., None, None, :]
+    z = za[..., None, None, :] + s * (zb - za)[..., None, None, :]
     z = torch.where(on_line, z, torch.inf)
-    zmin = torch.amin(z, dim=2)
+    zmin = torch.amin(z, dim=-1)
     win = (zmin < fb.depth) & torch.isfinite(zmin)
     c = torch.as_tensor(color, dtype=torch.float32, device=dev)
     return Framebuffer(color=torch.where(win[..., None], c, fb.color),

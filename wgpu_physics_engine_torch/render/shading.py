@@ -22,7 +22,15 @@ from ..core import config as cfg
 
 
 def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    n = torch.sqrt(torch.sum(v * v, dim=-3, keepdim=True))
+    s = torch.sum(v * v, dim=-3, keepdim=True)
+    if s.requires_grad:
+        # the same bits (sqrt(0) = 0), but the sqrt never sees 0 on the
+        # backward pass: d sqrt/dx at 0 is inf, and inf times the 0
+        # cotangent of a masked pixel is NaN (JAX's shading._normalize)
+        pos = s > 0
+        n = torch.where(pos, torch.sqrt(torch.where(pos, s, 1.0)), 0.0)
+    else:
+        n = torch.sqrt(s)
     return v / torch.clamp_min(n, eps)
 
 

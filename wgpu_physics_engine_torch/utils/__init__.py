@@ -1,3 +1,3 @@
-from . import viewer
+from . import checkpoint, debug, metrics, profiling, viewer
 
-__all__ = ["viewer"]
+__all__ = ["checkpoint", "debug", "metrics", "profiling", "viewer"]

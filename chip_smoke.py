@@ -40,7 +40,11 @@ cut into bands of rows with halo exchange on the row-window kernel K6w of
 particles), a batch of row-sharded 256² worlds on K1w, worlds-sharded K5;
 ``parallel.granular_mesh``: the 1M pile cut into blocks of sorted slots
 on the granular kernel with a base, K10b, and the worlds-sharded granular
-gradient; ``examples/multichip_datagen.py``). Phases:
+gradient; ``examples/multichip_datagen.py``); and the same rows path
+under autograd (``examples/multichip_training.py``, the stiffness fit
+over 8 shards of the card, and value_and_grad of the two rows cells:
+K1w or K6w forward, the window trace and the window adjoint of
+``ops/csrc/cloth_grad.cu`` backward). Phases:
 
 1. the card: CUDA present, ``nvidia-smi`` name and power limit;
 2. the build of the six kernel libraries (one nvcc each, all started
@@ -332,6 +336,27 @@ copies, the rest, the device's idle share).
    versions on the inputs they are timed on, bit for bit.
 24. ``cloth --live --seconds 1`` in a process without a terminal: exit
    code 0 and 20 ANSI frames.
+25. the differentiable rows path: the window trace (K1w's body,
+   ``cloth_kernel.trace_window``) and the window adjoint
+   (``cloth_grad.cu``'s ``WINDOW`` instantiation) against their plain
+   versions on the top (dead rows), a middle and the bottom window of the
+   136×256 and 264×1024 windows of phase 21's two rows cells, draped, and
+   on the top and the bottom 16×16 window of the training example's 16²
+   cloth (its start and half its rollout, each window with 4 dead rows),
+   each with and without pins (the trace and the state and pin cotangents bit for
+   bit, the trace's last state equal to ``multi_step_window``'s output;
+   the parameter cotangent within 1e-5, its float64 partial sums taken
+   in another order); then, counted, the port's
+   ``examples/multichip_training.py`` at its defaults (8 shards of the
+   card, 60 iterations: ``k_struct`` within 1% of the truth from 2× off)
+   and one value_and_grad of each rows cell (8 worlds of 256² on a (2, 2)
+   worlds × rows mesh; the 1024² cloth on 4 rows shards; 48 substeps at
+   k = 2, a trajectory-matching loss, gradients in log k_struct and pos0),
+   every count exact; each cell's gradients against the whole-grid
+   adjoint (``cloth_grad_kernel.multi_step``) within 1e-5 of max|g|;
+   the value_and_grads by host clock and CUDA events, each traced once
+   (``trace_rows_grad_*.json``), and phase 6 at each site (the window
+   adjoint beside the whole-grid adjoint on as many rows, in turns).
 
 Any failed check raises, so the script exits non-zero; with no CUDA device
 it exits non-zero before doing anything. The next-to-last line of stdout is
@@ -352,7 +377,8 @@ scene, frame and CLI, and the gradient segment's forward, a launch a
 call: its sites count time and bound a substep), ``cloth_tiled`` (K6)
 phase 20's 2048² scene, and ``cloth_tiled_window`` (K6w),
 ``cloth_step_window`` (K1w) and ``granular_step_sharded`` (K10b) phase
-21's.
+21's, K1w and K6w also phase 25's; ``cloth_substep_vjp_window`` and
+``cloth_trace_window`` phase 25's.
 Images and the full results go to ``chiprun_out/``.
 
 """
@@ -527,6 +553,13 @@ MC_DIFF_STEPS = 16
 MC_SC_WORLDS = 4
 MC_SC_STEPS = 240
 MC_TRACE_STEPS = 8
+# the differentiable rows path (phase 25): value_and_grad of phase 21's two
+# rows cells over RG_STEPS substeps at k = RG_K (136×256 and 264×1024
+# windows), the loss at RG_K_OFF times the true k_struct against the
+# trajectory from the truth
+RG_STEPS = 48
+RG_K = 2
+RG_K_OFF = 0.8
 # the granular datagen path (phase 22): the CLI's family (JAX __main__.py
 # :149-159): piles of 20,000 particles (GranularConfig's defaults
 # otherwise), 12 substeps a frame at 240 Hz; 256 worlds in chunks of 64
@@ -5130,6 +5163,508 @@ def _phase24_live(card) -> dict:
     return {"rc": proc.returncode, "frames": frames, "s": s}
 
 
+# ---------------------------------------------------------------------------
+# The differentiable rows path (phase 25)
+# ---------------------------------------------------------------------------
+
+def _rg_counters() -> dict:
+    """The launch counters phase 25 reads: every cloth kernel of the
+    multi-device paths, the window trace and both adjoint entries."""
+    from wgpu_physics_engine_torch.ops import cloth_grad_kernel, cloth_kernel
+
+    c = {k: v for k, v in _mc_counters().items()
+         if k.startswith("cloth")}
+    c["cloth_trace_window"] = cloth_kernel.LAUNCHES_WINDOW_TRACE
+    c["cloth_substep_vjp"] = cloth_grad_kernel.LAUNCHES
+    c["cloth_substep_vjp_window"] = cloth_grad_kernel.LAUNCHES_WINDOW
+    return c
+
+
+def _rg_reset() -> None:
+    from wgpu_physics_engine_torch.ops import cloth_grad_kernel, cloth_kernel
+
+    _mc_counters(reset=True)
+    cloth_kernel.LAUNCHES_WINDOW_TRACE = 0
+    cloth_grad_kernel.LAUNCHES = 0
+    cloth_grad_kernel.LAUNCHES_WINDOW = 0
+
+
+def _rg_cells(dev) -> dict:
+    """Phase 21's two rows cells as (state, params, mesh, h_local): the
+    composed one (MC_WORLDS worlds of the GRID² flagship, phase 21's
+    seeded worlds, on a (2, 2) worlds × rows mesh: 136×256 windows at
+    k = 2) and the rows one (the LG² cloth, top row pinned, on MC_SHARDS
+    rows shards: 264×1024 windows, above the tiled limit). Both start
+    with seeded velocities of 0.5·N(0, 1), which stretch the springs
+    within the rollout: a cloth falling from rest keeps its springs at
+    their rest length, and its loss does not depend on k."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import (ClothParams, ClothState,
+                                                      init_cloth_state)
+    from wgpu_physics_engine_torch.parallel import datagen
+    from wgpu_physics_engine_torch.parallel import mesh as pmesh
+
+    c_fl = ClothConfig(height=GRID, width=GRID)
+    fl = datagen.randomized_worlds(c_fl, MC_WORLDS,
+                                   torch.Generator().manual_seed(21),
+                                   device=dev)
+    c_lg = ClothConfig(height=LG, width=LG)
+    s_lg = init_cloth_state(c_lg, device=dev)
+    pin = torch.zeros((LG, LG), dtype=torch.bool, device=dev)
+    pin[0] = True
+    g = torch.Generator().manual_seed(25)
+    vel = [(0.5 * torch.randn(s.shape, generator=g)).to(dev)
+           for s in (fl.state.vel, s_lg.vel)]
+    s_lg = s_lg._replace(vel=vel[1])
+    return {
+        "composed": (ClothState(pos=fl.state.pos, vel=vel[0]),
+                     ClothParams.from_config(c_fl, device=dev),
+                     pmesh.make_mesh((2, 2), ("worlds", "rows"), [dev] * 4),
+                     GRID // 2),
+        "rows": (s_lg._replace(pin_mask=pin, pin_pos=s_lg.pos),
+                 ClothParams.from_config(c_lg, device=dev),
+                 pmesh.make_mesh((MC_SHARDS,), ("rows",), [dev] * MC_SHARDS),
+                 LG // MC_SHARDS)}
+
+
+def _rg_rollout(state, params, mesh, log_k, how: str = "sharded"):
+    """RG_STEPS substeps with ``k_struct = exp(log_k)``: through the rows
+    path on ``mesh`` (a batch on the composed mesh, one cloth on the rows
+    one), or with ``how="whole"`` world by world on the whole grid
+    (``cloth_grad_kernel.multi_step``: K1 or K6r forward, the whole-grid
+    adjoint)."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.state import ClothState
+    from wgpu_physics_engine_torch.ops import cloth_grad_kernel
+    from wgpu_physics_engine_torch.parallel import mesh as pmesh
+
+    p = params._replace(k_struct=torch.exp(log_k))
+    if how == "whole":
+        if state.pos.ndim == 3:
+            return cloth_grad_kernel.multi_step(state, p, DT, RG_STEPS).pos
+        return torch.stack([cloth_grad_kernel.multi_step(
+            ClothState(state.pos[b], state.vel[b]), p, DT, RG_STEPS).pos
+            for b in range(state.pos.shape[0])])
+    if state.pos.ndim == 3:
+        return pmesh.spatial_multi_step(state, p, DT, RG_STEPS, mesh,
+                                        substeps_per_exchange=RG_K).pos
+    return pmesh.batched_spatial_multi_step(state, p, DT, RG_STEPS, mesh,
+                                            substeps_per_exchange=RG_K).pos
+
+
+def _rg_value_and_grad(state, params, mesh, target, how: str = "sharded"):
+    """The trajectory-matching loss ``mean((pos − target)²)`` at
+    ``k_struct = RG_K_OFF · k_true`` (a 0-d tensor, not synchronised) and
+    its gradients in log k_struct and in pos0."""
+    import torch
+
+    log_k = torch.log(RG_K_OFF * params.k_struct).detach().requires_grad_(
+        True)
+    pos0 = state.pos.detach().clone().requires_grad_(True)
+    out = _rg_rollout(state._replace(pos=pos0), params, mesh, log_k, how)
+    loss = torch.mean((out - target) ** 2)
+    g_k, g_pos = torch.autograd.grad(loss, (log_k, pos0))
+    return loss.detach(), g_k, g_pos
+
+
+def _rg_window_cases(dev) -> list:
+    """The windows phase 25 (c) holds the window trace and the window
+    adjoint on, as (cell, h_global, h_local, params, states, windows):
+    the training example's 16² cloths (world 0 of ``mt.make_problem`` on
+    the card, at its start and after half its rollout; the top and the
+    bottom window of its 2 rows shards, each spanning the whole grid with
+    4 dead rows) and phase 21's two rows cells on the draped GRID² and
+    LG² cloths (``_k6_states``; the top, a middle and the bottom window),
+    each state with and without the top row pinned."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.state import ClothState
+    from wgpu_physics_engine_torch.examples import multichip_training as mt
+
+    halo = 2 * RG_K
+
+    def pinned(s):
+        pin = torch.zeros(s.pos.shape[-2:], dtype=torch.bool, device=dev)
+        pin[0] = True
+        return s._replace(pin_mask=pin, pin_pos=s.pos)
+
+    m, _, ex_params, ex = mt.make_problem(device=dev)
+    mid = mt.rollout(ex, ex_params, m, mt.N_STEPS // 2)
+    ex_states = {}
+    for label, s in (("start", ex), (f"substep {mt.N_STEPS // 2}", mid)):
+        s0 = ClothState(pos=s.pos[0], vel=s.vel[0])
+        ex_states[f"example {label}"] = s0
+        ex_states[f"example {label}, pinned"] = pinned(s0)
+    h_ex = ex.pos.shape[-2]
+    cases = [("example", h_ex, h_ex // 2, ex_params, ex_states,
+              (("top", -halo), ("bottom", h_ex // 2 - halo)))]
+    for cell, hg, h_local in (("composed", GRID, GRID // 2),
+                              ("rows", LG, LG // MC_SHARDS)):
+        params, states = _k6_states(hg, hg, dev)
+        s = states["draped"]
+        cases.append((cell, hg, h_local, params,
+                       {"draped": s._replace(pin_mask=None, pin_pos=None),
+                        "draped, pinned": s},
+                       (("top", -halo),
+                        ("middle", hg // 2 - h_local // 2 - halo),
+                        ("bottom", hg - h_local - halo))))
+    return cases
+
+
+def _rg_window_checks(dev, card):
+    """Phase 25 (c): on each window of ``_rg_window_cases`` at k = RG_K:
+    ``trace_window`` (K1w's body) ≡ ``trace_window_plain`` and its state
+    RG_K ≡ the routed ``multi_step_window`` (K1w; K6w on the LG² windows),
+    bit for bit; the window adjoint over the RG_K substeps against
+    ``_walk_plain`` with the window on a random cotangent: state and pin
+    cotangents bit for bit, the parameter cotangent's largest difference
+    printed (float64 partial sums in another order, each rounded once).
+    Returns the results and the two kernels' largest differences."""
+    import numpy as np
+    import torch
+
+    from wgpu_physics_engine_torch.ops import cloth_grad_kernel, cloth_kernel
+
+    halo = 2 * RG_K
+    res, err = {}, {"trace": 0.0, "adjoint": 0.0}
+    for _, hg, h_local, params, states, windows in _rg_window_cases(dev):
+        prm = cloth_kernel._pack_params(params, DT)
+        rows = h_local + 2 * halo
+        for label, s in states.items():
+            for where, row0 in windows:
+                win = [None if a is None else _window_of(a, row0, row0 + rows,
+                                                         hg)
+                       for a in (s.pos, s.vel, s.pin_mask, s.pin_pos)]
+                traj = cloth_kernel.trace_window_kernel(*win, prm, RG_K + 1,
+                                                        row0, hg)
+                fwd = cloth_kernel.multi_step_window(*win, params, DT, RG_K,
+                                                     row0, hg)
+                plain = cloth_kernel.trace_window_plain(*win, prm, RG_K + 1,
+                                                        row0, hg)
+                rng = np.random.default_rng(hg + row0)
+                cp, cv = (torch.tensor(rng.standard_normal((3, rows, hg))
+                                       .astype(np.float32), device=dev)
+                          for _ in range(2))
+                pins = None if win[2] is None else (win[2], win[3])
+                got = cloth_grad_kernel._walk_kernel(traj[:RG_K], cp, cv, prm,
+                                                     pins, (row0, hg))
+                ref = cloth_grad_kernel._walk_plain(traj[:RG_K], cp, cv, prm,
+                                                    pins, (row0, hg))
+                torch.cuda.synchronize()
+                eq_trace = bool(torch.equal(traj, plain)
+                                and torch.equal(traj[RG_K, :3], fwd[0])
+                                and torch.equal(traj[RG_K, 3:], fwd[1]))
+                eq_state = bool(torch.equal(got[0], ref[0])
+                                and torch.equal(got[1], ref[1])
+                                and (pins is None
+                                     or torch.equal(got[3], ref[3])))
+                e_t = _maxdiff(traj, plain)
+                e_p = _maxdiff(got[2], ref[2])
+                e_s = max(_maxdiff(got[0], ref[0]), _maxdiff(got[1], ref[1]))
+                rel = e_p / float(ref[2].abs().max())
+                finite = bool(torch.isfinite(got[2]).all())
+                key = f"{rows}x{hg} {where} {label}"
+                res[key] = {"row0": row0, "trace_err": e_t,
+                            "trace_bitwise": eq_trace, "state_err": e_s,
+                            "state_bitwise": eq_state, "param_err": e_p,
+                            "param_rel": rel, "finite": finite}
+                print(f"phase 25 window trace and window adjoint @{key} "
+                      f"(row0 {row0}, k = {RG_K}) [{card}]: trace vs plain "
+                      f"and vs multi_step_window bitwise {eq_trace}; the "
+                      f"adjoint's state{' and pin' if pins else ''} "
+                      f"cotangents vs plain bitwise {eq_state}; its "
+                      f"parameter cotangent max abs {e_p:.3e} (relative "
+                      f"{rel:.3e}, float64 partial sums in another order), "
+                      f"finite {finite}")
+                _check(eq_trace, f"window trace {key} differs from its plain "
+                       f"version or the stepper")
+                _check(eq_state, f"window adjoint {key}: state cotangents "
+                       f"differ from the plain version by {e_s}")
+                _check(rel <= 1e-5 and finite, f"window adjoint {key}: "
+                       f"parameter cotangent off by {rel} (finite {finite})")
+                err["trace"] = max(err["trace"], e_t)
+                err["adjoint"] = max(err["adjoint"], e_s, e_p)
+    return res, err
+
+
+def _rg_trace(fn, path, card, label: str) -> dict:
+    """One traced value_and_grad (``_trace``): its window, the device's
+    busy time and idle share, and the launches and µs of the window
+    kernels (K1w, K6w, the window trace's K1w body, the window adjoint)."""
+    dev_spans, host = _trace(fn, path)
+    t0 = min([a for a, _ in host] + [a for a, _, _ in dev_spans])
+    t1 = max([b for _, b in host] + [b for _, b, _ in dev_spans])
+    busy = _union_us([(a, b) for a, b, _ in dev_spans])
+    per = {}
+    for name, key in (("K1w and its trace", "substep_kernel_window"),
+                      ("K6w", "tiled_kernel"),
+                      ("window adjoint", "vjp_substep"),
+                      ("reduce_partials", "reduce_partials")):
+        ds = [b - a for a, b, n in dev_spans if key in n]
+        per[name] = {"launches": len(ds), "us": sum(ds)}
+    res = {"window_us": t1 - t0, "device_busy_us": busy,
+           "device_ops": len(dev_spans), "per_kernel": per,
+           "idle_share": 1.0 - busy / (t1 - t0)}
+    print(f"phase 7 trace value_and_grad, {label} [{card}]: window "
+          f"{t1 - t0:.1f} us (host, profiled), device busy {busy:.1f} us in "
+          f"{len(dev_spans)} device ops; "
+          + ", ".join(f"{k} {v['launches']} launches {v['us']:.1f} us"
+                      for k, v in per.items())
+          + f"; device idle share {res['idle_share']:.4f}")
+    return res
+
+
+def _rg_kernel_times(dev, card) -> dict:
+    """Phase 6 for phase 25's sites: at each window (the example's 16×16,
+    the composed 136×256, the rows 264×1024) the window trace a launch
+    (CUDA events over RG_STEPS launches) beside its plain version and
+    bound, and the window adjoint a substep (a walk of RG_STEPS) beside
+    the whole-grid adjoint on a grid of the same rows, in turns within the
+    call, its plain version and bound; K1w on the example's window. The
+    window is the top one (dead rows), on the fresh cloth."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import (ClothParams,
+                                                      init_cloth_state)
+    from wgpu_physics_engine_torch.ops import cloth_grad_kernel, cloth_kernel
+
+    halo = 2 * RG_K
+    res = {}
+    g = torch.Generator().manual_seed(25)
+    for name, hg, h_local in (("example", 16, 8), ("composed", GRID, GRID // 2),
+                              ("rows", LG, LG // MC_SHARDS)):
+        c = ClothConfig(height=hg, width=hg)
+        s = init_cloth_state(c, device=dev)
+        p = ClothParams.from_config(c, device=dev)
+        prm = cloth_kernel._pack_params(p, DT)
+        rows = h_local + 2 * halo
+        win = [_window_of(a, -halo, rows - halo, hg) for a in (s.pos, s.vel)]
+        n = RG_STEPS
+        tr_ms = _best_ms(lambda: cloth_kernel.trace_window_kernel(
+            *win, None, None, prm, n + 1, -halo, hg)) / n
+        n_plain = 4
+        trp_ms = _best_ms(lambda: cloth_kernel.trace_window_plain(
+            *win, None, None, prm, n_plain + 1, -halo, hg)) / n_plain
+        masks = cloth_kernel._window_masks(rows, hg, -halo, hg, dev)
+        edges = sum(int(m.sum()) for m in masks)
+        # the trace's bytes: the start state read, a state written a substep
+        tb, tby = _bound(24.0 * rows * hg * (n + 1),
+                         n * (OPS_EDGE * edges + OPS_PARTICLE * rows * hg))
+        traj = cloth_kernel.trace_window_kernel(*win, None, None, prm, n,
+                                                -halo, hg)
+        cp, cv = (torch.randn((3, rows, hg), generator=g).to(dev)
+                  for _ in range(2))
+        ws, gs = [], []
+        for _ in range(2):                       # in turns: W G G W
+            ws.append(_best_ms(lambda: cloth_grad_kernel._walk_kernel(
+                traj, cp, cv, prm, None, (-halo, hg))) / n)
+            gs.append(_best_ms(lambda: cloth_grad_kernel._walk_kernel(
+                traj, cp, cv, prm, None)) / n)
+        w_ms, gw_ms = min(ws), min(gs)
+        wp_ms = _best_ms(lambda: cloth_grad_kernel._walk_plain(
+            traj[:n_plain], cp, cv, prm, None, (-halo, hg))) / n_plain
+        ab, aby = _bound(VJP_BYTES * rows * hg,
+                         OPS_VJP_EDGE * edges + OPS_VJP_PARTICLE * rows * hg)
+        res[name] = {"rows": rows, "w": hg,
+                     "trace": {"ms": tr_ms, "plain_ms": trp_ms,
+                               "bound_ms": tb / n, "bound_by": tby},
+                     "adjoint": {"ms": w_ms, "whole_grid_ms": gw_ms,
+                                 "turns_ms": {"window": ws, "whole": gs},
+                                 "plain_ms": wp_ms, "bound_ms": ab,
+                                 "bound_by": aby}}
+        if name == "example":
+            k1w = _best_ms(lambda: cloth_kernel.multi_step_window_kernel(
+                *win, None, None, p, DT, n, -halo, hg)) / n
+            kb, kby = _cloth_bound(rows, hg, 1, RG_K)
+            res[name]["k1w"] = {"ms": k1w, "bound_ms": kb / RG_K,
+                                "bound_by": kby}
+        del traj
+        print(f"phase 6 window trace and window adjoint @{rows}x{hg} "
+              f"({name}'s window) [{card}]: trace {tr_ms:.5f} ms a launch "
+              f"(plain {trp_ms:.5f}), bound {tb / n:.6f} ms ({tby}); window "
+              f"adjoint {w_ms:.5f} ms a substep, the whole-grid adjoint on "
+              f"{rows}x{hg} {gw_ms:.5f} (in turns W G G W: "
+              f"{', '.join(f'{a:.5f}/{b:.5f}' for a, b in zip(ws, gs))}), "
+              f"plain {wp_ms:.5f}, bound {ab:.6f} ms ({aby})")
+    return res
+
+
+def _phase25(dev, card, mc_times):
+    """Phase 25: the differentiable rows path. (c) the window trace and
+    the window adjoint against their plain versions on the windows of the
+    training example and of the two rows cells (``_rg_window_checks``);
+    then, with the counts set to
+    0 just before and read just after, the main path: the port's
+    ``examples/multichip_training.py`` at its defaults (8 shards of the
+    card, 60 iterations; ``k_struct`` within 1% of the truth from 2× off)
+    and one value_and_grad of each rows cell over RG_STEPS substeps (b),
+    each count checked exactly; (d) each cell's gradients against the
+    whole-grid adjoint within 1e-5 of max|g|; the value_and_grads timed by
+    host clock and CUDA events, each traced once; phase 6 at each site.
+    Returns the results, the two new kernels' entries, and the sites phase
+    25 adds to K1w's and K6w's (the composed and rows windows' times from
+    phase 21's ``mc_times``)."""
+    import torch
+
+    from wgpu_physics_engine_torch.examples import multichip_training as mt
+
+    res = {}
+    res["checks"], err = _rg_window_checks(dev, card)
+
+    # ---- inputs and targets, not counted ----
+    cells = _rg_cells(dev)
+    targets = {}
+    with torch.no_grad():
+        for name, (s, p, m, _) in cells.items():
+            targets[name] = _rg_rollout(s, p, m, torch.log(p.k_struct))
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted ----
+    _rg_reset()
+    t0 = time.perf_counter()
+    k, k_true = mt.main()
+    torch.cuda.synchronize()
+    ex_s = time.perf_counter() - t0
+    after = {"example": _rg_counters()}
+    vg = {}
+    for name, (s, p, m, _) in cells.items():
+        vg[name] = _rg_value_and_grad(s, p, m, targets[name])
+        torch.cuda.synchronize()
+        after[name] = _rg_counters()
+    launches = after["rows"]
+    site = {"example": after["example"]}
+    site["composed"] = {n: after["composed"][n] - after["example"][n]
+                        for n in launches}
+    site["rows"] = {n: after["rows"][n] - after["composed"][n]
+                    for n in launches}
+    rel_k = abs(k - k_true) / k_true
+    print(f"phase 25 examples/multichip_training.py (defaults: 8 shards of "
+          f"the card, {mt.N_STEPS} substeps, 60 iterations) [{card}]: "
+          f"recovered k_struct {k:.4f} (true {k_true:.1f}, started "
+          f"{0.5 * k_true:.1f}; relative error {rel_k:.3e}), "
+          f"{ex_s / 60 * 1e3:.3f} ms an iteration (host clock, the target "
+          f"rollout included); launches K1w {site['example']['cloth_step_window']}, "
+          f"window trace {site['example']['cloth_trace_window']}, window "
+          f"adjoint {site['example']['cloth_substep_vjp_window']}")
+    print(f"phase 25 launches, the counted run [{card}]: {site}")
+    _check(rel_k < 0.01, f"the example recovered k_struct {k}, not within "
+           f"1% of {k_true}")
+
+    # what the path predicts: the example, a rollout of 8 worlds x 2 rows
+    # shards x 8 blocks of 2 substeps for the target and each of the 60
+    # forwards, a trace launch and 2 adjoint launches a window call in each
+    # backward; a cell's value_and_grad, its windows' calls of RG_K
+    # substeps (K6w RG_K launches a call at k_sub = 1, its trace K1w's
+    # body)
+    ex_calls = 8 * 2 * (mt.N_STEPS // mt.SUBSTEPS_PER_EXCHANGE)
+    k_ex = mt.SUBSTEPS_PER_EXCHANGE
+    blocks = RG_STEPS // RG_K
+    c_calls = MC_WORLDS * 2 * blocks
+    r_calls = MC_SHARDS * blocks
+    zero = {n: 0 for n in launches}
+    exp = {"example": {**zero, "cloth_step_window": 61 * ex_calls * k_ex,
+                       "cloth_trace_window": 60 * ex_calls * (k_ex - 1),
+                       "cloth_substep_vjp_window": 60 * ex_calls * k_ex},
+           "composed": {**zero, "cloth_step_window": c_calls * RG_K,
+                        "cloth_trace_window": c_calls * (RG_K - 1),
+                        "cloth_substep_vjp_window": c_calls * RG_K},
+           "rows": {**zero, "cloth_tiled_window": r_calls * RG_K,
+                    "cloth_trace_window": r_calls * (RG_K - 1),
+                    "cloth_substep_vjp_window": r_calls * RG_K}}
+    _check(site == exp, f"phase 25 launches {site}, expected {exp}")
+    res["example"] = {"k": k, "k_true": k_true, "rel_err": rel_k,
+                      "s": ex_s, "ms_per_iter": ex_s / 60 * 1e3}
+    res["launches"] = site
+
+    # ---- (d) the sharded gradient against the whole-grid adjoint ----
+    for name, (s, p, m, _) in cells.items():
+        l_sh, gk_sh, gp_sh = vg[name]
+        l_wh, gk_wh, gp_wh = _rg_value_and_grad(s, p, m, targets[name],
+                                                "whole")
+        l_sh, l_wh = float(l_sh), float(l_wh)
+        e_k = float((gk_sh - gk_wh).abs()) / float(gk_wh.abs())
+        e_p = _maxdiff(gp_sh, gp_wh) / float(gp_wh.abs().max())
+        finite = bool(torch.isfinite(gp_sh).all() and torch.isfinite(gk_sh))
+        res[f"{name}_grad"] = {"loss": l_sh, "loss_whole": l_wh,
+                               "g_log_k": float(gk_sh),
+                               "g_log_k_whole": float(gk_wh),
+                               "rel_log_k": e_k, "rel_pos0": e_p,
+                               "finite": finite}
+        print(f"phase 25 value_and_grad {name} ({RG_STEPS} substeps, "
+              f"k = {RG_K}) vs the whole-grid adjoint [{card}]: loss "
+              f"{l_sh:.9e} vs {l_wh:.9e}; d/d log k {float(gk_sh):.9e} vs "
+              f"{float(gk_wh):.9e} (relative {e_k:.3e}); d/d pos0 within "
+              f"{e_p:.3e} of max|g| ({float(gp_wh.abs().max()):.3e}); "
+              f"finite {finite}")
+        _check(l_sh == l_wh, f"{name}: the sharded forward's loss differs "
+               f"from the whole grid's")
+        _check(e_k <= 1e-5 and e_p <= 1e-5 and finite,
+               f"{name}: the sharded gradient is off the whole-grid adjoint "
+               f"by {e_k} (log k), {e_p} (pos0), finite {finite}")
+
+    # ---- (b) times and traces ----
+    times = {}
+    for name, (s, p, m, h_local) in cells.items():
+        fn = lambda: _rg_value_and_grad(s, p, m, targets[name])  # noqa: E731
+        host_s = _best_s(fn, reps=3)
+        ev_ms = _best_ms(fn)
+        n_part = (s.pos.shape[0] if s.pos.ndim == 4 else 1) * s.pos.shape[-2] \
+            * s.pos.shape[-1]
+        times[name] = {"host_s": host_s, "events_ms": ev_ms,
+                       "psteps_per_s": n_part * RG_STEPS / host_s,
+                       "trace": _rg_trace(
+                           fn, os.path.join(OUT, f"trace_rows_grad_{name}.json"),
+                           card, f"{name} ({RG_STEPS} substeps)")}
+        print(f"phase 6 value_and_grad {name}, {RG_STEPS} substeps at k = "
+              f"{RG_K} [{card}]: host clock {host_s * 1e3:.3f} ms (best of "
+              f"3), CUDA events {ev_ms:.3f} ms = "
+              f"{times[name]['psteps_per_s']:.4e} particle-steps/s")
+    res["times"] = times
+    kt = res["kernel_times"] = _rg_kernel_times(dev, card)
+
+    def sites(kernel, key):
+        return [_site(f"{lab}, a {kt[n]['rows']}x{kt[n]['w']} window",
+                      site[n][key], kt[n][kernel]["ms"],
+                      kt[n][kernel]["bound_ms"])
+                for n, lab in (("example", "the training example"),
+                               ("composed", f"composed value_and_grad, "
+                                            f"{GRID}² worlds"),
+                               ("rows", f"rows value_and_grad, {LG}²"))]
+
+    kernels = [
+        _kernel("cloth_substep_vjp_window", "cloth_grad.cu",
+                "cloth_pallas.py:763", err["adjoint"],
+                kt["composed"]["adjoint"]["ms"],
+                kt["composed"]["adjoint"]["plain_ms"],
+                kt["composed"]["adjoint"]["bound_ms"],
+                kt["composed"]["adjoint"]["bound_by"],
+                sites("adjoint", "cloth_substep_vjp_window")),
+        _kernel("cloth_trace_window", "cloth_step.cu", "cloth_pallas.py:763",
+                err["trace"], kt["composed"]["trace"]["ms"],
+                kt["composed"]["trace"]["plain_ms"],
+                kt["composed"]["trace"]["bound_ms"],
+                kt["composed"]["trace"]["bound_by"],
+                sites("trace", "cloth_trace_window")),
+    ]
+    extra = {"cloth_step_window": [
+        _site(f"the training example, a {kt['example']['rows']}x16 window",
+              site["example"]["cloth_step_window"],
+              kt["example"]["k1w"]["ms"], kt["example"]["k1w"]["bound_ms"]),
+        _site(f"composed value_and_grad forward, {GRID}² worlds",
+              site["composed"]["cloth_step_window"],
+              mc_times["k1w_composed"]["ms"],
+              mc_times["k1w_composed"]["bound_ms"])],
+        "cloth_tiled_window": [
+        _site(f"rows value_and_grad forward, {LG}²",
+              site["rows"]["cloth_tiled_window"], mc_times["k6w"]["ms"],
+              mc_times["k6w"]["bound_ms"])]}
+    return res, kernels, extra
+
+
 def _site(name: str, launches: int, ms=None, bound_ms=None,
           substeps: float = 1) -> dict:
     """One main-path site of a kernel: its launches in this run, its ms
@@ -5525,6 +6060,14 @@ def main() -> int:
 
     # ---- phase 24: the live view without a terminal ----
     results["live"] = _phase24_live(card)
+
+    # ---- phase 25: the differentiable rows path, counted ----
+    results["rows_grad"], rg_kernels, rg_sites = _phase25(dev, card,
+                                                          mc["times"])
+    for k in mc_kernels:
+        for x in rg_sites.get(k["name"], []):
+            k["sites"].append(x)
+            k["launches"] += x["launches"]
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
 
@@ -5699,7 +6242,7 @@ def main() -> int:
                           (results["large_grid"]["substeps_k6r"] + FIT_SEG)
                           / (lg_launches["cloth_tiled_resident"]
                              + lg_grad_launches["cloth_tiled_resident"]))]),
-    ] + mc_kernels
+    ] + mc_kernels + rg_kernels
     _ranking(kernels, card)
     print(card)
     print(json.dumps({"kernels": kernels}))

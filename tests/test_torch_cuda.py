@@ -50,7 +50,13 @@ bit for bit (exact and fast_math) on the flagship's 256², the reference
 60×60, a ragged 255×257 and 1000×1030, and its trace to ``trace_plain`` at
 256². K10's direct walk (the full set) and its staged walk (the thin set)
 are held to their plain versions bit for bit at 1M, in window mode and as
-K10b, and K11 with the plain integrate to K10.
+K10b, and K11 with the plain integrate to K10. The window trace (K1w's
+body) is held to its plain version and to ``multi_step_window`` bit for
+bit, and the window adjoint to its plain version (state and pin
+cotangents bit for bit, the parameter cotangent within 1e-5), on the top,
+a middle and the bottom window of 136×256 and 264×1024 row windows; the
+training example's gradient on 8 shards of the card to 8 CPU shards
+within 1e-4.
 """
 
 import math
@@ -1558,3 +1564,99 @@ def test_diff_render_kernel_route_grad_matches_cpu(dev, hw):
                                atol=DIFF_RENDER_TOL * np.abs(gc).max())
     np.testing.assert_allclose(glk, gl, rtol=0,
                                atol=DIFF_RENDER_TOL * np.abs(gl).max())
+
+
+# --- the differentiable rows path: the window trace and the window adjoint ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["top", "middle", "bottom"])
+@pytest.mark.parametrize("hg,h_local,pins", [(256, 128, False),
+                                             (256, 128, True),
+                                             (1024, 256, True)])
+def test_window_adjoint_and_trace_match_plain(dev, hg, h_local, pins, where):
+    """On the draped cloth, the windows of the rows path at k = 2: 136×256
+    (the composed path's, K1w) and 264×1024 (a 1024² rows shard's, above
+    the tiled limit, K6w forward), the top one with dead rows (row0 < 0),
+    a middle and the bottom one. ``trace_window`` (K1w's body) ≡
+    ``trace_window_plain`` and its state 2 ≡ ``multi_step_window``'s
+    output, bit for bit; the window adjoint over the two substeps against
+    ``_walk_plain`` with the window: state and pin cotangents bit for
+    bit, the parameter cotangent within 1e-5 (float64 sums in another
+    order, rounded once) and finite; one launch a substep each."""
+    k, halo = 2, 4
+    row0 = {"top": -halo, "middle": hg // 2 - h_local // 2 - halo,
+            "bottom": hg - h_local - halo}[where]
+    rows = h_local + 2 * halo
+    s, p = _k6_state(dev, hg, hg, True, [(r, c) for r in (0, hg // 2, hg - 1)
+                                         for c in range(0, hg, 2)]
+                     if pins else None)
+    prm = cloth_kernel._pack_params(p, DT)
+    win = [None if a is None else _window_of(a, row0, row0 + rows, hg)
+           for a in (s.pos, s.vel, s.pin_mask, s.pin_pos)]
+    t0 = cloth_kernel.LAUNCHES_WINDOW_TRACE
+    traj = cloth_kernel.trace_window(*win, prm, k + 1, row0, hg)
+    fwd = cloth_kernel.multi_step_window(*win, p, DT, k, row0, hg)
+    torch.cuda.synchronize()
+    assert cloth_kernel.LAUNCHES_WINDOW_TRACE == t0 + k
+    assert torch.equal(traj, cloth_kernel.trace_window_plain(
+        *win, prm, k + 1, row0, hg))
+    assert torch.equal(traj[k, :3], fwd[0]) and torch.equal(traj[k, 3:],
+                                                           fwd[1])
+    rng = np.random.default_rng(hg + row0)
+    cp, cv = (torch.tensor(rng.standard_normal((3, rows, hg))
+                           .astype(np.float32), device=dev)
+              for _ in range(2))
+    pins_t = None if not pins else (win[2], win[3])
+    a0 = cloth_grad_kernel.LAUNCHES_WINDOW
+    got = cloth_grad_kernel.walk_window(traj[:k], cp, cv, prm, row0, hg,
+                                        pins_t)
+    torch.cuda.synchronize()
+    assert cloth_grad_kernel.LAUNCHES_WINDOW == a0 + k
+    ref = cloth_grad_kernel._walk_plain(traj[:k], cp, cv, prm, pins_t,
+                                        (row0, hg))
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert _max_rel(got[2], ref[2]) <= 1e-5
+    assert bool(torch.isfinite(got[2]).all())
+    if pins:
+        assert torch.equal(got[3], ref[3])
+        assert float(got[3].abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_window_adjoint_example_gradient_cuda_matches_cpu(dev):
+    """``examples/multichip_training.py``'s loss and d loss/d log k at k =
+    430 and 470 on 8 shards of the card against 8 CPU shards (the plain
+    versions; torch's CPU sqrt is not correctly rounded, the card's is):
+    within 1e-4 relative; on the card K1w, the window trace and the
+    window adjoint launch as the path predicts."""
+    from wgpu_physics_engine_torch.examples import multichip_training as mt
+
+    out = {}
+    for d in ("cpu", "cuda"):
+        m, _, params, state = mt.make_problem(device=d)
+        with torch.no_grad():
+            target = mt.rollout(state, params, m)
+        counts = (cloth_kernel.LAUNCHES_WINDOW,
+                  cloth_kernel.LAUNCHES_WINDOW_TRACE,
+                  cloth_grad_kernel.LAUNCHES_WINDOW)
+        vals = []
+        for k in (430.0, 470.0):
+            log_k = torch.log(torch.tensor(k, device=state.pos.device)
+                              ).requires_grad_(True)
+            loss = mt.loss_fn(log_k, state, params, m, target)
+            (g,) = torch.autograd.grad(loss, log_k)
+            vals.append((float(loss.detach()), float(g)))
+        out[d] = vals
+        if d == "cuda":
+            torch.cuda.synchronize()
+            # a rollout: 8 worlds x 2 rows shards x 8 blocks of 2 substeps
+            calls = 8 * 2 * (mt.N_STEPS // mt.SUBSTEPS_PER_EXCHANGE)
+            k_sub = mt.SUBSTEPS_PER_EXCHANGE
+            assert (cloth_kernel.LAUNCHES_WINDOW - counts[0],
+                    cloth_kernel.LAUNCHES_WINDOW_TRACE - counts[1],
+                    cloth_grad_kernel.LAUNCHES_WINDOW - counts[2]) == (
+                2 * calls * k_sub, 2 * calls * (k_sub - 1),
+                2 * calls * k_sub)
+    for (lc, gc), (lk, gk) in zip(out["cpu"], out["cuda"]):
+        assert abs(lk - lc) <= 1e-4 * abs(lc)
+        assert abs(gk - gc) <= 1e-4 * abs(gc)

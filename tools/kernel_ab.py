@@ -57,7 +57,14 @@ events over back-to-back launches, best of 5):
   trace, 48 substeps of the fresh 256² cloth, ms a substep (the walk's
   reduction included), and ``adj_256_device_us``, its device time by
   kernel from a ``torch.profiler`` trace (other tiles and the phases of a
-  CTA: ``tools/adjoint_probe.py``);
+  CTA: ``tools/adjoint_probe.py``); where the checkout has the window
+  adjoint, ``win_call_16x16_us`` and ``win_call_136x256_us``: the rows
+  path's shard body without a gradient, ``cloth_kernel.
+  multi_step_window_packed``, a call of 2 substeps on the example's top
+  window and on a composed shard's, µs by host clock over 200 calls, and
+  ``win_fn_call_*_us`` the same call through the autograd Function
+  (``cloth_grad_kernel.multi_step_window``, no input needing a gradient),
+  in turns (direct, Function, Function, direct);
 * ``raster_flagship``: the 256×256 frame of the 256² flagship after
   ``simulate(5.0)``, 65,536 instances; ``raster_datagen``: one call on a
   chunk of 1,024 worlds of the 60×60 cloth settled 3 s, randomized
@@ -672,6 +679,7 @@ def _adjoint(args, out, checks, dev, c256):
     checks)."""
     import torch
 
+    from wgpu_physics_engine_torch.core.config import ClothConfig
     from wgpu_physics_engine_torch.core.state import (ClothParams,
                                                       init_cloth_state)
     from wgpu_physics_engine_torch.ops import cloth_grad_kernel as cg
@@ -687,6 +695,24 @@ def _adjoint(args, out, checks, dev, c256):
               for _ in range(2))
     out["adj_256"] = _best_ms(lambda: cg.walk(traj, cp, cv, prm)) / n
     out["adj_256_device_us"] = _device_us(lambda: cg.walk(traj, cp, cv, prm))
+    if hasattr(cg, "multi_step_window"):
+        calls = 200
+        for name, hg, rows in (("16x16", 16, 16), ("136x256", 256, 136)):
+            c = ClothConfig(height=hg, width=hg)
+            s = init_cloth_state(c, device=dev)
+            pw = ck._pack_params(ClothParams.from_config(c, device=dev), dt)
+            win = [torch.zeros((3, rows, hg), device=dev) for _ in range(2)]
+            win[0][:, 4:] = s.pos[:, :rows - 4]
+            fns = {"direct": lambda: ck.multi_step_window_packed(
+                       *win, None, None, pw, 2, -4, hg),
+                   "function": lambda: cg.multi_step_window(
+                       *win, None, None, pw, 2, -4, hg)}
+            us = {k: [] for k in fns}
+            for k in ("direct", "function", "function", "direct"):
+                us[k].append(_best_s(lambda: [fns[k]() for _ in range(calls)])
+                             / calls * 1e6)
+            out[f"win_call_{name}_us"] = min(us["direct"])
+            out[f"win_fn_call_{name}_us"] = min(us["function"])
     if args.check:
         pin = torch.zeros((256, 256), dtype=torch.bool, device=dev)
         pin[0] = True

@@ -44,6 +44,16 @@ each edge force and edge adjoint once. :func:`substep_vjp_tiled` is the
 same decomposition in torch (``_substep_vjp_planes`` on halo-extended
 tiles, the core cells kept), which the CPU tests hold against
 :func:`substep_vjp_plain` for the halo argument the kernel relies on.
+
+The rows-sharded path (``parallel/mesh.py``) differentiates through its
+windows the same way: :func:`multi_step_window` is K1w's (or K6w's)
+forward on a halo-extended row window, and its backward re-runs the window
+with ``cloth_kernel.trace_window`` and walks it with
+:func:`walk_window`, the adjoint with K1w's global-row spring masks
+(:func:`substep_vjp_window_plain`; on CUDA the kernel's ``WINDOW``
+instantiation). JAX takes this gradient by XLA autodiff of its window
+stencil (``parallel/mesh.py`` with ``use_kernel=False``); the port computes
+it by hand on the card, as it does for the whole grid.
 """
 
 from __future__ import annotations
@@ -60,8 +70,9 @@ from .cloth_kernel import _EPS, _FAMILIES, _exact_dist_inv, _shift
 
 # Launches of the substep adjoint (``csrc/cloth_grad.cu``), one per
 # substep walked; a run reads it to show that its backward went through
-# the kernel.
+# the kernel. LAUNCHES_WINDOW counts those of its window instantiation.
 LAUNCHES = 0
+LAUNCHES_WINDOW = 0
 
 # The segment when the caller gives none: the backward keeps
 # ``segment · 24 · H · W`` bytes of trajectory (100 MB at 256²).
@@ -74,6 +85,8 @@ TILE = (16, 16)
 _SIGNATURES = {
     "wpe_cloth_substep_vjp": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                              + [ctypes.c_void_p],
+    "wpe_cloth_substep_vjp_window": [ctypes.c_void_p] * 8
+                                    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 }
 
 
@@ -299,16 +312,35 @@ def substep_vjp_plain(state_in: torch.Tensor, ct_pos: torch.Tensor,
     return cp, cv, g.float(), ct_pin
 
 
-def _walk_plain(traj, ct_pos, ct_vel, prm, pins):
-    """Substeps ``traj.shape[0] - 1 .. 0`` of :func:`substep_vjp_plain`:
-    the state cotangent carried, the parameter cotangent summed in float64
-    and rounded once, the pin cotangent summed in fp32 in walk order (as
-    the kernel does)."""
+def substep_vjp_window_plain(state_in: torch.Tensor, ct_pos: torch.Tensor,
+                             ct_vel: torch.Tensor, prm: torch.Tensor,
+                             row0: int, h_global: int, pins=None):
+    """:func:`substep_vjp_plain` for one substep of K1w on a row window
+    ``[6, h, W]`` whose local row 0 is global row ``row0`` of a grid
+    ``h_global`` rows high: the springs masked by
+    ``cloth_kernel._window_masks``. Every cell of the window counts in the
+    parameter cotangent; a dead row (beyond the grid) joins no spring, so
+    its terms are 0 where its incoming cotangent is."""
+    masks = cloth_kernel._window_masks(*state_in.shape[-2:], row0, h_global,
+                                       state_in.device)
+    cp, cv, g, ct_pin = _substep_vjp_planes(state_in, ct_pos, ct_vel, prm,
+                                            pins, masks)
+    return cp, cv, g.float(), ct_pin
+
+
+def _walk_plain(traj, ct_pos, ct_vel, prm, pins, window=None):
+    """Substeps ``traj.shape[0] - 1 .. 0`` of :func:`substep_vjp_plain`
+    (with ``window = (row0, h_global)``, of
+    :func:`substep_vjp_window_plain`): the state cotangent carried, the
+    parameter cotangent summed in float64 and rounded once, the pin
+    cotangent summed in fp32 in walk order (as the kernel does)."""
     g = torch.zeros(16, dtype=torch.float64, device=traj.device)
     ct_pin = (torch.zeros_like(ct_pos) if pins is not None else None)
+    masks = (None if window is None else cloth_kernel._window_masks(
+        *traj.shape[-2:], *window, traj.device))
     for s in range(traj.shape[0] - 1, -1, -1):
         ct_pos, ct_vel, gs, gp = _substep_vjp_planes(traj[s], ct_pos, ct_vel,
-                                                     prm, pins)
+                                                     prm, pins, masks)
         g = g + gs
         if gp is not None:
             ct_pin = ct_pin + gp
@@ -371,13 +403,15 @@ def substep_vjp_tiled(state_in: torch.Tensor, ct_pos: torch.Tensor,
 # Kernel
 # ---------------------------------------------------------------------------
 
-def _walk_kernel(traj, ct_pos, ct_vel, prm, pins):
+def _walk_kernel(traj, ct_pos, ct_vel, prm, pins, window=None):
     """The walk of :func:`_walk_plain` with ``csrc/cloth_grad.cu``: one C
     call enqueues, per substep in reverse, one launch of the substep
     adjoint on tiles of :data:`TILE`, ping-ponging the state cotangent
     between two buffers, then one fixed-order reduction of the per-tile
-    parameter partials; nothing waits on the host."""
-    global LAUNCHES
+    parameter partials; nothing waits on the host. With ``window = (row0,
+    h_global)`` the launches are the window instantiation's
+    (``wpe_cloth_substep_vjp_window``)."""
+    global LAUNCHES, LAUNCHES_WINDOW
     if traj.device.type != "cuda":
         raise ValueError(f"cloth adjoint kernel needs CUDA tensors, got "
                          f"{traj.device}")
@@ -405,14 +439,26 @@ def _walk_kernel(traj, ct_pos, ct_vel, prm, pins):
     tiles = -(-h // TILE[0]) * -(-w // TILE[1])
     partial = torch.empty((n, tiles, 16), dtype=torch.float64, device=dev)
     lib = _build.load("cloth_grad", _SIGNATURES)
-    with torch.cuda.device(dev):
-        err = lib.wpe_cloth_substep_vjp(
-            prm.data_ptr(), traj.data_ptr(), pin_ptrs[0], ct[0].data_ptr(),
+    args = (prm.data_ptr(), traj.data_ptr(), pin_ptrs[0], ct[0].data_ptr(),
             ct[1].data_ptr(), pin_ptrs[1], partial.data_ptr(),
-            ct_prm.data_ptr(), h, w, n, tiles, int(pins is not None),
-            torch.cuda.current_stream().cuda_stream)
+            ct_prm.data_ptr(), h, w, n, tiles)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if window is None:
+            err = lib.wpe_cloth_substep_vjp(*args, int(pins is not None),
+                                            stream)
+        else:
+            if window[1] < 1:
+                raise ValueError(f"h_global must be positive, got "
+                                 f"{window[1]}")
+            err = lib.wpe_cloth_substep_vjp_window(
+                *args, int(window[0]), int(window[1]), int(pins is not None),
+                stream)
     _build.check(lib, err, "cloth_grad launch")
-    LAUNCHES += n
+    if window is None:
+        LAUNCHES += n
+    else:
+        LAUNCHES_WINDOW += n
     out = ct[n % 2]
     return out[:3], out[3:], ct_prm, ct_pin
 
@@ -445,6 +491,16 @@ def walk(traj, ct_pos, ct_vel, prm, pins=None):
     ``[16]`` parameter cotangent and the summed ``pin_pos`` cotangent."""
     fn = _dispatch(traj, _walk_plain, _walk_kernel)
     return fn(traj, ct_pos, ct_vel, prm, pins)
+
+
+def walk_window(traj, ct_pos, ct_vel, prm, row0: int, h_global: int,
+                pins=None):
+    """:func:`walk` over the trajectory of a row window
+    (``cloth_kernel.trace_window``) with K1w's spring masks: CPU → the
+    plain version, CUDA → the kernel's window instantiation, any other
+    device raises."""
+    fn = _dispatch(traj, _walk_plain, _walk_kernel)
+    return fn(traj, ct_pos, ct_vel, prm, pins, (row0, h_global))
 
 
 # ---------------------------------------------------------------------------
@@ -514,3 +570,56 @@ def multi_step(state: ClothState, params: ClothParams, dt, n_steps: int,
         pos, vel = _Segment.apply(pos, vel, state.pin_pos, prm,
                                   state.pin_mask, k)
     return state._replace(pos=pos, vel=vel)
+
+
+class _WindowSegment(torch.autograd.Function):
+    """``n_steps`` substeps of a row window (``cloth_kernel.
+    multi_step_window_packed``: K1w or K6w, their plain version on the CPU)
+    whose backward re-runs the window with ``cloth_kernel.trace_window``
+    and walks it in reverse with :func:`walk_window`. It saves only the
+    window's input. Inputs pos, vel, pin_pos (or None) and the packed
+    vector are differentiable; the pin mask is structural."""
+
+    @staticmethod
+    def forward(ctx, pos, vel, pin_pos, prm, pin_mask, n_steps, row0,
+                h_global):
+        out = cloth_kernel.multi_step_window_packed(
+            pos, vel, pin_mask, pin_pos, prm, n_steps, row0, h_global)
+        ctx.save_for_backward(pos, vel, pin_pos, prm)
+        ctx.pin_mask = pin_mask
+        ctx.args = (n_steps, row0, h_global)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct_pos, ct_vel):
+        pos, vel, pin_pos, prm = ctx.saved_tensors
+        n_steps, row0, h_global = ctx.args
+        pin_mask = ctx.pin_mask
+        traj = cloth_kernel.trace_window(pos, vel, pin_mask, pin_pos, prm,
+                                         n_steps, row0, h_global)
+        pins = None if pin_mask is None else (pin_mask, pin_pos)
+        cp, cv, g, ct_pin = walk_window(traj, ct_pos, ct_vel, prm, row0,
+                                        h_global, pins)
+        return cp, cv, ct_pin, g.to(prm.dtype), None, None, None, None
+
+
+def multi_step_window(pos, vel, pin_mask, pin_pos, prm: torch.Tensor,
+                      n_steps: int, row0: int, h_global: int):
+    """Differentiable ``n_steps`` substeps of a halo-extended row window:
+    ``cloth_kernel.multi_step_window_packed``'s arguments and output, bit
+    for bit, with gradients to ``pos``, ``vel``, ``pin_pos`` and the packed
+    ``prm`` (the caller packs it with ``cloth_kernel._pack_params`` outside,
+    so autograd carries the parameters' chains). The backward holds one
+    call's trajectory, ``n_steps · 24 · h · W`` bytes: the rows path calls
+    it once an exchange block, so its checkpoints are the blocks. A CPU
+    window takes the plain versions, a CUDA window K1w (or K6w) forward
+    and the window adjoint kernel."""
+    if n_steps < 0:
+        raise ValueError(f"n_steps must be >= 0, got {n_steps}")
+    if pos.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no cloth adjoint for device {pos.device}")
+    if n_steps == 0:
+        return pos, vel
+    return _WindowSegment.apply(pos, vel, pin_pos, prm, pin_mask, n_steps,
+                                row0, h_global)

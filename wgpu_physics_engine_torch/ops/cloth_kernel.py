@@ -50,14 +50,17 @@ batch of worlds ``_multi_step_lanes`` → ``_lanes_kernel``, kernel K5, and
   ``_substep_planes`` with the spring masks taken from global rows
   (:func:`_window_masks`); on CUDA it is K1's device body with the same
   masks. A window above :data:`_TILED_PARTICLE_LIMIT` particles goes, as
-  one world does, to ``cloth_tiled_kernel.multi_step_window`` (K6w, K6's
-  edge-once tiles with the same masks; on the CPU its plain version),
+  one world does, to ``cloth_tiled_kernel.multi_step_window_kernel`` (K6w,
+  K6's edge-once tiles with the same masks; on the CPU its plain version),
   equal to K1w bit for bit; JAX routes its windows by size too (above its
   VMEM budget to the XLA stencil, ``parallel/mesh.py`` ``_kernel_fits``);
 * :func:`trace` re-runs substeps of one world with the same stepper and
   keeps each substep's input state, ``[K, 6, H, W]``: the trajectory the
   backward pass of ``ops/cloth_grad_kernel.py`` walks (the counterpart of
   ``cloth_pallas_grad._trace_kernel``, which runs K1's body).
+  :func:`trace_window` does the same on a row window with K1w's body at
+  every size (the K6w route gives the same bits), for the backward of the
+  rows path (``cloth_grad_kernel.multi_step_window``).
 
 All paths read one packed parameter vector per world (:func:`_pack_params`),
 so the damping factor ``speed_damp ** dt`` is computed once per call, as in
@@ -105,6 +108,9 @@ LAUNCHES_BATCHED = 0
 LAUNCHES_FORCE = 0
 # Launches of K1w by :func:`multi_step_window_kernel` (one per substep).
 LAUNCHES_WINDOW = 0
+# Launches of K1w's body by :func:`trace_window_kernel` (one per substep
+# traced).
+LAUNCHES_WINDOW_TRACE = 0
 
 _SIGNATURES = {
     "wpe_cloth_multi_step": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
@@ -117,6 +123,8 @@ _SIGNATURES = {
                                     + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "wpe_cloth_multi_step_window": [ctypes.c_void_p] * 9
                                    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "wpe_cloth_trace_window": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                              + [ctypes.c_void_p],
 }
 
 
@@ -480,15 +488,48 @@ def multi_step_window_plain(pos, vel, pin_mask, pin_pos, params, dt,
     window ``pos``/``vel`` ``[3, h, W]`` (halo rows included; ``row0`` the
     global row of local row 0, ``h_global`` the grid's height), on any
     device. Returns ``(pos, vel)`` with the halo rows, stale ones too."""
+    return _window_plain_packed(pos, vel, pin_mask, pin_pos,
+                                _pack_params(params, dt), n_steps, row0,
+                                h_global)
+
+
+def _window_plain_packed(pos, vel, pin_mask, pin_pos, prm, n_steps: int,
+                         row0: int, h_global: int):
+    """:func:`multi_step_window_plain` on the packed vector of
+    :func:`_pack_params`."""
     h, w = pos.shape[-2:]
     state = ClothState(pos=pos, vel=vel, pin_mask=pin_mask, pin_pos=pin_pos)
-    prm = _plane_params(_pack_params(params, dt), state)
+    plane = _plane_params(prm, state)
     masks = _window_masks(h, w, row0, h_global, pos.device)
     pins = _plain_pins(state)
     carry = (*pos.unbind(-3), *vel.unbind(-3))
     for _ in range(n_steps):
-        carry = _substep_planes(carry, masks, prm, _exact_dist_inv, pins)
+        carry = _substep_planes(carry, masks, plane, _exact_dist_inv, pins)
     return torch.stack(carry[:3], dim=-3), torch.stack(carry[3:], dim=-3)
+
+
+def trace_window_plain(pos, vel, pin_mask, pin_pos, prm: torch.Tensor,
+                       n_states: int, row0: int,
+                       h_global: int) -> torch.Tensor:
+    """The states entering substeps 0 .. n_states-1 of the row window
+    ``pos``/``vel`` (the arguments of :func:`multi_step_window_plain`,
+    the parameters packed): ``[n_states, 6, h, W]``, each from the same
+    substep as :func:`multi_step_window_plain`, so ``traj[s]`` equals its
+    ``s`` substeps bit for bit."""
+    h, w = pos.shape[-2:]
+    state = ClothState(pos=pos, vel=vel, pin_mask=pin_mask, pin_pos=pin_pos)
+    plane = _plane_params(prm, state)
+    masks = _window_masks(h, w, row0, h_global, pos.device)
+    pins = _plain_pins(state)
+    traj = torch.empty((max(n_states, 0), 6, h, w), dtype=torch.float32,
+                       device=pos.device)
+    carry = (*pos.unbind(-3), *vel.unbind(-3))
+    for s in range(n_states):
+        if s:
+            carry = _substep_planes(carry, masks, plane, _exact_dist_inv,
+                                    pins)
+        traj[s] = torch.stack(carry)
+    return traj
 
 
 # ---------------------------------------------------------------------------
@@ -722,10 +763,18 @@ def multi_step_window_kernel(pos, vel, pin_mask, pin_pos, params, dt,
     cloth_step.cu``'s ``wpe_cloth_multi_step_window`` on the current
     stream, ping-ponging between two new buffers (the inputs are only
     read). Returns ``(pos, vel)`` ``[3, h, W]``."""
+    return _window_kernel_packed(pos, vel, pin_mask, pin_pos,
+                                 _pack_params(params, dt), n_steps, row0,
+                                 h_global)
+
+
+def _window_kernel_packed(pos, vel, pin_mask, pin_pos, prm, n_steps: int,
+                          row0: int, h_global: int):
+    """:func:`multi_step_window_kernel` on the packed vector of
+    :func:`_pack_params`."""
     global LAUNCHES_WINDOW
     state = ClothState(pos=pos, vel=vel, pin_mask=pin_mask, pin_pos=pin_pos)
-    pos, vel, prm, pins, lead, h, w = _kernel_inputs(
-        state, _pack_params(params, dt))
+    pos, vel, prm, pins, lead, h, w = _kernel_inputs(state, prm)
     if lead:
         raise ValueError(f"multi_step_window takes one window, got "
                          f"{tuple(pos.shape)}")
@@ -747,6 +796,43 @@ def multi_step_window_kernel(pos, vel, pin_mask, pin_pos, params, dt,
     LAUNCHES_WINDOW += n_steps
     out = bufs[0:2] if n_steps % 2 else bufs[2:4]
     return out[0], out[1]
+
+
+def trace_window_kernel(pos, vel, pin_mask, pin_pos, prm: torch.Tensor,
+                        n_states: int, row0: int,
+                        h_global: int) -> torch.Tensor:
+    """:func:`trace_window_plain` with K1w's body on a CUDA window, at any
+    size (``wpe_cloth_trace_window``): the start state is copied into
+    ``traj[0]`` and substep s reads ``traj[s]`` and writes ``traj[s + 1]``,
+    ``n_states - 1`` launches, so the trajectory equals the forward (K1w,
+    or K6w above the tiled limit) bit for bit."""
+    global LAUNCHES_WINDOW_TRACE
+    state = ClothState(pos=pos, vel=vel, pin_mask=pin_mask, pin_pos=pin_pos)
+    pos, vel, prm, pins, lead, h, w = _kernel_inputs(state, prm)
+    if lead:
+        raise ValueError(f"trace_window takes one window, got "
+                         f"{tuple(pos.shape)}")
+    if h_global < 1:
+        raise ValueError(f"h_global must be positive, got {h_global}")
+    traj = torch.empty((max(n_states, 0), 6, h, w), dtype=torch.float32,
+                       device=pos.device)
+    if n_states <= 0:
+        return traj
+    traj[0, :3] = pos
+    traj[0, 3:] = vel
+    if n_states == 1 or pos.numel() == 0:
+        return traj
+    pin_ptrs = ((pins[0].data_ptr(), pins[1].data_ptr()) if pins
+                else (None, None))
+    lib = _build.load("cloth_step", _SIGNATURES)
+    with torch.cuda.device(pos.device):
+        err = lib.wpe_cloth_trace_window(
+            prm.data_ptr(), *pin_ptrs, traj.data_ptr(), h, w, n_states,
+            int(row0), int(h_global), int(pins is not None),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "cloth_step window trace launch")
+    LAUNCHES_WINDOW_TRACE += n_states - 1
+    return traj
 
 
 def _dispatch(state: ClothState, plain, kernel):
@@ -832,18 +918,47 @@ def multi_step_window(pos, vel, pin_mask, pin_pos, params, dt, n_steps: int,
     ``h_global``: the grid's height. The spring masks use global rows, so
     the grid's edges are where the unsharded kernel has them; the halo's
     staleness (2 rows a substep) is the caller's to slice off. Returns
-    ``(pos, vel)`` with the halo rows. CPU → the plain version, CUDA →
-    K1w, any other device raises; a window of more than
-    :data:`_TILED_PARTICLE_LIMIT` particles takes
-    ``cloth_tiled_kernel.multi_step_window`` (K6w on CUDA, its plain
-    version on the CPU), which gives the same bits. JAX's ``fast_math``
-    has no caller here and no counterpart."""
-    if pos.shape[-2] * pos.shape[-1] > _TILED_PARTICLE_LIMIT:
-        from . import cloth_tiled_kernel
-
-        return cloth_tiled_kernel.multi_step_window(
-            pos, vel, pin_mask, pin_pos, params, dt, n_steps, row0, h_global)
-    state = ClothState(pos=pos, vel=vel)
-    step = _dispatch(state, multi_step_window_plain, multi_step_window_kernel)
+    ``(pos, vel)`` with the halo rows, by :func:`_window_route`. JAX's
+    ``fast_math`` has no caller here and no counterpart."""
+    step = _window_route(pos, vel, packed=False)
     return step(pos, vel, pin_mask, pin_pos, params, dt, n_steps, row0,
                 h_global)
+
+
+def multi_step_window_packed(pos, vel, pin_mask, pin_pos, prm: torch.Tensor,
+                             n_steps: int, row0: int, h_global: int):
+    """:func:`multi_step_window` on the packed vector of
+    :func:`_pack_params`, by the same route: the rows path's shard body,
+    whose parameters are packed once a device."""
+    step = _window_route(pos, vel, packed=True)
+    return step(pos, vel, pin_mask, pin_pos, prm, n_steps, row0, h_global)
+
+
+def _window_route(pos, vel, packed: bool):
+    """The window stepper for ``pos``'s size and device: CPU → the plain
+    version, CUDA → K1w, any other device raises; a window of more than
+    :data:`_TILED_PARTICLE_LIMIT` particles takes ``cloth_tiled_kernel``'s
+    (K6w on CUDA, its plain version on the CPU), which gives the same
+    bits. ``packed``: the entries on the vector of :func:`_pack_params`
+    in place of ``(params, dt)``."""
+    if pos.shape[-2] * pos.shape[-1] > _TILED_PARTICLE_LIMIT:
+        from . import cloth_tiled_kernel as ct
+
+        pair = ((ct._window_plain_packed, ct._window_kernel_packed) if packed
+                else (ct.multi_step_window_plain, ct.multi_step_window_kernel))
+    else:
+        pair = ((_window_plain_packed, _window_kernel_packed) if packed
+                else (multi_step_window_plain, multi_step_window_kernel))
+    return _dispatch(ClothState(pos=pos, vel=vel), *pair)
+
+
+def trace_window(pos, vel, pin_mask, pin_pos, prm: torch.Tensor,
+                 n_states: int, row0: int, h_global: int) -> torch.Tensor:
+    """The trajectory ``[n_states, 6, h, W]`` of a row window (the
+    arguments of :func:`multi_step_window_packed`): CPU → the plain
+    version, CUDA → K1w's body at every size, any other device raises.
+    ``traj[n]`` equals :func:`multi_step_window`'s ``n`` substeps bit for
+    bit."""
+    step = _dispatch(ClothState(pos=pos, vel=vel), trace_window_plain,
+                     trace_window_kernel)
+    return step(pos, vel, pin_mask, pin_pos, prm, n_states, row0, h_global)

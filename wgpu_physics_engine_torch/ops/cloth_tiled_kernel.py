@@ -38,10 +38,10 @@ its fallback to the XLA stencil has no counterpart.
   kernel for a CUDA state, and raises for any other device. It is exact:
   ``cloth_kernel.multi_step`` drops ``fast_math`` on this route, as JAX
   drops it on its own;
-* :func:`multi_step_window` (kernel K6w) steps a halo-extended band of
-  rows of a larger grid on the same tiles, the spring masks taken from
-  global rows: ``cloth_kernel.multi_step_window`` routes a window above
-  ``_TILED_PARTICLE_LIMIT`` here (the rows-sharded path's shard body;
+* :func:`multi_step_window_kernel` (kernel K6w) steps a halo-extended
+  band of rows of a larger grid on the same tiles, the spring masks taken
+  from global rows: ``cloth_kernel.multi_step_window`` routes a window
+  above ``_TILED_PARTICLE_LIMIT`` here (the rows-sharded path's shard body;
   ``cloth_pallas.multi_step_window``, K1w, in JAX). Its plain version is
   the tile decomposition above with K1w's global-row masks
   (:func:`_tile_masks` with a ``window``); every output, the window's
@@ -549,10 +549,19 @@ def multi_step_window_plain(pos, vel, pin_mask, pin_pos, params, dt,
     any device; the arguments and result of
     ``cloth_kernel.multi_step_window_plain``, which it equals bit for
     bit."""
+    return _window_plain_packed(pos, vel, pin_mask, pin_pos,
+                                cloth_kernel._pack_params(params, dt),
+                                n_steps, row0, h_global, schedule)
+
+
+def _window_plain_packed(pos, vel, pin_mask, pin_pos, prm: torch.Tensor,
+                         n_steps: int, row0: int, h_global: int,
+                         schedule: Optional[Schedule] = None):
+    """:func:`multi_step_window_plain` on the packed vector of
+    ``cloth_kernel._pack_params``."""
     state = ClothState(pos=pos, vel=vel, pin_mask=pin_mask, pin_pos=pin_pos)
-    out = multi_step_plain_packed(state,
-                                  cloth_kernel._pack_params(params, dt),
-                                  n_steps, schedule, (row0, h_global))
+    out = multi_step_plain_packed(state, prm, n_steps, schedule,
+                                  (row0, h_global))
     return out.pos, out.vel
 
 
@@ -563,19 +572,17 @@ def multi_step_window_kernel(pos, vel, pin_mask, pin_pos, params, dt,
     ``csrc/cloth_tiled.cu``'s ``wpe_cloth_tiled_multi_step_window`` on the
     current stream into new buffers (the inputs are only read). Returns
     ``(pos, vel)`` ``[3, h, W]``."""
+    return _window_kernel_packed(pos, vel, pin_mask, pin_pos,
+                                 cloth_kernel._pack_params(params, dt),
+                                 n_steps, row0, h_global, schedule)
+
+
+def _window_kernel_packed(pos, vel, pin_mask, pin_pos, prm: torch.Tensor,
+                          n_steps: int, row0: int, h_global: int,
+                          schedule: Optional[Schedule] = None):
+    """:func:`multi_step_window_kernel` on the packed vector of
+    ``cloth_kernel._pack_params``."""
     state = ClothState(pos=pos, vel=vel, pin_mask=pin_mask, pin_pos=pin_pos)
-    out = multi_step_kernel_packed(state,
-                                   cloth_kernel._pack_params(params, dt),
-                                   n_steps, schedule, (row0, h_global))
+    out = multi_step_kernel_packed(state, prm, n_steps, schedule,
+                                   (row0, h_global))
     return out.pos, out.vel
-
-
-def multi_step_window(pos, vel, pin_mask, pin_pos, params, dt,
-                      n_steps: int, row0: int, h_global: int):
-    """``cloth_kernel.multi_step_window`` on the tiles: CPU → the plain
-    version, CUDA → K6w, any other device raises."""
-    step = cloth_kernel._dispatch(ClothState(pos=pos, vel=vel),
-                                  multi_step_window_plain,
-                                  multi_step_window_kernel)
-    return step(pos, vel, pin_mask, pin_pos, params, dt, n_steps, row0,
-                h_global)

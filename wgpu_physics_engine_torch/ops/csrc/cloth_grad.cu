@@ -9,7 +9,11 @@
 //     HBM.
 // The three were VMEM tiers of one function; here one kernel takes any
 // grid. (The trace kernels of K7 and K9 are K1 itself: `wpe_cloth_trace`
-// in cloth_step.cu.)
+// in cloth_step.cu.) Its WINDOW instantiation, `wpe_cloth_substep_vjp_window`,
+// walks a row window of a larger grid with K1w's global-row spring masks:
+// the backward of the rows-sharded path (parallel/mesh.py under autograd),
+// whose gradient the JAX package takes by XLA autodiff of the window
+// stencil (`cloth_pallas.py` `multi_step_window` :763 in the forward).
 //
 // The TPU kernels build each substep's transpose with jax.vjp of the
 // forward's pure functions. Here the adjoint is written by hand, op for op
@@ -368,17 +372,26 @@ struct Tile {
 };
 
 // Whether the spring of family f anchored at grid cell (r, c) joins two
-// grid cells (K1's mask, cloth_substep.cuh `edge_ok<false>`).
+// grid cells: K1's mask, and with WINDOW K1w's (cloth_substep.cuh
+// `edge_ok`): the block is a row window whose row 0 is global row row0 of
+// a grid h_global rows high, and the anchor's global row must satisfy
+// 0 <= r + row0 < h_global - dr, so no spring reaches a dead row (a
+// zero-filled halo row beyond the grid).
+template <bool WINDOW>
 __device__ __forceinline__ bool spring_ok(int r, int c, int h, int w, int dr,
-                                          int dc) {
-  return r < h - dr && (dc >= 0 ? c < w - dc : c >= -dc);
+                                          int dc, int row0, int h_global) {
+  return cloth::edge_ok<WINDOW>(r, c, h, w, dr, dc, row0, h_global);
 }
 
 // Whether grid cell (r, c) has a spring of family (dr, dc) ending on it,
-// i.e. its anchor (r - dr, c - dc) is a grid cell.
+// i.e. its anchor (r - dr, c - dc) is a grid cell, and with WINDOW the
+// anchor passes spring_ok's global-row test. Where it holds, step 2a
+// wrote the anchor's adjoint.
+template <bool WINDOW>
 __device__ __forceinline__ bool reaction_ok(int r, int c, int w, int dr,
-                                            int dc) {
-  return r >= dr && (dc >= 0 ? c >= dc : c < w + dc);
+                                            int dc, int row0, int h_global) {
+  return r >= dr && (dc >= 0 ? c >= dc : c < w + dc) &&
+         (!WINDOW || (r - dr + row0 >= 0 && r - dr + row0 < h_global - dr));
 }
 
 // Step 1a's six springs anchored at one cell (state pa): family f's force
@@ -442,13 +455,17 @@ __device__ __forceinline__ void anchored_adjoints(
 // the core only); partial this substep's [tiles, 16] rows. Every loop runs
 // the same number of times in all threads of the CTA (a thread past the
 // end works on a cell it does not keep), so a warp can vote on `slow`.
-template <bool PINS, int TH, int TW, int NT>
+// With WINDOW the grid is a row window (spring_ok): its dead rows join no
+// spring, so their state cotangent stays 0 and each of their parameter
+// terms is 0 times a finite value; without it row0 and h_global are not
+// read.
+template <bool PINS, bool WINDOW, int TH, int TW, int NT>
 __global__ void __launch_bounds__(NT)
     vjp_substep(const float* __restrict__ prm, const float* __restrict__ st,
                 const float* __restrict__ pin_mask,
                 const float* __restrict__ ct_in, float* __restrict__ ct_out,
                 float* __restrict__ ct_pin, double* __restrict__ partial,
-                int h, int w) {
+                int h, int w, int row0, int h_global) {
   using T = Tile<TH, TW>;
   extern __shared__ float2 smem2[];
 #ifdef WPE_PROBE_EMPTY
@@ -507,7 +524,8 @@ __global__ void __launch_bounds__(NT)
       int dr, dc, t;
       cloth::family(f, dr, dc, t);
       need[f] = live && (in_e2(y, x) || in_e2(y + dr, x + dc));
-      ok[f] = need[f] && real && spring_ok(r, c, h, w, dr, dc);
+      ok[f] = need[f] && real &&
+              spring_ok<WINDOW>(r, c, h, w, dr, dc, row0, h_global);
       far[f] = ok[f] ? i4 + dr * T::W4 + dc : 0;
     }
     const P6 pa = S.get(i4);
@@ -553,7 +571,8 @@ __global__ void __launch_bounds__(NT)
       fx = fx + E[(3 * f) * T::N1 + own];
       fy = fy + E[(3 * f + 1) * T::N1 + own];
       fz = fz + E[(3 * f + 2) * T::N1 + own];
-      const bool react = reaction_ok(r, c, w, dr, dc);
+      const bool react = reaction_ok<WINDOW>(r, c, w, dr, dc, row0,
+                                             h_global);
       const int a = own - dr * T::W1 - dc;
       fx = fx - (react ? E[(3 * f) * T::N1 + a] : 0.0f);
       fy = fy - (react ? E[(3 * f + 1) * T::N1 + a] : 0.0f);
@@ -623,7 +642,7 @@ __global__ void __launch_bounds__(NT)
       int dr, dc, t;
       cloth::family(f, dr, dc, t);
       ok[f] = real && (mine || in_core(y + dr, x + dc)) &&
-              spring_ok(r, c, h, w, dr, dc);
+              spring_ok<WINDOW>(r, c, h, w, dr, dc, row0, h_global);
       far4[f] = ok[f] ? i4 + dr * T::W4 + dc : 0;
       far2[f] = ok[f] ? i2 + dr * T::W2 + dc : 0;
     }
@@ -668,12 +687,12 @@ __global__ void __launch_bounds__(NT)
     for (int f = 0; f < 6; ++f) {
       int dr, dc, t;
       cloth::family(f, dr, dc, t);
-      if (spring_ok(r, c, h, w, dr, dc)) {
+      if (spring_ok<WINDOW>(r, c, h, w, dr, dc, row0, h_global)) {
         const float* e = E + (6 * f) * T::NA + own;
 #pragma unroll
         for (int m = 0; m < 6; ++m) b[m] = b[m] - e[m * T::NA];
       }
-      if (reaction_ok(r, c, w, dr, dc)) {
+      if (reaction_ok<WINDOW>(r, c, w, dr, dc, row0, h_global)) {
         const float* e = E + (6 * f) * T::NA + own - dr * T::WA - dc;
 #pragma unroll
         for (int m = 0; m < 6; ++m) b[m] = b[m] + e[m * T::NA];
@@ -709,11 +728,11 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) out[j] = static_cast<float>(buf[0]);
 }
 
-template <bool PINS>
+template <bool PINS, bool WINDOW>
 cudaError_t walk(const float* prm, const float* traj, const float* pin_mask,
                  float* ct_a, float* ct_b, float* ct_pin, double* partial,
                  float* ct_prm, int h, int w, int n_steps, int64_t tiles,
-                 cudaStream_t stream) {
+                 int row0, int h_global, cudaStream_t stream) {
   constexpr int TH = kTileH, TW = kTileW, NT = kVjpThreads;
   const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
   if (grid.y > 65535) return cudaErrorInvalidConfiguration;
@@ -723,15 +742,15 @@ cudaError_t walk(const float* prm, const float* traj, const float* pin_mask,
   const int64_t plane = static_cast<int64_t>(h) * w;
   constexpr int smem = 4 * Tile<TH, TW>::FLOATS;
   static_assert(smem <= kMaxSmem, "the tile needs too much shared memory");
-  cudaError_t err = allow_smem<vjp_substep<PINS, TH, TW, NT>>(smem);
+  cudaError_t err = allow_smem<vjp_substep<PINS, WINDOW, TH, TW, NT>>(smem);
   if (err != cudaSuccess) return err;
   for (int s = n_steps - 1, done = 0; s >= 0; --s, ++done) {
     const float* st = traj + 6 * plane * s;
     double* part = partial + tiles * kNumParams * s;
     const float* src = done % 2 == 0 ? ct_a : ct_b;
     float* dst = done % 2 == 0 ? ct_b : ct_a;
-    vjp_substep<PINS, TH, TW, NT><<<grid, NT, smem, stream>>>(
-        prm, st, pin_mask, src, dst, ct_pin, part, h, w);
+    vjp_substep<PINS, WINDOW, TH, TW, NT><<<grid, NT, smem, stream>>>(
+        prm, st, pin_mask, src, dst, ct_pin, part, h, w, row0, h_global);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -763,10 +782,36 @@ extern "C" int wpe_cloth_substep_vjp(const float* params, const float* traj,
                                      int use_pins, void* stream) {
   if (h <= 0 || w <= 0 || n_steps <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
-  return use_pins ? walk<true>(params, traj, pin_mask, ct_a, ct_b, ct_pin,
-                               partial, ct_prm, h, w, n_steps, tiles, s)
-                  : walk<false>(params, traj, pin_mask, ct_a, ct_b, ct_pin,
-                                partial, ct_prm, h, w, n_steps, tiles, s);
+  return use_pins
+             ? walk<true, false>(params, traj, pin_mask, ct_a, ct_b, ct_pin,
+                                 partial, ct_prm, h, w, n_steps, tiles, 0, 0,
+                                 s)
+             : walk<false, false>(params, traj, pin_mask, ct_a, ct_b, ct_pin,
+                                  partial, ct_prm, h, w, n_steps, tiles, 0, 0,
+                                  s);
+}
+
+// The same walk on a row window of a grid h_global rows high whose local
+// row 0 is global row row0 (< 0 on the top shard, whose leading halo rows
+// are dead): the adjoint of K1w's substeps (cloth_step.cu
+// `wpe_cloth_trace_window` gives traj), the springs masked as K1w masks
+// them. Every cell of the window counts, the stale halo rows too: the
+// window's output depends on the parameters through them.
+extern "C" int wpe_cloth_substep_vjp_window(
+    const float* params, const float* traj, const float* pin_mask,
+    float* ct_a, float* ct_b, float* ct_pin, double* partial, float* ct_prm,
+    int h, int w, int n_steps, int tiles, int row0, int h_global,
+    int use_pins, void* stream) {
+  if (h_global < 1) return cudaErrorInvalidValue;
+  if (h <= 0 || w <= 0 || n_steps <= 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  return use_pins
+             ? walk<true, true>(params, traj, pin_mask, ct_a, ct_b, ct_pin,
+                                partial, ct_prm, h, w, n_steps, tiles, row0,
+                                h_global, s)
+             : walk<false, true>(params, traj, pin_mask, ct_a, ct_b, ct_pin,
+                                 partial, ct_prm, h, w, n_steps, tiles, row0,
+                                 h_global, s);
 }
 
 #ifdef WPE_PROBE_CLOCK

@@ -121,19 +121,31 @@ __global__ void __launch_bounds__(kBlockW * kBlockH)
 // wpe_cloth_multi_step bit for bit. Replaces `_trace_kernel` (K7) and
 // `_trace_kernel_stream` (K9) of wgpu_physics_engine_tpu/ops/
 // cloth_pallas_grad.py, which rerun K1's body for the same purpose.
-template <bool PINS>
+// With WINDOW the launches are K1w's on a row window (row0, h_global as
+// for wpe_cloth_multi_step_window): the trajectory of the backward of the
+// rows path (`_WindowSegment`), equal to K1w's substeps bit for bit, and
+// so to K6w's, which the forward takes for a window above 100,000
+// particles. On the TPU the rows path's gradient is XLA autodiff of the
+// window stencil, which saves these states itself.
+template <bool PINS, bool WINDOW>
 cudaError_t trace(const float* params, const float* pin_mask,
                   const float* pin_pos, float* traj, int h, int w,
-                  int n_states, cudaStream_t stream) {
+                  int n_states, int row0, int h_global, cudaStream_t stream) {
   const dim3 block(kBlockW, kBlockH);
   const dim3 grid((w + kBlockW - 1) / kBlockW, (h + kBlockH - 1) / kBlockH);
   const int64_t plane = static_cast<int64_t>(h) * w;
   for (int s = 0; s + 1 < n_states; ++s) {
     const float* src = traj + 6 * plane * s;
     float* dst = traj + 6 * plane * (s + 1);
-    substep_kernel<false, PINS><<<grid, block, 0, stream>>>(
-        params, src, src + 3 * plane, pin_mask, pin_pos, dst,
-        dst + 3 * plane, h, w);
+    if (WINDOW) {
+      substep_kernel_window<PINS><<<grid, block, 0, stream>>>(
+          params, src, src + 3 * plane, pin_mask, pin_pos, dst,
+          dst + 3 * plane, h, w, row0, h_global);
+    } else {
+      substep_kernel<false, PINS><<<grid, block, 0, stream>>>(
+          params, src, src + 3 * plane, pin_mask, pin_pos, dst,
+          dst + 3 * plane, h, w);
+    }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -484,10 +496,27 @@ extern "C" int wpe_cloth_trace(const float* params, const float* pin_mask,
                                int w, int n_states, int use_pins,
                                void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return use_pins
-             ? trace<true>(params, pin_mask, pin_pos, traj, h, w, n_states, s)
-             : trace<false>(params, pin_mask, pin_pos, traj, h, w, n_states,
-                            s);
+  return use_pins ? trace<true, false>(params, pin_mask, pin_pos, traj, h, w,
+                                       n_states, 0, 0, s)
+                  : trace<false, false>(params, pin_mask, pin_pos, traj, h,
+                                        w, n_states, 0, 0, s);
+}
+
+// The same on a row window with K1w's launches: traj f32
+// [n_states, 6, h, w] of the window (halo rows included), row0 and
+// h_global as for wpe_cloth_multi_step_window.
+extern "C" int wpe_cloth_trace_window(const float* params,
+                                      const float* pin_mask,
+                                      const float* pin_pos, float* traj,
+                                      int h, int w, int n_states, int row0,
+                                      int h_global, int use_pins,
+                                      void* stream) {
+  if (h_global < 1) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  return use_pins ? trace<true, true>(params, pin_mask, pin_pos, traj, h, w,
+                                      n_states, row0, h_global, s)
+                  : trace<false, true>(params, pin_mask, pin_pos, traj, h, w,
+                                       n_states, row0, h_global, s);
 }
 
 // One exact substep of one world with an external force plane added after

@@ -39,6 +39,17 @@ JAX's switch to the XLA stencil above its VMEM budget (``_kernel_fits``)
 is a TPU limit with no counterpart. ``use_kernel=False`` takes the stencil
 shard body (``models.cloth.spring_forces(row_valid=...)``), on CPU shards
 only: no plain path runs on the card.
+
+The rows path is differentiable on both devices. Under autograd a shard
+body is ``ops.cloth_grad_kernel.multi_step_window``, a
+``torch.autograd.Function`` whose forward is the same window kernel and
+whose backward walks the window's trajectory with the window adjoint
+(on the card ``csrc/cloth_grad.cu``'s ``WINDOW`` instantiation; on CPU
+shards its plain version). The parameters are packed once a device and
+world, outside it. The halo exchange is row slices, ``.to`` and ``cat``,
+so autograd adds each halo row's cotangent back onto its owner's rows and
+sums the parameter cotangents over shards and blocks: the data-parallel
+all-reduce of JAX's ``shard_map`` transpose.
 """
 
 from __future__ import annotations
@@ -53,7 +64,7 @@ from torch.profiler import record_function
 
 from ..core.state import ClothParams, ClothState
 from ..models import cloth
-from ..ops import cloth_kernel
+from ..ops import cloth_grad_kernel, cloth_kernel
 
 HALO = 2  # bend springs reach 2 rows (cloth.rs:956-957)
 
@@ -276,20 +287,36 @@ def _exchange_halo(shards: Sequence[torch.Tensor],
 
 
 def _spatial_substep_local(pos_ext, vel_ext, pinm_ext, pinpos_ext,
-                           params: ClothParams, dt, row0: int, h_global: int,
-                           substeps: int = 1, use_kernel: bool = True):
+                           prm: torch.Tensor, row0: int, h_global: int,
+                           substeps: int = 1):
     """Shard body: ``substeps`` substeps of one halo-extended window
     (``[3, h_local + 2·halo, W]``, halo = ``HALO·substeps``) whose local row
     0 is global row ``row0``, then the centre ``[3, h_local, W]`` (the
-    halo's staleness sliced off). ``use_kernel``: K1w or K6w
-    (``cloth_kernel.multi_step_window``; their plain versions on the CPU);
-    else the stencil body with ``row_valid`` from global rows, CPU only."""
+    halo's staleness sliced off). K1w or K6w on the packed parameters
+    ``prm`` (``cloth_kernel.multi_step_window_packed``; their plain
+    versions on the CPU), through ``cloth_grad_kernel.multi_step_window``
+    when autograd needs a gradient of the window."""
     halo = HALO * substeps
-    if use_kernel:
-        pos_ext, vel_ext = cloth_kernel.multi_step_window(
-            pos_ext, vel_ext, pinm_ext, pinpos_ext, params, dt, substeps,
-            row0, h_global)
-        return pos_ext[:, halo:-halo], vel_ext[:, halo:-halo]
+    # the Function costs host time even when nothing needs a gradient: a
+    # call of 2 substeps took 82.3 µs through it against 59.2 direct on a
+    # 16×16 window, 97.1 against 65.0 on 136×256 (tools/kernel_ab.py
+    # --only adjoint; NVIDIA H100 80GB HBM3, 700.00 W)
+    step = cloth_kernel.multi_step_window_packed
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (pos_ext, vel_ext, pinpos_ext, prm)):
+        step = cloth_grad_kernel.multi_step_window
+    pos_ext, vel_ext = step(pos_ext, vel_ext, pinm_ext, pinpos_ext, prm,
+                            substeps, row0, h_global)
+    return pos_ext[:, halo:-halo], vel_ext[:, halo:-halo]
+
+
+def _stencil_substep_local(pos_ext, vel_ext, pinm_ext, pinpos_ext,
+                           params: ClothParams, dt, row0: int, h_global: int,
+                           substeps: int = 1):
+    """The shard body of ``use_kernel=False``: :func:`_spatial_substep_local`
+    by the stencil with ``row_valid`` from global rows, CPU only."""
+    halo = HALO * substeps
     _use_kernel(False, [pos_ext.device])
     grow = torch.arange(pos_ext.shape[-2], device=pos_ext.device) + row0
     row_valid = (grow >= 0) & (grow < h_global)
@@ -329,6 +356,11 @@ def _rows_world(state: ClothState, params: ClothParams, dt, n_blocks: int,
     h_local = h // len(devs)
     halo = HALO * k
     prms = {dev: _params_on(params, dev) for dev in dict.fromkeys(devs)}
+    if use_kernel:
+        # packed once a device, outside the windows' autograd Function, so
+        # autograd carries exp(log k), speed_damp ** dt and min_dist's sum
+        prms = {dev: cloth_kernel._pack_params(p, dt)
+                for dev, p in prms.items()}
 
     def cut(x):
         return [band.to(dev) for band, dev in zip(x.split(h_local, -2), devs)]
@@ -343,9 +375,14 @@ def _rows_world(state: ClothState, params: ClothParams, dt, n_blocks: int,
         vel_ext = _exchange_halo(vel, halo)
         for i, dev in enumerate(devs):
             with _on(dev):
-                pos[i], vel[i] = _spatial_substep_local(
-                    pos_ext[i], vel_ext[i], *pins[i], prms[dev], dt,
-                    i * h_local - halo, h, k, use_kernel)
+                if use_kernel:
+                    pos[i], vel[i] = _spatial_substep_local(
+                        pos_ext[i], vel_ext[i], *pins[i], prms[dev],
+                        i * h_local - halo, h, k)
+                else:
+                    pos[i], vel[i] = _stencil_substep_local(
+                        pos_ext[i], vel_ext[i], *pins[i], prms[dev], dt,
+                        i * h_local - halo, h, k)
     out = state.pos.device
     return state._replace(pos=torch.cat([p.to(out) for p in pos], dim=-2),
                           vel=torch.cat([v.to(out) for v in vel], dim=-2))

@@ -291,7 +291,8 @@ first, and the launch is matched to the traced call by correlation id).
    ``multi_step_self_collide`` alone, and world 0 to the same run with
    K1f's plain version; ``examples/multichip_datagen.py`` at its
    defaults; every launch count as the path predicts (K6w on the rows
-   path, K1w on the composed one, K5 on the worlds shards; K1, K6, K6r,
+   path, K1w on the composed one, one launch a substep for its 16
+   windows on the card, K5 on the worlds shards; K1, K6, K6r,
    K5r and K10 never). Then K10b on each of the 4 slices against its plain
    version and the same rows of K10, bit for bit.
 
@@ -299,7 +300,8 @@ Then phases 6 and 7 for the multi-device paths: K1w a substep on a 1024²
 window beside K1 and K6; K6w on one rows shard's window (the raw kernel,
 the routed call over 240 substeps and in the path's calls of 2) beside K1w
 there, with its plain version and bound; K1w on a composed shard's window
-(raw and routed), its plain version and bound, and K1w against its plain
+(raw and routed) and on the path's launch, a batch of its 16 windows,
+its plain version and bound, and K1w against its plain
 version bit for bit on the whole of the composed path's 136×256 windows
 (the timed one, and top and bottom of the fresh and the draped cloth,
 pinned, at 1 and 2 substeps; the kernels line's ``max_abs_err`` for K1w);
@@ -336,27 +338,34 @@ copies, the rest, the device's idle share).
    versions on the inputs they are timed on, bit for bit.
 24. ``cloth --live --seconds 1`` in a process without a terminal: exit
    code 0 and 20 ANSI frames.
-25. the differentiable rows path: the window trace (K1w's body,
+25. the differentiable rows path: K1w, the window trace (K1w's body,
    ``cloth_kernel.trace_window``) and the window adjoint
-   (``cloth_grad.cu``'s ``WINDOW`` instantiation) against their plain
-   versions on the top (dead rows), a middle and the bottom window of the
-   136×256 and 264×1024 windows of phase 21's two rows cells, draped, and
-   on the top and the bottom 16×16 window of the training example's 16²
-   cloth (its start and half its rollout, each window with 4 dead rows),
-   each with and without pins (the trace and the state and pin cotangents bit for
-   bit, the trace's last state equal to ``multi_step_window``'s output;
-   the parameter cotangent within 1e-5, its float64 partial sums taken
-   in another order); then, counted, the port's
+   (``cloth_grad.cu``'s ``WINDOW`` instantiation), each one launch a
+   substep for a batch of windows, against their batched plain versions
+   on the batches the path gives them: the training example's 16 windows
+   of 16×16 of one block (its start and half its rollout; top and bottom
+   windows, 4 dead rows each, half the worlds pinned and half with a zero
+   mask), the composed cell's 16 of 136×256 (draped and pinned, and fresh
+   with seeded velocities) and the rows cell's 4 of 264×1024 (draped,
+   pinned; K6w forward, a window at a time): the trace, the forward and
+   the state, pin and parameter cotangents bit for bit (the plain version
+   sums the parameter cotangent in the kernel's order), and each window
+   equal bit for bit to its ``B = 1`` calls (a zero mask to no pins), the
+   batch's parameter cotangent within 1e-5 of the windows' sum; then,
+   counted, the port's
    ``examples/multichip_training.py`` at its defaults (8 shards of the
    card, 60 iterations: ``k_struct`` within 1% of the truth from 2× off)
    and one value_and_grad of each rows cell (8 worlds of 256² on a (2, 2)
    worlds × rows mesh; the 1024² cloth on 4 rows shards; 48 substeps at
    k = 2, a trajectory-matching loss, gradients in log k_struct and pos0),
-   every count exact; each cell's gradients against the whole-grid
+   every count exact (one window call a block for all the card's
+   windows: the example's K1w 976, trace 480, window adjoint 960); each
+   cell's gradients against the whole-grid
    adjoint (``cloth_grad_kernel.multi_step``) within 1e-5 of max|g|;
    the value_and_grads by host clock and CUDA events, each traced once
-   (``trace_rows_grad_*.json``), and phase 6 at each site (the window
-   adjoint beside the whole-grid adjoint on as many rows, in turns).
+   (``trace_rows_grad_*.json``), and phase 6 at each site on the batch
+   of its launch (the window adjoint beside the whole-grid adjoint on one
+   window's rows, in turns).
 
 Any failed check raises, so the script exits non-zero; with no CUDA device
 it exits non-zero before doing anything. The next-to-last line of stdout is
@@ -4000,7 +4009,8 @@ def _phase21(dev, card):
 
     # ---- the checks ----
     n_rows = MC_STEPS * MC_SHARDS
-    n_comp = MC_WORLDS * MC_STEPS * 2
+    # K1w a substep for the batch of all MC_WORLDS x 2 windows on the card
+    n_comp = MC_STEPS
     exp = {"cloth_tiled_window": 2 * n_rows, "cloth_step_window": n_comp,
            "granular_step_sharded": MC_SHARDS * sum(MC_GR_STEPS),
            "cloth_step_batched": DG_STEPS * MC_SHARDS * (1 + 4),
@@ -4503,16 +4513,32 @@ def _mc_times(dev, card) -> dict:
     cbm, cbb = _cloth_bound(half + 4 * k_c, GRID, 1, k_c)
     cbm /= k_c
     c_err, c_eq = _k1w_composed_check(c_win, pg, k_c, c_row0, dev, card)
+    # the path's launch: every window the card holds at once, the top and
+    # bottom windows of MC_WORLDS worlds
+    b_rows = [-2 * k_c, c_row0] * MC_WORLDS
+    b_win = [torch.stack([_window_of(a, r, r + half + 4 * k_c, GRID)
+                          for r in b_rows]) for a in (sg.pos, sg.vel)]
+    b_ms = _best_ms(lambda: cloth_kernel.multi_step_window_kernel(
+        *b_win, None, None, pg, DT, n, b_rows, GRID)) / n
+    bpl_ms = _best_ms(lambda: cloth_kernel.multi_step_window_plain(
+        *b_win, None, None, pg, DT, n_plain, b_rows, GRID)) / n_plain
+    bbm, bbb = _cloth_bound(half + 4 * k_c, GRID, len(b_rows), k_c)
+    bbm /= k_c
     res["k1w_composed"] = {"ms": c_ms, "routed_2_ms": cr2_ms,
                            "plain_ms": cpl_ms, "bound_ms": cbm,
                            "bound_by": cbb, "rows": half + 4 * k_c,
-                           "max_abs_err": c_err, "bitwise_plain": c_eq}
+                           "max_abs_err": c_err, "bitwise_plain": c_eq,
+                           "batch": {"windows": len(b_rows), "ms": b_ms,
+                                     "plain_ms": bpl_ms, "bound_ms": bbm,
+                                     "bound_by": bbb}}
     print(f"phase 6 cloth_step_window (K1w) on a composed shard's window "
           f"{half + 4 * k_c}x{GRID} (k = {k_c}), {n} substeps [{card}]: "
           f"{c_ms:.5f} ms a launch (a substep); the routed multi_step_window "
           f"in the path's calls of {k_c} {cr2_ms:.5f} ms a substep; plain "
           f"{cpl_ms:.5f}; bound {cbm:.5f} ms ({cbb}; the bytes once a call "
-          f"of {k_c})")
+          f"of {k_c}); the path's launch, a batch of {len(b_rows)} such "
+          f"windows: {b_ms:.5f} ms (plain {bpl_ms:.5f}), bound {bbm:.5f} ms "
+          f"({bbb})")
     print(f"phase 6 cloth_step_window (K1w) @{LG}x{LG} window, {n} substeps "
           f"[{card}]: {w_ms:.5f} ms/substep; K1 {k1_ms:.5f}, K6 {k6_ms:.5f}; "
           f"plain {pl_ms:.5f}; bound {bm / n:.5f} ms ({bb}), K1w at "
@@ -4566,15 +4592,15 @@ def _multi_device(dev, card):
     res["times"] = t = _mc_times(dev, card)
     launches = res["main"]["launches"]
     k10b = res["granular_step_sharded"]
+    tb = t["k1w_composed"]["batch"]
     kernels = [
         _kernel("cloth_step_window", "cloth_step.cu", "cloth_pallas.py:763",
-                t["k1w_composed"]["max_abs_err"], t["k1w_composed"]["ms"],
-                t["k1w_composed"]["plain_ms"], t["k1w_composed"]["bound_ms"],
-                t["k1w_composed"]["bound_by"], [
-                    _site(f"composed worlds x rows, {GRID}² worlds",
-                          launches["cloth_step_window"],
-                          t["k1w_composed"]["ms"],
-                          t["k1w_composed"]["bound_ms"])]),
+                t["k1w_composed"]["max_abs_err"], tb["ms"], tb["plain_ms"],
+                tb["bound_ms"], tb["bound_by"], [
+                    _site(f"composed worlds x rows, {GRID}² worlds, "
+                          f"{tb['windows']} windows a launch",
+                          launches["cloth_step_window"], tb["ms"],
+                          tb["bound_ms"])]),
         _kernel("cloth_tiled_window", "cloth_tiled.cu", "cloth_pallas.py:763",
                 win_err["k6w"], t["k6w"]["ms"], t["k6w"]["plain_ms"],
                 t["k6w"]["bound_ms"], t["k6w"]["bound_by"], [
@@ -5270,123 +5296,171 @@ def _rg_value_and_grad(state, params, mesh, target, how: str = "sharded"):
     return loss.detach(), g_k, g_pos
 
 
-def _rg_window_cases(dev) -> list:
-    """The windows phase 25 (c) holds the window trace and the window
-    adjoint on, as (cell, h_global, h_local, params, states, windows):
-    the training example's 16² cloths (world 0 of ``mt.make_problem`` on
-    the card, at its start and after half its rollout; the top and the
-    bottom window of its 2 rows shards, each spanning the whole grid with
-    4 dead rows) and phase 21's two rows cells on the draped GRID² and
-    LG² cloths (``_k6_states``; the top, a middle and the bottom window),
-    each state with and without the top row pinned."""
+def _rg_batches(dev) -> list:
+    """The batches of windows phase 25 (c) holds the batched window kernels
+    on, the rows path's at k = RG_K, as (label, h_global, params, windows
+    ``(pos, vel, pin_mask, pin_pos)`` each ``[B, ...]``, first rows): the
+    training example's 16 windows of one block (its 8 worlds' top and
+    bottom windows, row0 -4 and 4, each spanning the whole 16² grid with 4
+    dead rows) at its start and after half its rollout, worlds 0-3 with
+    the top row pinned and worlds 4-7 with a zero mask; the composed
+    cell's 16 windows of 136×256 (8 worlds × 2 rows shards: the draped
+    GRID² cloth pinned (``_k6_states``) in the even worlds, the fresh one
+    with seeded velocities and a zero mask in the odd); and the rows
+    cell's 4 windows of 264×1024 of the draped LG² cloth, pinned."""
     import torch
 
-    from wgpu_physics_engine_torch.core.state import ClothState
     from wgpu_physics_engine_torch.examples import multichip_training as mt
 
     halo = 2 * RG_K
 
-    def pinned(s):
-        pin = torch.zeros(s.pos.shape[-2:], dtype=torch.bool, device=dev)
-        pin[0] = True
-        return s._replace(pin_mask=pin, pin_pos=s.pos)
+    def windows(worlds, row0, rows, hg):
+        """[B, ...] windows of (state, pinned) worlds, the world outer."""
+        out = []
+        for a in ("pos", "vel", "pin_mask", "pin_pos"):
+            parts = []
+            for st, pinned in worlds:
+                x = getattr(st, a)
+                if a == "pin_mask" and not pinned:
+                    x = torch.zeros_like(x)
+                parts += [_window_of(x, r, r + rows, hg) for r in row0]
+            out.append(torch.stack(parts))
+        return out
 
+    cases = []
     m, _, ex_params, ex = mt.make_problem(device=dev)
     mid = mt.rollout(ex, ex_params, m, mt.N_STEPS // 2)
-    ex_states = {}
-    for label, s in (("start", ex), (f"substep {mt.N_STEPS // 2}", mid)):
-        s0 = ClothState(pos=s.pos[0], vel=s.vel[0])
-        ex_states[f"example {label}"] = s0
-        ex_states[f"example {label}, pinned"] = pinned(s0)
     h_ex = ex.pos.shape[-2]
-    cases = [("example", h_ex, h_ex // 2, ex_params, ex_states,
-              (("top", -halo), ("bottom", h_ex // 2 - halo)))]
-    for cell, hg, h_local in (("composed", GRID, GRID // 2),
-                              ("rows", LG, LG // MC_SHARDS)):
+    row0 = [-halo, h_ex // 2 - halo]
+    for label, s in (("start", ex), (f"substep {mt.N_STEPS // 2}", mid)):
+        pin = torch.zeros(s.pos.shape[-2:], dtype=torch.bool, device=dev)
+        pin[0] = True
+        worlds = [(s._replace(pos=s.pos[j], vel=s.vel[j], pin_mask=pin,
+                              pin_pos=s.pos[j]), j < 4)
+                  for j in range(s.pos.shape[0])]
+        cases.append((f"example {label}", h_ex, ex_params,
+                      windows(worlds, row0, h_ex // 2 + 2 * halo, h_ex),
+                      row0 * len(worlds)))
+    g = torch.Generator().manual_seed(26)
+    for cell, hg, h_local, n_worlds in (("composed", GRID, GRID // 2,
+                                         MC_WORLDS),
+                                        ("rows", LG, LG // MC_SHARDS, 1)):
         params, states = _k6_states(hg, hg, dev)
-        s = states["draped"]
-        cases.append((cell, hg, h_local, params,
-                       {"draped": s._replace(pin_mask=None, pin_pos=None),
-                        "draped, pinned": s},
-                       (("top", -halo),
-                        ("middle", hg // 2 - h_local // 2 - halo),
-                        ("bottom", hg - h_local - halo))))
+        worlds = []
+        for j in range(n_worlds):
+            if j % 2 == 0:
+                worlds.append((states["draped"], True))
+            else:
+                f = states["fresh"]
+                worlds.append((f._replace(vel=(0.5 * torch.randn(
+                    f.vel.shape, generator=g)).to(dev)), False))
+        row0 = [i * h_local - halo for i in range(hg // h_local)]
+        cases.append((cell, hg, params,
+                      windows(worlds, row0, h_local + 2 * halo, hg),
+                      row0 * n_worlds))
     return cases
 
 
 def _rg_window_checks(dev, card):
-    """Phase 25 (c): on each window of ``_rg_window_cases`` at k = RG_K:
-    ``trace_window`` (K1w's body) ≡ ``trace_window_plain`` and its state
-    RG_K ≡ the routed ``multi_step_window`` (K1w; K6w on the LG² windows),
-    bit for bit; the window adjoint over the RG_K substeps against
-    ``_walk_plain`` with the window on a random cotangent: state and pin
-    cotangents bit for bit, the parameter cotangent's largest difference
-    printed (float64 partial sums in another order, each rounded once).
-    Returns the results and the two kernels' largest differences."""
+    """Phase 25 (c): on each batch of ``_rg_batches`` at k = RG_K, the
+    batched kernels against their batched plain versions: ``trace_window``
+    (K1w's body, one launch a substep) ≡ ``trace_window_plain`` and its
+    state RG_K ≡ the routed ``multi_step_window`` (K1w, one launch a
+    substep; K6w a window at a time on the LG² windows), bit for bit; the
+    window adjoint over the RG_K substeps (one launch a substep) against
+    ``_walk_plain`` on a random cotangent: state, pin and parameter
+    cotangents bit for bit (the plain version sums the last in the
+    kernel's order; held within 1e-5 relative and finite). Then each
+    window alone (``B = 1`` calls, a zero mask as no pins, so the batch's
+    PINS instantiation on a zero mask is held to PINS = false): its trace,
+    forward and state and pin cotangents equal the batch's bit for bit,
+    and the batch's parameter cotangent is within 1e-5 of max|g| of the
+    windows' sum. Returns the results and the two kernels' largest
+    differences from their plain versions."""
     import numpy as np
     import torch
 
     from wgpu_physics_engine_torch.ops import cloth_grad_kernel, cloth_kernel
 
-    halo = 2 * RG_K
     res, err = {}, {"trace": 0.0, "adjoint": 0.0}
-    for _, hg, h_local, params, states, windows in _rg_window_cases(dev):
+    for label, hg, params, win, row0 in _rg_batches(dev):
         prm = cloth_kernel._pack_params(params, DT)
-        rows = h_local + 2 * halo
-        for label, s in states.items():
-            for where, row0 in windows:
-                win = [None if a is None else _window_of(a, row0, row0 + rows,
-                                                         hg)
-                       for a in (s.pos, s.vel, s.pin_mask, s.pin_pos)]
-                traj = cloth_kernel.trace_window_kernel(*win, prm, RG_K + 1,
-                                                        row0, hg)
-                fwd = cloth_kernel.multi_step_window(*win, params, DT, RG_K,
-                                                     row0, hg)
-                plain = cloth_kernel.trace_window_plain(*win, prm, RG_K + 1,
-                                                        row0, hg)
-                rng = np.random.default_rng(hg + row0)
-                cp, cv = (torch.tensor(rng.standard_normal((3, rows, hg))
-                                       .astype(np.float32), device=dev)
-                          for _ in range(2))
-                pins = None if win[2] is None else (win[2], win[3])
-                got = cloth_grad_kernel._walk_kernel(traj[:RG_K], cp, cv, prm,
-                                                     pins, (row0, hg))
-                ref = cloth_grad_kernel._walk_plain(traj[:RG_K], cp, cv, prm,
-                                                    pins, (row0, hg))
-                torch.cuda.synchronize()
-                eq_trace = bool(torch.equal(traj, plain)
-                                and torch.equal(traj[RG_K, :3], fwd[0])
-                                and torch.equal(traj[RG_K, 3:], fwd[1]))
-                eq_state = bool(torch.equal(got[0], ref[0])
-                                and torch.equal(got[1], ref[1])
-                                and (pins is None
-                                     or torch.equal(got[3], ref[3])))
-                e_t = _maxdiff(traj, plain)
-                e_p = _maxdiff(got[2], ref[2])
-                e_s = max(_maxdiff(got[0], ref[0]), _maxdiff(got[1], ref[1]))
-                rel = e_p / float(ref[2].abs().max())
-                finite = bool(torch.isfinite(got[2]).all())
-                key = f"{rows}x{hg} {where} {label}"
-                res[key] = {"row0": row0, "trace_err": e_t,
-                            "trace_bitwise": eq_trace, "state_err": e_s,
-                            "state_bitwise": eq_state, "param_err": e_p,
-                            "param_rel": rel, "finite": finite}
-                print(f"phase 25 window trace and window adjoint @{key} "
-                      f"(row0 {row0}, k = {RG_K}) [{card}]: trace vs plain "
-                      f"and vs multi_step_window bitwise {eq_trace}; the "
-                      f"adjoint's state{' and pin' if pins else ''} "
-                      f"cotangents vs plain bitwise {eq_state}; its "
-                      f"parameter cotangent max abs {e_p:.3e} (relative "
-                      f"{rel:.3e}, float64 partial sums in another order), "
-                      f"finite {finite}")
-                _check(eq_trace, f"window trace {key} differs from its plain "
-                       f"version or the stepper")
-                _check(eq_state, f"window adjoint {key}: state cotangents "
-                       f"differ from the plain version by {e_s}")
-                _check(rel <= 1e-5 and finite, f"window adjoint {key}: "
-                       f"parameter cotangent off by {rel} (finite {finite})")
-                err["trace"] = max(err["trace"], e_t)
-                err["adjoint"] = max(err["adjoint"], e_s, e_p)
+        n, rows = len(row0), win[0].shape[-2]
+        traj = cloth_kernel.trace_window_kernel(*win, prm, RG_K + 1, row0,
+                                                hg)
+        fwd = cloth_kernel.multi_step_window(*win, params, DT, RG_K, row0,
+                                             hg)
+        plain = cloth_kernel.trace_window_plain(*win, prm, RG_K + 1, row0,
+                                                hg)
+        rng = np.random.default_rng(hg + n)
+        cp, cv = (torch.tensor(rng.standard_normal((n, 3, rows, hg))
+                               .astype(np.float32), device=dev)
+                  for _ in range(2))
+        pins = (win[2], win[3])
+        got = cloth_grad_kernel._walk_kernel(traj[:RG_K], cp, cv, prm, pins,
+                                             (row0, hg))
+        ref = cloth_grad_kernel._walk_plain(traj[:RG_K], cp, cv, prm, pins,
+                                            (row0, hg))
+        torch.cuda.synchronize()
+        eq_trace = bool(torch.equal(traj, plain)
+                        and torch.equal(traj[RG_K, :, :3], fwd[0])
+                        and torch.equal(traj[RG_K, :, 3:], fwd[1]))
+        eq_state = all(bool(torch.equal(got[i], ref[i])) for i in (0, 1, 3))
+        eq_param = bool(torch.equal(got[2], ref[2]))
+        e_t = _maxdiff(traj, plain)
+        e_s = max(_maxdiff(got[i], ref[i]) for i in (0, 1, 3))
+        e_p = _maxdiff(got[2], ref[2])
+        rel = e_p / float(ref[2].abs().max())
+        finite = bool(torch.isfinite(got[2]).all())
+        eq_one, g_sum, pinned = True, torch.zeros(16, dtype=torch.float64,
+                                                  device=dev), 0
+        for b, r in enumerate(row0):
+            pins_b = (win[2][b], win[3][b]) if bool(win[2][b].any()) else None
+            pinned += pins_b is not None
+            one = (win[0][b], win[1][b], *(pins_b or (None, None)))
+            t1 = cloth_kernel.trace_window_kernel(*one, prm, RG_K + 1, r, hg)
+            f1 = cloth_kernel.multi_step_window(*one, params, DT, RG_K, r, hg)
+            w1 = cloth_grad_kernel._walk_kernel(t1[:RG_K], cp[b], cv[b], prm,
+                                                pins_b, (r, hg))
+            eq_one &= bool(
+                torch.equal(traj[:, b], t1) and torch.equal(fwd[0][b], f1[0])
+                and torch.equal(fwd[1][b], f1[1])
+                and torch.equal(got[0][b], w1[0])
+                and torch.equal(got[1][b], w1[1])
+                and (torch.equal(got[3][b], w1[3]) if pins_b is not None
+                     else not bool(got[3][b].any())))
+            g_sum += w1[2].double()
+        rel_sum = _maxdiff(got[2], g_sum.float()) / float(g_sum.abs().max())
+        key = f"{label}: {n} windows of {rows}x{hg}"
+        res[key] = {"row0": row0, "windows_pinned": pinned,
+                    "trace_err": e_t, "trace_bitwise": eq_trace,
+                    "state_err": e_s, "state_bitwise": eq_state,
+                    "param_err": e_p, "param_rel": rel,
+                    "param_bitwise": eq_param, "each_window_bitwise": eq_one,
+                    "param_rel_window_sum": rel_sum, "finite": finite}
+        print(f"phase 25 batched window trace and window adjoint @{key} "
+              f"(first rows {sorted(set(row0))}, {pinned} pinned, the rest "
+              f"a zero mask, k = {RG_K}) [{card}]: trace vs plain and vs "
+              f"multi_step_window bitwise {eq_trace}; the adjoint's state "
+              f"and pin cotangents vs plain bitwise {eq_state}, its "
+              f"parameter cotangent bitwise {eq_param} (max abs {e_p:.3e}, "
+              f"relative {rel:.3e}), finite {finite}; each window's B = 1 "
+              f"trace, forward and state and pin cotangents bitwise "
+              f"{eq_one}, the batch's parameter cotangent within "
+              f"{rel_sum:.3e} of max|g| of the windows' sum")
+        _check(eq_trace, f"window trace {key} differs from its plain "
+               f"version or the stepper")
+        _check(eq_state, f"window adjoint {key}: state cotangents differ "
+               f"from the plain version by {e_s}")
+        _check(eq_param and rel <= 1e-5 and finite, f"window adjoint {key}: "
+               f"parameter cotangent off its plain version by {rel} "
+               f"(finite {finite})")
+        _check(eq_one, f"window batch {key} differs from its windows' B = 1 "
+               f"calls")
+        _check(rel_sum <= 1e-5, f"window batch {key}: parameter cotangent "
+               f"off the windows' sum by {rel_sum}")
+        err["trace"] = max(err["trace"], e_t)
+        err["adjoint"] = max(err["adjoint"], e_s, e_p)
     return res, err
 
 
@@ -5418,13 +5492,16 @@ def _rg_trace(fn, path, card, label: str) -> dict:
 
 
 def _rg_kernel_times(dev, card) -> dict:
-    """Phase 6 for phase 25's sites: at each window (the example's 16×16,
-    the composed 136×256, the rows 264×1024) the window trace a launch
-    (CUDA events over RG_STEPS launches) beside its plain version and
-    bound, and the window adjoint a substep (a walk of RG_STEPS) beside
-    the whole-grid adjoint on a grid of the same rows, in turns within the
-    call, its plain version and bound; K1w on the example's window. The
-    window is the top one (dead rows), on the fresh cloth."""
+    """Phase 6 for phase 25's sites, each timed on the batch of windows the
+    path gives one launch (the top and the bottom windows of the fresh
+    cloth, repeated): the example's 16 of 16×16, the composed cell's 16 of
+    136×256, the rows cell's 4 of 264×1024. At each, the window trace a
+    launch (CUDA events over RG_STEPS launches) beside its plain version
+    and bound, and the window adjoint a launch (a substep; a walk of
+    RG_STEPS) beside the whole-grid adjoint on a grid of one window's
+    rows, in turns within the call, its plain version and bound; K1w a
+    launch on the example's and the composed cell's batch (the rows cell
+    takes K6w, a window a launch: phase 21's time)."""
     import torch
 
     from wgpu_physics_engine_torch.core.config import ClothConfig
@@ -5435,79 +5512,94 @@ def _rg_kernel_times(dev, card) -> dict:
     halo = 2 * RG_K
     res = {}
     g = torch.Generator().manual_seed(25)
-    for name, hg, h_local in (("example", 16, 8), ("composed", GRID, GRID // 2),
-                              ("rows", LG, LG // MC_SHARDS)):
+    for name, hg, h_local, n_worlds in (("example", 16, 8, 8),
+                                        ("composed", GRID, GRID // 2,
+                                         MC_WORLDS),
+                                        ("rows", LG, LG // MC_SHARDS, 1)):
         c = ClothConfig(height=hg, width=hg)
         s = init_cloth_state(c, device=dev)
         p = ClothParams.from_config(c, device=dev)
         prm = cloth_kernel._pack_params(p, DT)
         rows = h_local + 2 * halo
-        win = [_window_of(a, -halo, rows - halo, hg) for a in (s.pos, s.vel)]
+        row0 = [i * h_local - halo for _ in range(n_worlds)
+                for i in range(hg // h_local)]
+        nb = len(row0)
+        win = [torch.stack([_window_of(a, r, r + rows, hg) for r in row0])
+               for a in (s.pos, s.vel)]
         n = RG_STEPS
         tr_ms = _best_ms(lambda: cloth_kernel.trace_window_kernel(
-            *win, None, None, prm, n + 1, -halo, hg)) / n
+            *win, None, None, prm, n + 1, row0, hg)) / n
         n_plain = 4
         trp_ms = _best_ms(lambda: cloth_kernel.trace_window_plain(
-            *win, None, None, prm, n_plain + 1, -halo, hg)) / n_plain
-        masks = cloth_kernel._window_masks(rows, hg, -halo, hg, dev)
+            *win, None, None, prm, n_plain + 1, row0, hg)) / n_plain
+        masks = cloth_kernel._window_masks(rows, hg, row0, hg, dev)
         edges = sum(int(m.sum()) for m in masks)
-        # the trace's bytes: the start state read, a state written a substep
-        tb, tby = _bound(24.0 * rows * hg * (n + 1),
-                         n * (OPS_EDGE * edges + OPS_PARTICLE * rows * hg))
+        parts = nb * rows * hg
+        # the trace's bytes: the start states read, a state written a
+        # substep
+        tb, tby = _bound(24.0 * parts * (n + 1),
+                         n * (OPS_EDGE * edges + OPS_PARTICLE * parts))
         traj = cloth_kernel.trace_window_kernel(*win, None, None, prm, n,
-                                                -halo, hg)
-        cp, cv = (torch.randn((3, rows, hg), generator=g).to(dev)
+                                                row0, hg)
+        cp, cv = (torch.randn((nb, 3, rows, hg), generator=g).to(dev)
                   for _ in range(2))
+        one = traj[:, 0].contiguous()
         ws, gs = [], []
         for _ in range(2):                       # in turns: W G G W
             ws.append(_best_ms(lambda: cloth_grad_kernel._walk_kernel(
-                traj, cp, cv, prm, None, (-halo, hg))) / n)
+                traj, cp, cv, prm, None, (row0, hg))) / n)
             gs.append(_best_ms(lambda: cloth_grad_kernel._walk_kernel(
-                traj, cp, cv, prm, None)) / n)
+                one, cp[0], cv[0], prm, None)) / n)
         w_ms, gw_ms = min(ws), min(gs)
         wp_ms = _best_ms(lambda: cloth_grad_kernel._walk_plain(
-            traj[:n_plain], cp, cv, prm, None, (-halo, hg))) / n_plain
-        ab, aby = _bound(VJP_BYTES * rows * hg,
-                         OPS_VJP_EDGE * edges + OPS_VJP_PARTICLE * rows * hg)
-        res[name] = {"rows": rows, "w": hg,
+            traj[:n_plain], cp, cv, prm, None, (row0, hg))) / n_plain
+        ab, aby = _bound(VJP_BYTES * parts,
+                         OPS_VJP_EDGE * edges + OPS_VJP_PARTICLE * parts)
+        res[name] = {"rows": rows, "w": hg, "windows": nb,
                      "trace": {"ms": tr_ms, "plain_ms": trp_ms,
                                "bound_ms": tb / n, "bound_by": tby},
                      "adjoint": {"ms": w_ms, "whole_grid_ms": gw_ms,
                                  "turns_ms": {"window": ws, "whole": gs},
                                  "plain_ms": wp_ms, "bound_ms": ab,
                                  "bound_by": aby}}
-        if name == "example":
-            k1w = _best_ms(lambda: cloth_kernel.multi_step_window_kernel(
-                *win, None, None, p, DT, n, -halo, hg)) / n
-            kb, kby = _cloth_bound(rows, hg, 1, RG_K)
-            res[name]["k1w"] = {"ms": k1w, "bound_ms": kb / RG_K,
+        k1w = ""
+        if name != "rows":
+            k_ms = _best_ms(lambda: cloth_kernel.multi_step_window_kernel(
+                *win, None, None, p, DT, n, row0, hg)) / n
+            kb, kby = _cloth_bound(rows, hg, nb, RG_K)
+            res[name]["k1w"] = {"ms": k_ms, "bound_ms": kb / RG_K,
                                 "bound_by": kby}
-        del traj
-        print(f"phase 6 window trace and window adjoint @{rows}x{hg} "
-              f"({name}'s window) [{card}]: trace {tr_ms:.5f} ms a launch "
-              f"(plain {trp_ms:.5f}), bound {tb / n:.6f} ms ({tby}); window "
-              f"adjoint {w_ms:.5f} ms a substep, the whole-grid adjoint on "
-              f"{rows}x{hg} {gw_ms:.5f} (in turns W G G W: "
+            k1w = (f"; K1w {k_ms:.5f} ms a launch, bound {kb / RG_K:.6f} ms "
+                   f"({kby}; the bytes once a call of {RG_K})")
+        del traj, one
+        print(f"phase 6 window trace and window adjoint @{nb} windows of "
+              f"{rows}x{hg} ({name}'s launch) [{card}]: trace {tr_ms:.5f} ms "
+              f"a launch (plain {trp_ms:.5f}), bound {tb / n:.6f} ms "
+              f"({tby}); window adjoint {w_ms:.5f} ms a launch, the "
+              f"whole-grid adjoint on one window's {rows}x{hg} "
+              f"{gw_ms:.5f} (in turns W G G W: "
               f"{', '.join(f'{a:.5f}/{b:.5f}' for a, b in zip(ws, gs))}), "
-              f"plain {wp_ms:.5f}, bound {ab:.6f} ms ({aby})")
+              f"plain {wp_ms:.5f}, bound {ab:.6f} ms ({aby}){k1w}")
     return res
 
 
 def _phase25(dev, card, mc_times):
-    """Phase 25: the differentiable rows path. (c) the window trace and
-    the window adjoint against their plain versions on the windows of the
-    training example and of the two rows cells (``_rg_window_checks``);
+    """Phase 25: the differentiable rows path. (c) the batched K1w, window
+    trace and window adjoint against their batched plain versions and
+    against their windows' B = 1 calls on batches of the training
+    example's and the two rows cells' windows (``_rg_window_checks``);
     then, with the counts set to
     0 just before and read just after, the main path: the port's
     ``examples/multichip_training.py`` at its defaults (8 shards of the
     card, 60 iterations; ``k_struct`` within 1% of the truth from 2× off)
     and one value_and_grad of each rows cell over RG_STEPS substeps (b),
-    each count checked exactly; (d) each cell's gradients against the
-    whole-grid adjoint within 1e-5 of max|g|; the value_and_grads timed by
-    host clock and CUDA events, each traced once; phase 6 at each site.
-    Returns the results, the two new kernels' entries, and the sites phase
-    25 adds to K1w's and K6w's (the composed and rows windows' times from
-    phase 21's ``mc_times``)."""
+    each count checked exactly (one window call a block for every window
+    of the card); (d) each cell's gradients against the whole-grid adjoint
+    within 1e-5 of max|g|; the value_and_grads timed by host clock and
+    CUDA events, each traced once; phase 6 at each site. Returns the
+    results, the two window kernels' entries, and the sites phase 25 adds
+    to K1w's and K6w's (the rows window's K6w time from phase 21's
+    ``mc_times``)."""
     import torch
 
     from wgpu_physics_engine_torch.examples import multichip_training as mt
@@ -5554,17 +5646,18 @@ def _phase25(dev, card, mc_times):
     _check(rel_k < 0.01, f"the example recovered k_struct {k}, not within "
            f"1% of {k_true}")
 
-    # what the path predicts: the example, a rollout of 8 worlds x 2 rows
-    # shards x 8 blocks of 2 substeps for the target and each of the 60
-    # forwards, a trace launch and 2 adjoint launches a window call in each
-    # backward; a cell's value_and_grad, its windows' calls of RG_K
-    # substeps (K6w RG_K launches a call at k_sub = 1, its trace K1w's
-    # body)
-    ex_calls = 8 * 2 * (mt.N_STEPS // mt.SUBSTEPS_PER_EXCHANGE)
+    # what the path predicts: one window call a block for every window of
+    # the card. The example: a rollout of 8 blocks of 2 substeps (its 8
+    # worlds x 2 rows shards in each call) for the target and each of the
+    # 60 forwards, a trace launch and 2 adjoint launches a call in each
+    # backward; a cell's value_and_grad, its blocks' calls of RG_K
+    # substeps, and on the rows cell K6w a window at a time (RG_K launches
+    # a window and call at k_sub = 1), its trace and adjoint one call
+    ex_calls = mt.N_STEPS // mt.SUBSTEPS_PER_EXCHANGE
     k_ex = mt.SUBSTEPS_PER_EXCHANGE
     blocks = RG_STEPS // RG_K
-    c_calls = MC_WORLDS * 2 * blocks
-    r_calls = MC_SHARDS * blocks
+    c_calls = blocks
+    r_calls = blocks
     zero = {n: 0 for n in launches}
     exp = {"example": {**zero, "cloth_step_window": 61 * ex_calls * k_ex,
                        "cloth_trace_window": 60 * ex_calls * (k_ex - 1),
@@ -5572,7 +5665,7 @@ def _phase25(dev, card, mc_times):
            "composed": {**zero, "cloth_step_window": c_calls * RG_K,
                         "cloth_trace_window": c_calls * (RG_K - 1),
                         "cloth_substep_vjp_window": c_calls * RG_K},
-           "rows": {**zero, "cloth_tiled_window": r_calls * RG_K,
+           "rows": {**zero, "cloth_tiled_window": MC_SHARDS * r_calls * RG_K,
                     "cloth_trace_window": r_calls * (RG_K - 1),
                     "cloth_substep_vjp_window": r_calls * RG_K}}
     _check(site == exp, f"phase 25 launches {site}, expected {exp}")
@@ -5627,7 +5720,8 @@ def _phase25(dev, card, mc_times):
     kt = res["kernel_times"] = _rg_kernel_times(dev, card)
 
     def sites(kernel, key):
-        return [_site(f"{lab}, a {kt[n]['rows']}x{kt[n]['w']} window",
+        return [_site(f"{lab}, {kt[n]['windows']} windows of "
+                      f"{kt[n]['rows']}x{kt[n]['w']} a launch",
                       site[n][key], kt[n][kernel]["ms"],
                       kt[n][kernel]["bound_ms"])
                 for n, lab in (("example", "the training example"),
@@ -5651,13 +5745,15 @@ def _phase25(dev, card, mc_times):
                 sites("trace", "cloth_trace_window")),
     ]
     extra = {"cloth_step_window": [
-        _site(f"the training example, a {kt['example']['rows']}x16 window",
+        _site(f"the training example, {kt['example']['windows']} windows of "
+              f"{kt['example']['rows']}x16 a launch",
               site["example"]["cloth_step_window"],
               kt["example"]["k1w"]["ms"], kt["example"]["k1w"]["bound_ms"]),
-        _site(f"composed value_and_grad forward, {GRID}² worlds",
+        _site(f"composed value_and_grad forward, {GRID}² worlds, "
+              f"{kt['composed']['windows']} windows a launch",
               site["composed"]["cloth_step_window"],
-              mc_times["k1w_composed"]["ms"],
-              mc_times["k1w_composed"]["bound_ms"])],
+              kt["composed"]["k1w"]["ms"],
+              kt["composed"]["k1w"]["bound_ms"])],
         "cloth_tiled_window": [
         _site(f"rows value_and_grad forward, {LG}²",
               site["rows"]["cloth_tiled_window"], mc_times["k6w"]["ms"],

@@ -52,11 +52,14 @@ bit for bit (exact and fast_math) on the flagship's 256², the reference
 are held to their plain versions bit for bit at 1M, in window mode and as
 K10b, and K11 with the plain integrate to K10. The window trace (K1w's
 body) is held to its plain version and to ``multi_step_window`` bit for
-bit, and the window adjoint to its plain version (state and pin
-cotangents bit for bit, the parameter cotangent within 1e-5), on the top,
-a middle and the bottom window of 136×256 and 264×1024 row windows; the
-training example's gradient on 8 shards of the card to 8 CPU shards
-within 1e-4.
+bit, and the window adjoint to its plain version (state, pin and
+parameter cotangents bit for bit, the plain version summing the last in
+the kernel's order), on the top, a middle and the bottom window of
+136×256 and 264×1024 row windows, and on batches of the rows path's
+windows (16 of 16×16, 16 of 136×256, 4 of 264×1024; mixed first rows
+and pins) against their batched plain versions and against the same calls
+a window at a time; the training example's gradient on 8 shards of the
+card to 8 CPU shards within 1e-4.
 """
 
 import math
@@ -1581,8 +1584,8 @@ def test_window_adjoint_and_trace_match_plain(dev, hg, h_local, pins, where):
     ``trace_window_plain`` and its state 2 ≡ ``multi_step_window``'s
     output, bit for bit; the window adjoint over the two substeps against
     ``_walk_plain`` with the window: state and pin cotangents bit for
-    bit, the parameter cotangent within 1e-5 (float64 sums in another
-    order, rounded once) and finite; one launch a substep each."""
+    bit, the parameter cotangent too (the plain version sums it in the
+    kernel's order), and finite; one launch a substep each."""
     k, halo = 2, 4
     row0 = {"top": -halo, "middle": hg // 2 - h_local // 2 - halo,
             "bottom": hg - h_local - halo}[where]
@@ -1615,11 +1618,87 @@ def test_window_adjoint_and_trace_match_plain(dev, hg, h_local, pins, where):
     ref = cloth_grad_kernel._walk_plain(traj[:k], cp, cv, prm, pins_t,
                                         (row0, hg))
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    assert _max_rel(got[2], ref[2]) <= 1e-5
+    assert torch.equal(got[2], ref[2])
     assert bool(torch.isfinite(got[2]).all())
     if pins:
         assert torch.equal(got[3], ref[3])
         assert float(got[3].abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hg,h_local,n_worlds", [(16, 8, 8), (256, 128, 8),
+                                                 (1024, 256, 1)])
+def test_window_batch_matches_plain_and_each_window(dev, hg, h_local,
+                                                    n_worlds):
+    """A batch of the rows path's windows at k = 2, every rows shard of
+    ``n_worlds`` worlds: the example's 16 windows of 16×16, the composed
+    cell's 16 of 136×256 and the rows cell's 4 of 264×1024 (K6w forward, a
+    window a launch), with top (row0 < 0), middle and bottom windows,
+    world 0 draped and pinned, the others with random velocities and a
+    zero pin mask. The batched trace (one launch a substep), forward and
+    window adjoint (one launch a substep) against their batched plain
+    versions bit for bit, the parameter cotangent included; against the
+    same calls a window at a time bit for bit (a zero mask as no pins),
+    the parameter cotangent within 1e-5 of its largest entry of their sum."""
+    k, halo = 2, 4
+    rows = h_local + 2 * halo
+    worlds = [_k6_state(dev, hg, hg, j == 0, [(0, c) for c in range(0, hg, 2)]
+                        if j == 0 else None) for j in range(n_worlds)]
+    p = worlds[0][1]
+    prm = cloth_kernel._pack_params(p, DT)
+    n_shards = hg // h_local
+    row0 = [i * h_local - halo for _ in worlds for i in range(n_shards)]
+    zero = torch.zeros((hg, hg), dtype=torch.bool, device=dev)
+
+    def planes(s):
+        return (s.pos, s.vel, zero if s.pin_mask is None else s.pin_mask,
+                s.pos if s.pin_pos is None else s.pin_pos)
+
+    win = [torch.stack([_window_of(planes(s)[m], r, r + rows, hg)
+                        for s, _ in worlds for r in row0[:n_shards]])
+           for m in range(4)]
+    n = len(row0)
+    t0 = (cloth_kernel.LAUNCHES_WINDOW_TRACE, cloth_grad_kernel.LAUNCHES_WINDOW)
+    traj = cloth_kernel.trace_window(*win, prm, k + 1, row0, hg)
+    fwd = cloth_kernel.multi_step_window(*win, p, DT, k, row0, hg)
+    rng = np.random.default_rng(hg)
+    cp, cv = (torch.tensor(rng.standard_normal((n, 3, rows, hg))
+                           .astype(np.float32), device=dev)
+              for _ in range(2))
+    pins = (win[2], win[3])
+    got = cloth_grad_kernel.walk_window(traj[:k], cp, cv, prm, row0, hg,
+                                        pins)
+    torch.cuda.synchronize()
+    assert (cloth_kernel.LAUNCHES_WINDOW_TRACE - t0[0],
+            cloth_grad_kernel.LAUNCHES_WINDOW - t0[1]) == (k, k)
+    assert torch.equal(traj, cloth_kernel.trace_window_plain(
+        *win, prm, k + 1, row0, hg))
+    assert torch.equal(traj[k, :, :3], fwd[0])
+    assert torch.equal(traj[k, :, 3:], fwd[1])
+    ref = cloth_grad_kernel._walk_plain(traj[:k], cp, cv, prm, pins,
+                                        (row0, hg))
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert bool(torch.isfinite(got[2]).all())
+    g_sum = torch.zeros(16, dtype=torch.float64, device=dev)
+    for b, r in enumerate(row0):
+        pins_b = (win[2][b], win[3][b]) if bool(win[2][b].any()) else None
+        one = [win[0][b], win[1][b], *(pins_b or (None, None))]
+        t1 = cloth_kernel.trace_window(*one, prm, k + 1, r, hg)
+        f1 = cloth_kernel.multi_step_window(*one, p, DT, k, r, hg)
+        w1 = cloth_grad_kernel.walk_window(t1[:k], cp[b], cv[b], prm, r, hg,
+                                           pins_b)
+        assert torch.equal(traj[:, b], t1)
+        assert torch.equal(fwd[0][b], f1[0]) and torch.equal(fwd[1][b],
+                                                             f1[1])
+        assert torch.equal(got[0][b], w1[0]) and torch.equal(got[1][b],
+                                                             w1[1])
+        if pins_b is not None:
+            assert torch.equal(got[3][b], w1[3])
+        else:
+            assert not bool(got[3][b].any())
+        g_sum += w1[2].double()
+    assert _max_rel(got[2], g_sum.float()) <= 1e-5
 
 
 @pytest.mark.cuda
@@ -1649,8 +1728,9 @@ def test_window_adjoint_example_gradient_cuda_matches_cpu(dev):
         out[d] = vals
         if d == "cuda":
             torch.cuda.synchronize()
-            # a rollout: 8 worlds x 2 rows shards x 8 blocks of 2 substeps
-            calls = 8 * 2 * (mt.N_STEPS // mt.SUBSTEPS_PER_EXCHANGE)
+            # a rollout: 8 blocks of 2 substeps, one window call of the 8
+            # worlds x 2 rows shards a block on the one card
+            calls = mt.N_STEPS // mt.SUBSTEPS_PER_EXCHANGE
             k_sub = mt.SUBSTEPS_PER_EXCHANGE
             assert (cloth_kernel.LAUNCHES_WINDOW - counts[0],
                     cloth_kernel.LAUNCHES_WINDOW_TRACE - counts[1],

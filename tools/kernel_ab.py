@@ -83,6 +83,24 @@ events over back-to-back launches, best of 5):
   of ``FreeParticleScene`` after ``simulate(3.0)`` with its 10 instances
   and with 16,384 of radius 0.25 in the box, device µs a launch from a
   trace of five, and ``k4_10_ms``, ``k4_16384_ms`` by CUDA events;
+* part ``rows_grad``, the differentiable rows path at its main-path
+  sites: ``rows_grad_example_iter_ms``, an iteration of
+  ``examples/multichip_training.py`` (its loss, backward and Adam step on
+  8 shards of the card), ms by host clock over 10 iterations, best of 5;
+  ``rows_grad_composed_host_ms`` and ``rows_grad_composed_events_ms``, a
+  value_and_grad of the composed cell (8 worlds of 256² with seeded
+  velocities on a (2, 2) worlds × rows mesh, 48 substeps at k = 2, a
+  trajectory-matching loss at 0.8 k_struct, gradients in log k_struct and
+  pos0; ``chip_smoke.py`` phase 25's cell) by host clock and CUDA
+  events, best of 5, and ``rows_grad_rows_host_ms``,
+  ``rows_grad_rows_events_ms`` the same for the rows cell (the 1024²
+  cloth, top row pinned, on 4 rows shards); for each of ``example``,
+  ``composed`` and ``rows``, ``rows_grad_<site>_device`` from a
+  ``torch.profiler`` trace of one such call: per kernel (``k1w_trace``:
+  K1w and the window trace, which launch one ``__global__`` function;
+  ``adjoint``: the window adjoint; ``reduce``: its reductions; ``k6w``)
+  the launches, the device µs and the µs a launch, with the device's busy
+  µs and op count;
 * with ``--sweep`` (a checkout with K6w) K6w on the rows window over tile
   heights and widths at k = 1; (a checkout whose walk has
   ``walk_geometry``), K11 and
@@ -93,7 +111,8 @@ events over back-to-back launches, best of 5):
 * with ``--check``, each kernel against its plain version: the largest
   difference and whether they are equal bit for bit;
 * with ``--only`` and one or more of ``walk``, ``cloth``, ``resident``,
-  ``window``, ``adjoint``, ``raster`` and ``k1f_k4``, only those parts; with ``e2e`` among them, also the host-bound loops the
+  ``window``, ``adjoint``, ``raster``, ``k1f_k4`` and ``rows_grad``, only
+  those parts (``k1f_k4`` and ``rows_grad`` run only when named); with ``e2e`` among them, also the host-bound loops the
   walk runs in (``self_collide_256`` and the granular value_and_grad at
   1M, host clock, best of 5).
 
@@ -236,7 +255,7 @@ def main() -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--only", nargs="+",
                     choices=("walk", "cloth", "resident", "window", "adjoint",
-                             "raster", "k1f_k4", "e2e"))
+                             "raster", "k1f_k4", "rows_grad", "e2e"))
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -293,6 +312,8 @@ def main() -> int:
         _raster(args, out, checks, dev, c256, configs)
     if "k1f_k4" in parts:
         _k1f_k4(args, out, checks, dev, c256)
+    if "rows_grad" in parts:
+        _rows_grad(out, dev)
     if "e2e" in parts:
         _e2e(out, dev, c256, configs)
     if args.check:
@@ -832,6 +853,100 @@ def _trace_device(fn, match) -> tuple:
           if e.device_type == torch.autograd.DeviceType.CUDA]
     hit = [e.device_time for e in ev if match(e.name)]
     return sum(hit), len(hit), sum(e.device_time for e in ev), len(ev)
+
+
+def _rows_grad(out, dev):
+    """The differentiable rows path's sites: the training example's
+    iteration, the composed and rows cells' value_and_grad, and their
+    window kernels' device time from a trace (the module's
+    ``rows_grad``)."""
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.core.state import (ClothParams, ClothState,
+                                                      init_cloth_state)
+    from wgpu_physics_engine_torch.examples import multichip_training as mt
+    from wgpu_physics_engine_torch.parallel import datagen
+    from wgpu_physics_engine_torch.parallel import mesh as pmesh
+
+    dt, steps, k = 1.0 / 480.0, 48, 2
+    kernels = {"k1w_trace": "substep_kernel_window", "adjoint": "vjp_substep",
+               "reduce": "reduce_partials", "k6w": "tiled_kernel"}
+
+    def device(fn):
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        res = {"busy_us": sum(e.device_time for e in ev), "ops": len(ev)}
+        for key, name in kernels.items():
+            ts = [e.device_time for e in ev if name in e.name]
+            res[key] = {"launches": len(ts), "us": sum(ts),
+                        "us_a_launch": sum(ts) / len(ts) if ts else None}
+        return res
+
+    # the training example: an iteration of its loop
+    m, _, params, state = mt.make_problem(device=dev)
+    with torch.no_grad():
+        target = mt.rollout(state, params, m)
+    log_k = torch.log(0.5 * params.k_struct).detach().requires_grad_(True)
+    opt, sched = mt.make_optimizer(log_k)
+
+    def iteration():
+        opt.zero_grad()
+        mt.loss_fn(log_k, state, params, m, target).backward()
+        opt.step()
+        sched.step()
+
+    out["rows_grad_example_iter_ms"] = _best_s(
+        lambda: [iteration() for _ in range(10)]) / 10 * 1e3
+    out["rows_grad_example_device"] = device(iteration)
+
+    # the two cells of chip_smoke.py phase 25
+    c_fl = ClothConfig(height=256, width=256)
+    fl = datagen.randomized_worlds(c_fl, 8, torch.Generator().manual_seed(21),
+                                   device=dev)
+    c_lg = ClothConfig(height=1024, width=1024)
+    s_lg = init_cloth_state(c_lg, device=dev)
+    pin = torch.zeros((1024, 1024), dtype=torch.bool, device=dev)
+    pin[0] = True
+    g = torch.Generator().manual_seed(25)
+    vel = [(0.5 * torch.randn(x.shape, generator=g)).to(dev)
+           for x in (fl.state.vel, s_lg.vel)]
+    cells = {
+        "composed": (ClothState(pos=fl.state.pos, vel=vel[0]),
+                     ClothParams.from_config(c_fl, device=dev),
+                     pmesh.make_mesh((2, 2), ("worlds", "rows"), [dev] * 4)),
+        "rows": (s_lg._replace(vel=vel[1], pin_mask=pin, pin_pos=s_lg.pos),
+                 ClothParams.from_config(c_lg, device=dev),
+                 pmesh.make_mesh((4,), ("rows",), [dev] * 4))}
+
+    def rollout(st, p, mesh, lk):
+        p = p._replace(k_struct=torch.exp(lk))
+        if st.pos.ndim == 3:
+            return pmesh.spatial_multi_step(st, p, dt, steps, mesh,
+                                            substeps_per_exchange=k).pos
+        return pmesh.batched_spatial_multi_step(st, p, dt, steps, mesh,
+                                                substeps_per_exchange=k).pos
+
+    for name, (st, p, mesh) in cells.items():
+        with torch.no_grad():
+            tgt = rollout(st, p, mesh, torch.log(p.k_struct))
+
+        def value_and_grad():
+            lk = torch.log(0.8 * p.k_struct).detach().requires_grad_(True)
+            pos0 = st.pos.detach().clone().requires_grad_(True)
+            o = rollout(st._replace(pos=pos0), p, mesh, lk)
+            torch.autograd.grad(torch.mean((o - tgt) ** 2), (lk, pos0))
+
+        out[f"rows_grad_{name}_host_ms"] = _best_s(value_and_grad) * 1e3
+        out[f"rows_grad_{name}_events_ms"] = _best_ms(value_and_grad)
+        out[f"rows_grad_{name}_device"] = device(value_and_grad)
 
 
 def _k1f_k4(args, out, checks, dev, c256):

@@ -47,13 +47,17 @@ tiles, the core cells kept), which the CPU tests hold against
 
 The rows-sharded path (``parallel/mesh.py``) differentiates through its
 windows the same way: :func:`multi_step_window` is K1w's (or K6w's)
-forward on a halo-extended row window, and its backward re-runs the window
-with ``cloth_kernel.trace_window`` and walks it with
-:func:`walk_window`, the adjoint with K1w's global-row spring masks
-(:func:`substep_vjp_window_plain`; on CUDA the kernel's ``WINDOW``
-instantiation). JAX takes this gradient by XLA autodiff of its window
-stencil (``parallel/mesh.py`` with ``use_kernel=False``); the port computes
-it by hand on the card, as it does for the whole grid.
+forward on a batch of halo-extended row windows (every window one device
+holds in an exchange block), and its backward re-runs them with
+``cloth_kernel.trace_window`` and walks them with :func:`walk_window`, the
+adjoint with K1w's global-row spring masks (:func:`_walk_window_plain`; on
+CUDA the kernel's ``WINDOW`` instantiation, one launch a substep for the
+batch). The plain version sums the batch's parameter cotangent in the
+kernel's order (:func:`_kernel_order_partials`, :func:`_reduce_partials`),
+so the two agree bit for bit on the card. JAX takes this gradient by XLA
+autodiff of its window stencil (``parallel/mesh.py`` with
+``use_kernel=False``), a window at a time; the port computes it by hand on
+the card, as it does for the whole grid.
 """
 
 from __future__ import annotations
@@ -79,14 +83,17 @@ LAUNCHES_WINDOW = 0
 DEFAULT_SEGMENT = 64
 
 # The adjoint kernel's tile, (rows, columns) of particles, one row of
-# parameter partials a tile (csrc/cloth_grad.cu kTileH, kTileW).
+# parameter partials a tile (csrc/cloth_grad.cu kTileH, kTileW), and the
+# threads of its CTA (kVjpThreads).
 TILE = (16, 16)
+THREADS = 256
 
 _SIGNATURES = {
     "wpe_cloth_substep_vjp": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                              + [ctypes.c_void_p],
     "wpe_cloth_substep_vjp_window": [ctypes.c_void_p] * 8
-                                    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+                                    + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                                    + [ctypes.c_int] * 2 + [ctypes.c_void_p],
 }
 
 
@@ -133,13 +140,16 @@ def _integrate_planes(x, y, z, vx, vy, vz, fx, fy, fz, k_contact, mu, mass,
 # ---------------------------------------------------------------------------
 
 def _substep_vjp_planes(state_in, ct_pos, ct_vel, prm, pins, masks=None,
-                        count=None):
+                        count=None, terms=False):
     """The adjoint of one substep on planes; the parameter cotangent comes
     back as float64 sums of the fp32 per-particle and per-edge terms.
     ``masks`` are the families' validity planes (default: the whole grid's,
     ``cloth_kernel._family_masks``); ``count``, a boolean plane, limits the
     parameter sums to the terms of its cells (a cell's and the edges it
-    anchors; default: all)."""
+    anchors; default: all). With ``terms`` the parameter cotangent comes
+    back unsummed, as the fp32 term planes of :func:`_kernel_order_partials`:
+    the seven of each cell (parameters 9..15), then (k, c, rest) of the
+    spring each family anchors at each cell, family by family."""
     h, w = state_in.shape[-2:]
     dev = state_in.device
     P = prm.detach().to(device=dev, dtype=torch.float32).unbind(0)
@@ -258,6 +268,7 @@ def _substep_vjp_planes(state_in, ct_pos, ct_vel, prm, pins, masks=None,
 
     # ---- springs, gathered per family as csrc/cloth_grad.cu does ----
     g = torch.zeros(16, dtype=torch.float64, device=dev)
+    edge_terms = []
     for fam_idx, (dr, dc, t) in enumerate(_FAMILIES):
         p1x, p1y, p1z, v1x_, v1y_, v1z_ = (_shift(a, dr, dc) for a in carry)
         dxv, dyv, dzv = p1x - x, p1y - y, p1z - z
@@ -279,17 +290,28 @@ def _substep_vjp_planes(state_in, ct_pos, ct_vel, prm, pins, masks=None,
         dbs = [where(keep, ub * inv + lb * u, 0.0)
                for ub, u in ((ubx, ux), (uby, uy), (ubz, uz))]
         dvbs = [where(keep, sc * u, 0.0) for u in (ux, uy, uz)]
-        g[t] += _sum64(where(keep, sb * stretch, 0.0))
-        g[3 + t] += _sum64(where(keep, sb * v_along, 0.0))
-        g[6 + t] += _sum64(where(keep, -(sb * k[t]), 0.0))
+        gk = where(keep, sb * stretch, 0.0)
+        gc = where(keep, sb * v_along, 0.0)
+        grest = where(keep, -(sb * k[t]), 0.0)
+        if terms:
+            edge_terms += [gk, gc, grest]
+        else:
+            g[t] += _sum64(gk)
+            g[3 + t] += _sum64(gc)
+            g[6 + t] += _sum64(grest)
         cx, cy, cz = (a - d for a, d in zip((cx, cy, cz), dbs))
         cx, cy, cz = (a + _shift(d, -dr, -dc) for a, d in zip((cx, cy, cz), dbs))
         cvx, cvy, cvz = (a - d for a, d in zip((cvx, cvy, cvz), dvbs))
         cvx, cvy, cvz = (a + _shift(d, -dr, -dc)
                          for a, d in zip((cvx, cvy, cvz), dvbs))
 
-    for j, plane in enumerate((g_kc, g_mu, g_mass, g_grav, g_damp, g_md, g_dt)):
-        g[9 + j] = _sum64(plane)
+    cells = (g_kc, g_mu, g_mass, g_grav, g_damp, g_md, g_dt)
+    if terms:
+        g = torch.stack([torch.broadcast_to(a, x.shape)
+                         for a in cells + tuple(edge_terms)])
+    else:
+        for j, plane in enumerate(cells):
+            g[9 + j] = _sum64(plane)
     return (torch.stack([cx, cy, cz]), torch.stack([cvx, cvy, cvz]), g,
             ct_pin)
 
@@ -314,37 +336,156 @@ def substep_vjp_plain(state_in: torch.Tensor, ct_pos: torch.Tensor,
 
 def substep_vjp_window_plain(state_in: torch.Tensor, ct_pos: torch.Tensor,
                              ct_vel: torch.Tensor, prm: torch.Tensor,
-                             row0: int, h_global: int, pins=None):
+                             row0, h_global: int, pins=None):
     """:func:`substep_vjp_plain` for one substep of K1w on a row window
     ``[6, h, W]`` whose local row 0 is global row ``row0`` of a grid
-    ``h_global`` rows high: the springs masked by
-    ``cloth_kernel._window_masks``. Every cell of the window counts in the
-    parameter cotangent; a dead row (beyond the grid) joins no spring, so
-    its terms are 0 where its incoming cotangent is."""
-    masks = cloth_kernel._window_masks(*state_in.shape[-2:], row0, h_global,
-                                       state_in.device)
-    cp, cv, g, ct_pin = _substep_vjp_planes(state_in, ct_pos, ct_vel, prm,
-                                            pins, masks)
-    return cp, cv, g.float(), ct_pin
+    ``h_global`` rows high (or on a batch ``[B, 6, h, W]`` with B first
+    rows): the springs masked by ``cloth_kernel._window_masks``, the walk
+    of one substep of :func:`_walk_window_plain`. Every cell of the window
+    counts in the parameter cotangent; a dead row (beyond the grid) joins
+    no spring, so its terms are 0 where its incoming cotangent is."""
+    return _walk_window_plain(state_in[None], ct_pos, ct_vel, prm, pins,
+                              row0, h_global)
 
 
 def _walk_plain(traj, ct_pos, ct_vel, prm, pins, window=None):
-    """Substeps ``traj.shape[0] - 1 .. 0`` of :func:`substep_vjp_plain`
-    (with ``window = (row0, h_global)``, of
-    :func:`substep_vjp_window_plain`): the state cotangent carried, the
-    parameter cotangent summed in float64 and rounded once, the pin
-    cotangent summed in fp32 in walk order (as the kernel does)."""
+    """Substeps ``traj.shape[0] - 1 .. 0`` of :func:`substep_vjp_plain`:
+    the state cotangent carried, the parameter cotangent summed in float64
+    and rounded once, the pin cotangent summed in fp32 in walk order (as
+    the kernel does). With ``window = (row0, h_global)``
+    :func:`_walk_window_plain`."""
+    if window is not None:
+        return _walk_window_plain(traj, ct_pos, ct_vel, prm, pins, *window)
     g = torch.zeros(16, dtype=torch.float64, device=traj.device)
     ct_pin = (torch.zeros_like(ct_pos) if pins is not None else None)
-    masks = (None if window is None else cloth_kernel._window_masks(
-        *traj.shape[-2:], *window, traj.device))
     for s in range(traj.shape[0] - 1, -1, -1):
         ct_pos, ct_vel, gs, gp = _substep_vjp_planes(traj[s], ct_pos, ct_vel,
-                                                     prm, pins, masks)
+                                                     prm, pins)
         g = g + gs
         if gp is not None:
             ct_pin = ct_pin + gp
     return ct_pos, ct_vel, g.float(), ct_pin
+
+
+def _thread_maps():
+    """For the kernel's two loops over a tile's regions, the core cell
+    (row-major in the tile, -1 for none) that thread t takes at pass i,
+    ``[passes, THREADS]``: the integration's loop over the core grown by
+    2 (step 1b; a cell counts in the core) and the spring adjoints' over
+    their anchors (step 2a; an anchor counts in the core)."""
+    th, tw = TILE
+
+    def region(rows, cols, y0, x0):
+        n = rows * cols
+        passes = -(-n // THREADS)
+        j = torch.arange(passes * THREADS)
+        y, x = j // cols - y0, j % cols - x0
+        core = (j < n) & (y >= 0) & (y < th) & (x >= 0) & (x < tw)
+        return torch.where(core, y * tw + x, -1).view(passes, THREADS)
+
+    return region(th + 4, tw + 4, 2, 2), region(th + 2, tw + 3, 2, 2)
+
+
+def _ordered_sum(x: torch.Tensor) -> torch.Tensor:
+    """The float64 sum over the leading axis from 0.0, one term after the
+    other."""
+    acc = torch.zeros_like(x[0])
+    for a in x:
+        acc = acc + a
+    return acc
+
+
+def _block_sum(v: torch.Tensor) -> torch.Tensor:
+    """``cloth_grad.cu``'s ``block_sum`` over the last axis (the CTA's
+    threads): a shuffle-down tree in each warp of 32, then the warps in
+    order."""
+    v = v.unflatten(-1, (-1, 32))
+    for off in (16, 8, 4, 2, 1):
+        v = v[..., :off] + v[..., off:2 * off]
+    return _ordered_sum(v[..., 0].movedim(-1, 0))
+
+
+def _kernel_order_partials(terms: torch.Tensor) -> torch.Tensor:
+    """One substep's parameter partials of ``csrc/cloth_grad.cu`` from the
+    term planes of :func:`_substep_vjp_planes` (``terms=True``, ``[25, B,
+    h, w]``): float64 ``[B · tiles, 16]``, window b's tiles after window
+    b - 1's, each row summed as the tile's CTA sums it. Each thread adds
+    the terms of its cells (integration) and anchors (springs, the two
+    families of a type in order) in the order of its loops, skipping
+    nothing but zeros, which change no float64 sum that started at 0.0;
+    then :func:`_block_sum`."""
+    th, tw = TILE
+    n, b, h, w = terms.shape
+    ty, tx = -(-h // th), -(-w // tw)
+    t = torch.nn.functional.pad(terms.double(), (0, tx * tw - w,
+                                                 0, ty * th - h))
+    t = t.view(n, b, ty, th, tx, tw).permute(0, 1, 2, 4, 3, 5).reshape(
+        n, b * ty * tx, th * tw)
+    t = torch.nn.functional.pad(t, (0, 1))         # index -1: a zero
+    cells, anchors = _thread_maps()
+    gi = t[:7, :, cells.to(t.device)]              # [7, T, passes, NT]
+    ge = t[7:, :, anchors.to(t.device)].view(6, 3, *t.shape[1:2],
+                                             *anchors.shape)
+    # a thread's sum of type tt: its passes in order, families 2tt, 2tt+1
+    ge = ge.view(3, 2, 3, *ge.shape[2:]).permute(0, 2, 3, 4, 1, 5)
+    ge = ge.reshape(3, 3, ge.shape[2], -1, THREADS)  # [tt, k/c/rest, T, ...]
+    edge = _block_sum(_ordered_sum(ge.movedim(3, 0)))          # [tt, m, T]
+    cell = _block_sum(_ordered_sum(gi.movedim(2, 0)))          # [7, T]
+    return torch.cat([edge.transpose(0, 1).reshape(9, -1), cell]).T
+
+
+def _reduce_partials(partial: torch.Tensor) -> torch.Tensor:
+    """``cloth_grad.cu``'s ``reduce_partials`` on float64 ``[rows, 16]``:
+    each of 256 threads sums rows t, t + 256, ... in order, then a tree
+    over the threads; rounded once to float32."""
+    k = 256
+    rows = partial.shape[0]
+    p = torch.nn.functional.pad(partial, (0, 0, 0, -rows % k))
+    buf = _ordered_sum(p.view(-1, k, partial.shape[1]))
+    while k > 1:
+        k //= 2
+        buf = buf[:k] + buf[k:2 * k]
+    return buf[0].float()
+
+
+def _walk_window_plain(traj, ct_pos, ct_vel, prm, pins, row0,
+                       h_global: int):
+    """The window adjoint's plain version: :func:`_walk_plain` over the
+    trajectory of a row window (``[n, 6, h, W]``, ``row0`` an int) or of
+    a batch of windows (``[n, B, 6, h, W]``, B first rows, cotangents
+    ``[B, 3, h, W]``, pins ``([B, h, W], [B, 3, h, W])``) with K1w's
+    spring masks. The state and pin cotangents are the kernel's; the
+    parameter cotangent is summed as the kernel sums it
+    (:func:`_kernel_order_partials`, :func:`_reduce_partials`), one
+    ``[16]`` for the batch."""
+    single = traj.ndim == 4
+    if single:
+        traj, ct_pos, ct_vel = traj[:, None], ct_pos[None], ct_vel[None]
+        row0 = [cloth_kernel._row0_list(row0, None)]
+        pins = None if pins is None else (pins[0][None], pins[1][None])
+    n, nb, _, h, w = traj.shape
+    masks = cloth_kernel._window_masks(h, w, cloth_kernel._row0_list(
+        row0, nb), h_global, traj.device)
+    # channels first, the windows a batch axis of every plane
+    cp, cv = ct_pos.transpose(0, 1), ct_vel.transpose(0, 1)
+    pins_t = None if pins is None else (pins[0], pins[1].transpose(0, 1))
+    ct_pin = None if pins is None else torch.zeros_like(cp)
+    partial = []
+    for s in range(n - 1, -1, -1):
+        cp, cv, terms, gp = _substep_vjp_planes(
+            traj[s].transpose(0, 1), cp, cv, prm, pins_t, masks, terms=True)
+        partial.append(_kernel_order_partials(terms))
+        if gp is not None:
+            ct_pin = ct_pin + gp
+    g = (_reduce_partials(torch.cat(partial[::-1])) if partial
+         else torch.zeros(16, device=traj.device))
+    cp, cv = cp.transpose(0, 1), cv.transpose(0, 1)
+    if ct_pin is not None:
+        ct_pin = ct_pin.transpose(0, 1)
+    if single:
+        cp, cv = cp[0], cv[0]
+        ct_pin = None if ct_pin is None else ct_pin[0]
+    return cp, cv, g, ct_pin
 
 
 def substep_vjp_tiled(state_in: torch.Tensor, ct_pos: torch.Tensor,
@@ -410,18 +551,29 @@ def _walk_kernel(traj, ct_pos, ct_vel, prm, pins, window=None):
     between two buffers, then one fixed-order reduction of the per-tile
     parameter partials; nothing waits on the host. With ``window = (row0,
     h_global)`` the launches are the window instantiation's
-    (``wpe_cloth_substep_vjp_window``)."""
+    (``wpe_cloth_substep_vjp_window``), on one window's trajectory
+    ``[n, 6, h, W]`` or, one launch a substep for all of them, on a batch
+    of windows' ``[n, B, 6, h, W]`` (B first rows in ``row0``; cotangents
+    ``[B, 3, h, W]``, pins ``([B, h, W], [B, 3, h, W])``), whose parameter
+    cotangent is one ``[16]`` sum."""
     global LAUNCHES, LAUNCHES_WINDOW
     if traj.device.type != "cuda":
         raise ValueError(f"cloth adjoint kernel needs CUDA tensors, got "
                          f"{traj.device}")
-    n, _, h, w = traj.shape
+    single = traj.ndim == 4
+    if single:
+        traj, ct_pos, ct_vel = traj[:, None], ct_pos[None], ct_vel[None]
+        pins = None if pins is None else (pins[0][None], pins[1][None])
+    elif window is None:
+        raise ValueError(f"traj: expected [n, 6, H, W] for the whole grid, "
+                         f"got {tuple(traj.shape)}")
+    n, nb, _, h, w = traj.shape
     dev = traj.device
-    cloth_kernel._check_plane(traj, (n, 6, h, w), dev, "traj")
+    cloth_kernel._check_plane(traj, (n, nb, 6, h, w), dev, "traj")
     traj = traj.contiguous()
-    ct_in = torch.cat([ct_pos, ct_vel]).to(dtype=torch.float32)
-    cloth_kernel._check_plane(ct_in, (6, h, w), dev, "ct_pos/ct_vel")
-    ct = torch.empty((2, 6, h, w), dtype=torch.float32, device=dev)
+    ct_in = torch.cat([ct_pos, ct_vel], dim=-3).to(dtype=torch.float32)
+    cloth_kernel._check_plane(ct_in, (nb, 6, h, w), dev, "ct_pos/ct_vel")
+    ct = torch.empty((2, nb, 6, h, w), dtype=torch.float32, device=dev)
     ct[0] = ct_in
     prm = prm.detach().to(device=dev, dtype=torch.float32).contiguous()
     if prm.shape != (16,):
@@ -431,36 +583,42 @@ def _walk_kernel(traj, ct_pos, ct_vel, prm, pins, window=None):
     pin_ptrs = (None, None)
     if pins is not None:
         pin_mask = pins[0].to(device=dev, dtype=torch.float32).contiguous()
-        cloth_kernel._check_plane(pin_mask, (h, w), dev, "pin_mask")
-        ct_pin = torch.zeros((3, h, w), dtype=torch.float32, device=dev)
+        cloth_kernel._check_plane(pin_mask, (nb, h, w), dev, "pin_mask")
+        ct_pin = torch.zeros((nb, 3, h, w), dtype=torch.float32, device=dev)
         pin_ptrs = (pin_mask.data_ptr(), ct_pin.data_ptr())
-    if n == 0 or h * w == 0:
-        return ct[0, :3], ct[0, 3:], ct_prm, ct_pin
-    tiles = -(-h // TILE[0]) * -(-w // TILE[1])
-    partial = torch.empty((n, tiles, 16), dtype=torch.float64, device=dev)
-    lib = _build.load("cloth_grad", _SIGNATURES)
-    args = (prm.data_ptr(), traj.data_ptr(), pin_ptrs[0], ct[0].data_ptr(),
-            ct[1].data_ptr(), pin_ptrs[1], partial.data_ptr(),
-            ct_prm.data_ptr(), h, w, n, tiles)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+    if n and h * w:
+        tiles = -(-h // TILE[0]) * -(-w // TILE[1])
+        partial = torch.empty((n, nb * tiles, 16), dtype=torch.float64,
+                              device=dev)
+        lib = _build.load("cloth_grad", _SIGNATURES)
+        args = (prm.data_ptr(), traj.data_ptr(), pin_ptrs[0],
+                ct[0].data_ptr(), ct[1].data_ptr(), pin_ptrs[1],
+                partial.data_ptr(), ct_prm.data_ptr())
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            if window is None:
+                err = lib.wpe_cloth_substep_vjp(*args, h, w, n, tiles,
+                                                int(pins is not None), stream)
+            else:
+                row0, h_global = window
+                if h_global < 1:
+                    raise ValueError(f"h_global must be positive, got "
+                                     f"{h_global}")
+                rows = cloth_kernel._row0_device(row0, nb, dev)
+                err = lib.wpe_cloth_substep_vjp_window(
+                    *args, nb, h, w, n, tiles, rows.data_ptr(),
+                    int(h_global), int(pins is not None), stream)
+        _build.check(lib, err, "cloth_grad launch")
         if window is None:
-            err = lib.wpe_cloth_substep_vjp(*args, int(pins is not None),
-                                            stream)
+            LAUNCHES += n
         else:
-            if window[1] < 1:
-                raise ValueError(f"h_global must be positive, got "
-                                 f"{window[1]}")
-            err = lib.wpe_cloth_substep_vjp_window(
-                *args, int(window[0]), int(window[1]), int(pins is not None),
-                stream)
-    _build.check(lib, err, "cloth_grad launch")
-    if window is None:
-        LAUNCHES += n
-    else:
-        LAUNCHES_WINDOW += n
+            LAUNCHES_WINDOW += n
     out = ct[n % 2]
-    return out[:3], out[3:], ct_prm, ct_pin
+    cp, cv = out[:, :3], out[:, 3:]
+    if single:
+        cp, cv = cp[0], cv[0]
+        ct_pin = None if ct_pin is None else ct_pin[0]
+    return cp, cv, ct_prm, ct_pin
 
 
 def substep_vjp_kernel(state_in: torch.Tensor, ct_pos: torch.Tensor,
@@ -493,12 +651,14 @@ def walk(traj, ct_pos, ct_vel, prm, pins=None):
     return fn(traj, ct_pos, ct_vel, prm, pins)
 
 
-def walk_window(traj, ct_pos, ct_vel, prm, row0: int, h_global: int,
+def walk_window(traj, ct_pos, ct_vel, prm, row0, h_global: int,
                 pins=None):
-    """:func:`walk` over the trajectory of a row window
-    (``cloth_kernel.trace_window``) with K1w's spring masks: CPU → the
-    plain version, CUDA → the kernel's window instantiation, any other
-    device raises."""
+    """:func:`walk` over the trajectory of a row window, or of a batch of
+    windows of one shape (``cloth_kernel.trace_window``), with K1w's
+    spring masks: CPU → the plain version, CUDA → the kernel's window
+    instantiation (one launch a substep for the batch), any other device
+    raises. A batch's parameter cotangent is one ``[16]`` sum, in the
+    kernel's order in both."""
     fn = _dispatch(traj, _walk_plain, _walk_kernel)
     return fn(traj, ct_pos, ct_vel, prm, pins, (row0, h_global))
 
@@ -573,12 +733,14 @@ def multi_step(state: ClothState, params: ClothParams, dt, n_steps: int,
 
 
 class _WindowSegment(torch.autograd.Function):
-    """``n_steps`` substeps of a row window (``cloth_kernel.
-    multi_step_window_packed``: K1w or K6w, their plain version on the CPU)
-    whose backward re-runs the window with ``cloth_kernel.trace_window``
-    and walks it in reverse with :func:`walk_window`. It saves only the
-    window's input. Inputs pos, vel, pin_pos (or None) and the packed
-    vector are differentiable; the pin mask is structural."""
+    """``n_steps`` substeps of a row window or a batch of windows
+    (``cloth_kernel.multi_step_window_packed``: K1w, or K6w a window at a
+    time, their plain version on the CPU) whose backward re-runs them with
+    ``cloth_kernel.trace_window`` and walks them in reverse with
+    :func:`walk_window`, each one call for the batch. It saves only the
+    windows' input. Inputs pos, vel, pin_pos (or None) and the packed
+    vector are differentiable; the pin mask and the first rows are
+    structural."""
 
     @staticmethod
     def forward(ctx, pos, vel, pin_pos, prm, pin_mask, n_steps, row0,
@@ -605,16 +767,18 @@ class _WindowSegment(torch.autograd.Function):
 
 
 def multi_step_window(pos, vel, pin_mask, pin_pos, prm: torch.Tensor,
-                      n_steps: int, row0: int, h_global: int):
-    """Differentiable ``n_steps`` substeps of a halo-extended row window:
-    ``cloth_kernel.multi_step_window_packed``'s arguments and output, bit
-    for bit, with gradients to ``pos``, ``vel``, ``pin_pos`` and the packed
-    ``prm`` (the caller packs it with ``cloth_kernel._pack_params`` outside,
-    so autograd carries the parameters' chains). The backward holds one
-    call's trajectory, ``n_steps · 24 · h · W`` bytes: the rows path calls
-    it once an exchange block, so its checkpoints are the blocks. A CPU
-    window takes the plain versions, a CUDA window K1w (or K6w) forward
-    and the window adjoint kernel."""
+                      n_steps: int, row0, h_global: int):
+    """Differentiable ``n_steps`` substeps of a halo-extended row window,
+    or of a batch of windows of one shape: ``cloth_kernel.
+    multi_step_window_packed``'s arguments and output, bit for bit, with
+    gradients to ``pos``, ``vel``, ``pin_pos`` and the packed ``prm`` (the
+    caller packs it with ``cloth_kernel._pack_params`` outside, so
+    autograd carries the parameters' chains). The backward holds one
+    call's trajectory, ``n_steps · 24 · h · W`` bytes a window: the rows
+    path calls it once a device and exchange block with every window the
+    device holds, so its checkpoints are the blocks. A CPU window takes
+    the plain versions, a CUDA window K1w (or K6w) forward and the window
+    adjoint kernel."""
     if n_steps < 0:
         raise ValueError(f"n_steps must be >= 0, got {n_steps}")
     if pos.device.type not in ("cpu", "cuda"):

@@ -70,6 +70,7 @@ the TPU kernel, and the paths agree to the last bit on one device.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -106,10 +107,11 @@ LAUNCHES_BATCHED = 0
 # Launches of K1f by :func:`substep_with_force_kernel` and
 # :func:`substep_with_force_sorted_kernel` (one per substep).
 LAUNCHES_FORCE = 0
-# Launches of K1w by :func:`multi_step_window_kernel` (one per substep).
+# Launches of K1w by :func:`multi_step_window_kernel` (one per substep,
+# for a whole batch of windows).
 LAUNCHES_WINDOW = 0
 # Launches of K1w's body by :func:`trace_window_kernel` (one per substep
-# traced).
+# traced, for a whole batch of windows).
 LAUNCHES_WINDOW_TRACE = 0
 
 _SIGNATURES = {
@@ -122,8 +124,10 @@ _SIGNATURES = {
     "wpe_cloth_substep_with_force": [ctypes.c_void_p] * 10
                                     + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "wpe_cloth_multi_step_window": [ctypes.c_void_p] * 9
-                                   + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "wpe_cloth_trace_window": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                                   + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                                   + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    "wpe_cloth_trace_window": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                              + [ctypes.c_void_p] + [ctypes.c_int] * 2
                               + [ctypes.c_void_p],
 }
 
@@ -181,14 +185,20 @@ def _family_masks(h, w, device):
     return masks
 
 
-def _window_masks(h, w, row0: int, h_global: int, device):
+def _window_masks(h, w, row0, h_global: int, device):
     """The masks of :func:`_family_masks` for an ``[h, w]`` band of rows
     of a grid ``h_global`` rows high whose local row 0 is global row
     ``row0`` (negative on the top shard): an edge also needs both ends
     inside the global grid (``cloth_pallas._kernel(window=True)``
-    :234-245), so halo rows beyond the grid join no edge."""
+    :234-245), so halo rows beyond the grid join no edge. An int ``row0``
+    gives ``[h, w]`` masks; a sequence of B first rows (a batch of
+    windows) gives ``[B, h, w]``."""
     lrow = torch.arange(h, device=device)[:, None]
-    grow = lrow + row0
+    if isinstance(row0, (list, tuple)):
+        grow = torch.tensor(row0, dtype=torch.long,
+                            device=device)[:, None, None] + lrow
+    else:
+        grow = lrow + int(row0)
     masks = []
     for ok, (dr, _, _) in zip(_family_masks(h, w, device), _FAMILIES):
         masks.append(ok & (grow >= 0) & (grow < h_global - dr))
@@ -482,25 +492,76 @@ def substep_with_force_sorted_plain(state: ClothState, blk: ForceBlock,
     return out, sp
 
 
+def _row0_list(row0, n_windows: Optional[int]):
+    """The first global row of each window as host ints: an int for one
+    window (``n_windows`` None), else a list of ``n_windows`` from a
+    sequence or a tensor of ints (a CUDA tensor is read back)."""
+    if torch.is_tensor(row0):
+        row0 = row0.reshape(-1).tolist()
+    seq = isinstance(row0, (list, tuple))
+    if n_windows is None:
+        if seq:
+            (row0,) = row0
+        return int(row0)
+    rows = [int(r) for r in (row0 if seq else [row0])]
+    if len(rows) != n_windows:
+        raise ValueError(f"row0: expected {n_windows} first rows, got "
+                         f"{len(rows)}")
+    return rows
+
+
+@functools.lru_cache(maxsize=256)
+def _row0_cached(rows: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+def _row0_device(row0, n_windows: int, device) -> torch.Tensor:
+    """The kernels' ``row0`` operand: int32 ``[n_windows]`` on ``device``.
+    An int32 tensor already there is taken as it is; a sequence of ints is
+    copied once and kept: the rows path gives the same first rows in every
+    exchange block, and a copy from pageable host memory would make the
+    host wait for the stream."""
+    if torch.is_tensor(row0):
+        if tuple(row0.shape) != (n_windows,):
+            raise ValueError(f"row0: expected [{n_windows}], got "
+                             f"{tuple(row0.shape)}")
+        return row0.to(device=device, dtype=torch.int32).contiguous()
+    return _row0_cached(tuple(_row0_list(row0, n_windows)),
+                        torch.device(device))
+
+
+def _batch_rows(pos, row0):
+    """``row0`` as :func:`_window_masks` takes it: an int for one window
+    (``pos`` ``[3, h, W]``), the list of B first rows for a batch
+    (``[B, 3, h, W]``)."""
+    return _row0_list(row0, pos.shape[0] if pos.ndim == 4 else None)
+
+
 def multi_step_window_plain(pos, vel, pin_mask, pin_pos, params, dt,
-                            n_steps: int, row0: int, h_global: int):
+                            n_steps: int, row0, h_global: int):
     """The plain version of K1w: ``n_steps`` exact substeps of the row
     window ``pos``/``vel`` ``[3, h, W]`` (halo rows included; ``row0`` the
-    global row of local row 0, ``h_global`` the grid's height), on any
-    device. Returns ``(pos, vel)`` with the halo rows, stale ones too."""
+    global row of local row 0, ``h_global`` the grid's height), or of a
+    batch of windows of one shape, ``[B, 3, h, W]`` with B first rows in
+    ``row0`` (a sequence or an int tensor) and pins, if any, ``[B, h, W]``
+    and ``[B, 3, h, W]`` (a zero mask for a window without), on any
+    device. Every op is elementwise, so window b of a batch equals the
+    window alone. Returns ``(pos, vel)`` with the halo rows, stale ones
+    too."""
     return _window_plain_packed(pos, vel, pin_mask, pin_pos,
                                 _pack_params(params, dt), n_steps, row0,
                                 h_global)
 
 
 def _window_plain_packed(pos, vel, pin_mask, pin_pos, prm, n_steps: int,
-                         row0: int, h_global: int):
+                         row0, h_global: int):
     """:func:`multi_step_window_plain` on the packed vector of
     :func:`_pack_params`."""
     h, w = pos.shape[-2:]
     state = ClothState(pos=pos, vel=vel, pin_mask=pin_mask, pin_pos=pin_pos)
     plane = _plane_params(prm, state)
-    masks = _window_masks(h, w, row0, h_global, pos.device)
+    masks = _window_masks(h, w, _batch_rows(pos, row0), h_global,
+                          pos.device)
     pins = _plain_pins(state)
     carry = (*pos.unbind(-3), *vel.unbind(-3))
     for _ in range(n_steps):
@@ -509,26 +570,28 @@ def _window_plain_packed(pos, vel, pin_mask, pin_pos, prm, n_steps: int,
 
 
 def trace_window_plain(pos, vel, pin_mask, pin_pos, prm: torch.Tensor,
-                       n_states: int, row0: int,
+                       n_states: int, row0,
                        h_global: int) -> torch.Tensor:
     """The states entering substeps 0 .. n_states-1 of the row window
     ``pos``/``vel`` (the arguments of :func:`multi_step_window_plain`,
-    the parameters packed): ``[n_states, 6, h, W]``, each from the same
-    substep as :func:`multi_step_window_plain`, so ``traj[s]`` equals its
-    ``s`` substeps bit for bit."""
+    the parameters packed): ``[n_states, 6, h, W]``, or for a batch
+    ``[n_states, B, 6, h, W]``, each from the same substep as
+    :func:`multi_step_window_plain`, so ``traj[s]`` equals its ``s``
+    substeps bit for bit."""
     h, w = pos.shape[-2:]
     state = ClothState(pos=pos, vel=vel, pin_mask=pin_mask, pin_pos=pin_pos)
     plane = _plane_params(prm, state)
-    masks = _window_masks(h, w, row0, h_global, pos.device)
+    masks = _window_masks(h, w, _batch_rows(pos, row0), h_global,
+                          pos.device)
     pins = _plain_pins(state)
-    traj = torch.empty((max(n_states, 0), 6, h, w), dtype=torch.float32,
-                       device=pos.device)
+    traj = torch.empty((max(n_states, 0),) + tuple(pos.shape[:-3])
+                       + (6, h, w), dtype=torch.float32, device=pos.device)
     carry = (*pos.unbind(-3), *vel.unbind(-3))
     for s in range(n_states):
         if s:
             carry = _substep_planes(carry, masks, plane, _exact_dist_inv,
                                     pins)
-        traj[s] = torch.stack(carry)
+        traj[s] = torch.stack(carry, dim=-3)
     return traj
 
 
@@ -556,9 +619,11 @@ def multi_step_kernel(state: ClothState, params: ClothParams, dt,
                                     fast_math)
 
 
-def _kernel_inputs(state: ClothState, prm: torch.Tensor):
+def _kernel_inputs(state: ClothState, prm: torch.Tensor,
+                   shared: bool = False):
     """Checked, contiguous kernel inputs: (pos, vel, the parameter table
-    ``lead + (16,)``, the pin pointers, lead, h, w)."""
+    ``lead + (16,)``, or with ``shared`` the one ``[16]`` vector, the pin
+    pointers, lead, h, w)."""
     pos, vel = state.pos, state.vel
     if pos.device.type != "cuda":
         raise ValueError(f"cloth kernel needs CUDA tensors, got {pos.device}")
@@ -571,10 +636,12 @@ def _kernel_inputs(state: ClothState, prm: torch.Tensor):
     _check_plane(vel, lead + (3, h, w), pos.device, "vel")
     pos, vel = pos.contiguous(), vel.contiguous()
     prm = prm.detach().to(device=pos.device, dtype=torch.float32)
-    if prm.shape[:-1] not in ((), lead) or prm.shape[-1:] != (16,):
-        raise ValueError(f"params: expected 0-d or {lead} leaves for a state "
-                         f"of {tuple(pos.shape)}, got {tuple(prm.shape[:-1])}")
-    prm = prm.expand(lead + (16,)).contiguous()
+    if (prm.shape[:-1] not in (((),) if shared else ((), lead))
+            or prm.shape[-1:] != (16,)):
+        raise ValueError(f"params: expected {'shared' if shared else '0-d or '
+                         + str(lead)} leaves for a state of "
+                         f"{tuple(pos.shape)}, got {tuple(prm.shape[:-1])}")
+    prm = (prm if shared else prm.expand(lead + (16,))).contiguous()
     pins = None
     if state.pin_mask is not None:
         pin_mask = state.pin_mask.to(device=pos.device, dtype=torch.float32)
@@ -758,81 +825,99 @@ def substep_with_force_sorted_kernel(state: ClothState, blk: ForceBlock,
 
 
 def multi_step_window_kernel(pos, vel, pin_mask, pin_pos, params, dt,
-                             n_steps: int, row0: int, h_global: int):
-    """K1w on a CUDA window: ``n_steps`` launches of ``csrc/
-    cloth_step.cu``'s ``wpe_cloth_multi_step_window`` on the current
-    stream, ping-ponging between two new buffers (the inputs are only
-    read). Returns ``(pos, vel)`` ``[3, h, W]``."""
+                             n_steps: int, row0, h_global: int):
+    """K1w on a CUDA window or batch of windows of one shape (the
+    arguments of :func:`multi_step_window_plain`): ``n_steps`` launches of
+    ``csrc/cloth_step.cu``'s ``wpe_cloth_multi_step_window`` on the
+    current stream for the whole batch, ping-ponging between two new
+    buffers (the inputs are only read). Returns ``(pos, vel)``
+    ``[3, h, W]``, or ``[B, 3, h, W]`` for a batch."""
     return _window_kernel_packed(pos, vel, pin_mask, pin_pos,
                                  _pack_params(params, dt), n_steps, row0,
                                  h_global)
 
 
-def _window_kernel_packed(pos, vel, pin_mask, pin_pos, prm, n_steps: int,
-                          row0: int, h_global: int):
-    """:func:`multi_step_window_kernel` on the packed vector of
-    :func:`_pack_params`."""
-    global LAUNCHES_WINDOW
-    state = ClothState(pos=pos, vel=vel, pin_mask=pin_mask, pin_pos=pin_pos)
-    pos, vel, prm, pins, lead, h, w = _kernel_inputs(state, prm)
-    if lead:
-        raise ValueError(f"multi_step_window takes one window, got "
+def _window_batch(pos, vel, pin_mask, pin_pos, prm, row0):
+    """The checked kernel inputs of a window or a batch of windows, as a
+    batch: ``(single, pos, vel, prm, pins, n_windows, h, w, row0)``, one
+    window ``[3, h, W]`` taken as a batch of one, ``prm`` the shared
+    ``[16]`` vector and ``row0`` the int32 ``[B]`` operand on the card."""
+    single = pos.ndim == 3
+    if single:
+        pos, vel = pos[None], vel[None]
+        if pin_mask is not None:
+            pin_mask, pin_pos = pin_mask[None], pin_pos[None]
+    if pos.ndim != 4:
+        raise ValueError(f"window: expected [3, h, W] or [B, 3, h, W], got "
                          f"{tuple(pos.shape)}")
+    state = ClothState(pos=pos, vel=vel, pin_mask=pin_mask, pin_pos=pin_pos)
+    pos, vel, prm, pins, lead, h, w = _kernel_inputs(state, prm, shared=True)
+    rows = _row0_device(row0, lead[0], pos.device)
+    return single, pos, vel, prm, pins, lead[0], h, w, rows
+
+
+def _window_kernel_packed(pos, vel, pin_mask, pin_pos, prm, n_steps: int,
+                          row0, h_global: int):
+    """:func:`multi_step_window_kernel` on the packed vector of
+    :func:`_pack_params`: ``n_steps`` launches of K1w for the whole batch,
+    a window being a batch of one."""
+    global LAUNCHES_WINDOW
     if h_global < 1:
         raise ValueError(f"h_global must be positive, got {h_global}")
+    single, pos, vel, prm, pins, n, h, w, rows = _window_batch(
+        pos, vel, pin_mask, pin_pos, prm, row0)
     if n_steps <= 0 or pos.numel() == 0:
-        return pos, vel
+        return (pos[0], vel[0]) if single else (pos, vel)
     pin_ptrs = ((pins[0].data_ptr(), pins[1].data_ptr()) if pins
                 else (None, None))
-    bufs = torch.empty((4, 3, h, w), dtype=torch.float32, device=pos.device)
+    bufs = torch.empty((4, n, 3, h, w), dtype=torch.float32,
+                       device=pos.device)
     lib = _build.load("cloth_step", _SIGNATURES)
     with torch.cuda.device(pos.device):
         err = lib.wpe_cloth_multi_step_window(
             prm.data_ptr(), pos.data_ptr(), vel.data_ptr(), *pin_ptrs,
             bufs[0].data_ptr(), bufs[1].data_ptr(), bufs[2].data_ptr(),
-            bufs[3].data_ptr(), h, w, n_steps, int(row0), int(h_global),
-            int(pins is not None), torch.cuda.current_stream().cuda_stream)
+            bufs[3].data_ptr(), n, h, w, n_steps, rows.data_ptr(),
+            int(h_global), int(pins is not None),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "cloth_step window launch")
     LAUNCHES_WINDOW += n_steps
     out = bufs[0:2] if n_steps % 2 else bufs[2:4]
-    return out[0], out[1]
+    return (out[0, 0], out[1, 0]) if single else (out[0], out[1])
 
 
 def trace_window_kernel(pos, vel, pin_mask, pin_pos, prm: torch.Tensor,
-                        n_states: int, row0: int,
+                        n_states: int, row0,
                         h_global: int) -> torch.Tensor:
-    """:func:`trace_window_plain` with K1w's body on a CUDA window, at any
-    size (``wpe_cloth_trace_window``): the start state is copied into
-    ``traj[0]`` and substep s reads ``traj[s]`` and writes ``traj[s + 1]``,
-    ``n_states - 1`` launches, so the trajectory equals the forward (K1w,
-    or K6w above the tiled limit) bit for bit."""
+    """:func:`trace_window_plain` with K1w's body on a CUDA window or batch
+    of windows, at any size (``wpe_cloth_trace_window``): the start states
+    are copied into ``traj[0]`` and substep s reads ``traj[s]`` and writes
+    ``traj[s + 1]``, ``n_states - 1`` launches for the whole batch, so each
+    window's trajectory equals its forward (K1w, or K6w above the tiled
+    limit) bit for bit. ``traj`` is ``[n_states, B, 6, h, W]`` for a batch,
+    ``[n_states, 6, h, W]`` for one window."""
     global LAUNCHES_WINDOW_TRACE
-    state = ClothState(pos=pos, vel=vel, pin_mask=pin_mask, pin_pos=pin_pos)
-    pos, vel, prm, pins, lead, h, w = _kernel_inputs(state, prm)
-    if lead:
-        raise ValueError(f"trace_window takes one window, got "
-                         f"{tuple(pos.shape)}")
     if h_global < 1:
         raise ValueError(f"h_global must be positive, got {h_global}")
-    traj = torch.empty((max(n_states, 0), 6, h, w), dtype=torch.float32,
+    single, pos, vel, prm, pins, n, h, w, rows = _window_batch(
+        pos, vel, pin_mask, pin_pos, prm, row0)
+    traj = torch.empty((max(n_states, 0), n, 6, h, w), dtype=torch.float32,
                        device=pos.device)
-    if n_states <= 0:
-        return traj
-    traj[0, :3] = pos
-    traj[0, 3:] = vel
-    if n_states == 1 or pos.numel() == 0:
-        return traj
-    pin_ptrs = ((pins[0].data_ptr(), pins[1].data_ptr()) if pins
-                else (None, None))
-    lib = _build.load("cloth_step", _SIGNATURES)
-    with torch.cuda.device(pos.device):
-        err = lib.wpe_cloth_trace_window(
-            prm.data_ptr(), *pin_ptrs, traj.data_ptr(), h, w, n_states,
-            int(row0), int(h_global), int(pins is not None),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "cloth_step window trace launch")
-    LAUNCHES_WINDOW_TRACE += n_states - 1
-    return traj
+    if n_states > 0:
+        traj[0, :, :3] = pos
+        traj[0, :, 3:] = vel
+    if n_states > 1 and pos.numel():
+        pin_ptrs = ((pins[0].data_ptr(), pins[1].data_ptr()) if pins
+                    else (None, None))
+        lib = _build.load("cloth_step", _SIGNATURES)
+        with torch.cuda.device(pos.device):
+            err = lib.wpe_cloth_trace_window(
+                prm.data_ptr(), *pin_ptrs, traj.data_ptr(), n, h, w, n_states,
+                rows.data_ptr(), int(h_global), int(pins is not None),
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, err, "cloth_step window trace launch")
+        LAUNCHES_WINDOW_TRACE += n_states - 1
+    return traj[:, 0] if single else traj
 
 
 def _dispatch(state: ClothState, plain, kernel):
@@ -906,7 +991,7 @@ def substep_with_force_sorted(state: ClothState, blk: ForceBlock,
 
 
 def multi_step_window(pos, vel, pin_mask, pin_pos, params, dt, n_steps: int,
-                      row0: int, h_global: int):
+                      row0, h_global: int):
     """``n_steps`` fused exact substeps on a halo-extended window of rows of
     a larger grid: the counterpart of ``cloth_pallas.multi_step_window``,
     the shard body of ``parallel/mesh.py``'s rows-sharded path.
@@ -915,37 +1000,62 @@ def multi_step_window(pos, vel, pin_mask, pin_pos, params, dt, n_steps: int,
     the caller exchanged; ``pin_mask`` ``[h_ext, W]`` and ``pin_pos``
     ``[3, h_ext, W]`` or both None; ``row0``: the global row of local row 0
     (negative on the top shard, whose leading halo rows are dead);
-    ``h_global``: the grid's height. The spring masks use global rows, so
-    the grid's edges are where the unsharded kernel has them; the halo's
-    staleness (2 rows a substep) is the caller's to slice off. Returns
-    ``(pos, vel)`` with the halo rows, by :func:`_window_route`. JAX's
-    ``fast_math`` has no caller here and no counterpart."""
+    ``h_global``: the grid's height. Or a batch of windows of one shape:
+    ``pos``/``vel`` ``[B, 3, h_ext, W]``, pins ``[B, h_ext, W]`` and
+    ``[B, 3, h_ext, W]`` (a zero mask for a window without) and ``row0`` a
+    sequence or an int32 tensor of B first rows; each window's output is
+    the window's alone. The spring masks use global rows, so the grid's
+    edges are where the unsharded kernel has them; the halo's staleness (2
+    rows a substep) is the caller's to slice off. Returns ``(pos, vel)``
+    with the halo rows, by :func:`_window_route`. JAX's ``fast_math`` has
+    no caller here and no counterpart."""
     step = _window_route(pos, vel, packed=False)
     return step(pos, vel, pin_mask, pin_pos, params, dt, n_steps, row0,
                 h_global)
 
 
 def multi_step_window_packed(pos, vel, pin_mask, pin_pos, prm: torch.Tensor,
-                             n_steps: int, row0: int, h_global: int):
+                             n_steps: int, row0, h_global: int):
     """:func:`multi_step_window` on the packed vector of
     :func:`_pack_params`, by the same route: the rows path's shard body,
-    whose parameters are packed once a device."""
+    whose parameters are packed once a device and which gives it every
+    window one device holds in an exchange block."""
     step = _window_route(pos, vel, packed=True)
     return step(pos, vel, pin_mask, pin_pos, prm, n_steps, row0, h_global)
 
 
+def _each_window(step):
+    """``step`` (a one-window stepper: pos, vel, pin_mask, pin_pos, the
+    parameters, n_steps, row0, h_global) taken a window at a time over a
+    batch, the results stacked."""
+    def run(pos, vel, pin_mask, pin_pos, *args):
+        if pos.ndim == 3:
+            return step(pos, vel, pin_mask, pin_pos, *args)
+        *prm, n_steps, row0, h_global = args
+        outs = [step(pos[b], vel[b],
+                     None if pin_mask is None else pin_mask[b],
+                     None if pin_pos is None else pin_pos[b], *prm, n_steps,
+                     r, h_global)
+                for b, r in enumerate(_row0_list(row0, pos.shape[0]))]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
+    return run
+
+
 def _window_route(pos, vel, packed: bool):
     """The window stepper for ``pos``'s size and device: CPU → the plain
-    version, CUDA → K1w, any other device raises; a window of more than
+    version, CUDA → K1w (one launch a substep for a whole batch), any
+    other device raises; a window of more than
     :data:`_TILED_PARTICLE_LIMIT` particles takes ``cloth_tiled_kernel``'s
-    (K6w on CUDA, its plain version on the CPU), which gives the same
-    bits. ``packed``: the entries on the vector of :func:`_pack_params`
-    in place of ``(params, dt)``."""
+    (K6w on CUDA, its plain version on the CPU), one window a launch,
+    which gives the same bits. ``packed``: the entries on the vector of
+    :func:`_pack_params` in place of ``(params, dt)``."""
     if pos.shape[-2] * pos.shape[-1] > _TILED_PARTICLE_LIMIT:
         from . import cloth_tiled_kernel as ct
 
-        pair = ((ct._window_plain_packed, ct._window_kernel_packed) if packed
-                else (ct.multi_step_window_plain, ct.multi_step_window_kernel))
+        pair = tuple(map(_each_window, (
+            (ct._window_plain_packed, ct._window_kernel_packed) if packed
+            else (ct.multi_step_window_plain, ct.multi_step_window_kernel))))
     else:
         pair = ((_window_plain_packed, _window_kernel_packed) if packed
                 else (multi_step_window_plain, multi_step_window_kernel))
@@ -953,12 +1063,13 @@ def _window_route(pos, vel, packed: bool):
 
 
 def trace_window(pos, vel, pin_mask, pin_pos, prm: torch.Tensor,
-                 n_states: int, row0: int, h_global: int) -> torch.Tensor:
-    """The trajectory ``[n_states, 6, h, W]`` of a row window (the
-    arguments of :func:`multi_step_window_packed`): CPU → the plain
-    version, CUDA → K1w's body at every size, any other device raises.
-    ``traj[n]`` equals :func:`multi_step_window`'s ``n`` substeps bit for
-    bit."""
+                 n_states: int, row0, h_global: int) -> torch.Tensor:
+    """The trajectory ``[n_states, 6, h, W]`` of a row window, or
+    ``[n_states, B, 6, h, W]`` of a batch of windows (the arguments of
+    :func:`multi_step_window_packed`): CPU → the plain version, CUDA →
+    K1w's body at every size, one launch a substep for the batch, any
+    other device raises. ``traj[n]`` equals :func:`multi_step_window`'s
+    ``n`` substeps bit for bit."""
     step = _dispatch(ClothState(pos=pos, vel=vel), trace_window_plain,
                      trace_window_kernel)
     return step(pos, vel, pin_mask, pin_pos, prm, n_states, row0, h_global)

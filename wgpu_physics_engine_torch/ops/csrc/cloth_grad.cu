@@ -10,10 +10,14 @@
 // The three were VMEM tiers of one function; here one kernel takes any
 // grid. (The trace kernels of K7 and K9 are K1 itself: `wpe_cloth_trace`
 // in cloth_step.cu.) Its WINDOW instantiation, `wpe_cloth_substep_vjp_window`,
-// walks a row window of a larger grid with K1w's global-row spring masks:
-// the backward of the rows-sharded path (parallel/mesh.py under autograd),
-// whose gradient the JAX package takes by XLA autodiff of the window
-// stencil (`cloth_pallas.py` `multi_step_window` :763 in the forward).
+// walks a batch of row windows of a larger grid of one shape with K1w's
+// global-row spring masks, each window with its own first row and pins,
+// one launch a substep for the batch (blockIdx.z the window) and one
+// reduction for the call: the backward of the rows-sharded path
+// (parallel/mesh.py under autograd), which gives it every window one
+// device holds in an exchange block. The JAX package takes this gradient
+// by XLA autodiff of the window stencil (`cloth_pallas.py`
+// `multi_step_window` :763 in the forward), a window at a time.
 //
 // The TPU kernels build each substep's transpose with jax.vjp of the
 // forward's pure functions. Here the adjoint is written by hand, op for op
@@ -455,17 +459,20 @@ __device__ __forceinline__ void anchored_adjoints(
 // the core only); partial this substep's [tiles, 16] rows. Every loop runs
 // the same number of times in all threads of the CTA (a thread past the
 // end works on a cell it does not keep), so a warp can vote on `slow`.
-// With WINDOW the grid is a row window (spring_ok): its dead rows join no
-// spring, so their state cotangent stays 0 and each of their parameter
-// terms is 0 times a finite value; without it row0 and h_global are not
-// read.
+// With WINDOW the grid is a batch of row windows of one shape (spring_ok),
+// blockIdx.z the window b: st, ct_in and ct_out hold [B, 6, h, w],
+// pin_mask [B, h, w] and ct_pin [B, 3, h, w] (64-bit offsets), window b's
+// row 0 is global row row0[b], and its tiles' partial rows follow window
+// b - 1's. A window's dead rows join no spring, so their state cotangent
+// stays 0 and each of their parameter terms is 0 times a finite value.
+// Without it there is one window and row0 and h_global are not read.
 template <bool PINS, bool WINDOW, int TH, int TW, int NT>
 __global__ void __launch_bounds__(NT)
     vjp_substep(const float* __restrict__ prm, const float* __restrict__ st,
                 const float* __restrict__ pin_mask,
                 const float* __restrict__ ct_in, float* __restrict__ ct_out,
                 float* __restrict__ ct_pin, double* __restrict__ partial,
-                int h, int w, int row0, int h_global) {
+                int h, int w, const int* __restrict__ row0s, int h_global) {
   using T = Tile<TH, TW>;
   extern __shared__ float2 smem2[];
 #ifdef WPE_PROBE_EMPTY
@@ -478,7 +485,18 @@ __global__ void __launch_bounds__(NT)
   float* const C = F + 3 * T::N2;
   float* const E = C + 6 * T::NC;
   const int hw = h * w;
-  // global row and column of the core's first cell
+  // the window: its planes and its first global row
+  const int64_t b = WINDOW ? blockIdx.z : 0;
+  const int64_t plane = static_cast<int64_t>(hw);
+  st += 6 * plane * b;
+  ct_in += 6 * plane * b;
+  ct_out += 6 * plane * b;
+  if (PINS) {
+    pin_mask += plane * b;
+    ct_pin += 3 * plane * b;
+  }
+  const int row0 = WINDOW ? row0s[b] : 0;
+  // row and column of the core's first cell
   const int r0 = blockIdx.y * TH, c0 = blockIdx.x * TW;
   auto in_grid = [&](int r, int c) {
     return r >= 0 && r < h && c >= 0 && c < w;
@@ -613,8 +631,9 @@ __global__ void __launch_bounds__(NT)
       for (int m = 0; m < 7; ++m) gi_sum[m] += gi[m];
     }
   }
-  const int64_t tile = static_cast<int64_t>(blockIdx.y) * gridDim.x +
-                       blockIdx.x;
+  const int64_t tile =
+      (b * gridDim.y + blockIdx.y) * static_cast<int64_t>(gridDim.x) +
+      blockIdx.x;
   // (its barrier ends step 1)
   block_sum<NT, 7>(gi_sum, partial + tile * kNumParams + 9);
   WPE_PROBE_MARK(3);
@@ -728,25 +747,31 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) out[j] = static_cast<float>(buf[0]);
 }
 
+// The walk of n_windows windows of one shape (1 without WINDOW): a launch
+// a substep for all of them, then one reduction of all their partials.
 template <bool PINS, bool WINDOW>
 cudaError_t walk(const float* prm, const float* traj, const float* pin_mask,
                  float* ct_a, float* ct_b, float* ct_pin, double* partial,
-                 float* ct_prm, int h, int w, int n_steps, int64_t tiles,
-                 int row0, int h_global, cudaStream_t stream) {
+                 float* ct_prm, int n_windows, int h, int w, int n_steps,
+                 int64_t tiles, const int* row0, int h_global,
+                 cudaStream_t stream) {
   constexpr int TH = kTileH, TW = kTileW, NT = kVjpThreads;
-  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
-  if (grid.y > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n_windows);
+  if (grid.y > 65535 || n_windows < 1 || n_windows > 65535) {
+    return cudaErrorInvalidConfiguration;
+  }
   if (tiles != static_cast<int64_t>(grid.x) * grid.y) {
     return cudaErrorInvalidValue;
   }
-  const int64_t plane = static_cast<int64_t>(h) * w;
+  const int64_t rows = tiles * n_windows;  // partial rows a substep
+  const int64_t plane = static_cast<int64_t>(h) * w * n_windows;
   constexpr int smem = 4 * Tile<TH, TW>::FLOATS;
   static_assert(smem <= kMaxSmem, "the tile needs too much shared memory");
   cudaError_t err = allow_smem<vjp_substep<PINS, WINDOW, TH, TW, NT>>(smem);
   if (err != cudaSuccess) return err;
   for (int s = n_steps - 1, done = 0; s >= 0; --s, ++done) {
     const float* st = traj + 6 * plane * s;
-    double* part = partial + tiles * kNumParams * s;
+    double* part = partial + rows * kNumParams * s;
     const float* src = done % 2 == 0 ? ct_a : ct_b;
     float* dst = done % 2 == 0 ? ct_b : ct_a;
     vjp_substep<PINS, WINDOW, TH, TW, NT><<<grid, NT, smem, stream>>>(
@@ -755,7 +780,7 @@ cudaError_t walk(const float* prm, const float* traj, const float* pin_mask,
     if (err != cudaSuccess) return err;
   }
   reduce_partials<<<kNumParams, kThreads, 0, stream>>>(
-      partial, tiles * n_steps, ct_prm);
+      partial, rows * n_steps, ct_prm);
   return cudaGetLastError();
 }
 
@@ -784,34 +809,41 @@ extern "C" int wpe_cloth_substep_vjp(const float* params, const float* traj,
   auto s = static_cast<cudaStream_t>(stream);
   return use_pins
              ? walk<true, false>(params, traj, pin_mask, ct_a, ct_b, ct_pin,
-                                 partial, ct_prm, h, w, n_steps, tiles, 0, 0,
-                                 s)
+                                 partial, ct_prm, 1, h, w, n_steps, tiles,
+                                 nullptr, 0, s)
              : walk<false, false>(params, traj, pin_mask, ct_a, ct_b, ct_pin,
-                                  partial, ct_prm, h, w, n_steps, tiles, 0, 0,
-                                  s);
+                                  partial, ct_prm, 1, h, w, n_steps, tiles,
+                                  nullptr, 0, s);
 }
 
-// The same walk on a row window of a grid h_global rows high whose local
-// row 0 is global row row0 (< 0 on the top shard, whose leading halo rows
-// are dead): the adjoint of K1w's substeps (cloth_step.cu
-// `wpe_cloth_trace_window` gives traj), the springs masked as K1w masks
-// them. Every cell of the window counts, the stale halo rows too: the
-// window's output depends on the parameters through them.
+// The same walk on a batch of n_windows row windows of one shape, one
+// launch a substep for all of them: window b of a grid h_global rows high
+// whose local row 0 is global row row0[b] (row0: a device array of
+// n_windows int32; < 0 on the top shard, whose leading halo rows are
+// dead); the adjoint of K1w's substeps (cloth_step.cu
+// `wpe_cloth_trace_window` gives traj, f32 [n_steps, n_windows, 6, h, w]),
+// the springs masked as K1w masks them. ct_a and ct_b are f32
+// [n_windows, 6, h, w], pin_mask f32 [n_windows, h, w] (a zero mask for a
+// window without pins) and ct_pin f32 [n_windows, 3, h, w]; partial is f64
+// [n_steps, n_windows * tiles, 16], window b's tiles after window b - 1's,
+// and ct_prm receives the one [16] sum over the batch, in a fixed order.
+// Every cell of a window counts, the stale halo rows too: the window's
+// output depends on the parameters through them.
 extern "C" int wpe_cloth_substep_vjp_window(
     const float* params, const float* traj, const float* pin_mask,
     float* ct_a, float* ct_b, float* ct_pin, double* partial, float* ct_prm,
-    int h, int w, int n_steps, int tiles, int row0, int h_global,
-    int use_pins, void* stream) {
-  if (h_global < 1) return cudaErrorInvalidValue;
+    int n_windows, int h, int w, int n_steps, int tiles, const int* row0,
+    int h_global, int use_pins, void* stream) {
+  if (h_global < 1 || row0 == nullptr) return cudaErrorInvalidValue;
   if (h <= 0 || w <= 0 || n_steps <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   return use_pins
              ? walk<true, true>(params, traj, pin_mask, ct_a, ct_b, ct_pin,
-                                partial, ct_prm, h, w, n_steps, tiles, row0,
-                                h_global, s)
+                                partial, ct_prm, n_windows, h, w, n_steps,
+                                tiles, row0, h_global, s)
              : walk<false, true>(params, traj, pin_mask, ct_a, ct_b, ct_pin,
-                                 partial, ct_prm, h, w, n_steps, tiles, row0,
-                                 h_global, s);
+                                 partial, ct_prm, n_windows, h, w, n_steps,
+                                 tiles, row0, h_global, s);
 }
 
 #ifdef WPE_PROBE_CLOCK

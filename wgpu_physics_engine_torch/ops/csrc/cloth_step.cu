@@ -31,10 +31,16 @@
 //     (parallel/mesh.py), with `wpe_cloth_multi_step_window`: the same body
 //     with the spring masks taken from global rows (cloth_substep.cuh
 //     `edge_ok`). It is K1 with two more ints and a few integer compares a
-//     spring; what bounds K1 bounds it. JAX sends a window above its VMEM
-//     budget to the XLA stencil; here a window above 100,000 particles
-//     takes K6w (cloth_tiled.cu, the same bits on edge-once tiles) and a
-//     smaller one K1w.
+//     spring; what bounds K1 bounds it. JAX maps the windows of a shard one
+//     at a time (its vmapped kernel with SMEM operands does not lower);
+//     here one launch a substep steps a batch of windows of one shape, each
+//     with its own row0 and pins, blockIdx.z the window: the rows path
+//     gives it every window one device holds in an exchange block (at 16
+//     windows of 16 x 16, 2 CTAs a window, a launch is still below one
+//     wave of the 132 SMs). JAX sends a window above its VMEM budget to the
+//     XLA stencil; here a window above 100,000 particles takes K6w
+//     (cloth_tiled.cu, the same bits on edge-once tiles, one window a
+//     launch) and a smaller one K1w.
 //
 // What bounds them on the H100. Per particle and call the function reads
 // 6 floats and writes 6 (48 B); per particle and substep it does ~280 fp32
@@ -94,8 +100,15 @@ __global__ void __launch_bounds__(kBlockW * kBlockH)
                                       pos_out, vel_out, r, c, h, w);
 }
 
-// K1w: one substep of a row window whose local row 0 is global row `row0`
-// of a grid `h_global` rows high (see cloth_substep.cuh `edge_ok`).
+// K1w: one substep of a batch of row windows of one shape h x w,
+// blockIdx.z the window. Window b's local row 0 is global row row0[b] of a
+// grid h_global rows high (see cloth_substep.cuh `edge_ok`); its pos, vel
+// and outputs start `stride` floats after window b - 1's (3 planes for a
+// [B, 3, h, w] state, 6 for a step of a [n, B, 6, h, w] trajectory), its
+// pin mask one plane and its pin positions three planes after. Offsets
+// are 64-bit, as K5's are. A window without pins in a batch with pins has
+// a zero mask, for which `integrate` takes no pin branch: the bits of
+// PINS = false.
 template <bool PINS>
 __global__ void __launch_bounds__(kBlockW * kBlockH)
     substep_kernel_window(const float* __restrict__ prm,
@@ -105,13 +118,24 @@ __global__ void __launch_bounds__(kBlockW * kBlockH)
                           const float* __restrict__ pin_pos,
                           float* __restrict__ pos_out,
                           float* __restrict__ vel_out, int h, int w,
-                          int row0, int h_global) {
+                          int64_t stride, const int* __restrict__ row0,
+                          int h_global) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
   if (r >= h || c >= w) return;
-  cloth::substep_particle<false, PINS, true>(prm, pos, vel, pin_mask,
-                                             pin_pos, pos_out, vel_out, r, c,
-                                             h, w, row0, h_global);
+  const int64_t b = blockIdx.z;
+  const int64_t plane = static_cast<int64_t>(h) * w;
+  const int64_t at = stride * b;
+  cloth::substep_particle<false, PINS, true>(
+      prm, pos + at, vel + at, PINS ? pin_mask + plane * b : pin_mask,
+      PINS ? pin_pos + 3 * plane * b : pin_pos, pos_out + at, vel_out + at,
+      r, c, h, w, row0[b], h_global);
+}
+
+// The launch grid of K1 (one window) and K1w (n_windows of them).
+inline dim3 window_grid(int h, int w, int n_windows) {
+  return dim3((w + kBlockW - 1) / kBlockW, (h + kBlockH - 1) / kBlockH,
+              n_windows);
 }
 
 // The trajectory of one world for the backward pass (ops/cloth_grad_kernel.py):
@@ -121,26 +145,31 @@ __global__ void __launch_bounds__(kBlockW * kBlockH)
 // wpe_cloth_multi_step bit for bit. Replaces `_trace_kernel` (K7) and
 // `_trace_kernel_stream` (K9) of wgpu_physics_engine_tpu/ops/
 // cloth_pallas_grad.py, which rerun K1's body for the same purpose.
-// With WINDOW the launches are K1w's on a row window (row0, h_global as
-// for wpe_cloth_multi_step_window): the trajectory of the backward of the
-// rows path (`_WindowSegment`), equal to K1w's substeps bit for bit, and
-// so to K6w's, which the forward takes for a window above 100,000
+// With WINDOW the launches are K1w's on a batch of n_windows row windows
+// (row0, h_global as for wpe_cloth_multi_step_window), traj f32
+// [n_states, n_windows, 6, h, w], one launch a substep for the whole
+// batch: the trajectories of the backward of the rows path
+// (`_WindowSegment`), each window's equal to K1w's substeps bit for bit,
+// and so to K6w's, which the forward takes for a window above 100,000
 // particles. On the TPU the rows path's gradient is XLA autodiff of the
-// window stencil, which saves these states itself.
+// window stencil, which saves these states itself. Without WINDOW,
+// n_windows is 1 and row0 is not read.
 template <bool PINS, bool WINDOW>
 cudaError_t trace(const float* params, const float* pin_mask,
-                  const float* pin_pos, float* traj, int h, int w,
-                  int n_states, int row0, int h_global, cudaStream_t stream) {
+                  const float* pin_pos, float* traj, int n_windows, int h,
+                  int w, int n_states, const int* row0, int h_global,
+                  cudaStream_t stream) {
   const dim3 block(kBlockW, kBlockH);
-  const dim3 grid((w + kBlockW - 1) / kBlockW, (h + kBlockH - 1) / kBlockH);
+  const dim3 grid = window_grid(h, w, n_windows);
   const int64_t plane = static_cast<int64_t>(h) * w;
+  const int64_t step = 6 * plane * n_windows;
   for (int s = 0; s + 1 < n_states; ++s) {
-    const float* src = traj + 6 * plane * s;
-    float* dst = traj + 6 * plane * (s + 1);
+    const float* src = traj + step * s;
+    float* dst = traj + step * (s + 1);
     if (WINDOW) {
       substep_kernel_window<PINS><<<grid, block, 0, stream>>>(
           params, src, src + 3 * plane, pin_mask, pin_pos, dst,
-          dst + 3 * plane, h, w, row0, h_global);
+          dst + 3 * plane, h, w, 6 * plane, row0, h_global);
     } else {
       substep_kernel<false, PINS><<<grid, block, 0, stream>>>(
           params, src, src + 3 * plane, pin_mask, pin_pos, dst,
@@ -241,17 +270,26 @@ template <bool PINS>
 cudaError_t run_window(const float* params, const float* pos_in,
                        const float* vel_in, const float* pin_mask,
                        const float* pin_pos, float* pos_a, float* vel_a,
-                       float* pos_b, float* vel_b, int h, int w, int n_steps,
-                       int row0, int h_global, cudaStream_t stream) {
+                       float* pos_b, float* vel_b, int n_windows, int h,
+                       int w, int n_steps, const int* row0, int h_global,
+                       cudaStream_t stream) {
   const dim3 block(kBlockW, kBlockH);
-  const dim3 grid((w + kBlockW - 1) / kBlockW, (h + kBlockH - 1) / kBlockH);
+  const dim3 grid = window_grid(h, w, n_windows);
+  const int64_t stride = 3 * static_cast<int64_t>(h) * w;
   return ping_pong(pos_in, vel_in, pos_a, vel_a, pos_b, vel_b, n_steps,
                    [&](const float* sp, const float* sv, float* dp,
                        float* dv) {
                      substep_kernel_window<PINS><<<grid, block, 0, stream>>>(
                          params, sp, sv, pin_mask, pin_pos, dp, dv, h, w,
-                         row0, h_global);
+                         stride, row0, h_global);
                    });
+}
+
+// The checks of the window entries: 1 to 65,535 windows (the grid's z
+// extent), a grid of at least one row and a row0 array.
+inline bool windows_ok(int n_windows, const int* row0, int h_global) {
+  return n_windows >= 1 && n_windows <= 65535 && row0 != nullptr &&
+         h_global >= 1;
 }
 
 // ---------------------------------------------------------------------------
@@ -496,27 +534,31 @@ extern "C" int wpe_cloth_trace(const float* params, const float* pin_mask,
                                int w, int n_states, int use_pins,
                                void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return use_pins ? trace<true, false>(params, pin_mask, pin_pos, traj, h, w,
-                                       n_states, 0, 0, s)
-                  : trace<false, false>(params, pin_mask, pin_pos, traj, h,
-                                        w, n_states, 0, 0, s);
+  return use_pins ? trace<true, false>(params, pin_mask, pin_pos, traj, 1, h,
+                                       w, n_states, nullptr, 0, s)
+                  : trace<false, false>(params, pin_mask, pin_pos, traj, 1,
+                                        h, w, n_states, nullptr, 0, s);
 }
 
-// The same on a row window with K1w's launches: traj f32
-// [n_states, 6, h, w] of the window (halo rows included), row0 and
-// h_global as for wpe_cloth_multi_step_window.
+// The same on a batch of n_windows row windows of one shape with K1w's
+// launches, one a substep for the whole batch: traj f32
+// [n_states, n_windows, 6, h, w] (halo rows included), row0, h_global,
+// pin_mask and pin_pos as for wpe_cloth_multi_step_window.
 extern "C" int wpe_cloth_trace_window(const float* params,
                                       const float* pin_mask,
                                       const float* pin_pos, float* traj,
-                                      int h, int w, int n_states, int row0,
+                                      int n_windows, int h, int w,
+                                      int n_states, const int* row0,
                                       int h_global, int use_pins,
                                       void* stream) {
-  if (h_global < 1) return cudaErrorInvalidValue;
+  if (!windows_ok(n_windows, row0, h_global)) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  return use_pins ? trace<true, true>(params, pin_mask, pin_pos, traj, h, w,
-                                      n_states, row0, h_global, s)
-                  : trace<false, true>(params, pin_mask, pin_pos, traj, h, w,
-                                       n_states, row0, h_global, s);
+  return use_pins ? trace<true, true>(params, pin_mask, pin_pos, traj,
+                                      n_windows, h, w, n_states, row0,
+                                      h_global, s)
+                  : trace<false, true>(params, pin_mask, pin_pos, traj,
+                                       n_windows, h, w, n_states, row0,
+                                       h_global, s);
 }
 
 // One exact substep of one world with an external force plane added after
@@ -544,22 +586,28 @@ extern "C" int wpe_cloth_substep_with_force(
   return static_cast<int>(cudaGetLastError());
 }
 
-// n_steps exact substeps of the row window (K1w) pos_in/vel_in f32 [3, h, w]
-// of a grid h_global rows high whose local row 0 is global row row0 (< 0 on
-// the top shard); buffers, pins and the result's place as for
-// wpe_cloth_multi_step. Every row is stepped, the halo rows too: the caller
-// slices off the rows the halo's staleness has reached.
+// n_steps exact substeps of a batch of n_windows row windows of one shape
+// (K1w), one launch a substep for the whole batch: pos_in/vel_in and the
+// buffers f32 [n_windows, 3, h, w], window b of a grid h_global rows high
+// whose local row 0 is global row row0[b] (row0: a device array of
+// n_windows int32; < 0 on the top shard); pin_mask f32 [n_windows, h, w]
+// and pin_pos f32 [n_windows, 3, h, w] (a window without pins has a zero
+// mask), ignored when use_pins is 0; the result's place as for
+// wpe_cloth_multi_step. Every row is stepped, the halo rows too: the
+// caller slices off the rows the halo's staleness has reached.
 extern "C" int wpe_cloth_multi_step_window(
     const float* params, const float* pos_in, const float* vel_in,
     const float* pin_mask, const float* pin_pos, float* pos_a, float* vel_a,
-    float* pos_b, float* vel_b, int h, int w, int n_steps, int row0,
-    int h_global, int use_pins, void* stream) {
-  if (h_global < 1) return cudaErrorInvalidValue;
+    float* pos_b, float* vel_b, int n_windows, int h, int w, int n_steps,
+    const int* row0, int h_global, int use_pins, void* stream) {
+  if (!windows_ok(n_windows, row0, h_global)) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   return use_pins ? run_window<true>(params, pos_in, vel_in, pin_mask,
-                                     pin_pos, pos_a, vel_a, pos_b, vel_b, h,
-                                     w, n_steps, row0, h_global, s)
+                                     pin_pos, pos_a, vel_a, pos_b, vel_b,
+                                     n_windows, h, w, n_steps, row0,
+                                     h_global, s)
                   : run_window<false>(params, pos_in, vel_in, pin_mask,
-                                      pin_pos, pos_a, vel_a, pos_b, vel_b, h,
-                                      w, n_steps, row0, h_global, s);
+                                      pin_pos, pos_a, vel_a, pos_b, vel_b,
+                                      n_windows, h, w, n_steps, row0,
+                                      h_global, s);
 }

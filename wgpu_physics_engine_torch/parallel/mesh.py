@@ -28,7 +28,11 @@ The two axes of the JAX package:
    100,000 particles).
 
 They compose: a ``(worlds, rows)`` mesh runs a batch of row-sharded cloths
-(:func:`batched_spatial_multi_step`).
+(:func:`batched_spatial_multi_step`). The rows path runs block by block:
+in each exchange block the halos of each worlds shard's stacked worlds are
+exchanged once, and every window one device holds (all worlds of every
+shard there) goes into one window call, one kernel launch a substep for
+the batch (:func:`_rows_run`).
 
 Functions take and return whole tensors, as JAX's take global arrays: they
 cut their inputs into shards on the mesh's devices, step them with every
@@ -40,13 +44,13 @@ is a TPU limit with no counterpart. ``use_kernel=False`` takes the stencil
 shard body (``models.cloth.spring_forces(row_valid=...)``), on CPU shards
 only: no plain path runs on the card.
 
-The rows path is differentiable on both devices. Under autograd a shard
-body is ``ops.cloth_grad_kernel.multi_step_window``, a
+The rows path is differentiable on both devices. Under autograd a
+device's window call is ``ops.cloth_grad_kernel.multi_step_window``, a
 ``torch.autograd.Function`` whose forward is the same window kernel and
-whose backward walks the window's trajectory with the window adjoint
-(on the card ``csrc/cloth_grad.cu``'s ``WINDOW`` instantiation; on CPU
-shards its plain version). The parameters are packed once a device and
-world, outside it. The halo exchange is row slices, ``.to`` and ``cat``,
+whose backward walks the windows' trajectories with the window adjoint,
+one call for the batch (on the card ``csrc/cloth_grad.cu``'s ``WINDOW``
+instantiation; on CPU shards its plain version). The parameters are
+packed once a device, outside it. The halo exchange is row slices, ``.to`` and ``cat``,
 so autograd adds each halo row's cotangent back onto its owner's rows and
 sums the parameter cotangents over shards and blocks: the data-parallel
 all-reduce of JAX's ``shard_map`` transpose.
@@ -287,15 +291,17 @@ def _exchange_halo(shards: Sequence[torch.Tensor],
 
 
 def _spatial_substep_local(pos_ext, vel_ext, pinm_ext, pinpos_ext,
-                           prm: torch.Tensor, row0: int, h_global: int,
+                           prm: torch.Tensor, row0, h_global: int,
                            substeps: int = 1):
-    """Shard body: ``substeps`` substeps of one halo-extended window
-    (``[3, h_local + 2·halo, W]``, halo = ``HALO·substeps``) whose local row
-    0 is global row ``row0``, then the centre ``[3, h_local, W]`` (the
-    halo's staleness sliced off). K1w or K6w on the packed parameters
-    ``prm`` (``cloth_kernel.multi_step_window_packed``; their plain
-    versions on the CPU), through ``cloth_grad_kernel.multi_step_window``
-    when autograd needs a gradient of the window."""
+    """Shard body: ``substeps`` substeps of a batch of halo-extended
+    windows of one shape (``[B, 3, h_local + 2·halo, W]``, halo =
+    ``HALO·substeps``; pins ``[B, ...]`` or None) whose local row 0 is
+    global row ``row0[b]``, then the centres ``[B, 3, h_local, W]`` (the
+    halo's staleness sliced off); one window ``[3, ...]`` with an int
+    ``row0`` likewise. K1w or K6w on the packed parameters ``prm``
+    (``cloth_kernel.multi_step_window_packed``, one call for the batch;
+    their plain versions on the CPU), through ``cloth_grad_kernel.
+    multi_step_window`` when autograd needs a gradient of the windows."""
     halo = HALO * substeps
     # the Function costs host time even when nothing needs a gradient: a
     # call of 2 substeps took 82.3 µs through it against 59.2 direct on a
@@ -308,7 +314,7 @@ def _spatial_substep_local(pos_ext, vel_ext, pinm_ext, pinpos_ext,
         step = cloth_grad_kernel.multi_step_window
     pos_ext, vel_ext = step(pos_ext, vel_ext, pinm_ext, pinpos_ext, prm,
                             substeps, row0, h_global)
-    return pos_ext[:, halo:-halo], vel_ext[:, halo:-halo]
+    return pos_ext[..., halo:-halo, :], vel_ext[..., halo:-halo, :]
 
 
 def _stencil_substep_local(pos_ext, vel_ext, pinm_ext, pinpos_ext,
@@ -345,17 +351,25 @@ def _check_rows(h: int, n_shards: int, n_steps: int, k: int) -> int:
     return h_local
 
 
-def _rows_world(state: ClothState, params: ClothParams, dt, n_blocks: int,
-                k: int, devs: List[torch.device],
-                use_kernel: bool) -> ClothState:
-    """One world (``[3, H, W]``) cut into ``len(devs)`` bands of rows, one
-    a device, stepped ``n_blocks`` times by one halo exchange of width
-    ``2k`` and ``k`` substeps a shard; returned whole on the state's
-    device. Pins never change, so their halos are exchanged once."""
-    h = state.pos.shape[-2]
-    h_local = h // len(devs)
+def _rows_run(state: ClothState, params: ClothParams, dt, n_blocks: int,
+              k: int, grid: List[List[torch.device]],
+              use_kernel: bool) -> ClothState:
+    """A batch of worlds (``[B, 3, H, W]``; pins ``[B, H, W]`` and
+    ``[B, 3, H, W]`` or None) stepped ``n_blocks`` times by one halo
+    exchange of width ``2k`` and ``k`` substeps: worlds shard ``a`` (the
+    ``a``-th of ``len(grid)`` equal chunks) is cut into ``len(grid[a])``
+    bands of rows, band ``i`` on ``grid[a][i]``. Each block exchanges the
+    halos of each worlds shard's stacked worlds once, then makes one window
+    call a device with every window it holds (all worlds of every shard
+    there; the windows are independent, so their grouping changes no
+    bit). Returned whole on the state's device. Pins never change, so
+    their halos are exchanged once."""
+    n_worlds, _, h, _ = state.pos.shape
+    per = n_worlds // len(grid)
+    h_local = h // len(grid[0])
     halo = HALO * k
-    prms = {dev: _params_on(params, dev) for dev in dict.fromkeys(devs)}
+    devs = list(dict.fromkeys(d for row in grid for d in row))
+    prms = {dev: _params_on(params, dev) for dev in devs}
     if use_kernel:
         # packed once a device, outside the windows' autograd Function, so
         # autograd carries exp(log k), speed_damp ** dt and min_dist's sum
@@ -363,29 +377,71 @@ def _rows_world(state: ClothState, params: ClothParams, dt, n_blocks: int,
                 for dev, p in prms.items()}
 
     def cut(x):
-        return [band.to(dev) for band, dev in zip(x.split(h_local, -2), devs)]
+        return [[band.to(dev) for band, dev in zip(
+            x[a * per:(a + 1) * per].split(h_local, -2), row)]
+            for a, row in enumerate(grid)]
+
+    def cat(xs):
+        return xs[0] if len(xs) == 1 else torch.cat(xs)
 
     pos, vel = cut(state.pos), cut(state.vel)
-    pins = [(None, None)] * len(devs)
+    pins = [[(None, None)] * len(row) for row in grid]
     if state.pin_mask is not None:
-        pins = list(zip(_exchange_halo(cut(state.pin_mask != 0), halo),
-                        _exchange_halo(cut(state.pin_pos), halo)))
+        pins = [list(zip(_exchange_halo(m, halo), _exchange_halo(p, halo)))
+                for m, p in zip(cut(state.pin_mask != 0),
+                                cut(state.pin_pos))]
+    # the (worlds shard, rows shard) windows of each device, and their first
+    # global rows, a world at a time
+    calls = {dev: [(a, i) for a, row in enumerate(grid)
+                   for i, d in enumerate(row) if d == dev] for dev in devs}
+    row0 = {dev: tuple(i * h_local - halo for _, i in ws for _ in range(per))
+            for dev, ws in calls.items()}
     for _ in range(n_blocks):
-        pos_ext = _exchange_halo(pos, halo)
-        vel_ext = _exchange_halo(vel, halo)
-        for i, dev in enumerate(devs):
+        pos_ext = [_exchange_halo(p, halo) for p in pos]
+        vel_ext = [_exchange_halo(v, halo) for v in vel]
+        for dev, ws in calls.items():
             with _on(dev):
                 if use_kernel:
-                    pos[i], vel[i] = _spatial_substep_local(
-                        pos_ext[i], vel_ext[i], *pins[i], prms[dev],
-                        i * h_local - halo, h, k)
-                else:
-                    pos[i], vel[i] = _stencil_substep_local(
-                        pos_ext[i], vel_ext[i], *pins[i], prms[dev], dt,
-                        i * h_local - halo, h, k)
+                    pm, pp = (None, None)
+                    if state.pin_mask is not None:
+                        pm = cat([pins[a][i][0] for a, i in ws])
+                        pp = cat([pins[a][i][1] for a, i in ws])
+                    p_out, v_out = _spatial_substep_local(
+                        cat([pos_ext[a][i] for a, i in ws]),
+                        cat([vel_ext[a][i] for a, i in ws]), pm, pp,
+                        prms[dev], row0[dev], h, k)
+                    for (a, i), p_w, v_w in zip(ws, p_out.split(per),
+                                                v_out.split(per)):
+                        pos[a][i], vel[a][i] = p_w, v_w
+                    continue
+                for a, i in ws:
+                    pm, pp = pins[a][i]
+                    outs = [_stencil_substep_local(
+                        pos_ext[a][i][j], vel_ext[a][i][j],
+                        None if pm is None else pm[j],
+                        None if pp is None else pp[j], prms[dev], dt,
+                        i * h_local - halo, h, k) for j in range(per)]
+                    pos[a][i] = torch.stack([o[0] for o in outs])
+                    vel[a][i] = torch.stack([o[1] for o in outs])
     out = state.pos.device
-    return state._replace(pos=torch.cat([p.to(out) for p in pos], dim=-2),
-                          vel=torch.cat([v.to(out) for v in vel], dim=-2))
+
+    def whole(bands):
+        return torch.cat([torch.cat([b.to(out) for b in row], dim=-2)
+                          for row in bands])
+
+    return state._replace(pos=whole(pos), vel=whole(vel))
+
+
+def _rows_world(state: ClothState, params: ClothParams, dt, n_blocks: int,
+                k: int, devs: List[torch.device],
+                use_kernel: bool) -> ClothState:
+    """One world (``[3, H, W]``) cut into ``len(devs)`` bands of rows, one
+    a device: :func:`_rows_run` on a batch of one."""
+    pin = (None, None) if state.pin_mask is None else (
+        state.pin_mask[None], state.pin_pos[None])
+    out = _rows_run(ClothState(state.pos[None], state.vel[None], *pin),
+                    params, dt, n_blocks, k, [devs], use_kernel)
+    return state._replace(pos=out.pos[0], vel=out.vel[0])
 
 
 def spatial_substep(state: ClothState, params: ClothParams, dt, mesh: Mesh,
@@ -427,22 +483,16 @@ def batched_spatial_multi_step(state: ClothState, params: ClothParams, dt,
     ``worlds_axis``) of row-sharded cloths (halo exchange over
     ``rows_axis``). ``pos``/``vel`` ``[B, 3, H, W]``; optional per-world
     pins (``pin_mask`` ``[B, H, W]``, ``pin_pos`` ``[B, 3, H, W]``);
-    params shared (0-d), as JAX replicates them. Each world of worlds
-    shard ``a`` is cut over the rows devices of row ``a`` of the mesh and
-    stepped as :func:`spatial_multi_step` steps one cloth (JAX maps the
-    worlds of a shard one at a time in each exchange block; the worlds are
-    independent, so the order of the two loops changes no bit)."""
+    params shared (0-d), as JAX replicates them. The worlds of worlds
+    shard ``a`` are cut over the rows devices of row ``a`` of the mesh and
+    stepped as :func:`spatial_multi_step` steps one cloth, block by block,
+    with one window call a device and block for every window the device
+    holds (:func:`_rows_run`). JAX maps the worlds of a shard one at a
+    time in each exchange block, since its vmapped window kernel does not
+    lower; the windows are independent, so the grouping changes no bit."""
     k = substeps_per_exchange
     grid = mesh.grid(worlds_axis, rows_axis)
     _check_rows(state.pos.shape[-2], len(grid[0]), n_steps, k)
-    per = _cut_worlds(state.pos.shape[0], len(grid))
+    _cut_worlds(state.pos.shape[0], len(grid))
     use_kernel = _use_kernel(use_kernel, [d for row in grid for d in row])
-    worlds = []
-    for b in range(state.pos.shape[0]):
-        pin = (None, None) if state.pin_mask is None else (
-            state.pin_mask[b], state.pin_pos[b])
-        worlds.append(_rows_world(
-            ClothState(state.pos[b], state.vel[b], *pin), params, dt,
-            n_steps // k, k, grid[b // per], use_kernel))
-    return state._replace(pos=torch.stack([w.pos for w in worlds]),
-                          vel=torch.stack([w.vel for w in worlds]))
+    return _rows_run(state, params, dt, n_steps // k, k, grid, use_kernel)

@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.state import ClothParams, ClothState
 from ..ops import cloth_grad_kernel, cloth_kernel, granular_kernel
 from . import broadphase
+from ..utils.profiling import span
 
 _EPS = 1e-6
 
@@ -220,7 +221,7 @@ def _frozen_structs(flat_pos: torch.Tensor, flat_vel: torch.Tensor,
     ``(grid, slabs, dropped)``; a profiler trace shows it as the range
     ``cloth.self_collide.rebuild``."""
     n = flat_pos.shape[-1]
-    with torch.profiler.record_function("cloth.self_collide.rebuild"):
+    with span("cloth.self_collide.rebuild"):
         origin = flat_pos.amin(1) - grid_spec.cell_size
         grid = broadphase.build_sorted_grid(flat_pos, flat_vel, grid_spec,
                                             origin)

@@ -32,6 +32,7 @@ import torch
 from . import broadphase
 from ..core.state import ParticleState
 from ..ops import granular_kernel
+from ..utils.profiling import span
 
 _F32 = torch.float32
 
@@ -218,7 +219,7 @@ def rebuild(pos: torch.Tensor, vel: torch.Tensor, config: GranularConfig,
     :func:`pad_slots`; a multiple of the block that holds the particles and
     one slab). A profiler trace shows it as the range
     ``granular.rebuild``."""
-    with torch.profiler.record_function("granular.rebuild"):
+    with span("granular.rebuild"):
         spec = config.grid_spec()
         grid = broadphase.build_sorted_grid(pos, vel, spec)
         n = pos.shape[-1]

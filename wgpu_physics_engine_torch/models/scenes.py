@@ -31,6 +31,7 @@ from ..ops import cloth_kernel
 from .. import render as R
 from ..render import texture as T
 from . import cloth, granular, particles
+from ..utils.profiling import span
 
 
 # The slab of the scene's thin self-collision candidate set. The scene's
@@ -226,16 +227,18 @@ class FreeParticleScene(_SceneBase):
         dt = self.clock.tick()
         if delta_time is not None:
             dt = delta_time
-        self.state = particles.multi_step(
-            self.state, self.params, self.time_scale * dt, 1,
-            bug_compat=self.config.bug_compat)
+        with span("scene.update"):
+            self.state = particles.multi_step(
+                self.state, self.params, self.time_scale * dt, 1,
+                bug_compat=self.config.bug_compat)
 
     def simulate(self, seconds: float, hz: float = 60.0) -> None:
         """Run physics headless at a fixed rate in one call."""
         n = max(1, int(round(seconds * hz)))
-        self.state = particles.multi_step(
-            self.state, self.params, self.time_scale / hz, n,
-            bug_compat=self.config.bug_compat)
+        with span("scene.simulate"):
+            self.state = particles.multi_step(
+                self.state, self.params, self.time_scale / hz, n,
+                bug_compat=self.config.bug_compat)
 
     def render(self, height: int = 600, width: int = 800) -> np.ndarray:
         fb = R.clear(height, width, device=self.device)
@@ -326,13 +329,16 @@ class ClothScene(_SceneBase):
             dt = delta_time
         n, sub_dt = cloth.frame_substeps(dt, self.time_scale, self.config.hz,
                                          self.config.max_substeps)
-        self.state = self._stepper()(self.state, self.params, sub_dt, n)
+        with span("scene.update"):
+            self.state = self._stepper()(self.state, self.params, sub_dt, n)
 
     def simulate(self, seconds: float, hz: Optional[float] = None) -> None:
         """Run physics headless (no frame pacing) in one call."""
         hz = self.config.hz if hz is None else hz
         n = int(round(seconds * hz))
-        self.state = self._stepper()(self.state, self.params, 1.0 / hz, n)
+        with span("scene.simulate"):
+            step = self._stepper()
+            self.state = step(self.state, self.params, 1.0 / hz, n)
 
     def render(self, height: int = 800, width: int = 1200) -> np.ndarray:
         fb = R.clear(height, width, device=self.device)
@@ -438,13 +444,15 @@ class GranularScene(_SceneBase):
         if delta_time is not None:
             dt = delta_time
         n = int(round(self.time_scale * dt * self.hz))
-        self._advance(min(max(n, 1), self.max_substeps))
+        with span("scene.update"):
+            self._advance(min(max(n, 1), self.max_substeps))
 
     def simulate(self, seconds: float, hz: Optional[float] = None) -> None:
         """Run physics headless in one call (no substep clamp)."""
         if hz is not None:
             self.hz = hz
-        self._advance(max(1, int(round(seconds * self.hz))))
+        with span("scene.simulate"):
+            self._advance(max(1, int(round(seconds * self.hz))))
 
     def render(self, height: int = 600, width: int = 800) -> np.ndarray:
         fb = R.clear(height, width, device=self.device)

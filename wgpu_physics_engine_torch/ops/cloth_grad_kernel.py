@@ -71,6 +71,7 @@ from torch.autograd.function import once_differentiable
 from ..core.state import ClothParams, ClothState
 from . import _build, cloth_kernel
 from .cloth_kernel import _EPS, _FAMILIES, _exact_dist_inv, _shift
+from ..utils.profiling import span
 
 # Launches of the substep adjoint (``csrc/cloth_grad.cu``), one per
 # substep walked; a run reads it to show that its backward went through
@@ -560,59 +561,61 @@ def _walk_kernel(traj, ct_pos, ct_vel, prm, pins, window=None):
     if traj.device.type != "cuda":
         raise ValueError(f"cloth adjoint kernel needs CUDA tensors, got "
                          f"{traj.device}")
-    single = traj.ndim == 4
-    if single:
-        traj, ct_pos, ct_vel = traj[:, None], ct_pos[None], ct_vel[None]
-        pins = None if pins is None else (pins[0][None], pins[1][None])
-    elif window is None:
-        raise ValueError(f"traj: expected [n, 6, H, W] for the whole grid, "
-                         f"got {tuple(traj.shape)}")
-    n, nb, _, h, w = traj.shape
-    dev = traj.device
-    cloth_kernel._check_plane(traj, (n, nb, 6, h, w), dev, "traj")
-    traj = traj.contiguous()
-    ct_in = torch.cat([ct_pos, ct_vel], dim=-3).to(dtype=torch.float32)
-    cloth_kernel._check_plane(ct_in, (nb, 6, h, w), dev, "ct_pos/ct_vel")
-    ct = torch.empty((2, nb, 6, h, w), dtype=torch.float32, device=dev)
-    ct[0] = ct_in
-    prm = prm.detach().to(device=dev, dtype=torch.float32).contiguous()
-    if prm.shape != (16,):
-        raise ValueError(f"prm: expected [16], got {tuple(prm.shape)}")
-    ct_prm = torch.zeros(16, dtype=torch.float32, device=dev)
-    ct_pin = None
-    pin_ptrs = (None, None)
-    if pins is not None:
-        pin_mask = pins[0].to(device=dev, dtype=torch.float32).contiguous()
-        cloth_kernel._check_plane(pin_mask, (nb, h, w), dev, "pin_mask")
-        ct_pin = torch.zeros((nb, 3, h, w), dtype=torch.float32, device=dev)
-        pin_ptrs = (pin_mask.data_ptr(), ct_pin.data_ptr())
-    if n and h * w:
-        tiles = -(-h // TILE[0]) * -(-w // TILE[1])
-        partial = torch.empty((n, nb * tiles, 16), dtype=torch.float64,
-                              device=dev)
-        lib = _build.load("cloth_grad", _SIGNATURES)
-        args = (prm.data_ptr(), traj.data_ptr(), pin_ptrs[0],
-                ct[0].data_ptr(), ct[1].data_ptr(), pin_ptrs[1],
-                partial.data_ptr(), ct_prm.data_ptr())
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
+    with span("grad.adjoint.issue"):
+        single = traj.ndim == 4
+        if single:
+            traj, ct_pos, ct_vel = traj[:, None], ct_pos[None], ct_vel[None]
+            pins = None if pins is None else (pins[0][None], pins[1][None])
+        elif window is None:
+            raise ValueError(f"traj: expected [n, 6, H, W] for the whole "
+                             f"grid, got {tuple(traj.shape)}")
+        n, nb, _, h, w = traj.shape
+        dev = traj.device
+        cloth_kernel._check_plane(traj, (n, nb, 6, h, w), dev, "traj")
+        traj = traj.contiguous()
+        ct_in = torch.cat([ct_pos, ct_vel], dim=-3).to(dtype=torch.float32)
+        cloth_kernel._check_plane(ct_in, (nb, 6, h, w), dev, "ct_pos/ct_vel")
+        ct = torch.empty((2, nb, 6, h, w), dtype=torch.float32, device=dev)
+        ct[0] = ct_in
+        prm = prm.detach().to(device=dev, dtype=torch.float32).contiguous()
+        if prm.shape != (16,):
+            raise ValueError(f"prm: expected [16], got {tuple(prm.shape)}")
+        ct_prm = torch.zeros(16, dtype=torch.float32, device=dev)
+        ct_pin = None
+        pin_ptrs = (None, None)
+        if pins is not None:
+            pin_mask = pins[0].to(device=dev, dtype=torch.float32).contiguous()
+            cloth_kernel._check_plane(pin_mask, (nb, h, w), dev, "pin_mask")
+            ct_pin = torch.zeros((nb, 3, h, w), dtype=torch.float32,
+                                 device=dev)
+            pin_ptrs = (pin_mask.data_ptr(), ct_pin.data_ptr())
+        if n and h * w:
+            tiles = -(-h // TILE[0]) * -(-w // TILE[1])
+            partial = torch.empty((n, nb * tiles, 16), dtype=torch.float64,
+                                  device=dev)
+            lib = _build.load("cloth_grad", _SIGNATURES)
+            args = (prm.data_ptr(), traj.data_ptr(), pin_ptrs[0],
+                    ct[0].data_ptr(), ct[1].data_ptr(), pin_ptrs[1],
+                    partial.data_ptr(), ct_prm.data_ptr())
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream().cuda_stream
+                if window is None:
+                    err = lib.wpe_cloth_substep_vjp(
+                        *args, h, w, n, tiles, int(pins is not None), stream)
+                else:
+                    row0, h_global = window
+                    if h_global < 1:
+                        raise ValueError(f"h_global must be positive, got "
+                                         f"{h_global}")
+                    rows = cloth_kernel._row0_device(row0, nb, dev)
+                    err = lib.wpe_cloth_substep_vjp_window(
+                        *args, nb, h, w, n, tiles, rows.data_ptr(),
+                        int(h_global), int(pins is not None), stream)
+            _build.check(lib, err, "cloth_grad launch")
             if window is None:
-                err = lib.wpe_cloth_substep_vjp(*args, h, w, n, tiles,
-                                                int(pins is not None), stream)
+                LAUNCHES += n
             else:
-                row0, h_global = window
-                if h_global < 1:
-                    raise ValueError(f"h_global must be positive, got "
-                                     f"{h_global}")
-                rows = cloth_kernel._row0_device(row0, nb, dev)
-                err = lib.wpe_cloth_substep_vjp_window(
-                    *args, nb, h, w, n, tiles, rows.data_ptr(),
-                    int(h_global), int(pins is not None), stream)
-        _build.check(lib, err, "cloth_grad launch")
-        if window is None:
-            LAUNCHES += n
-        else:
-            LAUNCHES_WINDOW += n
+                LAUNCHES_WINDOW += n
     out = ct[n % 2]
     cp, cv = out[:, :3], out[:, 3:]
     if single:
@@ -676,7 +679,8 @@ class _Segment(torch.autograd.Function):
     def forward(ctx, pos, vel, pin_pos, prm, pin_mask, n_steps):
         state = ClothState(pos=pos, vel=vel, pin_mask=pin_mask,
                            pin_pos=pin_pos)
-        out = cloth_kernel.multi_step_packed(state, prm, n_steps)
+        with span("grad.segment.forward"):
+            out = cloth_kernel.multi_step_packed(state, prm, n_steps)
         ctx.save_for_backward(pos, vel, pin_pos, prm)
         ctx.pin_mask = pin_mask
         ctx.n_steps = n_steps
@@ -689,10 +693,11 @@ class _Segment(torch.autograd.Function):
         pin_mask = ctx.pin_mask
         start = ClothState(pos=pos, vel=vel, pin_mask=pin_mask,
                            pin_pos=pin_pos)
-        traj = cloth_kernel.trace(start, prm, ctx.n_steps)
-        pins = None if pin_mask is None else (pin_mask, pin_pos)
-        cp, cv, g, ct_pin = walk(traj, ct_pos, ct_vel, prm, pins)
-        return cp, cv, ct_pin, g.to(prm.dtype), None, None
+        with span("grad.segment.backward"):
+            traj = cloth_kernel.trace(start, prm, ctx.n_steps)
+            pins = None if pin_mask is None else (pin_mask, pin_pos)
+            cp, cv, g, ct_pin = walk(traj, ct_pos, ct_vel, prm, pins)
+            return cp, cv, ct_pin, g.to(prm.dtype), None, None
 
 
 def multi_step(state: ClothState, params: ClothParams, dt, n_steps: int,
@@ -723,12 +728,13 @@ def multi_step(state: ClothState, params: ClothParams, dt, n_steps: int,
     if segment < 1:
         raise ValueError(f"segment must be >= 1, got {segment}")
     segment = min(segment, n_steps)
-    prm = cloth_kernel._pack_params(params, dt).to(state.pos.device)
-    n_seg, rem = divmod(n_steps, segment)
-    pos, vel = state.pos, state.vel
-    for k in [segment] * n_seg + ([rem] if rem else []):
-        pos, vel = _Segment.apply(pos, vel, state.pin_pos, prm,
-                                  state.pin_mask, k)
+    with span("grad.forward"):
+        prm = cloth_kernel._pack_params(params, dt).to(state.pos.device)
+        n_seg, rem = divmod(n_steps, segment)
+        pos, vel = state.pos, state.vel
+        for k in [segment] * n_seg + ([rem] if rem else []):
+            pos, vel = _Segment.apply(pos, vel, state.pin_pos, prm,
+                                      state.pin_mask, k)
     return state._replace(pos=pos, vel=vel)
 
 

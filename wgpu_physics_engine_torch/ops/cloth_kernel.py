@@ -77,6 +77,7 @@ import torch
 
 from ..core.state import ClothParams, ClothState
 from . import _build
+from ..utils.profiling import span
 
 _EPS = 1e-6
 
@@ -144,18 +145,19 @@ def _pack_params(p: ClothParams, dt) -> torch.Tensor:
     same device ``powf``, so a row equals the 0-d vector of its world; on
     the CPU torch's vectorized ``pow`` serves batches of 16 or more
     elements and may round them 1 ulp off the scalar one."""
-    dt = torch.as_tensor(dt, dtype=torch.float32, device=p.mass.device)
-    cols = [
-        p.k_struct, p.k_shear, p.k_bend,
-        p.c_struct, p.c_shear, p.c_bend,
-        p.rest_struct, p.rest_shear, p.rest_bend,
-        p.k_contact, p.mu, p.mass, p.gravity,
-        torch.pow(p.speed_damp, dt),          # damp factor, constant per call
-        p.globe_radius + p.particle_radius,   # min_dist
-        dt,
-    ]
-    cols = torch.broadcast_tensors(*cols)
-    return torch.stack(cols, dim=-1).to(torch.float32)
+    with span("cloth.pack"):
+        dt = torch.as_tensor(dt, dtype=torch.float32, device=p.mass.device)
+        cols = [
+            p.k_struct, p.k_shear, p.k_bend,
+            p.c_struct, p.c_shear, p.c_bend,
+            p.rest_struct, p.rest_shear, p.rest_bend,
+            p.k_contact, p.mu, p.mass, p.gravity,
+            torch.pow(p.speed_damp, dt),  # damp factor, constant per call
+            p.globe_radius + p.particle_radius,  # min_dist
+            dt,
+        ]
+        cols = torch.broadcast_tensors(*cols)
+        return torch.stack(cols, dim=-1).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -692,28 +694,29 @@ def multi_step_launch_packed(state: ClothState, prm: torch.Tensor,
     ``csrc/cloth_step.cu`` on the current stream, ping-ponging between two
     new buffers; the packed vector of :func:`_pack_params`."""
     global LAUNCHES, LAUNCHES_BATCHED
-    pos, vel, prm, pins, lead, h, w = _kernel_inputs(state, prm)
-    if n_steps <= 0 or pos.numel() == 0:
-        return state
-    pin_ptrs = ((pins[0].data_ptr(), pins[1].data_ptr()) if pins
-                else (None, None))
-    bufs = torch.empty((4,) + lead + (3, h, w), dtype=torch.float32,
-                       device=pos.device)
-    lib = _build.load("cloth_step", _SIGNATURES)
-    ptrs = (prm.data_ptr(), pos.data_ptr(), vel.data_ptr(), *pin_ptrs,
-            bufs[0].data_ptr(), bufs[1].data_ptr(),
-            bufs[2].data_ptr(), bufs[3].data_ptr())
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if lead:
-            err = lib.wpe_cloth_multi_step_batched(
-                *ptrs, lead[0], h, w, n_steps, int(pins is not None),
-                int(fast_math), stream)
-        else:
-            err = lib.wpe_cloth_multi_step(
-                *ptrs, h, w, n_steps, int(pins is not None), int(fast_math),
-                stream)
-    _build.check(lib, err, "cloth_step launch")
+    with span("cloth.issue"):
+        pos, vel, prm, pins, lead, h, w = _kernel_inputs(state, prm)
+        if n_steps <= 0 or pos.numel() == 0:
+            return state
+        pin_ptrs = ((pins[0].data_ptr(), pins[1].data_ptr()) if pins
+                    else (None, None))
+        bufs = torch.empty((4,) + lead + (3, h, w), dtype=torch.float32,
+                           device=pos.device)
+        lib = _build.load("cloth_step", _SIGNATURES)
+        ptrs = (prm.data_ptr(), pos.data_ptr(), vel.data_ptr(), *pin_ptrs,
+                bufs[0].data_ptr(), bufs[1].data_ptr(),
+                bufs[2].data_ptr(), bufs[3].data_ptr())
+        with torch.cuda.device(pos.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            if lead:
+                err = lib.wpe_cloth_multi_step_batched(
+                    *ptrs, lead[0], h, w, n_steps, int(pins is not None),
+                    int(fast_math), stream)
+            else:
+                err = lib.wpe_cloth_multi_step(
+                    *ptrs, h, w, n_steps, int(pins is not None),
+                    int(fast_math), stream)
+        _build.check(lib, err, "cloth_step launch")
     if lead:
         LAUNCHES_BATCHED += n_steps
     else:
@@ -730,25 +733,28 @@ def trace_kernel(state: ClothState, prm: torch.Tensor,
     :func:`multi_step_kernel`, so the trajectory equals the forward bit for
     bit. One world only."""
     global LAUNCHES
-    pos, vel, prm, pins, lead, h, w = _kernel_inputs(state, prm)
-    if lead:
-        raise ValueError(f"trace takes one world, got {tuple(pos.shape)}")
-    traj = torch.empty((n_states, 6, h, w), dtype=torch.float32,
-                       device=pos.device)
-    if n_states <= 0:
-        return traj
-    traj[0, :3] = pos
-    traj[0, 3:] = vel
-    if n_states == 1 or pos.numel() == 0:
-        return traj
-    pin_ptrs = ((pins[0].data_ptr(), pins[1].data_ptr()) if pins
-                else (None, None))
-    lib = _build.load("cloth_step", _SIGNATURES)
-    with torch.cuda.device(pos.device):
-        err = lib.wpe_cloth_trace(
-            prm.data_ptr(), *pin_ptrs, traj.data_ptr(), h, w, n_states,
-            int(pins is not None), torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "cloth_step trace launch")
+    with span("cloth.issue"):
+        pos, vel, prm, pins, lead, h, w = _kernel_inputs(state, prm)
+        if lead:
+            raise ValueError(f"trace takes one world, got "
+                             f"{tuple(pos.shape)}")
+        traj = torch.empty((n_states, 6, h, w), dtype=torch.float32,
+                           device=pos.device)
+        if n_states <= 0:
+            return traj
+        traj[0, :3] = pos
+        traj[0, 3:] = vel
+        if n_states == 1 or pos.numel() == 0:
+            return traj
+        pin_ptrs = ((pins[0].data_ptr(), pins[1].data_ptr()) if pins
+                    else (None, None))
+        lib = _build.load("cloth_step", _SIGNATURES)
+        with torch.cuda.device(pos.device):
+            err = lib.wpe_cloth_trace(
+                prm.data_ptr(), *pin_ptrs, traj.data_ptr(), h, w, n_states,
+                int(pins is not None),
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, err, "cloth_step trace launch")
     LAUNCHES += n_states - 1
     return traj
 

@@ -79,6 +79,7 @@ import torch
 from ..core.state import ClothParams, ClothState
 from . import _build, cloth_kernel
 from .cloth_kernel import _FAMILIES, _exact_dist_inv, _substep_planes
+from ..utils.profiling import span
 
 # Launches of K6 by :func:`multi_step_kernel` and of K6w by
 # :func:`multi_step_window_kernel` (one per ``k_sub`` substeps), of K6r by
@@ -511,27 +512,29 @@ def multi_step_batched_kernel_packed(state: ClothState, prm: torch.Tensor,
     ``[B, 16]``): one launch on the current stream, one CTA a world, into
     new buffers (the input is only read)."""
     global LAUNCHES_BATCHED
-    pos, vel, prm, pins, lead, h, w = cloth_kernel._kernel_inputs(state, prm)
-    if len(lead) != 1:
-        raise ValueError(f"the batched resident kernel takes [B, 3, H, W], "
-                         f"got {tuple(pos.shape)}")
-    smem = card(pos.device)[1]
-    if not batched_fits(h, w, smem) or lead[0] > 65535:
-        raise ValueError(f"{lead[0]} worlds of {h}x{w}: K5r takes at most "
-                         f"65535 worlds of at most {smem // 48} particles")
-    if n_steps <= 0 or pos.numel() == 0:
-        return state
-    pin_ptrs = ((pins[0].data_ptr(), pins[1].data_ptr()) if pins
-                else (None, None))
-    out = torch.empty((2,) + lead + (3, h, w), dtype=torch.float32,
-                      device=pos.device)
-    lib = _build.load("cloth_tiled", _SIGNATURES)
-    with torch.cuda.device(pos.device):
-        err = lib.wpe_cloth_tiled_multi_step_batched(
-            prm.data_ptr(), pos.data_ptr(), vel.data_ptr(), *pin_ptrs,
-            out[0].data_ptr(), out[1].data_ptr(), lead[0], h, w, n_steps,
-            int(pins is not None), torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "cloth_tiled batched launch")
+    with span("cloth.issue"):
+        pos, vel, prm, pins, lead, h, w = cloth_kernel._kernel_inputs(state,
+                                                                      prm)
+        if len(lead) != 1:
+            raise ValueError(f"the batched resident kernel takes "
+                             f"[B, 3, H, W], got {tuple(pos.shape)}")
+        smem = card(pos.device)[1]
+        if not batched_fits(h, w, smem) or lead[0] > 65535:
+            raise ValueError(f"{lead[0]} worlds of {h}x{w}: K5r takes at most "
+                             f"65535 worlds of at most {smem // 48} particles")
+        if n_steps <= 0 or pos.numel() == 0:
+            return state
+        pin_ptrs = ((pins[0].data_ptr(), pins[1].data_ptr()) if pins
+                    else (None, None))
+        out = torch.empty((2,) + lead + (3, h, w), dtype=torch.float32,
+                          device=pos.device)
+        lib = _build.load("cloth_tiled", _SIGNATURES)
+        with torch.cuda.device(pos.device):
+            err = lib.wpe_cloth_tiled_multi_step_batched(
+                prm.data_ptr(), pos.data_ptr(), vel.data_ptr(), *pin_ptrs,
+                out[0].data_ptr(), out[1].data_ptr(), lead[0], h, w, n_steps,
+                int(pins is not None), torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, err, "cloth_tiled batched launch")
     LAUNCHES_BATCHED += 1
     return state._replace(pos=out[0], vel=out[1])
 

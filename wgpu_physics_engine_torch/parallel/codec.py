@@ -28,6 +28,8 @@ import os
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 def _dct_matrix() -> np.ndarray:
     """Orthonormal 8×8 DCT-II matrix D: coefficients = D · block · Dᵀ."""
@@ -75,25 +77,27 @@ def encode(images: torch.Tensor, k: int = 16,
 
     ``quality`` ≥ 1 scales quantization step sizes (bigger = coarser);
     below 1 the DC coefficient can saturate int8 — don't."""
-    h, w, c = images.shape[-3:]
-    lead = tuple(images.shape[:-3])
-    dev = images.device
-    x = images.to(torch.float32) - 128.0
-    x = x.reshape(lead + (h // 8, 8, w // 8, 8, c))
-    nlead = len(lead)
-    # -> [..., H/8, W/8, C, 8, 8]
-    x = torch.movedim(x, (nlead + 1, nlead + 3), (nlead + 3, nlead + 4))
-    d = torch.as_tensor(_DCT, device=dev)
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        coef = torch.einsum("ux,...xy,vy->...uv", d, x, d)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-    flat = coef.reshape(lead + (h // 8, w // 8, c, 64))
-    kept = flat[..., torch.as_tensor(_ZZ[:k], dtype=torch.int64, device=dev)]
-    q = torch.as_tensor(_quant(k, quality), device=dev)
-    return torch.clamp(torch.round(kept / q), -127, 127).to(torch.int8)
+    with span("codec.encode"):
+        h, w, c = images.shape[-3:]
+        lead = tuple(images.shape[:-3])
+        dev = images.device
+        x = images.to(torch.float32) - 128.0
+        x = x.reshape(lead + (h // 8, 8, w // 8, 8, c))
+        nlead = len(lead)
+        # -> [..., H/8, W/8, C, 8, 8]
+        x = torch.movedim(x, (nlead + 1, nlead + 3), (nlead + 3, nlead + 4))
+        d = torch.as_tensor(_DCT, device=dev)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            coef = torch.einsum("ux,...xy,vy->...uv", d, x, d)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        flat = coef.reshape(lead + (h // 8, w // 8, c, 64))
+        kept = flat[..., torch.as_tensor(_ZZ[:k], dtype=torch.int64,
+                                         device=dev)]
+        q = torch.as_tensor(_quant(k, quality), device=dev)
+        return torch.clamp(torch.round(kept / q), -127, 127).to(torch.int8)
 
 
 def decode(coeffs: np.ndarray, quality: float = 1.0) -> np.ndarray:

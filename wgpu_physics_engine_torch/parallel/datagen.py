@@ -31,7 +31,6 @@ from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core import config as cfg
 from ..core.state import (ClothParams, ClothState, init_cloth_state,
@@ -41,6 +40,7 @@ from ..ops import cloth_kernel
 from .. import render as R
 from ..render import texture as T
 from . import codec
+from ..utils.profiling import span
 
 # Worlds per chunk of the one-time globe pre-render (globe_base_fbs).
 # draw_globe keeps ~25 fp32 [3, 256, 256] temporaries a world (rays,
@@ -197,14 +197,14 @@ def step_and_render(batch: WorldBatch, dt, n_steps: int, camera: R.Camera,
     ``ops.cloth_kernel.multi_step`` (K5r or K5 on a CUDA batch, their
     plain version on a CPU one); ``use_kernel=False`` with the stencil twin
     ``models.cloth.multi_step``."""
-    with record_function("datagen.step"):
+    with span("datagen.step"):
         if use_kernel:
             new_state = cloth_kernel.multi_step(batch.state, batch.params,
                                                 dt, n_steps)
         else:
             new_state = _step_stencil(batch, dt, n_steps)
 
-    with record_function("datagen.render"):
+    with span("datagen.render"):
         n_worlds = batch.state.pos.shape[0]
         cams = _broadcast_camera(camera, n_worlds)
         h, w = fb_size
@@ -246,7 +246,8 @@ class _Fetch:
             self.done.record(stream)
 
     def wait(self) -> np.ndarray:
-        self.done.synchronize()
+        with span("fetch.wait"):
+            self.done.synchronize()
         return self.host.numpy()
 
 
@@ -340,7 +341,7 @@ def encode_parts(batches: list, step, codec_k: Optional[int] = None,
     for bi in range(len(batches)):
         batches[bi], im = step(bi, batches[bi])
         if codec_k is not None:
-            with record_function("datagen.codec"):
+            with span("datagen.codec"):
                 im = codec.encode(im, k=codec_k, quality=codec_quality)
         parts.append(im)
     return parts
@@ -379,7 +380,7 @@ def stream_frames(frame, n_frames: int, batches: list, device
     pending = None          # (frame_idx, fetch of that frame)
     for f in range(n_frames):
         parts = frame()
-        with record_function("datagen.fetch"):
+        with span("datagen.fetch"):
             if side is not None:
                 fetch = _Fetch(parts, side)
             else:

@@ -31,13 +31,13 @@ from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core import config as cfg
 from ..core.state import ParticleState
 from ..models import granular
 from .. import render as R
 from . import datagen
+from ..utils.profiling import span
 
 SAND = (0.86, 0.65, 0.35)
 
@@ -160,10 +160,10 @@ def granular_step_and_render(batch: GranularWorldBatch,
     batched one. Returns (new batch, images ``[B, h, w, 3]``: uint8,
     ``(clip(img, 0, 1) * 255 + 0.5)`` truncated). The flat sand colour
     takes no light, so JAX's ``light`` has no counterpart here."""
-    with record_function("datagen.step"):
+    with span("datagen.step"):
         new_batch = step_worlds(batch, config, dt, n_steps)
 
-    with record_function("datagen.render"):
+    with span("datagen.render"):
         pos = new_batch.state.pos
         n_worlds = pos.shape[0]
         cams = datagen._broadcast_camera(camera, n_worlds)

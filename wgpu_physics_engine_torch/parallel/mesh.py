@@ -64,11 +64,11 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.state import ClothParams, ClothState
 from ..models import cloth
 from ..ops import cloth_grad_kernel, cloth_kernel
+from ..utils.profiling import span
 
 HALO = 2  # bend springs reach 2 rows (cloth.rs:956-957)
 
@@ -280,7 +280,7 @@ def _exchange_halo(shards: Sequence[torch.Tensor],
     receive zeros, as a ``ppermute`` with no source gives; the global-row
     masks keep them out of every edge."""
     out = []
-    with record_function("mesh.halo_exchange"):
+    with span("mesh.halo_exchange"):
         for i, x in enumerate(shards):
             zeros = x.new_zeros(x.shape[:-2] + (halo, x.shape[-1]))
             up = shards[i - 1][..., -halo:, :].to(x.device) if i else zeros

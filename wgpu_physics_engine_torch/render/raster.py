@@ -29,6 +29,7 @@ from ..core import config as cfg
 from ..ops import raster_kernel
 from . import shading, texture as tex_mod
 from .camera import Camera, pixel_rays
+from ..utils.profiling import span
 
 
 class Framebuffer(NamedTuple):
@@ -219,7 +220,7 @@ def draw_instanced_spheres(
     grad = _needs_grad(centers, radius, *camera)
     if (eye.ndim == 1 and centers.shape[0] <= raster_kernel.MAX_INSTANCES
             and (h % 16 or w % 128)):
-        with torch.no_grad():
+        with torch.no_grad(), span("render.raster"):
             tmin, inst = raster_kernel.sphere_raster_untiled(
                 eye, dirs, centers, radius, camera.znear)
         hit = inst >= 0
@@ -229,11 +230,14 @@ def draw_instanced_spheres(
         prologue = (raster_kernel.tiled_prologue_batched if eye.ndim == 2
                     else raster_kernel.tiled_prologue)
         with torch.no_grad():
-            wins, ocb, order, rect = prologue(
-                camera.view[..., :3, :3], eye, centers, radius, camera.znear,
-                torch.tan(camera.fovy_rad / 2.0), camera.aspect, h, w)
-            tmin, inst, oc = raster_kernel.sphere_raster_binned(
-                wins, ocb, rect, dirs, camera.znear)
+            with span("render.bin"):
+                wins, ocb, order, rect = prologue(
+                    camera.view[..., :3, :3], eye, centers, radius,
+                    camera.znear, torch.tan(camera.fovy_rad / 2.0),
+                    camera.aspect, h, w)
+            with span("render.raster"):
+                tmin, inst, oc = raster_kernel.sphere_raster_binned(
+                    wins, ocb, rect, dirs, camera.znear)
         hit = inst >= 0
         cen = eye[..., :, None, None] + oc if shaded else None
         if grad:
@@ -251,30 +255,32 @@ def draw_instanced_spheres(
                     dim=1)
             cen = ((eye[..., :, None, None] + oc).detach()
                    + (cen_t - cen_t.detach()))
-    if grad:
-        tmin = tmin + _hit_t(cen, eye, dirs, radius, hit)
+    with span("render.shade"):
+        if grad:
+            tmin = tmin + _hit_t(cen, eye, dirs, radius, hit)
 
-    tmin_g = torch.where(hit, tmin, 0.0)
-    p_world = eye[..., :, None, None] + tmin_g[..., None, :, :] * dirs
-    rot = camera.view[..., :3, :3]
-    p_view = _rotate(rot, p_world - eye[..., :, None, None])
-    if shaded:
-        r = _plane(torch.as_tensor(radius, dtype=torch.float32,
-                                   device=dirs.device))
-        rel = p_world - cen
-    if texture is not None:
-        u, v = _sphere_uv(rel, r)
-        albedo = tex_mod.sample(texture, u, v)
-    else:
-        albedo = torch.as_tensor(flat_color, dtype=torch.float32,
-                                 device=dirs.device).expand(fb.color.shape)
-    if lit:
-        n_view = _rotate(rot, rel / r[..., None, :, :])
-        color = shading.phong(p_view, n_view, albedo,
-                              _light_view(camera, light), light)
-    else:
-        color = albedo
-    return _composite(fb, hit, p_view, color, camera)
+        tmin_g = torch.where(hit, tmin, 0.0)
+        p_world = eye[..., :, None, None] + tmin_g[..., None, :, :] * dirs
+        rot = camera.view[..., :3, :3]
+        p_view = _rotate(rot, p_world - eye[..., :, None, None])
+        if shaded:
+            r = _plane(torch.as_tensor(radius, dtype=torch.float32,
+                                       device=dirs.device))
+            rel = p_world - cen
+        if texture is not None:
+            u, v = _sphere_uv(rel, r)
+            albedo = tex_mod.sample(texture, u, v)
+        else:
+            albedo = torch.as_tensor(flat_color, dtype=torch.float32,
+                                     device=dirs.device).expand(fb.color.shape)
+        if lit:
+            n_view = _rotate(rot, rel / r[..., None, :, :])
+            color = shading.phong(p_view, n_view, albedo,
+                                  _light_view(camera, light), light)
+        else:
+            color = albedo
+    with span("render.composite"):
+        return _composite(fb, hit, p_view, color, camera)
 
 
 # ---------------------------------------------------------------------------

@@ -2,19 +2,14 @@
 ``wgpu_physics_engine_tpu/utils/metrics.py``.
 
 * standard-library ``logging`` integration (:func:`get_logger`);
-* :class:`Meter` — rolling counters (fps, particle-steps/s, frames) that
-  scenes and loops report into, with a one-line summary;
 * :func:`log_run_header` — the torch version and, where CUDA is present,
   the card's name and power limit, for reproducibility.
 """
 
 from __future__ import annotations
 
-import collections
 import logging
 import subprocess
-import time
-from typing import Deque, Dict
 
 
 def get_logger(name: str = "wpe_torch") -> logging.Logger:
@@ -26,32 +21,6 @@ def get_logger(name: str = "wpe_torch") -> logging.Logger:
         logger.addHandler(h)
         logger.setLevel(logging.INFO)
     return logger
-
-
-class Meter:
-    """Rolling-window throughput meter."""
-
-    def __init__(self, window: int = 120):
-        self._events: Dict[str, Deque] = collections.defaultdict(
-            lambda: collections.deque(maxlen=window))
-        self.totals: Dict[str, float] = collections.defaultdict(float)
-
-    def add(self, key: str, value: float = 1.0) -> None:
-        self._events[key].append((time.time(), value))
-        self.totals[key] += value
-
-    def rate(self, key: str) -> float:
-        """Events-value per second over the window."""
-        ev = self._events.get(key)
-        if not ev or len(ev) < 2:
-            return 0.0
-        dt = ev[-1][0] - ev[0][0]
-        return sum(v for _, v in ev) / dt if dt > 0 else 0.0
-
-    def summary(self) -> str:
-        return " | ".join(
-            f"{k}: {self.rate(k):.3g}/s (total {self.totals[k]:.3g})"
-            for k in sorted(self._events))
 
 
 def card_name_and_power_limit() -> str:

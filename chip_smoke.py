@@ -97,12 +97,18 @@ K1w or K6w forward, the window trace and the window adjoint of
    read just after: ``generate_trajectory_dataset`` over 4096 settled
    worlds, 3 frames of 24 substeps at 256×256, randomized cameras, codec
    k = 16, then the CLI's ``datagen`` and ``decode`` (K5r a frame on every
-   chunk of 1,024 and on the CLI's 64 worlds, K5 never); cloth and globe
+   chunk of 1,024 and on the CLI's 64 worlds, K5 never; the epilogue
+   kernel a raster launch, the rays kernel a raster launch and a cached
+   globe's pass); the rays and epilogue kernels on the first chunk of
+   1,024 worlds against their plain versions bit for bit, and the uint8
+   entry ``draw_instanced_spheres_rgb8`` against its plain route, with
+   misses, cloth pixels and cloth the globe hides, then each kernel timed
+   beside its plain chain and its bound; cloth and globe
    pixels in >= 90% of worlds, the yielded frame 0 equal to the codec of
    the raw frame 0 (its decoded PSNR reported), the codec >= 28 dB mean
    PSNR on the worlds' cached globes; on 16 worlds, the kernel path's
-   frames equal to the same path's with the plain stepper and sweep, and
-   within uint8 1 of ``use_kernel=False`` on >= 99.9% of the pixels.
+   frames equal to the same path's with the plain stepper, sweep and
+   rays and the uint8 entry's plain route, and within uint8 1 of ``use_kernel=False`` on >= 99.9% of the pixels.
 
 Then phases 6 and 7 for the datagen path: K5 and K5r a call of 24
 substeps, per substep, on a chunk of 1,024 worlds, the CLI's 64 and a
@@ -315,11 +321,14 @@ copies, the rest, the device's idle share).
 22. granular datagen, counted: ``generate_granular_dataset`` on 256
    worlds of the CLI's 20,000-particle pile in chunks of 64, 3 frames of
    12 substeps at 240 Hz, 256×256, randomized cameras, codec k = 16
-   (K10 a world a substep, the batched raster a chunk a frame), then the
+   (K10 a world a substep, the batched raster, the rays kernel and the
+   epilogue kernel a chunk a frame), then the
    CLI's ``datagen --family granular`` (through the native shard writer)
    and ``decode``: two worlds equal ``granular.multi_step`` with their
    materials bit for bit, every world's frame shows sand and box pixels,
-   the decoded frames have the raw frames' shape. Then K10 on a world of
+   the decoded frames have the raw frames' shape; the rays and epilogue
+   kernels and the uint8 entry on the first chunk in sand, as in phase
+   10. Then K10 on a world of
    the run (its materials in the parameter vector) and the raster on the
    first chunk, each against its plain version on those inputs (K10 bit
    for bit over a rebuild block; the raster on the chunk's first, middle
@@ -387,7 +396,11 @@ call: its sites count time and bound a substep), ``cloth_tiled`` (K6)
 phase 20's 2048² scene, and ``cloth_tiled_window`` (K6w),
 ``cloth_step_window`` (K1w) and ``granular_step_sharded`` (K10b) phase
 21's, K1w and K6w also phase 25's; ``cloth_substep_vjp_window`` and
-``cloth_trace_window`` phase 25's.
+``cloth_trace_window`` phase 25's; ``pixel_rays`` and
+``flat_composite_rgb8`` (the rays and epilogue kernels of
+``pixel_chain.cu``, which replace no Pallas kernel: ``replaces`` is null)
+phases 10's and 22's (the rays kernel also serves every other CUDA camera
+without a gradient, in phases 5 and 14 to 23, not counted by site).
 Images and the full results go to ``chiprun_out/``.
 
 """
@@ -951,17 +964,106 @@ def _dg_frame(tex, chunks, codec_k):
                                codec_k=codec_k)
 
 
+def _pixel_chain(cams, base, centers, radius, flat_color, phase: int,
+                 label: str, card) -> dict:
+    """The rays and epilogue kernels on one chunk of a datagen path (its
+    cameras, cached frame, sphere centres and colour), each against its
+    plain version on the same inputs, bit for bit, one launch each; the
+    uint8 entry against its plain route (``draw_instanced_spheres`` and
+    the cast); the pixels that miss, that show the spheres' colour and that
+    the cached frame hides; then each kernel a launch beside its plain
+    chain and its bound (12 bytes a pixel written for the rays; 27 for the
+    epilogue: tmin, inst, the cached depth and colour read, the uint8
+    written; the fp32 work of either is a small share of it)."""
+    import torch
+
+    from wgpu_physics_engine_torch.ops import pixel_kernel as pk
+    from wgpu_physics_engine_torch.render import camera as cam_mod, raster
+
+    h, w = base.depth.shape[-2:]
+    n = cams.view.shape[0]
+    tan_half = torch.tan(cams.fovy_rad / 2.0)
+    eye = cams.eye
+    launched = (pk.LAUNCHES_RAYS, pk.LAUNCHES_EPILOGUE)
+    dirs = pk.pixel_rays(cams.view, tan_half, cams.aspect, h, w)
+    dirs_p = cam_mod.pixel_dirs_plain(cams.view, tan_half, cams.aspect, h, w)
+    tmin, inst, _, _ = raster._nearest_hits(cams, eye, dirs_p, centers,
+                                            radius)
+    img = pk.flat_composite_rgb8(tmin, inst, base.color, base.depth,
+                                 cams.view, eye, cams.proj, tan_half,
+                                 cams.aspect, flat_color)
+    img_p = raster.to_rgb8(raster._flat_composite(
+        base, cams, eye, dirs_p, tmin, inst >= 0, flat_color).color)
+    torch.cuda.synchronize()
+    launched = (pk.LAUNCHES_RAYS - launched[0],
+                pk.LAUNCHES_EPILOGUE - launched[1])
+    rays_err = _maxdiff(dirs, dirs_p)
+    epi_err = _maxdiff(img.int(), img_p.int())
+    rays_eq = bool(torch.equal(dirs, dirs_p))
+    epi_eq = bool(torch.equal(img, img_p))
+    entry = raster.draw_instanced_spheres_rgb8(base, cams, centers, radius,
+                                               flat_color)
+    entry_eq = bool(torch.equal(entry, raster.draw_instanced_spheres_rgb8_plain(
+        base, cams, centers, radius, flat_color)))
+    hit = inst >= 0
+    flat8 = raster.to_rgb8(torch.tensor(flat_color, device=img.device))
+    won = (img == flat8).all(-1)
+    px = {"miss": int((~hit).sum()), "flat": int((hit & won).sum()),
+          "hidden": int((hit & ~won).sum())}
+    print(f"phase {phase} pixel kernels vs plain on {label}, {n} worlds @{h}x{w}, "
+          f"flat colour {tuple(flat_color)} [{card}]: launches (rays, "
+          f"epilogue) {launched}; rays max abs {rays_err:.3e} bitwise "
+          f"{rays_eq}; epilogue max |d| {epi_err:.0f} bitwise {epi_eq}; "
+          f"draw_instanced_spheres_rgb8 == its plain route {entry_eq}; "
+          f"pixels {px}")
+    _check(launched == (1, 1), f"{label}: pixel kernels launched {launched}")
+    _check(rays_eq and epi_eq and entry_eq,
+           f"{label}: a pixel kernel differs from its plain version: rays "
+           f"{rays_err}, epilogue {epi_err}, entry {entry_eq}")
+    _check(px["miss"] > 0 and px["flat"] > 0,
+           f"{label}: the chunk lacks misses or sphere pixels: {px}")
+
+    res = {"worlds": n, "pixels": px, "entry_equal": entry_eq}
+    for key, kernel, plain, nbytes in (
+            ("rays",
+             lambda: pk.pixel_rays(cams.view, tan_half, cams.aspect, h, w),
+             lambda: cam_mod.pixel_dirs_plain(cams.view, tan_half,
+                                              cams.aspect, h, w), 12),
+            ("epilogue",
+             lambda: pk.flat_composite_rgb8(
+                 tmin, inst, base.color, base.depth, cams.view, eye,
+                 cams.proj, tan_half, cams.aspect, flat_color),
+             lambda: raster.to_rgb8(raster._flat_composite(
+                 base, cams, eye, dirs_p, tmin, hit, flat_color).color), 27)):
+        k_ms, p_ms = _best_ms(kernel), _best_ms(plain)
+        b_ms, b_by = _bound(nbytes * n * h * w, 0.0)
+        res[key] = {"err": rays_err if key == "rays" else epi_err,
+                    "bitwise": rays_eq if key == "rays" else epi_eq,
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                    "bound_by": b_by}
+        print(f"phase 6 {key} kernel on {label}, {n} worlds @{h}x{w} "
+              f"[{card}]: {k_ms:.4f} ms, plain chain {p_ms:.4f} ms "
+              f"({p_ms / k_ms:.1f}x), bound {b_ms:.4f} ms ({nbytes} B a "
+              f"pixel), kernel at {b_ms / k_ms:.4f} of the bound")
+    return res
+
+
 @contextlib.contextmanager
 def _plain_kernels():
     """Inside, the kernels' wrappers (the cloth stepper, its trace, its
     force-plane substep, the large-grid steppers K6 and K6r, the batched
     K5r, the substep adjoint's walk, both rasters, the granular substep,
-    pair forces and their directional derivative) run their plain versions
-    on the card and count no launch, so a path runs its own code with the
-    plain versions."""
+    pair forces and their directional derivative, the rays kernel) run
+    their plain versions on the card and count no launch, so a path runs
+    its own code with the plain versions; the datagens' uint8 entry
+    (``render.draw_instanced_spheres_rgb8``, whose epilogue kernel has no
+    plain version with its arguments) runs its plain route."""
+    from wgpu_physics_engine_torch import render
     from wgpu_physics_engine_torch.ops import (cloth_grad_kernel, cloth_kernel,
                                                cloth_tiled_kernel,
-                                               granular_kernel, raster_kernel)
+                                               granular_kernel, pixel_kernel,
+                                               raster_kernel)
+    from wgpu_physics_engine_torch.render import camera as cam_mod, raster
 
     saved = (cloth_kernel.multi_step_kernel_packed, cloth_kernel.trace_kernel,
              cloth_tiled_kernel.multi_step_kernel_packed,
@@ -974,7 +1076,8 @@ def _plain_kernels():
              raster_kernel.sphere_raster_untiled_kernel,
              granular_kernel.substep_sorted_kernel,
              granular_kernel.contact_forces_sorted_kernel,
-             granular_kernel.contact_force_jvp_sorted_kernel)
+             granular_kernel.contact_force_jvp_sorted_kernel,
+             pixel_kernel.pixel_rays, render.draw_instanced_spheres_rgb8)
     cloth_kernel.multi_step_kernel_packed = cloth_kernel.multi_step_plain_packed
     cloth_kernel.trace_kernel = cloth_kernel.trace_plain
     cloth_tiled_kernel.multi_step_kernel_packed = (
@@ -999,6 +1102,9 @@ def _plain_kernels():
         granular_kernel.contact_forces_sorted_plain)
     granular_kernel.contact_force_jvp_sorted_kernel = (
         granular_kernel.contact_force_jvp_sorted_plain)
+    pixel_kernel.pixel_rays = cam_mod.pixel_dirs_plain
+    render.draw_instanced_spheres_rgb8 = (
+        raster.draw_instanced_spheres_rgb8_plain)
     try:
         yield
     finally:
@@ -1013,7 +1119,8 @@ def _plain_kernels():
          raster_kernel.sphere_raster_untiled_kernel,
          granular_kernel.substep_sorted_kernel,
          granular_kernel.contact_forces_sorted_kernel,
-         granular_kernel.contact_force_jvp_sorted_kernel) = saved
+         granular_kernel.contact_force_jvp_sorted_kernel,
+         pixel_kernel.pixel_rays, render.draw_instanced_spheres_rgb8) = saved
 
 
 @contextlib.contextmanager
@@ -1199,7 +1306,7 @@ def _phase10_datagen(settled, dev, card, cli_main):
     from wgpu_physics_engine_torch.core.config import ClothConfig
     from wgpu_physics_engine_torch.ops import (cloth_kernel,
                                                cloth_tiled_kernel,
-                                               raster_kernel)
+                                               pixel_kernel, raster_kernel)
     from wgpu_physics_engine_torch.parallel import codec, datagen
     from wgpu_physics_engine_torch.render import texture as tex_mod
 
@@ -1216,6 +1323,8 @@ def _phase10_datagen(settled, dev, card, cli_main):
     cloth_kernel.LAUNCHES_BATCHED = 0
     cloth_tiled_kernel.LAUNCHES_BATCHED = 0
     raster_kernel.LAUNCHES = 0
+    pixel_kernel.LAUNCHES_RAYS = 0
+    pixel_kernel.LAUNCHES_EPILOGUE = 0
     t0 = time.perf_counter()
     frames, yields = [], []
     for f, enc, batches in datagen.generate_trajectory_dataset(
@@ -1228,7 +1337,9 @@ def _phase10_datagen(settled, dev, card, cli_main):
     peak = torch.cuda.max_memory_allocated()
     gen_launches = {"cloth_step_batched": cloth_kernel.LAUNCHES_BATCHED,
                     "cloth_tiled_batched": cloth_tiled_kernel.LAUNCHES_BATCHED,
-                    "sphere_raster": raster_kernel.LAUNCHES}
+                    "sphere_raster": raster_kernel.LAUNCHES,
+                    "pixel_rays": pixel_kernel.LAUNCHES_RAYS,
+                    "flat_composite_rgb8": pixel_kernel.LAUNCHES_EPILOGUE}
     rc = cli_main(["datagen", "--worlds", str(DG_CLI_WORLDS), "--frames",
                    "2", "--codec-k",
                    str(DG_K), "--outdir", dg_out, "--device", "cuda"])
@@ -1236,17 +1347,35 @@ def _phase10_datagen(settled, dev, card, cli_main):
     launches = {"cloth_step": cloth_kernel.LAUNCHES,
                 "cloth_step_batched": cloth_kernel.LAUNCHES_BATCHED,
                 "cloth_tiled_batched": cloth_tiled_kernel.LAUNCHES_BATCHED,
-                "sphere_raster": raster_kernel.LAUNCHES}
+                "sphere_raster": raster_kernel.LAUNCHES,
+                "pixel_rays": pixel_kernel.LAUNCHES_RAYS,
+                "flat_composite_rgb8": pixel_kernel.LAUNCHES_EPILOGUE}
     rc_dec = cli_main(["decode", "--indir", dg_out, "--outdir", dg_dec])
     n_chunks = -(-DG_WORLDS // DG_CHUNK)
+    # the frames' rays and epilogue, one each a chunk and frame beside the
+    # raster, and the cached globes' rays, a launch a GLOBE_CHUNK of worlds
+    want_pixel = {"flat_composite_rgb8": 3 * n_chunks,
+                  "pixel_rays": 3 * n_chunks + n_chunks * -(
+                      -DG_CHUNK // datagen.GLOBE_CHUNK)}
     print(f"phase 10 datagen path [{card}]: generate_trajectory_dataset("
           f"ClothConfig(), n_worlds={DG_WORLDS}, n_frames=3, steps_per_frame="
           f"{DG_STEPS}, fb_size={DG_FB}, randomize_cameras=True, codec_k="
           f"{DG_K}, world_chunk={DG_CHUNK}) {gen_s:.3f} s host clock (frames "
           f"yielded at {', '.join(f'{t:.3f}' for t in yields)} s), peak "
           f"device memory {peak / 2**30:.3f} GiB; CLI datagen rc {rc}, decode "
-          f"rc {rc_dec}; launches {launches}")
+          f"rc {rc_dec}; launches {launches} (generate alone {gen_launches}"
+          f", the pixel kernels' expected {want_pixel})")
     _check(rc == 0 and rc_dec == 0, f"CLI datagen/decode rc {rc} {rc_dec}")
+    cli_epi = (launches["flat_composite_rgb8"]
+               - gen_launches["flat_composite_rgb8"])
+    _check(all(gen_launches[k] == v for k, v in want_pixel.items())
+           and gen_launches["sphere_raster"] == 3 * n_chunks
+           and cli_epi > 0 and cli_epi == (launches["sphere_raster"]
+                                           - gen_launches["sphere_raster"])
+           and launches["pixel_rays"] - gen_launches["pixel_rays"] > cli_epi,
+           f"the datagen path's pixel kernels launched {launches} (generate "
+           f"alone {gen_launches}), expected {want_pixel} for generate and "
+           f"an epilogue a raster launch in the CLI")
     # every chunk of 1,024 worlds and the CLI's 64 take K5r, one launch a
     # frame; K5 never
     _check(gen_launches["cloth_tiled_batched"] >= 3 * n_chunks
@@ -1264,6 +1393,14 @@ def _phase10_datagen(settled, dev, card, cli_main):
 
     # frame 0 uncompressed, from the same worlds and cameras
     tex, chunks = _dg_setup(settled, DG_SEED + 1, dev)
+    b0 = chunks[0][0]
+    pixel = _pixel_chain(
+        chunks[1][0], chunks[2][0],
+        b0.state.pos.reshape(DG_CHUNK, 3, -1).transpose(1, 2),
+        b0.params.particle_radius, (1.0, 0.0, 0.0), 10,
+        "the datagen chunk", card)
+    _check(pixel["pixels"]["hidden"] > 0,
+           f"no cloth pixel behind a cached globe: {pixel['pixels']}")
     parts = _dg_frame(tex, chunks, None)
     raw = torch.cat(parts)
     red, globe = _classify(raw)
@@ -1344,7 +1481,8 @@ def _phase10_datagen(settled, dev, card, cli_main):
             "encode_equal": enc_same, "kernel_equals_plain": exact,
             "kernel_vs_twin_within_1": within,
             "kernel_vs_twin_end_pos": e_pos,
-            "kernel_vs_twin_over_1": int((d > 1).sum())}
+            "kernel_vs_twin_over_1": int((d > 1).sum()),
+            "pixel_chain": pixel}
 
 
 def _dg_times(settled, raster_in, dev, card) -> dict:
@@ -4701,7 +4839,7 @@ def _phase22_granular_datagen(dev, card, cli_main) -> dict:
     from wgpu_physics_engine_torch.core.state import ParticleState
     from wgpu_physics_engine_torch.models import granular
     from wgpu_physics_engine_torch.ops import granular_kernel as gk
-    from wgpu_physics_engine_torch.ops import raster_kernel
+    from wgpu_physics_engine_torch.ops import pixel_kernel, raster_kernel
     from wgpu_physics_engine_torch.parallel import codec
     from wgpu_physics_engine_torch.parallel import datagen_granular as dgg
     from wgpu_physics_engine_torch.render import camera as cam_mod
@@ -4724,6 +4862,8 @@ def _phase22_granular_datagen(dev, card, cli_main) -> dict:
     torch.cuda.reset_peak_memory_stats()
     gk.LAUNCHES = 0
     raster_kernel.LAUNCHES = 0
+    pixel_kernel.LAUNCHES_RAYS = 0
+    pixel_kernel.LAUNCHES_EPILOGUE = 0
     t0 = time.perf_counter()
     frames, yields = [], []
     for _, enc, batches in dgg.generate_granular_dataset(
@@ -4735,7 +4875,9 @@ def _phase22_granular_datagen(dev, card, cli_main) -> dict:
     gen_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     gen_launches = {"granular_step": gk.LAUNCHES,
-                    "sphere_raster": raster_kernel.LAUNCHES}
+                    "sphere_raster": raster_kernel.LAUNCHES,
+                    "pixel_rays": pixel_kernel.LAUNCHES_RAYS,
+                    "flat_composite_rgb8": pixel_kernel.LAUNCHES_EPILOGUE}
     said = io.StringIO()
     with contextlib.redirect_stdout(said):
         rc = cli_main(["datagen", "--family", "granular", "--worlds",
@@ -4744,14 +4886,22 @@ def _phase22_granular_datagen(dev, card, cli_main) -> dict:
                        "--device", "cuda"])
     torch.cuda.synchronize()
     launches = {"granular_step": gk.LAUNCHES,
-                "sphere_raster": raster_kernel.LAUNCHES}
+                "sphere_raster": raster_kernel.LAUNCHES,
+                "pixel_rays": pixel_kernel.LAUNCHES_RAYS,
+                "flat_composite_rgb8": pixel_kernel.LAUNCHES_EPILOGUE}
     rc_dec = cli_main(["decode", "--indir", dg_out, "--outdir", dg_dec])
     n_chunks = -(-GG_WORLDS // GG_CHUNK)
+    # the rays and the epilogue a launch each beside every raster launch
+    # (the cached box frames take no rays)
     want_gen = {"granular_step": GG_WORLDS * GG_FRAMES * GG_STEPS,
-                "sphere_raster": n_chunks * GG_FRAMES}
+                "sphere_raster": n_chunks * GG_FRAMES,
+                "pixel_rays": n_chunks * GG_FRAMES,
+                "flat_composite_rgb8": n_chunks * GG_FRAMES}
     want = {"granular_step": want_gen["granular_step"]
             + GG_CLI_WORLDS * 2 * GG_STEPS,
-            "sphere_raster": want_gen["sphere_raster"] + 2}
+            "sphere_raster": want_gen["sphere_raster"] + 2,
+            "pixel_rays": want_gen["pixel_rays"] + 2,
+            "flat_composite_rgb8": want_gen["flat_composite_rgb8"] + 2}
     native_used = "shard writer native" in said.getvalue()
     print(f"phase 22 granular datagen path [{card}]: generate_granular_"
           f"dataset(GranularConfig(num_particles={GG_N}), n_worlds="
@@ -4799,6 +4949,10 @@ def _phase22_granular_datagen(dev, card, cli_main) -> dict:
     _, cams, bases = dgg.granular_chunks(
         cfg, GG_WORLDS, torch.Generator().manual_seed(GG_SEED + 1), DG_FB,
         None, GG_CHUNK, True, worlds=worlds, device=dev)
+    pixel = _pixel_chain(cams[0], bases[0],
+                         batches[0].state.pos.transpose(1, 2),
+                         float(cfg.radius), dgg.SAND, 22,
+                         "the granular datagen chunk", card)
     raw = torch.cat(_gg_frame(cfg, batches, cams, bases, None))
     sand = (raw == torch.tensor([219, 166, 89], dtype=torch.uint8,
                                 device=dev)).all(-1).sum((1, 2))
@@ -4825,7 +4979,7 @@ def _phase22_granular_datagen(dev, card, cli_main) -> dict:
            "generate_s": gen_s, "yields_s": yields, "peak_bytes": peak,
            "cli_rc": [rc, rc_dec], "native_writer": native_used,
            "bitwise_multi_step": exact, "sand_px_min": int(sand.min()),
-           "box_px_min": int(box.min())}
+           "box_px_min": int(box.min()), "pixel_chain": pixel}
     out = {}
     for codec_k in (None, DG_K):
         ms = _best_ms(lambda: _gg_frame(cfg, batches, cams, bases, codec_k))
@@ -5774,14 +5928,17 @@ def _site(name: str, launches: int, ms=None, bound_ms=None,
             "ms": ms, "bound_ms": bound_ms, "lost_ms": lost}
 
 
-def _kernel(name: str, source: str, replaces: str, err: float, ms: float,
+def _kernel(name: str, source: str, replaces, err: float, ms: float,
             plain_ms: float, bound_ms: float, bound_by: str,
             sites: list) -> dict:
     """A kernel's entry of the ``kernels`` line: its launches over its
-    sites, and its time, plain version's time and bound at its first."""
+    sites, and its time, plain version's time and bound at its first;
+    ``replaces`` is the Pallas kernel's file and line, None for a kernel
+    that replaces none (a chain that XLA fused on the TPU)."""
     return {"name": name, "route": "cuda",
             "source": f"wgpu_physics_engine_torch/ops/csrc/{source}",
-            "replaces": f"wgpu_physics_engine_tpu/ops/{replaces}",
+            "replaces": (None if replaces is None
+                         else f"wgpu_physics_engine_tpu/ops/{replaces}"),
             "launches": sum(x["launches"] for x in sites),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
@@ -5833,7 +5990,8 @@ def main() -> int:
     from wgpu_physics_engine_torch.ops import (_build, cloth_grad_kernel,
                                                cloth_kernel,
                                                cloth_tiled_kernel,
-                                               granular_kernel, raster_kernel)
+                                               granular_kernel, pixel_kernel,
+                                               raster_kernel)
     from wgpu_physics_engine_torch.parallel import datagen
     from wgpu_physics_engine_torch.render import camera as cam_mod
     from wgpu_physics_engine_torch.utils import viewer
@@ -5848,7 +6006,8 @@ def main() -> int:
             "sphere_raster_untiled": raster_kernel._SIGNATURES_UNTILED,
             "cloth_grad": cloth_grad_kernel._SIGNATURES,
             "granular_step": granular_kernel._SIGNATURES,
-            "cloth_tiled": cloth_tiled_kernel._SIGNATURES}
+            "cloth_tiled": cloth_tiled_kernel._SIGNATURES,
+            "pixel_chain": pixel_kernel._SIGNATURES}
     build_s = {}
 
     def build(name):
@@ -6338,7 +6497,33 @@ def main() -> int:
                           (results["large_grid"]["substeps_k6r"] + FIT_SEG)
                           / (lg_launches["cloth_tiled_resident"]
                              + lg_grad_launches["cloth_tiled_resident"]))]),
-    ] + mc_kernels + rg_kernels
+    ]
+    dpc = results["datagen"]["pixel_chain"]
+    gpc = gg["pixel_chain"]
+    g_pix = gg["generate_launches"]
+    globe_rays = gen["pixel_rays"] - gen["flat_composite_rgb8"]
+    for name, key in (("pixel_rays", "rays"),
+                      ("flat_composite_rgb8", "epilogue")):
+        d, g = dpc[key], gpc[key]
+        sites = [_site(f"datagen frames, {DG_CHUNK} worlds at {DG_FB[0]}x"
+                       f"{DG_FB[1]}", gen["flat_composite_rgb8"], d["ms"],
+                       d["bound_ms"])]
+        if key == "rays":
+            sites.append(_site(f"datagen cached globes, "
+                               f"{datagen.GLOBE_CHUNK} worlds", globe_rays))
+        sites += [
+            _site(f"datagen CLI, {DG_CLI_WORLDS} worlds",
+                  dg_launches[name] - gen[name]),
+            _site(f"granular datagen, {GG_CHUNK} worlds x {GG_N} at "
+                  f"{DG_FB[0]}x{DG_FB[1]}", g_pix[name], g["ms"],
+                  g["bound_ms"]),
+            _site(f"granular datagen CLI, {GG_CLI_WORLDS} worlds",
+                  gdg_launches[name] - g_pix[name])]
+        kernels.append(_kernel(name, "pixel_chain.cu", None,
+                               max(d["err"], g["err"]), d["ms"],
+                               d["plain_ms"], d["bound_ms"], d["bound_by"],
+                               sites))
+    kernels += mc_kernels + rg_kernels
     _ranking(kernels, card)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -44,7 +44,14 @@ on the long windows of a thin self-collision set (several lanes a slot)
 are held to their plain versions as at 1M, an undersized slab included;
 the tiled raster to the full plain sweep bit for bit on an overloaded
 tile, on exact-t ties across chunks and on several worlds in one call,
-and its device-built work list to ``raster_kernel.work_list``.
+and its device-built work list to ``raster_kernel.work_list``. The rays
+kernel is held to ``camera.pixel_rays_plain`` bit for bit (a camera, a
+batch and a batch of two leading axes at 256², 600×800 and 37×61), and
+the datagens' uint8 entry (``draw_instanced_spheres_rgb8``: the rays
+kernel, the raster, the epilogue kernel) to its plain route,
+``draw_instanced_spheres`` and the cast, bit for bit on a 64-world
+datagen chunk at 256² and 37×61 in red and in sand, and on a framebuffer
+shared by a batch of cameras.
 K1 is held to its plain version bit for bit (exact) and to K5 on one world
 bit for bit (exact and fast_math) on the flagship's 256², the reference
 60×60, a ragged 255×257 and 1000×1030, and its trace to ``trace_plain`` at
@@ -74,8 +81,9 @@ from wgpu_physics_engine_torch.core import state as st
 from wgpu_physics_engine_torch.models import scenes
 from wgpu_physics_engine_torch.models import cloth
 from wgpu_physics_engine_torch.ops import (cloth_grad_kernel, cloth_kernel,
-                                           cloth_tiled_kernel, raster_kernel)
-from wgpu_physics_engine_torch.render import camera
+                                           cloth_tiled_kernel, pixel_kernel,
+                                           raster_kernel)
+from wgpu_physics_engine_torch.render import camera, raster
 
 DT = 1.0 / 480.0
 
@@ -273,10 +281,12 @@ def test_datagen_on_cuda_matches_plain_path(dev):
     kw = dict(n_worlds=5, n_frames=3, steps_per_frame=8, fb_size=(32, 128),
               randomize_cameras=True, world_chunk=3, device=dev)
     k5_0, r0 = cloth_kernel.LAUNCHES_BATCHED, raster_kernel.LAUNCHES
+    e0 = pixel_kernel.LAUNCHES_EPILOGUE
     got = [(f, im) for f, im, _ in datagen.generate_trajectory_dataset(
         c, generator=torch.Generator().manual_seed(2), **kw)]
     assert cloth_kernel.LAUNCHES_BATCHED - k5_0 == 3 * 2 * 8   # frames × chunks
     assert raster_kernel.LAUNCHES - r0 == 3 * 2
+    assert pixel_kernel.LAUNCHES_EPILOGUE - e0 == 3 * 2
     # the CPU run of the same draws (a CPU generator either way) takes the
     # plain versions; CPU and CUDA libm round pow/atan2/asin apart by ulps,
     # so a frame agrees within 1 except where a silhouette crosses a pixel
@@ -289,6 +299,108 @@ def test_datagen_on_cuda_matches_plain_path(dev):
         d = np.abs(a.astype(np.int16) - r.astype(np.int16)).max(-1)
         assert (d <= 1).mean() >= 0.999, (d <= 1).mean()
         assert (a == [255, 0, 0]).all(-1).sum() > 50
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [None, (4,), (2, 3)])
+@pytest.mark.parametrize("hw", [(256, 256), (600, 800), (37, 61)])
+def test_pixel_rays_kernel_matches_plain(dev, hw, batch):
+    """The rays kernel against ``pixel_rays_plain`` on the card, bit for
+    bit: a camera, a batch and a batch with two leading axes, at 256²,
+    600×800 and a ragged 37×61 (its scalar tail); a camera carrying a
+    gradient takes the plain version."""
+    from wgpu_physics_engine_torch.parallel import datagen
+
+    h, w = hw
+    if batch is None:
+        cam = camera.make_camera(cfg.CameraConfig(radius=30.0, theta=0.7,
+                                                  phi=0.4),
+                                 aspect=w / h, device=dev)
+    else:
+        n = int(np.prod(batch))
+        cam = datagen.randomized_cameras(
+            n, torch.Generator().manual_seed(3), aspect=w / h, device=dev)
+        cam = camera.Camera(*(a.reshape(batch + a.shape[1:]) for a in cam))
+    before = pixel_kernel.LAUNCHES_RAYS
+    eye, got = camera.pixel_rays(cam, h, w)
+    torch.cuda.synchronize()
+    assert pixel_kernel.LAUNCHES_RAYS == before + 1
+    ref_eye, ref = camera.pixel_rays_plain(cam, h, w)
+    assert got.shape == ref.shape and torch.equal(eye, ref_eye)
+    assert torch.equal(got, ref)
+    grad_cam = cam._replace(eye=cam.eye.clone().requires_grad_(True))
+    _, plain = camera.pixel_rays(grad_cam, h, w)
+    assert pixel_kernel.LAUNCHES_RAYS == before + 1
+    assert torch.equal(plain, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flat", [(1.0, 0.0, 0.0), (0.86, 0.65, 0.35)])
+@pytest.mark.parametrize("hw", [(256, 256), (37, 61)])
+def test_rgb8_entry_matches_plain_route_on_datagen_chunk(dev, hw, flat):
+    """``draw_instanced_spheres_rgb8`` on a 64-world datagen chunk of the
+    60×60 cloth draped 3 s over cached globes (hits, misses and hits the
+    globe hides all occur) equals its plain route, ``draw_instanced_
+    spheres`` and the cast, bit for bit, with one launch of each kernel a
+    call, in the cloth datagen's red and the granular datagen's sand
+    (three channels apart, none 0 or 1); 37×61 takes the epilogue's
+    scalar tail."""
+    from wgpu_physics_engine_torch.parallel import datagen
+
+    h, w = hw
+    b = datagen.randomized_worlds(cfg.ClothConfig(), 64,
+                                  torch.Generator().manual_seed(6),
+                                  device=dev)
+    state = cloth_kernel.multi_step(b.state, b.params, DT, 1440)
+    cams = datagen.randomized_cameras(64, torch.Generator().manual_seed(7),
+                                      aspect=w / h, device=dev)
+    base = datagen.globe_base_fbs(cams, b.params, datagen.globe_texture(dev),
+                                  fb_size=hw)
+    centers = state.pos.reshape(64, 3, -1).transpose(1, 2)
+    radius = b.params.particle_radius
+    rays0, epi0 = pixel_kernel.LAUNCHES_RAYS, pixel_kernel.LAUNCHES_EPILOGUE
+    got = raster.draw_instanced_spheres_rgb8(base, cams, centers, radius,
+                                             flat_color=flat)
+    torch.cuda.synchronize()
+    assert (pixel_kernel.LAUNCHES_RAYS - rays0,
+            pixel_kernel.LAUNCHES_EPILOGUE - epi0) == (1, 1)
+    fb = raster.draw_instanced_spheres(base, cams, centers, radius,
+                                       flat_color=flat)
+    ref = (torch.clamp(fb.color, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+    assert got.dtype == torch.uint8 and got.shape == (64, h, w, 3)
+    assert torch.equal(got, ref)
+    eye, dirs = camera.pixel_rays(cams, h, w)
+    hit = raster._nearest_hits(cams, eye, dirs, centers, radius)[1] >= 0
+    won = hit & (fb.depth < base.depth)
+    assert int((~hit).sum()) > 1000 and int(won.sum()) > 1000
+    assert int((hit & ~won).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_rgb8_entry_broadcasts_a_shared_framebuffer(dev):
+    """A framebuffer ``[H, W]`` shared by a batch of cameras: the uint8
+    entry broadcasts it as its plain route does, bit for bit."""
+    from wgpu_physics_engine_torch.parallel import datagen
+
+    h, w = 64, 128
+    cams = datagen.randomized_cameras(3, torch.Generator().manual_seed(5),
+                                      aspect=w / h, device=dev)
+    shared = raster.draw_globe(raster.clear(h, w, device=dev),
+                               camera.make_camera(aspect=w / h, device=dev),
+                               10.0, datagen.globe_texture(dev),
+                               cfg.LightConfig())
+    rng = np.random.default_rng(4)
+    d = rng.standard_normal((3, 400, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    centers = torch.tensor(d * rng.uniform(10.4, 13.0, (3, 400, 1)),
+                           dtype=torch.float32, device=dev)
+    epi0 = pixel_kernel.LAUNCHES_EPILOGUE
+    got = raster.draw_instanced_spheres_rgb8(shared, cams, centers, 0.6)
+    assert pixel_kernel.LAUNCHES_EPILOGUE == epi0 + 1
+    ref = raster.draw_instanced_spheres_rgb8_plain(shared, cams, centers,
+                                                   0.6)
+    assert got.shape == ref.shape == (3, h, w, 3)
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda

@@ -53,7 +53,8 @@ from wgpu_physics_engine_tpu.render import texture as JT
 from wgpu_physics_engine_torch import render as TR
 from wgpu_physics_engine_torch.core import config as tcfg
 from wgpu_physics_engine_torch.core import state as tstate
-from wgpu_physics_engine_torch.ops import cloth_kernel, raster_kernel
+from wgpu_physics_engine_torch.ops import (cloth_kernel, pixel_kernel,
+                                           raster_kernel)
 from wgpu_physics_engine_torch.parallel import datagen as TD
 from wgpu_physics_engine_torch.render import texture as TT
 
@@ -457,11 +458,14 @@ def test_port_generator_diversity():
 
 
 def test_cpu_datagen_launches_no_kernel():
-    k0, b0, r0 = (cloth_kernel.LAUNCHES, cloth_kernel.LAUNCHES_BATCHED,
-                  raster_kernel.LAUNCHES)
+    def counts():
+        return (cloth_kernel.LAUNCHES, cloth_kernel.LAUNCHES_BATCHED,
+                raster_kernel.LAUNCHES, pixel_kernel.LAUNCHES_RAYS,
+                pixel_kernel.LAUNCHES_EPILOGUE)
+
+    before = counts()
     list(_port_gen(n_frames=1))
-    assert (cloth_kernel.LAUNCHES, cloth_kernel.LAUNCHES_BATCHED,
-            raster_kernel.LAUNCHES) == (k0, b0, r0)
+    assert counts() == before
 
 
 # ---------------------------------------------------------------------------

@@ -371,3 +371,68 @@ def test_raster_plain_matches_pallas_chunked_table():
     same = ghit & rhit & (np.abs(_np(goc) - roc).max(0) <= 1e-5)
     assert same.sum() >= 0.999 * ghit.sum()
     _check_tmin(gt, rt, ghit & rhit, _t_ulp(ocb, ginst, td))
+
+
+# ---------------------------------------------------------------------------
+# The datagens' uint8 entry (draw_instanced_spheres_rgb8)
+# ---------------------------------------------------------------------------
+
+def _shell_centers(rng, n):
+    """``n`` sphere centres on a shell 0.4-3 outside the globe (radius 10),
+    all around it: from any orbit camera some lie in front of the globe
+    and some behind it."""
+    d = rng.standard_normal((n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (d * rng.uniform(10.4, 13.0, (n, 1))).astype(np.float32)
+
+
+@pytest.mark.parametrize("flat", [(1.0, 0.0, 0.0), (0.86, 0.65, 0.35)])
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("hw", [(256, 256), (37, 61)])
+def test_rgb8_entry_equals_plain_route_and_cast(batched, hw, flat):
+    """On the CPU the uint8 entry is ``draw_instanced_spheres`` and the
+    datagens' cast, bit for bit, on one world (the tiled raster at 256²,
+    the untiled one at 37×61) and on a batch, in the cloth datagen's red
+    and the granular datagen's sand (three channels apart, none 0 or 1),
+    with pixels that miss, that hit in front of the globe and that hit
+    behind it; it launches no kernel."""
+    from wgpu_physics_engine_torch.ops import pixel_kernel
+    from wgpu_physics_engine_torch.render import raster
+
+    h, w = hw
+    rng = np.random.default_rng(11)
+    if batched:
+        cam = TR.make_camera(tcfg.CameraConfig(), aspect=w / h,
+                             radius=torch.tensor([30.0, 45.0]),
+                             theta=torch.tensor([0.3, 2.5]),
+                             phi=torch.tensor([0.3, 0.9]))
+        centers = torch.tensor(np.stack([_shell_centers(rng, 300)
+                                         for _ in range(2)]))
+    else:
+        cam = TR.make_camera(tcfg.CameraConfig(radius=30.0, phi=0.3),
+                             aspect=w / h)
+        centers = torch.tensor(_shell_centers(rng, 300))
+    n_worlds = 2 if batched else None
+    base = TR.draw_globe(TR.clear(h, w, n_worlds=n_worlds), cam, 10.0,
+                         TT.get("mesh", max_size=64), tcfg.LightConfig())
+    counts = (pixel_kernel.LAUNCHES_RAYS, pixel_kernel.LAUNCHES_EPILOGUE,
+              raster_kernel.LAUNCHES, raster_kernel.LAUNCHES_UNTILED)
+    got = TR.draw_instanced_spheres_rgb8(base, cam, centers, 0.6,
+                                         flat_color=flat)
+    fb = TR.draw_instanced_spheres(base, cam, centers, 0.6, flat_color=flat)
+    ref = (torch.clamp(fb.color, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+    assert (pixel_kernel.LAUNCHES_RAYS, pixel_kernel.LAUNCHES_EPILOGUE,
+            raster_kernel.LAUNCHES, raster_kernel.LAUNCHES_UNTILED) == counts
+    assert got.dtype == torch.uint8 and got.shape == ref.shape
+    assert torch.equal(got, ref)
+    # every kind of pixel occurs: a miss, a hit that wins, a hit the globe
+    # hides
+    eye, dirs = TR.pixel_rays(cam, h, w)
+    hit = raster._nearest_hits(cam, eye, dirs, centers, 0.6)[1] >= 0
+    flat8 = (torch.tensor(flat) * 255.0 + 0.5).to(torch.uint8)
+    won = (got == flat8).all(-1)
+    base8 = (torch.clamp(base.color, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+    hidden = hit & ~won & (got == base8).all(-1)
+    assert int((~hit).sum()) > 50
+    assert int((hit & won).sum()) > 20
+    assert int(hidden.sum()) > 20

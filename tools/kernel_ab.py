@@ -101,6 +101,20 @@ events over back-to-back launches, best of 5):
   ``adjoint``: the window adjoint; ``reduce``: its reductions; ``k6w``)
   the launches, the device µs and the µs a launch, with the device's busy
   µs and op count;
+* part ``render_epilogue`` (a checkout with ``ops/pixel_kernel.py``), the
+  datagen render's per-pixel chains at the codec cell's chunk (1,024
+  worlds of the 60×60 cloth settled 3 s, randomized cameras, cached
+  globes, 256×256): the rays kernel against ``pixel_dirs_plain`` and the
+  epilogue kernel against the torch chain it replaces (the flat route's
+  shade and composite of ``draw_instanced_spheres``, ``render.raster.
+  _flat_composite``, and the cast, ``to_rgb8``), each
+  pair timed in turns (plain, kernel, kernel, plain, ...), ``PAIRS``
+  pairs by CUDA events, ms a call: ``rays_kernel_ms``, ``rays_plain_ms``,
+  ``epilogue_kernel_ms``, ``epilogue_plain_ms`` (medians), each side's
+  times in ``render_epilogue_pairs``, the kernels' bounds
+  (``rays_bound_ms``, ``epilogue_bound_ms``: 12 and 27 bytes a pixel at
+  3.35 TB/s), the device µs of each kernel from a trace, and whether each
+  kernel equals its plain chain bit for bit (``render_epilogue_bitwise``);
 * with ``--sweep`` (a checkout with K6w) K6w on the rows window over tile
   heights and widths at k = 1; (a checkout whose walk has
   ``walk_geometry``), K11 and
@@ -111,8 +125,9 @@ events over back-to-back launches, best of 5):
 * with ``--check``, each kernel against its plain version: the largest
   difference and whether they are equal bit for bit;
 * with ``--only`` and one or more of ``walk``, ``cloth``, ``resident``,
-  ``window``, ``adjoint``, ``raster``, ``k1f_k4`` and ``rows_grad``, only
-  those parts (``k1f_k4`` and ``rows_grad`` run only when named); with ``e2e`` among them, also the host-bound loops the
+  ``window``, ``adjoint``, ``raster``, ``k1f_k4``, ``rows_grad`` and
+  ``render_epilogue``, only those parts (``k1f_k4``, ``rows_grad`` and
+  ``render_epilogue`` run only when named); with ``e2e`` among them, also the host-bound loops the
   walk runs in (``self_collide_256`` and the granular value_and_grad at
   1M, host clock, best of 5).
 
@@ -130,6 +145,9 @@ import time
 
 # rounds of (K1w, K6w, K6w, K1w) on the composed window
 TURNS = 4
+# pairs of (plain chain, kernel) in part render_epilogue, the first of a
+# pair alternating
+PAIRS = 10
 
 
 def _best_ms(fn, reps: int = 5, inner: int = 1) -> float:
@@ -255,7 +273,8 @@ def main() -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--only", nargs="+",
                     choices=("walk", "cloth", "resident", "window", "adjoint",
-                             "raster", "k1f_k4", "rows_grad", "e2e"))
+                             "raster", "k1f_k4", "rows_grad",
+                             "render_epilogue", "e2e"))
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -314,6 +333,8 @@ def main() -> int:
         _k1f_k4(args, out, checks, dev, c256)
     if "rows_grad" in parts:
         _rows_grad(out, dev)
+    if "render_epilogue" in parts:
+        _render_epilogue(out, dev)
     if "e2e" in parts:
         _e2e(out, dev, c256, configs)
     if args.check:
@@ -834,6 +855,89 @@ def _raster(args, out, checks, dev, c256, configs):
     for key in ("raster_flagship", "raster_datagen"):
         b, d, zn = cases[key]
         out[key + "_device_us"] = _device_us(lambda: raster(b, d, zn))
+
+
+def _render_epilogue(out, dev):
+    """The datagen render's per-pixel chains, kernel against plain chain in
+    turns, at the codec cell's chunk."""
+    import statistics
+
+    import torch
+
+    from wgpu_physics_engine_torch.core.config import ClothConfig
+    from wgpu_physics_engine_torch.ops import cloth_kernel
+    from wgpu_physics_engine_torch.ops import pixel_kernel as pk
+    from wgpu_physics_engine_torch.parallel import datagen
+    from wgpu_physics_engine_torch.render import camera as cam_mod
+    from wgpu_physics_engine_torch.render import raster
+
+    n, h, w = 1024, 256, 256
+    worlds = datagen.randomized_worlds(
+        ClothConfig(), n, torch.Generator().manual_seed(0), device=dev)
+    pos = cloth_kernel.multi_step(worlds.state, worlds.params, 1.0 / 480.0,
+                                  1440).pos
+    cams = datagen.randomized_cameras(
+        n, torch.Generator().manual_seed(2), device=dev)
+    base = datagen.globe_base_fbs(cams, worlds.params,
+                                  datagen.globe_texture(dev))
+    centers = pos.reshape(n, 3, -1).transpose(1, 2)
+    tan_half = torch.tan(cams.fovy_rad / 2.0)
+    eye, dirs = cam_mod.pixel_rays_plain(cams, h, w)
+    tmin, inst, _, _ = raster._nearest_hits(
+        cams, eye, dirs, centers, worlds.params.particle_radius)
+    del pos, worlds
+
+    def rays_plain():
+        return cam_mod.pixel_dirs_plain(cams.view, tan_half, cams.aspect, h,
+                                        w)
+
+    def rays_kernel():
+        return pk.pixel_rays(cams.view, tan_half, cams.aspect, h, w)
+
+    def epilogue_plain():
+        fb = raster._flat_composite(base, cams, eye, dirs, tmin, inst >= 0,
+                                    (1.0, 0.0, 0.0))
+        return raster.to_rgb8(fb.color)
+
+    def epilogue_kernel():
+        return pk.flat_composite_rgb8(tmin, inst, base.color, base.depth,
+                                      cams.view, eye, cams.proj, tan_half,
+                                      cams.aspect, (1.0, 0.0, 0.0))
+
+    def once(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    pairs = {}
+    for name, plain, kernel in (("rays", rays_plain, rays_kernel),
+                                ("epilogue", epilogue_plain,
+                                 epilogue_kernel)):
+        plain(), kernel()
+        torch.cuda.synchronize()
+        times = {"plain": [], "kernel": []}
+        for i in range(PAIRS):
+            order = (("plain", plain), ("kernel", kernel))
+            for side, fn in (order if i % 2 == 0 else order[::-1]):
+                times[side].append(once(fn))
+        pairs[name] = times
+        for side in ("plain", "kernel"):
+            out[f"{name}_{side}_ms"] = statistics.median(times[side])
+    out["render_epilogue_pairs"] = pairs
+    px = n * h * w
+    out["rays_bound_ms"] = px * 12 / 3.35e12 * 1e3
+    out["epilogue_bound_ms"] = px * 27 / 3.35e12 * 1e3
+    out["rays_kernel_device_us"] = _trace_device(
+        rays_kernel, lambda name: "wpe_pixel_rays" in name)[0]
+    out["epilogue_kernel_device_us"] = _trace_device(
+        epilogue_kernel, lambda name: "wpe_flat_composite_rgb8" in name)[0]
+    out["render_epilogue_bitwise"] = {
+        "rays": torch.equal(rays_kernel(), rays_plain()),
+        "epilogue": torch.equal(epilogue_kernel(), epilogue_plain())}
 
 
 def _trace_device(fn, match) -> tuple:

@@ -11,9 +11,11 @@ the two kernels of the path each take the whole batch in one launch:
   a call, a CTA a world holding it in shared memory) for a chunk of enough
   worlds, such as the default 1,024, else K5 (one launch per substep for
   all worlds);
-* rendering: one binning pass for all worlds
-  (``raster_kernel.tiled_prologue_batched``) and one sphere-raster launch
-  for all worlds, composited over each world's cached globe.
+* rendering (``render.draw_instanced_spheres_rgb8``): one launch of the
+  rays kernel, one binning pass (``raster_kernel.tiled_prologue_batched``)
+  and one sphere-raster launch for all worlds, then one launch of the
+  epilogue kernel, which composites the spheres over each world's cached
+  globe and writes the uint8 frames.
 
 A CPU batch takes the plain versions of both. Each frame's work runs under
 ``torch.profiler`` ranges (``datagen.step``, ``datagen.render``,
@@ -213,9 +215,8 @@ def step_and_render(batch: WorldBatch, dt, n_steps: int, camera: R.Camera,
                 R.clear(h, w, device=new_state.pos.device, n_worlds=n_worlds),
                 cams, batch.params.globe_radius, globe_tex, light)
         centers = new_state.pos.reshape(n_worlds, 3, -1).transpose(1, 2)
-        fb = R.draw_instanced_spheres(base_fb, cams, centers,
-                                      batch.params.particle_radius)
-        img = (torch.clamp(fb.color, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+        img = R.draw_instanced_spheres_rgb8(base_fb, cams, centers,
+                                            batch.params.particle_radius)
     return WorldBatch(state=new_state, params=batch.params), img
 
 

@@ -155,10 +155,12 @@ def granular_step_and_render(batch: GranularWorldBatch,
     render each to a framebuffer: sand-coloured spheres over the cached
     box frame ``base_fb`` (:func:`box_base_fbs`; a cleared frame without
     it, as in the JAX package).
-    The worlds are binned in one pass and rendered in one launch of the
-    batched raster. ``camera`` is one camera shared by all worlds or a
-    batched one. Returns (new batch, images ``[B, h, w, 3]``: uint8,
-    ``(clip(img, 0, 1) * 255 + 0.5)`` truncated). The flat sand colour
+    The worlds are binned in one pass, rendered in one launch of the
+    batched raster and composited to uint8 in one launch of the epilogue
+    kernel (``render.draw_instanced_spheres_rgb8``). ``camera`` is one
+    camera shared by all worlds or a batched one. Returns (new batch,
+    images ``[B, h, w, 3]``: uint8, ``(clip(img, 0, 1) * 255 + 0.5)``
+    truncated). The flat sand colour
     takes no light, so JAX's ``light`` has no counterpart here."""
     with span("datagen.step"):
         new_batch = step_worlds(batch, config, dt, n_steps)
@@ -169,9 +171,9 @@ def granular_step_and_render(batch: GranularWorldBatch,
         cams = datagen._broadcast_camera(camera, n_worlds)
         if base_fb is None:
             base_fb = R.clear(*fb_size, device=pos.device, n_worlds=n_worlds)
-        fb = R.draw_instanced_spheres(base_fb, cams, pos.transpose(1, 2),
-                                      float(config.radius), flat_color=SAND)
-        img = (torch.clamp(fb.color, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+        img = R.draw_instanced_spheres_rgb8(
+            base_fb, cams, pos.transpose(1, 2), float(config.radius),
+            flat_color=SAND)
     return new_batch, img
 
 

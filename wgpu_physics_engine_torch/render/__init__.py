@@ -6,6 +6,7 @@ from .raster import (
     clear,
     draw_globe,
     draw_instanced_spheres,
+    draw_instanced_spheres_rgb8,
     draw_lines,
     draw_mesh,
 )
@@ -14,5 +15,6 @@ __all__ = [
     "camera", "geometry", "raster", "shading", "texture",
     "Camera", "make_camera", "pixel_rays",
     "DeviceMesh", "Framebuffer", "clear",
-    "draw_globe", "draw_instanced_spheres", "draw_lines", "draw_mesh",
+    "draw_globe", "draw_instanced_spheres", "draw_instanced_spheres_rgb8",
+    "draw_lines", "draw_mesh",
 ]

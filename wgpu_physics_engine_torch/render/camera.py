@@ -24,6 +24,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..core import config as cfg
+from ..ops import pixel_kernel
 
 _F32 = torch.float32
 
@@ -136,6 +137,13 @@ def make_camera(config: cfg.CameraConfig = cfg.CameraConfig(),
     return Camera(*(a.to(device) for a in cam))
 
 
+def _needs_grad(*xs) -> bool:
+    """Whether autograd is recording and any of ``xs`` (tensors or numbers)
+    requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
+
+
 def pixel_rays(camera: Camera, height: int,
                width: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-pixel primary rays in WORLD space: (origin [3], dirs [3, H, W]),
@@ -143,20 +151,46 @@ def pixel_rays(camera: Camera, height: int,
 
     Pixel centres; row 0 is the top of the image (NDC y = +1 edge).
     Directions are normalized.
+
+    A CUDA camera that autograd needs no gradient through takes the rays
+    kernel (``ops.pixel_kernel.pixel_rays``, the same bits); a CPU camera,
+    or one carrying a gradient, :func:`pixel_rays_plain`.
     """
-    dev = camera.eye.device
-    lead = camera.eye.shape[:-1]
+    if camera.eye.device.type == "cuda" and not _needs_grad(*camera):
+        return camera.eye, pixel_kernel.pixel_rays(
+            camera.view, torch.tan(camera.fovy_rad / 2.0), camera.aspect,
+            height, width)
+    return pixel_rays_plain(camera, height, width)
+
+
+def pixel_rays_plain(camera: Camera, height: int,
+                     width: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`pixel_rays` in torch: the plain version of the rays kernel."""
+    return camera.eye, pixel_dirs_plain(
+        camera.view, torch.tan(camera.fovy_rad / 2.0), camera.aspect, height,
+        width)
+
+
+def pixel_dirs_plain(view: torch.Tensor, tan_half: torch.Tensor,
+                     aspect: torch.Tensor, height: int,
+                     width: int) -> torch.Tensor:
+    """The directions of :func:`pixel_rays_plain` from the camera's
+    ``view`` ``[.., 4, 4]``, ``tan_half`` (tan(fovy / 2)) and ``aspect``
+    (broadcast to ``view``'s leading axes ``..``):
+    ``ops.pixel_kernel.pixel_rays``' plain version, with its arguments."""
+    dev = view.device
+    lead = view.shape[:-2]
     j = (torch.arange(width, dtype=_F32, device=dev) + 0.5) / width * 2.0 - 1.0
     i = 1.0 - (torch.arange(height, dtype=_F32, device=dev) + 0.5) / height * 2.0
-    tan_half = torch.tan(camera.fovy_rad / 2.0)[..., None, None]
-    aspect = camera.aspect[..., None, None]
+    tan_half = tan_half[..., None, None]
+    aspect = aspect[..., None, None]
     vx = (j[None, :] * tan_half * aspect).expand(lead + (height, width))
     vy = (i[:, None] * tan_half).expand(lead + (height, width))
     vz = torch.full((height, width), -1.0, dtype=_F32, device=dev)
-    rot = camera.view[..., :3, :3, None, None]         # world→view
+    rot = view[..., :3, :3, None, None]                # world→view
     # rotᵀ @ d, written out (no matmul, so no TF32 question on the card)
     d_world = torch.stack([rot[..., 0, k, :, :] * vx + rot[..., 1, k, :, :] * vy
                            + rot[..., 2, k, :, :] * vz for k in range(3)],
                           dim=-3)
     norm = torch.sqrt(torch.sum(d_world * d_world, dim=-3, keepdim=True))
-    return camera.eye, d_world / norm
+    return d_world / norm

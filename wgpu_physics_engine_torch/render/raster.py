@@ -1,7 +1,8 @@
 """Headless renderer passes over an explicit framebuffer (the counterpart of
 ``wgpu_physics_engine_tpu/render/raster.py``: ``Framebuffer``, ``clear``,
 ``draw_globe``, ``draw_instanced_spheres``, ``DeviceMesh`` / ``draw_mesh``
-and ``draw_lines``).
+and ``draw_lines``), and ``draw_instanced_spheres_rgb8``, the datagens'
+uint8 frame of flat-coloured spheres.
 
 The globe and every cloth or particle instance — the reference draws all
 of them as instanced UV-sphere meshes (cloth.rs:1350-1379) — are rendered
@@ -26,9 +27,9 @@ import numpy as np
 import torch
 
 from ..core import config as cfg
-from ..ops import raster_kernel
+from ..ops import pixel_kernel, raster_kernel
 from . import shading, texture as tex_mod
-from .camera import Camera, pixel_rays
+from .camera import Camera, _needs_grad, pixel_rays
 from ..utils.profiling import span
 
 
@@ -58,13 +59,6 @@ def _sqrt0(x: torch.Tensor) -> torch.Tensor:
         return torch.sqrt(torch.clamp_min(x, 0.0))
     pos = x > 0.0
     return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
-
-
-def _needs_grad(*xs) -> bool:
-    """Whether autograd is recording and any of ``xs`` (tensors or numbers)
-    requires a gradient."""
-    return torch.is_grad_enabled() and any(
-        isinstance(x, torch.Tensor) and x.requires_grad for x in xs)
 
 
 def _plane(x: torch.Tensor) -> torch.Tensor:
@@ -180,6 +174,33 @@ def _hit_t(cen: torch.Tensor, eye: torch.Tensor, dirs: torch.Tensor, radius,
     return t - t.detach()
 
 
+def _nearest_hits(camera: Camera, eye: torch.Tensor, dirs: torch.Tensor,
+                  centers, radius):
+    """The nearest sphere hit of every pixel, by the JAX renderer's route
+    (see :func:`draw_instanced_spheres`): ``(tmin, inst, order, oc)``;
+    ``order`` (sorted → original index) and ``oc`` (the winner's
+    eye-relative centre) are ``None`` on the untiled route. No gradient."""
+    h, w = dirs.shape[-2:]
+    if (eye.ndim == 1 and centers.shape[0] <= raster_kernel.MAX_INSTANCES
+            and (h % 16 or w % 128)):
+        with torch.no_grad(), span("render.raster"):
+            tmin, inst = raster_kernel.sphere_raster_untiled(
+                eye, dirs, centers, radius, camera.znear)
+        return tmin, inst, None, None
+    prologue = (raster_kernel.tiled_prologue_batched if eye.ndim == 2
+                else raster_kernel.tiled_prologue)
+    with torch.no_grad():
+        with span("render.bin"):
+            wins, ocb, order, rect = prologue(
+                camera.view[..., :3, :3], eye, centers, radius,
+                camera.znear, torch.tan(camera.fovy_rad / 2.0),
+                camera.aspect, h, w)
+        with span("render.raster"):
+            tmin, inst, oc = raster_kernel.sphere_raster_binned(
+                wins, ocb, rect, dirs, camera.znear)
+    return tmin, inst, order, oc
+
+
 def draw_instanced_spheres(
     fb: Framebuffer, camera: Camera, centers, radius,
     light: Optional[cfg.LightConfig] = None,
@@ -218,27 +239,12 @@ def draw_instanced_spheres(
     eye, dirs = pixel_rays(camera, h, w)
     shaded = texture is not None or lit
     grad = _needs_grad(centers, radius, *camera)
-    if (eye.ndim == 1 and centers.shape[0] <= raster_kernel.MAX_INSTANCES
-            and (h % 16 or w % 128)):
-        with torch.no_grad(), span("render.raster"):
-            tmin, inst = raster_kernel.sphere_raster_untiled(
-                eye, dirs, centers, radius, camera.znear)
-        hit = inst >= 0
+    tmin, inst, order, oc = _nearest_hits(camera, eye, dirs, centers, radius)
+    hit = inst >= 0
+    if oc is None:
         cen = (centers.T[:, inst.clamp_min(0).long()] if shaded or grad
                else None)
     else:
-        prologue = (raster_kernel.tiled_prologue_batched if eye.ndim == 2
-                    else raster_kernel.tiled_prologue)
-        with torch.no_grad():
-            with span("render.bin"):
-                wins, ocb, order, rect = prologue(
-                    camera.view[..., :3, :3], eye, centers, radius,
-                    camera.znear, torch.tan(camera.fovy_rad / 2.0),
-                    camera.aspect, h, w)
-            with span("render.raster"):
-                tmin, inst, oc = raster_kernel.sphere_raster_binned(
-                    wins, ocb, rect, dirs, camera.znear)
-        hit = inst >= 0
         cen = eye[..., :, None, None] + oc if shaded else None
         if grad:
             # the winner's original index: order maps sorted to original
@@ -255,32 +261,105 @@ def draw_instanced_spheres(
                     dim=1)
             cen = ((eye[..., :, None, None] + oc).detach()
                    + (cen_t - cen_t.detach()))
-    with span("render.shade"):
-        if grad:
+    if grad:
+        with span("render.shade"):
             tmin = tmin + _hit_t(cen, eye, dirs, radius, hit)
-
-        tmin_g = torch.where(hit, tmin, 0.0)
-        p_world = eye[..., :, None, None] + tmin_g[..., None, :, :] * dirs
-        rot = camera.view[..., :3, :3]
-        p_view = _rotate(rot, p_world - eye[..., :, None, None])
-        if shaded:
-            r = _plane(torch.as_tensor(radius, dtype=torch.float32,
-                                       device=dirs.device))
-            rel = p_world - cen
+    if not shaded:
+        return _flat_composite(fb, camera, eye, dirs, tmin, hit, flat_color)
+    with span("render.shade"):
+        p_world, p_view = _hit_points(camera, eye, dirs, tmin, hit)
+        r = _plane(torch.as_tensor(radius, dtype=torch.float32,
+                                   device=dirs.device))
+        rel = p_world - cen
         if texture is not None:
             u, v = _sphere_uv(rel, r)
             albedo = tex_mod.sample(texture, u, v)
         else:
-            albedo = torch.as_tensor(flat_color, dtype=torch.float32,
-                                     device=dirs.device).expand(fb.color.shape)
+            albedo = _flat_albedo(flat_color, fb)
         if lit:
-            n_view = _rotate(rot, rel / r[..., None, :, :])
+            n_view = _rotate(camera.view[..., :3, :3], rel / r[..., None, :, :])
             color = shading.phong(p_view, n_view, albedo,
                                   _light_view(camera, light), light)
         else:
             color = albedo
     with span("render.composite"):
         return _composite(fb, hit, p_view, color, camera)
+
+
+def _hit_points(camera: Camera, eye: torch.Tensor, dirs: torch.Tensor,
+                tmin: torch.Tensor, hit: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The world and view positions ``[.., 3, H, W]`` of each pixel's
+    nearest hit (the eye on a miss)."""
+    tmin_g = torch.where(hit, tmin, 0.0)
+    p_world = eye[..., :, None, None] + tmin_g[..., None, :, :] * dirs
+    p_view = _rotate(camera.view[..., :3, :3],
+                     p_world - eye[..., :, None, None])
+    return p_world, p_view
+
+
+def _flat_albedo(flat_color, fb: Framebuffer) -> torch.Tensor:
+    """``flat_color`` as a colour plane of ``fb``'s shape."""
+    return torch.as_tensor(flat_color, dtype=torch.float32,
+                           device=fb.color.device).expand(fb.color.shape)
+
+
+def _flat_composite(fb: Framebuffer, camera: Camera, eye: torch.Tensor,
+                    dirs: torch.Tensor, tmin: torch.Tensor, hit: torch.Tensor,
+                    flat_color) -> Framebuffer:
+    """:func:`draw_instanced_spheres`' flat route after the raster: the
+    nearest hits (``tmin`` where ``hit``) in ``flat_color``, depth-tested
+    over ``fb``. With :func:`to_rgb8`, the epilogue kernel's plain
+    version."""
+    with span("render.shade"):
+        p_view = _hit_points(camera, eye, dirs, tmin, hit)[1]
+        color = _flat_albedo(flat_color, fb)
+    with span("render.composite"):
+        return _composite(fb, hit, p_view, color, camera)
+
+
+def to_rgb8(color: torch.Tensor) -> torch.Tensor:
+    """An fp32 colour plane as the datagens' uint8 frame:
+    ``clamp(c, 0, 1) * 255 + 0.5`` truncated."""
+    return (torch.clamp(color, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+
+def draw_instanced_spheres_rgb8(
+    fb: Framebuffer, camera: Camera, centers, radius,
+    flat_color: Tuple[float, float, float] = (1.0, 0.0, 0.0),
+) -> torch.Tensor:
+    """Flat-coloured instanced spheres over ``fb``, as the uint8 frame
+    ``[H, W, 3]`` (``[B, H, W, 3]`` for a batch): the datagens' frame, the
+    colour of ``draw_instanced_spheres(fb, camera, centers, radius,
+    flat_color=flat_color)`` through :func:`to_rgb8`, which is its plain
+    version (:func:`draw_instanced_spheres_rgb8_plain`).
+
+    A CUDA framebuffer with no gradient to carry takes the rays kernel,
+    the same binning and raster, and the epilogue kernel
+    (``ops.pixel_kernel.flat_composite_rgb8``, the same bits), so that no
+    fp32 colour plane is written; a CPU one, or a call where autograd needs
+    a gradient, the plain version."""
+    if fb.depth.device.type != "cuda" or _needs_grad(centers, radius,
+                                                      *camera):
+        return draw_instanced_spheres_rgb8_plain(fb, camera, centers, radius,
+                                                 flat_color)
+    h, w = fb.depth.shape[-2:]
+    eye, dirs = pixel_rays(camera, h, w)
+    tmin, inst, _, _ = _nearest_hits(camera, eye, dirs, centers, radius)
+    with span("render.composite"):
+        return pixel_kernel.flat_composite_rgb8(
+            tmin, inst, fb.color, fb.depth, camera.view, eye, camera.proj,
+            torch.tan(camera.fovy_rad / 2.0), camera.aspect, flat_color)
+
+
+def draw_instanced_spheres_rgb8_plain(
+    fb: Framebuffer, camera: Camera, centers, radius,
+    flat_color: Tuple[float, float, float] = (1.0, 0.0, 0.0),
+) -> torch.Tensor:
+    """:func:`draw_instanced_spheres_rgb8` by :func:`draw_instanced_spheres`
+    and :func:`to_rgb8`: its plain version."""
+    return to_rgb8(draw_instanced_spheres(fb, camera, centers, radius,
+                                          flat_color=flat_color).color)
 
 
 # ---------------------------------------------------------------------------
